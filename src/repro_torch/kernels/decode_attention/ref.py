@@ -1,0 +1,35 @@
+"""Plain PyTorch version of slotted decode attention, mirroring
+``repro.kernels.decode_attention.ref.decode_attention_ref``. The CPU
+path of ``ops.decode_attention`` and the yardstick the CUDA kernel is
+held against on the card.
+
+One difference from the JAX oracle, shared with the kernels: a sequence
+with ``lengths[b] == 0`` attends to nothing and gets zeros (the online
+softmax's ``acc / max(l, 1e-30)`` with ``l = 0``), where a dense softmax
+over an all-masked row would average the whole cache. For every
+``lengths[b] >= 1`` the two agree."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                         scale=None) -> torch.Tensor:
+    """q: (B, H, D); caches: (B, S, Hk, D); lengths: (B,)."""
+    b, h, d = q.shape
+    _, s, hk, _ = k_cache.shape
+    g = h // hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hk, g, d).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
+    lengths = lengths.to(q.device)
+    mask = torch.arange(s, device=q.device)[None] < lengths[:, None]
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    o = o * (lengths > 0).to(o.dtype)[:, None, None, None]
+    return o.reshape(b, h, d).to(q.dtype)

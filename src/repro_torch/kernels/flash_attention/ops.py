@@ -1,0 +1,68 @@
+"""Checked wrapper of the prefill flash-attention kernel
+(``repro_torch/csrc/flash_attention.cu``).
+
+CPU tensors take the plain version (``ref.attention_ref``); CUDA tensors
+launch the kernel or raise — there is no fallback from the card.
+``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+MAX_GROUP = 64          # query heads per KV head held in one q-tile
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale=None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, Hk, D) with Hk | H. Returns
+    (B, Sq, H, D) in q's dtype. Ragged lengths are fine: no block size
+    has to divide Sq or Sk."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: want q (B,Sq,H,D) and k, v "
+                         f"(B,Sk,Hk,D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    _, sk, hk, dk = k.shape
+    if k.shape[0] != b or dk != d or hk == 0 or h % hk:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)} and "
+                         f"{tuple(k.shape)} do not form GQA attention")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: want one dtype of "
+                        f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v on different devices")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    if d > MAX_HEAD_DIM or h // hk > MAX_GROUP or 0 in (b, sq, sk):
+        raise ValueError(f"flash_attention: kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, H/Hk <= {MAX_GROUP} and non-empty "
+                         f"sequences, got D={d}, H/Hk={h // hk}, Sq={sq}, "
+                         f"Sk={sk}")
+    o = torch.empty_like(q)
+    fn = _build.entry("flash_attention_fwd")
+    with torch.cuda.device(q.device):     # launches go to q's card
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  b, sq, sk, h, hk, d, int(causal), int(window), float(scale),
+                  _DTYPES[q.dtype], stream)
+    _build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -1,0 +1,119 @@
+"""Serving CLI of the port:
+``python -m repro_torch.launch.serve --arch qwen2_1_5b --no-smoke [...]``.
+
+Counterpart of ``repro.launch.serve``'s synthetic-workload path. Builds
+the model with the port's own seeded init (``--smoke``, the default,
+takes the config's reduced ``.smoke()`` variant; ``--no-smoke`` serves
+the full width and depth), makes ``--requests`` random prompts of
+``--prompt-len`` tokens from ``--seed``, and serves them through the
+``Engine``: ``--policy batch`` is the static-bucket oracle, ``fifo`` /
+``priority`` / ``edf`` stream through the continuous scheduler (all
+requests arrive at t=0). Runs on ``--device`` (default ``cuda``).
+
+``main(argv)`` returns a summary dict (completions, throughput, TTFT,
+decode time per step) so that scripts can drive it; the replayed-trace,
+HTTP and partitioned modes of the reference come with later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models import transformer as T
+from repro_torch.runtime.engine import Engine, EngineConfig
+from repro_torch.runtime.scheduler import Request
+
+
+def synthetic_requests(cfg, n: int, prompt_len: int, max_new: int,
+                       seed: int) -> List[Request]:
+    """The reference CLI's synthetic workload: uniform random prompts."""
+    rng = np.random.RandomState(seed)
+    return [Request(i, rng.randint(0, cfg.vocab_size,
+                                   prompt_len).astype(np.int32),
+                    max_new_tokens=max_new) for i in range(n)]
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve the config's reduced smoke variant "
+                         "(--no-smoke: full width and depth)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--policy", default="batch",
+                    choices=("batch", "fifo", "priority", "edf"),
+                    help="admission policy: 'batch' = static buckets, the "
+                         "others stream through the continuous scheduler")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="decode batch width (continuous policies)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the synthetic prompts")
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    args = parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    t_init = time.perf_counter()
+    model = T.init_params(cfg, args.seed, device=args.device)
+    reqs = synthetic_requests(cfg, args.requests, args.prompt_len,
+                              args.max_new, args.seed)
+    eng = Engine(cfg, model, EngineConfig(
+        max_slots=args.slots, max_len=args.prompt_len + args.max_new + 8,
+        admission=args.policy), device=args.device)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    wall_s = time.perf_counter() - t0
+    toks = sum(len(o.tokens) for o in outs)
+    st = eng.stats()
+    if args.policy == "batch":
+        # one bucket per prompt length; every request of a bucket gets its
+        # first token when the bucket's prefill ends
+        ttft = [o.prefill_s for o in outs]
+        buckets: Dict[int, List[Any]] = {}
+        for r, o in zip(reqs, outs):
+            buckets.setdefault(len(r.prompt), []).append(o)
+        steps = sum(max(len(o.tokens) for o in b) - 1
+                    for b in buckets.values())
+        decode_s = sum(b[0].decode_s for b in buckets.values())
+    else:
+        ttft = [o.ttft_s for o in outs]
+        steps = st["steps"]
+        decode_s = wall_s - sum(o.prefill_s for o in outs)
+    summary = {
+        "arch": cfg.name, "policy": args.policy, "device": str(eng.device),
+        "requests": len(outs), "tokens": toks, "wall_s": wall_s,
+        "init_s": init_s, "tok_per_s": toks / wall_s,
+        "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+        "decode_steps": steps,
+        "decode_ms_per_step": decode_s / max(steps, 1) * 1e3,
+        "stats": st, "completions": outs}
+    for o in outs[:4]:
+        print(f"req {o.id}: prefill {o.prefill_s * 1e3:.1f} ms, "
+              f"{len(o.tokens)} tokens, {o.finish_reason}, "
+              f"first: {o.tokens[:8]}")
+    print(f"# {cfg.name} on {eng.device}, policy {args.policy}: "
+          f"{len(outs)} requests / {toks} tokens in {wall_s:.3f} s "
+          f"({summary['tok_per_s']:.1f} tok/s); TTFT p50 "
+          f"{summary['ttft_p50_ms']:.1f} ms; {steps} decode steps at "
+          f"{summary['decode_ms_per_step']:.2f} ms each (wall, host "
+          f"included); init {init_s:.1f} s")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,167 @@
+"""Transformer building blocks of the port: norms, RoPE, GQA attention, MLP.
+
+Counterpart of ``repro.models.layers`` for the ``attn`` block kind. The
+functions keep the reference's layouts — activations (B, S, D), heads
+(B, S, H, hd), ``wq`` (d, h, hd), ``wo`` (h, hd, d) — so the parity tests
+compare like with like. Attention goes through the port's kernel
+wrappers (``repro_torch.kernels``): on the card the hand-written CUDA
+kernels, on the CPU their plain versions.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the variance in fp32 but the elementwise math in
+    x.dtype, as the reference computes it."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + scale).to(x.dtype)
+
+
+def act_fn(name: str):
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, rot_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    """Inverse frequencies for the first ``rot_dim`` dims of a head."""
+    exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                        device=device) / rot_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rope_fraction: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int. Rotates the first
+    ``rope_fraction * D`` dims as two halves (NeoX style), in fp32."""
+    d = x.shape[-1]
+    rot = int(d * rope_fraction)
+    rot -= rot % 2
+    inv = rope_freqs(d, rot, theta, device=x.device)        # (rot/2,)
+    ang = positions.float()[..., None] * inv                # (B, S, rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :rot].float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention block
+# ---------------------------------------------------------------------------
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("...hk,hkd->...d") as one matmul."""
+    h, k, d = wo.shape
+    return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
+
+
+def _qkv(p, x: torch.Tensor, cfg):
+    q = _proj_heads(x, p.wq)
+    k = _proj_heads(x, p.wk)
+    v = _proj_heads(x, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return q, k, v
+
+
+def _theta_for(cfg, kind: str) -> float:
+    if kind == "attn" and cfg.rope_theta_global is not None:
+        return cfg.rope_theta_global
+    return cfg.rope_theta
+
+
+def attn_prefill_cache(p, x: torch.Tensor, cfg, *, kind: str,
+                       positions: torch.Tensor, cache_size: int
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence prefill that also materializes the decode cache:
+    returns (residual output, {"k", "v"} of ``cache_size`` rows). Rows
+    keep the last ``cache_size`` positions at their ring slots
+    (slot = position % cache_size), matching ``attn_decode``."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg)
+    theta = _theta_for(cfg, kind)
+    q = apply_rope(q, positions, theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, theta, cfg.rope_fraction)
+    window = cfg.window if kind == "attn_local" else 0
+    o = flash_attention(q, k, v.contiguous(), causal=True, window=window)
+    out = x + _out_proj(o, p.wo)
+    b, s, hk, hd = k.shape
+    kc = k.new_zeros((b, cache_size, hk, hd))
+    vc = v.new_zeros((b, cache_size, hk, hd))
+    if cache_size >= s:
+        kc[:, :s] = k
+        vc[:, :s] = v
+    else:
+        slots = torch.arange(s - cache_size, s, device=x.device) % cache_size
+        kc[:, slots] = k[:, s - cache_size:]
+        vc[:, slots] = v[:, s - cache_size:]
+    return out, {"k": kc, "v": vc}
+
+
+def attn_decode(p, x: torch.Tensor, cfg, *, kind: str,
+                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor
+                ) -> torch.Tensor:
+    """One-token decode. x: (B, 1, D); cache {"k","v"}: (B, S_cache, Hk,
+    hd); cache_len: (B,) int32. The new K/V row is written at
+    ``cache_len % S_cache`` IN PLACE in ``cache`` before attending over
+    ``min(cache_len + 1, S_cache)`` rows. Returns the residual output."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    positions = cache_len[:, None]
+    q, k, v = _qkv(p, h, cfg)
+    theta = _theta_for(cfg, kind)
+    q = apply_rope(q, positions, theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, theta, cfg.rope_fraction)
+    kc, vc = cache["k"], cache["v"]
+    size = kc.shape[1]
+    idx = (cache_len % size).long()
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    kc[rows, idx] = k[:, 0]         # in-place cache write
+    vc[rows, idx] = v[:, 0]
+    valid = torch.clamp(cache_len + 1, max=size).to(torch.int32)
+    o = decode_attention(q[:, 0].contiguous(), kc, vc, valid)
+    return x + _out_proj(o, p.wo)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    g = act_fn(cfg.act)(h @ p.w_gate) * (h @ p.w_up)
+    return x + g @ p.w_down
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype,
+               device) -> torch.Tensor:
+    """The reference's ``dense_init`` scale: N(0, 1) / sqrt(in_dim)."""
+    w = torch.randn((in_dim,) + tuple(out_shape), generator=gen,
+                    dtype=torch.float32, device=device)
+    return (w / math.sqrt(in_dim)).to(dtype)

@@ -1,0 +1,197 @@
+"""Serving policies of the port: admission order, preemption victims,
+unit placement, sampling.
+
+Counterpart of ``repro.runtime.policies``. The admission, preemption and
+placement classes are framework-neutral and copied as they are; the
+sampler draws from a ``torch.Generator`` instead of a JAX key. Greedy
+sampling never touches the generator, so greedy tokens agree with the
+reference; temperature sampling cannot replay JAX's PRNG stream and is
+held to the reference by its distribution. The escalation and
+victim-eviction policies come with the slices that use them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, List, Sequence, Tuple
+
+import torch
+
+
+def sample_tokens(gen: torch.Generator, logits: torch.Tensor, *,
+                  greedy: bool, temperature: float) -> torch.Tensor:
+    """Shared sampling rule for every engine path: (B, V) logits ->
+    (B,) int32 tokens. Greedy ties take the first index, as
+    ``jnp.argmax`` does."""
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+class Sampler:
+    """Owns the random state for one engine: a ``torch.Generator`` on the
+    engine's device, seeded with ``seed``."""
+
+    def __init__(self, *, greedy: bool = True, temperature: float = 1.0,
+                 seed: int = 0, device="cpu"):
+        self.greedy = greedy
+        self.temperature = temperature
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def __call__(self, logits: torch.Tensor) -> torch.Tensor:
+        return sample_tokens(self.gen, logits, greedy=self.greedy,
+                             temperature=self.temperature)
+
+
+# ---------------------------------------------------------------------------
+# admission policies
+# ---------------------------------------------------------------------------
+# A ticket (scheduler._Ticket, or any duck-typed record in unit tests)
+# exposes: .req (with .priority / .deadline_s), .arrival_s, .submit_seq.
+
+
+def request_due_s(ticket) -> float:
+    """Absolute due instant of a ticket on the engine clock:
+    ``arrival_s + Request.deadline_s``, or +inf without a deadline."""
+    d = ticket.req.deadline_s
+    return ticket.arrival_s + d if d is not None else math.inf
+
+
+class FifoAdmission:
+    """Arrival order; ties break by submission order."""
+
+    name = "fifo"
+
+    def key(self, ticket) -> tuple:
+        return (ticket.arrival_s, ticket.submit_seq)
+
+
+class PriorityAdmission:
+    """Highest ``Request.priority`` first; FIFO within a level."""
+
+    name = "priority"
+
+    def key(self, ticket) -> tuple:
+        return (-ticket.req.priority, ticket.arrival_s, ticket.submit_seq)
+
+
+class DeadlineAdmission:
+    """Earliest deadline first; requests without one sort last."""
+
+    name = "edf"
+
+    def key(self, ticket) -> tuple:
+        return (request_due_s(ticket), ticket.arrival_s, ticket.submit_seq)
+
+
+class BatchAdmission:
+    """The static-bucket mode as a policy: closed batches bucketed by
+    prompt length, each decoded to completion before the next."""
+
+    name = "batch"
+
+    def buckets(self, items: Sequence[Any],
+                prompt_of=lambda r: r.prompt) -> List[Tuple[int, List[Any]]]:
+        """Group ``items`` by prompt length, shortest bucket first."""
+        by_len: dict = {}
+        for it in items:
+            by_len.setdefault(len(prompt_of(it)), []).append(it)
+        return sorted(by_len.items())
+
+
+# ---------------------------------------------------------------------------
+# preemption policies (candidates: tickets holding KV; .pick -> victim)
+# ---------------------------------------------------------------------------
+
+class EvictLatest:
+    """Preempt the latest-admitted request."""
+
+    name = "evict-latest"
+
+    def pick(self, candidates: List[Any]):
+        return max(candidates, key=lambda t: t.admit_seq)
+
+
+class LowestPriority:
+    """Preempt the lowest-priority holder; among equals the latest."""
+
+    name = "lowest-priority"
+
+    def pick(self, candidates: List[Any]):
+        return min(candidates, key=lambda t: (t.req.priority, -t.admit_seq))
+
+
+# ---------------------------------------------------------------------------
+# unit-placement policies (candidates expose .name and .busy_s)
+# ---------------------------------------------------------------------------
+
+class RoundRobinPlacement:
+    """Cycle through the prefill units in order."""
+
+    name = "round-robin"
+
+    def __init__(self) -> None:
+        self._next = 0
+
+    def pick(self, executors: List[Any]):
+        ex = executors[self._next % len(executors)]
+        self._next += 1
+        return ex
+
+
+class LeastLoadedPlacement:
+    """The prefill unit with the least modeled busy time so far."""
+
+    name = "least-loaded"
+
+    def pick(self, executors: List[Any]):
+        return min(executors, key=lambda ex: ex.busy_s)
+
+
+# ---------------------------------------------------------------------------
+# factories (EngineConfig carries policy names or instances)
+# ---------------------------------------------------------------------------
+
+ADMISSION_POLICIES = {
+    "fifo": FifoAdmission,
+    "priority": PriorityAdmission,
+    "edf": DeadlineAdmission,
+    "deadline": DeadlineAdmission,
+    "batch": BatchAdmission,
+    "static-bucket": BatchAdmission,
+}
+
+PREEMPTION_POLICIES = {
+    "evict-latest": EvictLatest,
+    "lowest-priority": LowestPriority,
+}
+
+PLACEMENT_POLICIES = {
+    "round-robin": RoundRobinPlacement,
+    "least-loaded": LeastLoadedPlacement,
+}
+
+
+def _make(kind: str, registry: dict, spec) -> Any:
+    if isinstance(spec, str):
+        try:
+            return registry[spec]()
+        except KeyError:
+            raise ValueError(f"{kind} policy {spec!r} not in "
+                             f"{sorted(registry)}") from None
+    return spec
+
+
+def make_admission(spec) -> Any:
+    """Resolve an admission policy name or pass an instance through."""
+    return _make("admission", ADMISSION_POLICIES, spec)
+
+
+def make_preemption(spec) -> Any:
+    """Resolve a preemption policy name or pass an instance through."""
+    return _make("preemption", PREEMPTION_POLICIES, spec)
+
+
+def make_placement(spec) -> Any:
+    """Resolve a unit-placement policy name or pass an instance through."""
+    return _make("placement", PLACEMENT_POLICIES, spec)

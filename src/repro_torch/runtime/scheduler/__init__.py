@@ -1,0 +1,31 @@
+"""Continuous-batching scheduler package of the port.
+
+Counterpart of ``repro.runtime.scheduler``, split the same way:
+
+* ``types`` — ``Request`` / ``Completion`` / ``SchedulerConfig`` /
+  ``SchedEvent`` / ``SlotFailure`` and the admission-time validator;
+* ``layouts`` — ``SlottedLayout`` KV surgery;
+* ``prefill`` — one-shot prompt admission;
+* ``units`` — ``ExecutionCore`` on modeled per-unit clocks;
+* ``core`` — ``ContinuousScheduler``, the loop tying them together.
+"""
+from repro_torch.runtime.policies import sample_tokens
+from repro_torch.runtime.scheduler.core import ContinuousScheduler
+from repro_torch.runtime.scheduler.layouts import SlottedLayout
+from repro_torch.runtime.scheduler.types import (COUNTER_KEYS, FINISH_REASONS,
+                                                 Completion, Request,
+                                                 SchedEvent, SchedulerConfig,
+                                                 SlotFailure,
+                                                 validate_request_fits)
+from repro_torch.runtime.scheduler.units import (DecodeExecutor,
+                                                 ExecutionCore,
+                                                 PrefillExecutor,
+                                                 UnitExecutor, UnitSpec)
+
+__all__ = [
+    "Request", "Completion", "SchedulerConfig", "SchedEvent", "SlotFailure",
+    "SlottedLayout", "ContinuousScheduler", "sample_tokens",
+    "validate_request_fits", "FINISH_REASONS", "COUNTER_KEYS",
+    "UnitSpec", "UnitExecutor", "PrefillExecutor", "DecodeExecutor",
+    "ExecutionCore",
+]

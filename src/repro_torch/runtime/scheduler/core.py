@@ -1,0 +1,411 @@
+"""Continuous-batching core loop: mechanism under pluggable policies.
+
+Counterpart of ``repro.runtime.scheduler.core`` for the slotted KV
+layout with one-shot prefill:
+
+* the decode loop — one decode step over all ``max_slots`` slots; requests
+  join and leave the running batch between steps;
+* the waiting set — *which* request is admitted next and *how* logits
+  become tokens are the injected policies' calls;
+* the request lifecycle — per-token streaming to a ``RequestHandle``,
+  cancellation, injected ``SlotFailure`` re-queue/terminate, and a
+  ``finish_reason`` on every ``Completion``;
+* the execution core (``units.ExecutionCore``): every prompt burst and
+  decode step is also charged to modeled per-unit clocks.
+
+The reference's ``jax.jit`` sites are plain calls here: PyTorch runs
+eagerly. Host-side mirrors (``cache_len``, ``tokens``) become tensors on
+the model's device once per decode step. The paged layout, chunked and
+prefix-resumed prefill, deadline shedding and observability hooks come
+with later slices; ``EngineConfig`` refuses them.
+"""
+from __future__ import annotations
+
+import heapq
+import time
+from collections import Counter
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.policies import (BatchAdmission, FifoAdmission,
+                                          Sampler, make_admission)
+from repro_torch.runtime.scheduler import prefill as _prefill
+from repro_torch.runtime.scheduler.layouts import SlottedLayout
+from repro_torch.runtime.scheduler.types import (Completion, Request,
+                                                 SchedEvent, SchedulerConfig,
+                                                 SlotFailure, _Ticket,
+                                                 validate_request_fits)
+from repro_torch.runtime.scheduler.units import ExecutionCore
+
+__all__ = ["ContinuousScheduler"]
+
+
+class ContinuousScheduler:
+    """Admission queue + shared decode batch over a slotted KV cache.
+
+    Policies are injected (``admission``, ``sampler``) — names or
+    instances from ``runtime.policies``; the defaults are FIFO and
+    greedy. ``model`` is the port's ``Transformer``; the scheduler runs
+    on its device."""
+
+    def __init__(self, cfg: ModelConfig, model: T.Transformer,
+                 sched: Optional[SchedulerConfig] = None, *,
+                 failures: Optional[List[SlotFailure]] = None,
+                 admission: Any = None,
+                 sampler: Optional[Sampler] = None):
+        self.cfg = cfg
+        self.model = model
+        self.device = model.device
+        self.sched = s = sched or SchedulerConfig()
+        self.admission = make_admission(admission) if admission is not None \
+            else FifoAdmission()
+        if isinstance(self.admission, BatchAdmission):
+            raise ValueError(
+                "batch admission is the Engine's static-bucket path; the "
+                "continuous scheduler needs an ordering policy "
+                "(fifo | priority | edf)")
+        self.sampler = sampler or Sampler(greedy=s.greedy,
+                                          temperature=s.temperature,
+                                          seed=s.seed, device=self.device)
+        # injected slot failures, applied at decode-step boundaries; a
+        # cursor keeps run() re-entrant
+        self.failures = sorted(failures or [], key=lambda f: f.step)
+        self._failure_pos = 0
+        self.max_len = s.max_len
+        self.layout = SlottedLayout(cfg, s, self.max_len, model)
+        self.prefill_tokens_total = 0
+        # host-side slot state; free slots keep cache_len == 0
+        self.cache_len = np.zeros((s.max_slots,), np.int32)
+        self.tokens = np.zeros((s.max_slots,), np.int32)
+        self.free: List[int] = list(range(s.max_slots))[::-1]  # pop() -> 0,1,..
+        self.active: Dict[int, _Ticket] = {}
+        # waiting set: a heap keyed by the admission policy's key;
+        # cancelled entries are retired in place and skipped lazily
+        self.queue: List[tuple] = []
+        self._queue_stale = 0
+        self.backlog: List[_Ticket] = []  # submitted, not yet "arrived"
+        self._backlog_pos = 0
+        self._backlog_dirty = False
+        self._admit_seq = 0
+        self._submit_seq = 0
+        self.events: List[SchedEvent] = []
+        self.step_count = 0
+        self._t0: Optional[float] = None
+        self._cancel_requests: List[_Ticket] = []
+        self.tokens_generated = 0
+        self.core = ExecutionCore(s)
+
+    @property
+    def cache(self):
+        return self.layout.cache
+
+    # -- public API ---------------------------------------------------------
+
+    def submit(self, req: Request, arrival_s: float = 0.0) -> _Ticket:
+        """Queue a request for admission at ``arrival_s`` (seconds from
+        drain start). Returns the internal ticket."""
+        validate_request_fits(self.cfg, req, self.max_len)
+        if self.done:
+            self._t0 = None         # a fresh drain starts a fresh epoch
+        ticket = _Ticket(req=req, arrival_s=arrival_s,
+                         submit_seq=self._submit_seq)
+        self._submit_seq += 1
+        self.backlog.append(ticket)
+        self._backlog_dirty = True
+        return ticket
+
+    def request_cancel(self, ticket: _Ticket) -> None:
+        """Flag a ticket for cancellation; retired at the next boundary."""
+        ticket.cancelled = True
+        self._cancel_requests.append(ticket)
+
+    @property
+    def done(self) -> bool:
+        """True when nothing is queued, active or pending arrival."""
+        return (self._backlog_pos >= len(self.backlog)
+                and self._waiting() == 0 and not self.active)
+
+    # -- waiting-set heap ---------------------------------------------------
+
+    def _waiting(self) -> int:
+        return len(self.queue) - self._queue_stale
+
+    def _enqueue(self, ticket: _Ticket) -> None:
+        ticket.where = "queued"
+        heapq.heappush(self.queue, (self.admission.key(ticket),
+                                    ticket.submit_seq, ticket))
+
+    def _queue_head(self) -> Optional[_Ticket]:
+        while self.queue and self.queue[0][2].retired:
+            heapq.heappop(self.queue)
+            self._queue_stale -= 1
+        return self.queue[0][2] if self.queue else None
+
+    def run(self, on_completion: Optional[Callable[[Completion], None]] = None
+            ) -> List[Completion]:
+        """Drain every submitted request; returns completions by id."""
+        if self._t0 is None or (self._waiting() == 0 and not self.active):
+            self._t0 = time.perf_counter()
+        self._sort_pending()
+        out: List[Completion] = []
+        while not self.done:
+            out.extend(self.step_once(on_completion))
+        return sorted(out, key=lambda c: c.id)
+
+    def step_once(self, on_completion: Optional[
+            Callable[[Completion], None]] = None) -> List[Completion]:
+        """One scheduler iteration: deliver arrivals, purge cancellations,
+        apply due failures, admit, and (if anything is active) run one
+        decode step. Returns the completions this iteration produced."""
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        if self._backlog_dirty:
+            self._sort_pending()
+        t0 = self._t0
+        done: List[Completion] = []
+        now = time.perf_counter() - t0
+        while (self._backlog_pos < len(self.backlog)
+               and self.backlog[self._backlog_pos].arrival_s <= now):
+            self._enqueue(self.backlog[self._backlog_pos])
+            self._backlog_pos += 1
+        done.extend(self._purge_cancelled(t0))
+        if self._waiting() == 0 and not self.active:
+            if self._backlog_pos < len(self.backlog):
+                # idle until the next arrival; failures due now still apply
+                done.extend(self._apply_failures(t0))
+                time.sleep(max(
+                    0.0, self.backlog[self._backlog_pos].arrival_s - now))
+            return self._deliver(done, on_completion)
+        done.extend(self._apply_failures(t0))
+        done.extend(self._admit(t0))
+        if self.active:
+            done.extend(self._decode_step(t0))
+        if self.sched.debug:
+            self._check_invariants()
+        return self._deliver(done, on_completion)
+
+    def kv_stats(self) -> Dict[str, float]:
+        return self.layout.kv_stats(self.sched, self.cfg)
+
+    def stats(self) -> Dict[str, int]:
+        """Lifecycle counters accumulated so far."""
+        c = Counter(e.kind for e in self.events)
+        return {"requests_submitted": self._submit_seq,
+                "admissions": c["admit"], "evictions": c["evict"],
+                "preemptions": c["preempt"], "slot_failures": c["fail"],
+                "cancellations": c["cancel"], "sheds": c["shed"],
+                "steps": self.step_count,
+                "tokens_generated": self.tokens_generated,
+                "prefix_hits": 0, "victim_hits": 0, "victim_evictions": 0,
+                "prefill_tokens_total": self.prefill_tokens_total,
+                "prefill_tokens_saved": 0}
+
+    def unit_stats(self) -> Dict[str, Any]:
+        return self.core.summary()
+
+    # -- internals ----------------------------------------------------------
+
+    def _sort_pending(self) -> None:
+        pending = sorted(self.backlog[self._backlog_pos:],
+                         key=lambda t: t.arrival_s)
+        self.backlog[self._backlog_pos:] = pending
+        self._backlog_dirty = False
+
+    @staticmethod
+    def _deliver(done: List[Completion],
+                 on_completion: Optional[Callable[[Completion], None]]
+                 ) -> List[Completion]:
+        if on_completion is not None:
+            for c in done:
+                on_completion(c)
+        return done
+
+    def _event(self, t_s: float, kind: str, rid: int, slot: int) -> None:
+        self.events.append(SchedEvent(t_s, kind, rid, slot, self.step_count))
+
+    def _emit(self, ticket: _Ticket, tok: int) -> None:
+        """Append a token and stream it to the handle (which dedups a
+        failure re-queue's replayed prefix by index)."""
+        ticket.emitted.append(tok)
+        self.tokens_generated += 1
+        if ticket.handle is not None:
+            ticket.handle._emit(len(ticket.emitted) - 1, tok)
+
+    def _finish(self, ticket: _Ticket, reason: str, t0: float) -> Completion:
+        now = time.perf_counter() - t0
+        decode_s = now - ticket.first_token_s if ticket.first_token_s > 0.0 \
+            else 0.0
+        c = Completion(
+            ticket.req.id, ticket.emitted, ticket.prefill_s, decode_s,
+            arrival_s=ticket.arrival_s, first_token_s=ticket.first_token_s,
+            finish_s=now, finish_reason=reason, restarts=ticket.restarts)
+        ticket.where = "done"
+        if ticket.handle is not None:
+            ticket.handle._complete(c)
+        return c
+
+    def _release_slot(self, slot: int) -> None:
+        self.free.append(slot)
+        self.cache_len[slot] = 0
+        self.tokens[slot] = 0
+        self.core.release(slot)
+
+    @staticmethod
+    def _reset_ticket(ticket: _Ticket) -> None:
+        ticket.slot = -1
+        ticket.emitted = []
+        ticket.prefill_s = 0.0
+        ticket.first_token_s = 0.0
+        ticket.admit_seq = -1
+
+    def _purge_cancelled(self, t0: float) -> List[Completion]:
+        """Retire every cancelled request at this step boundary."""
+        out: List[Completion] = []
+        if not self._cancel_requests:
+            return out
+        requests, self._cancel_requests = self._cancel_requests, []
+        for ticket in requests:
+            if ticket.where == "done":
+                continue
+            if ticket.where == "backlog":
+                self.backlog.remove(ticket)
+                out.append(self._cancel_ticket(ticket, t0))
+            elif ticket.where == "queued":
+                ticket.retired = True
+                self._queue_stale += 1
+                out.append(self._cancel_ticket(ticket, t0))
+            elif ticket.where == "active":
+                out.append(self._evict(ticket.slot, t0, "cancelled",
+                                       kind="cancel"))
+        return out
+
+    def _cancel_ticket(self, ticket: _Ticket, t0: float) -> Completion:
+        """Complete a never-admitted (backlog or queued) request."""
+        self._event(time.perf_counter() - t0, "cancel", ticket.req.id, -1)
+        return self._finish(ticket, "cancelled", t0)
+
+    def _requeue_or_fail(self, victims: List[_Ticket],
+                         t0: float) -> List[Completion]:
+        """Re-queue (restart from the prompt) while the request has
+        restart budget, else complete as "failed"."""
+        out: List[Completion] = []
+        for ticket in sorted(victims, key=lambda t: t.arrival_s):
+            mr = ticket.req.max_restarts
+            if mr is not None and ticket.restarts >= mr:
+                if ticket.handle is not None:
+                    ticket.emitted = list(ticket.handle.tokens)
+                out.append(self._finish(ticket, "failed", t0))
+                continue
+            ticket.restarts += 1
+            self._reset_ticket(ticket)
+            if ticket.handle is not None and not self.sampler.greedy:
+                ticket.handle._restart()
+            self._enqueue(ticket)
+        return out
+
+    def _apply_failures(self, t0: float) -> List[Completion]:
+        """Apply injected slot failures due at this step boundary: the
+        requests on failed slots are re-queued and re-prefilled."""
+        out: List[Completion] = []
+        while (self._failure_pos < len(self.failures)
+               and self.failures[self._failure_pos].step <= self.step_count):
+            f = self.failures[self._failure_pos]
+            self._failure_pos += 1
+            slots = list(self.active) if f.slots is None \
+                else [s for s in f.slots if s in self.active]
+            now = time.perf_counter() - t0
+            victims = []
+            for slot in slots:
+                ticket = self.active.pop(slot)
+                self._release_slot(slot)
+                self._event(now, "fail", ticket.req.id, slot)
+                victims.append(ticket)
+            out.extend(self._requeue_or_fail(victims, t0))
+        return out
+
+    def _admit(self, t0: float) -> List[Completion]:
+        """Admit waiting requests into free slots in the admission
+        policy's order."""
+        out: List[Completion] = []
+        while self.free:
+            ticket = self._queue_head()
+            if ticket is None:
+                break
+            if ticket.cancelled:
+                heapq.heappop(self.queue)
+                out.append(self._cancel_ticket(ticket, t0))
+                continue
+            heapq.heappop(self.queue)
+            slot = self.free.pop()
+            ticket.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            self.prefill_tokens_total += len(ticket.req.prompt)
+            _prefill.admit_one_shot(self, ticket, slot, t0)
+        return out
+
+    def _activate(self, ticket: _Ticket, slot: int, first: int, clen: int,
+                  t0: float) -> None:
+        ticket.first_token_s = time.perf_counter() - t0
+        ticket.slot = slot
+        ticket.where = "active"
+        self._emit(ticket, first)
+        self.cache_len[slot] = clen
+        self.tokens[slot] = first
+        self.active[slot] = ticket
+        self.core.handoff(slot)
+        self._event(ticket.first_token_s, "admit", ticket.req.id, slot)
+
+    def _finished(self, ticket: _Ticket) -> bool:
+        return len(ticket.emitted) >= ticket.req.max_new_tokens
+
+    def _decode_step(self, t0: float) -> List[Completion]:
+        done: List[Completion] = []
+        # requests satisfied by the prefill token alone never decode
+        for slot in [s for s, tk in self.active.items() if self._finished(tk)]:
+            done.append(self._evict(slot, t0, "length"))
+        if not self.active:
+            return done
+        logits = self.layout.decode(
+            torch.as_tensor(self.tokens, device=self.device),
+            torch.as_tensor(self.cache_len, device=self.device))
+        toks = self.sampler(logits).cpu().numpy()
+        self.step_count += 1
+        self.core.decode_step(sorted(self.active))
+        for slot in self.active:     # free slots keep cache_len == 0
+            self.cache_len[slot] += 1
+        for slot, ticket in list(self.active.items()):
+            if ticket.cancelled:
+                done.append(self._evict(slot, t0, "cancelled",
+                                        kind="cancel"))
+                continue
+            t = int(toks[slot])
+            if ticket.req.eos is not None and t == ticket.req.eos:
+                done.append(self._evict(slot, t0, "eos"))
+                continue
+            self._emit(ticket, t)
+            self.tokens[slot] = t
+            if self._finished(ticket):
+                done.append(self._evict(slot, t0, "length"))
+        return done
+
+    def _evict(self, slot: int, t0: float, reason: str,
+               kind: str = "evict") -> Completion:
+        ticket = self.active.pop(slot)
+        self._release_slot(slot)
+        self._event(time.perf_counter() - t0, kind, ticket.req.id, slot)
+        return self._finish(ticket, reason, t0)
+
+    def _check_invariants(self) -> None:
+        """Step-boundary slot accounting (``SchedulerConfig(debug=True)``)."""
+        free = set(self.free)
+        occupied = set(self.active)
+        if free & occupied:
+            raise AssertionError(f"slots both free and occupied: "
+                                 f"{free & occupied}")
+        for slot in free:
+            if self.cache_len[slot] or self.tokens[slot]:
+                raise AssertionError(f"slot {slot}: stale length/token")

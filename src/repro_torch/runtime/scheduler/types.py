@@ -1,0 +1,170 @@
+"""Request/completion/config dataclasses shared across the scheduler package.
+
+Counterpart of ``repro.runtime.scheduler.types``, copied (plain data, no
+framework): the request the user submits, the completion they get back,
+the scheduler's configuration, the observable event log entries, and
+the internal ticket record. ``SchedulerConfig`` carries the knobs of the
+slotted, one-shot-prefill path this slice ports.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.models.config import ModelConfig
+
+FINISH_REASONS = ("eos", "length", "cancelled", "failed", "timeout",
+                  "local_fallback")
+
+# stats() key schema — the typed-empty snapshot for policies with no
+# continuous scheduler (Engine.stats on batch admission) must agree
+COUNTER_KEYS = (
+    "requests_submitted", "admissions", "evictions", "preemptions",
+    "slot_failures", "cancellations", "sheds", "steps", "tokens_generated",
+    "prefix_hits", "victim_hits", "victim_evictions",
+    "prefill_tokens_total", "prefill_tokens_saved")
+
+
+@dataclass
+class Request:
+    id: int
+    prompt: np.ndarray                      # (S,) int32
+    max_new_tokens: int = 16
+    eos: Optional[int] = None
+    embeds: Optional[np.ndarray] = None     # VLM/audio frontend output
+    # lifecycle / policy fields
+    priority: int = 0                       # higher = sooner (priority policy)
+    deadline_s: Optional[float] = None      # seconds from arrival (EDF)
+    # how many failure/preemption restarts before the request completes
+    # as "failed" instead of re-queueing; None = restart forever (the
+    # pre-lifecycle behavior, and the token-identity default)
+    max_restarts: Optional[int] = None
+    # prefix-cache namespace: a request only ever matches (and registers)
+    # prefix chains under its own tenant, so a hash hit can never map
+    # another tenant's K/V. "" is the default shared namespace.
+    tenant: str = ""
+
+
+@dataclass
+class Completion:
+    id: int
+    tokens: List[int]
+    prefill_s: float
+    decode_s: float
+    # Continuous-scheduler timeline (engine-clock seconds; 0.0 on the
+    # static path which has no per-request timeline).
+    arrival_s: float = 0.0
+    first_token_s: float = 0.0
+    finish_s: float = 0.0
+    # why the request stopped:
+    # "eos" | "length" | "cancelled" | "failed" | "timeout" |
+    # "local_fallback" (a TieredEngine answered locally because the
+    # escalation link was down and the deadline could not wait)
+    finish_reason: str = "length"
+    # times the request was re-queued (slot failure or pool preemption)
+    restarts: int = 0
+
+    @property
+    def ttft_s(self) -> float:
+        """Time to first token (admission wait + prefill)."""
+        return self.first_token_s - self.arrival_s
+
+    @property
+    def latency_s(self) -> float:
+        return self.finish_s - self.arrival_s
+
+
+def validate_request_fits(cfg: ModelConfig, req: Request,
+                          max_len: int) -> None:
+    """Shared admission check for every engine path. Decode writes KV
+    rows at positions len(prompt) .. len(prompt) + max_new_tokens - 2;
+    on an uncapped global-attention cache, rows past max_len would
+    silently wrap the ring onto the prompt and corrupt the context.
+    Sliding-window / recurrent (subquadratic) configs and explicitly
+    capped caches (max_cache_len) wrap by design and are exempt."""
+    if len(req.prompt) > max_len:
+        raise ValueError(
+            f"request {req.id}: prompt length {len(req.prompt)} exceeds "
+            f"max_len {max_len}")
+    if cfg.is_subquadratic_decode or cfg.max_cache_len:
+        return
+    need = len(req.prompt) + req.max_new_tokens - 1
+    if need > max_len:
+        raise ValueError(
+            f"request {req.id}: prompt ({len(req.prompt)}) + "
+            f"max_new_tokens ({req.max_new_tokens}) needs {need} cache "
+            f"rows, exceeding max_len {max_len}")
+
+
+@dataclass
+class SchedulerConfig:
+    max_slots: int = 8          # decode batch width
+    max_len: int = 512          # KV rows per slot
+    greedy: bool = True
+    temperature: float = 1.0
+    seed: int = 0
+    # --- multi-unit execution core (modeled per-unit clocks) -----------
+    # units: processing units the execution core schedules over.
+    # prefill_units of them are dedicated to prompt prefill
+    # (0 = prefill shares the decode units — the classic colocated
+    # setup); the remaining units run decode, with decode microbatches
+    # pipelined across decode_stages stage-partitioned units (1 = whole-
+    # model decode steps; the staged step is a later slice). The clocks are MODELED: token content is
+    # bit-identical to the single-unit path in every configuration —
+    # units=1/prefill_units=0/decode_stages=1 is the degenerate case
+    # with pure accounting and no behavior change at all.
+    units: int = 1
+    prefill_units: int = 0
+    decode_stages: int = 1
+    # which prefill unit takes the next prompt burst: a name from
+    # policies.PLACEMENT_POLICIES ("round-robin" | "least-loaded") or a
+    # policy instance
+    placement: Any = "round-robin"
+    # deterministic modeled cost per prompt/decode token on one unit —
+    # what the per-unit clocks charge (benches compare makespans across
+    # unit topologies, so costs must not depend on wall-clock noise)
+    prefill_sec_per_token: float = 1e-4
+    decode_sec_per_token: float = 1e-4
+    # assert slot/block accounting invariants at every step boundary
+    debug: bool = False
+
+
+@dataclass
+class SchedEvent:
+    """Observable admission/eviction trace (asserted on by tests).
+    ``kind`` is "admit" | "evict" | "fail" | "preempt" | "cancel" |
+    "shed" (deadline enforcement timed the request out)."""
+    t_s: float
+    kind: str
+    request_id: int
+    slot: int
+    step: int                   # decode-step counter at event time
+
+
+@dataclass(frozen=True)
+class SlotFailure:
+    """Injected loss of decode slots at a step boundary — the scheduler-
+    level view of a processing-unit failure (the unit hosting those KV
+    slots went away). ``slots=None`` means every active slot: whole-unit
+    loss, the companion fault-tolerance paper's server-loss scenario."""
+    step: int
+    slots: Optional[Tuple[int, ...]] = None
+
+
+@dataclass(eq=False)                    # identity semantics: list/backlog
+class _Ticket:                          # removal must never compare prompts
+    req: Request
+    arrival_s: float
+    submit_seq: int = -1        # submission order (admission tie-break)
+    slot: int = -1
+    emitted: List[int] = field(default_factory=list)
+    prefill_s: float = 0.0
+    first_token_s: float = 0.0
+    admit_seq: int = -1         # admission order (preemption input)
+    restarts: int = 0           # failure/preemption re-queues so far
+    cancelled: bool = False     # set via request_cancel()
+    retired: bool = False       # completed while a stale heap entry remains
+    where: str = "backlog"      # backlog | queued | active | done
+    handle: Any = None          # RequestHandle, when served via Engine

@@ -1,0 +1,107 @@
+"""Package rules of the PyTorch port.
+
+* every ``repro_torch`` module imports without loading ``jax`` or any
+  module of ``repro``;
+* entry points default to ``"cuda"`` and raise without a card unless the
+  caller passes ``device="cpu"``;
+* the ``EngineConfig`` fields of later slices, and the model families of
+  later slices, are refused with a ``ValueError`` that says so;
+* ``chip_smoke.py`` fails, printing no result, without a card or outside
+  a checkout.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.launch import serve
+from repro_torch.models import transformer as PT
+from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.engine import Engine, EngineConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+TINY = dict(name="pkg", arch_type="dense", n_layers=2, d_model=32,
+            n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=64,
+            dtype="float32", param_dtype="float32")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert len(mods) >= 20
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or "
+            "k.startswith('repro.'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    cfg = ModelConfig(**TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PT.Transformer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PT.init_params(cfg)
+    model = PT.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen2_1_5b"])
+    Engine(cfg, model, device="cpu")        # the explicit opt-in works
+
+
+@pytest.mark.parametrize("field,value", [
+    ("kv_layout", "paged"), ("prefill_chunk", 4), ("prefix_cache", True),
+    ("victim_cache", True), ("enforce_deadlines", True), ("decode_stages", 2),
+    ("observability", True)])
+def test_later_slice_fields_are_refused(field, value):
+    with pytest.raises(ValueError, match="later slice"):
+        EngineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("change", [
+    dict(layer_pattern=("attn_local",), window=4),
+    dict(layer_pattern=("attn", "rglru")), dict(frontend="vision",
+                                                frontend_dim=8)])
+def test_later_model_families_are_refused(change):
+    with pytest.raises(ValueError, match="later slices"):
+        PT.Transformer(ModelConfig(**{**TINY, **change}), device="cpu")
+
+
+def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    runs = [(alone, tmp_path)]
+    if not torch.cuda.is_available():
+        runs.append((ROOT / "chip_smoke.py", ROOT))
+    for script, cwd in runs:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
