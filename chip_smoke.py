@@ -8,17 +8,24 @@ Phases, one status line each; any failure exits non-zero:
 1. device and build: the card's name and power limit, the CUDA version,
    and the kernels built from ``src/repro_torch/csrc`` (timed);
 2. each kernel against its plain PyTorch version on the card, over the
-   reference's test shapes, ragged lengths and the serving path's shapes
-   (tolerance 2e-5 fp32, 2e-2 bf16 prefill, 3e-2 bf16 decode), with the
-   kernel's, the plain version's and SDPA's times and the card's bound;
+   reference's test shapes, ragged lengths and the shapes the serving
+   runs give the kernels (tolerance 2e-5 fp32, 2e-2 bf16 prefill, 3e-2
+   bf16 decode); then, at the serving shapes, the kernel's, the plain
+   version's and SDPA's times (inputs rotated over twice the L2) and the
+   card's bound at the peak rate of the input type;
 3. the JAX golden fixture (``src/repro_torch/testdata/golden_cm.npz``):
    the port's Engine on the card in fp32 must give the reference's
    greedy tokens and its logits within 1e-4;
-4. the serving path at full width and depth: ``repro_torch.launch.serve``
-   on qwen2-1.5b in bf16, 16 requests of 512 prompt tokens and 32 new
-   tokens over 8 slots, with fifo and then batch admission; every
+4. the serving path at full width and depth on qwen2-1.5b in bf16: the
+   model's prefill and decode steps through the kernels against the same
+   with the plain versions in their place (logits and caches within 5e-2
+   of their largest magnitude, argmax equal on 90% of rows); then
+   ``repro_torch.launch.serve`` with 16 requests of 512 prompt tokens and
+   32 new tokens over 8 slots, with fifo and then batch admission: every
    request must finish by length, both kernels must have been launched
-   28 times per prefill and decode step, and fifo must equal batch.
+   28 times per prefill and decode step, and fifo must equal batch; then
+   the fifo run once more under ``torch.profiler`` for the device's busy
+   time and idle share.
 
 The line before the last holds the kernels' summary as JSON; the last
 line is ``{"ok": true, "device": {...}}``. Needs one card; imports
@@ -37,7 +44,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = SRC / "repro_torch" / "testdata" / "golden_cm.npz"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
+PEAK_FLOPS = {"bfloat16": 989e12,   # H100 SXM dense bf16 (tensor cores)
+              "float32": 67e12}     # H100 SXM fp32 outside the tensor cores
+L2_BYTES = 50e6
 TOL = {("prefill", "float32"): 2e-5, ("prefill", "bfloat16"): 2e-2,
        ("decode", "float32"): 2e-5, ("decode", "bfloat16"): 3e-2}
 SERVE_ARGS = ["--arch", "qwen2_1_5b", "--no-smoke", "--slots", "8",
@@ -85,7 +94,7 @@ def phase_device(torch, build) -> dict:
 
 FA_CASES = [
     # (b, sq, sk, h, hk, d, causal, window, dtype): tests/test_kernels.py
-    # FA_CASES, then ragged and odd shapes, then the serving prefill
+    # FA_CASES, then ragged and odd shapes, then the serving prefills
     (2, 64, 64, 4, 2, 32, True, 0, "float32"),
     (2, 128, 128, 4, 1, 64, True, 24, "float32"),
     (2, 32, 32, 2, 2, 16, False, 0, "float32"),
@@ -96,11 +105,15 @@ FA_CASES = [
     (1, 37, 37, 12, 2, 128, True, 0, "bfloat16"),
     (2, 37, 37, 4, 2, 12, True, 0, "float32"),
     (2, 20, 45, 4, 1, 64, False, 0, "float32"),
-    (1, 512, 512, 12, 2, 128, True, 0, "bfloat16"),
+    (1, 512, 512, 12, 2, 128, True, 0, "bfloat16"),    # fifo: one request
+    (16, 512, 512, 12, 2, 128, True, 0, "bfloat16"),   # batch: the bucket
 ]
+# the serving runs' cache: --prompt-len 512 + --max-new 32 + 8 rows
+SERVE_S = 512 + 32 + 8
+FIFO_LENS = [1, 513, 518, 523, 528, 533, 538, 544]  # one free slot
 DEC_CASES = [
     # (b, h, hk, d, s, dtype, lengths or None = random in [1, s]):
-    # tests/test_kernels.py DEC_CASES, ragged lengths, the serving decode
+    # tests/test_kernels.py DEC_CASES, ragged lengths, the serving decodes
     (2, 4, 2, 32, 64, "float32", None),
     (3, 8, 1, 64, 128, "float32", None),
     (1, 4, 4, 128, 256, "bfloat16", None),
@@ -109,7 +122,13 @@ DEC_CASES = [
     (4, 12, 2, 128, 300, "bfloat16", [1, 0, 300, 129]),
     (8, 12, 2, 128, 1024, "bfloat16",
      [520, 544, 1, 1024, 700, 512, 33, 600]),
+    (8, 12, 2, 128, SERVE_S, "bfloat16", FIFO_LENS),   # fifo decode step
+    (16, 12, 2, 128, SERVE_S, "bfloat16", [528] * 16),  # batch decode step
 ]
+# the shapes the serving runs give the kernels, timed below; "fifo" (the
+# main path) goes into the kernels line, "batch" into the --out record
+SERVE_FA = {"fifo": 1, "batch": 16}                    # prefill batch
+SERVE_DEC = {"fifo": FIFO_LENS, "batch": [528] * 16}   # slot lengths
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -126,10 +145,15 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def n_copies(nbytes: int) -> int:
+    """Copies of a call's inputs to take in turn so that together they
+    touch twice the L2: each timed call then reads its inputs from HBM,
+    as each of a step's 28 layers does after the layer before."""
+    return max(2, -(-int(2 * L2_BYTES) // nbytes))
+
+
 def cycle(items):
-    """A callable that returns the next of ``items`` on each call —
-    copies of the inputs taken in turn, so a timed loop reads them cold
-    from HBM instead of from L2, as the 28 layers of a step do."""
+    """A callable that returns the next of ``items`` on each call."""
     state = {"i": 0}
 
     def nxt():
@@ -138,27 +162,22 @@ def cycle(items):
     return nxt
 
 
-def sdpa(torch, causal: bool):
-    """scaled_dot_product_attention over (B, H, S, D) inputs with Hk <= H
-    key/value heads: GQA natively where this torch has ``enable_gqa``,
-    else on K/V expanded to H heads ahead of the timed loop."""
+def sdpa(q, k, v, causal=False, mask=None):
+    """The library's attention over (B, H, S, D) inputs with Hk <= H
+    key/value heads: the yardstick of ``library_ms`` only."""
     import torch.nn.functional as F
-
-    def run(q, k, v, mask=None):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              is_causal=causal,
-                                              enable_gqa=True)
-    try:
-        q = torch.zeros((1, 2, 4, 8), device="cuda")
-        run(q, q[:, :1], q[:, :1])
-        return run, False
-    except TypeError:
-        return (lambda q, k, v, mask=None: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=causal)), True
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          is_causal=causal, enable_gqa=True)
 
 
-def expand_kv(t, g):
-    return t.repeat_interleave(g, dim=1)
+def bound(flops: int, nbytes: int, dtn: str) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM's rate and the operations over the peak rate of the input type."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtn], nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "fp32_fma_ms": flops / PEAK_FLOPS["float32"] * 1e3}
 
 
 def err_vs(torch, out, ref, tol):
@@ -168,10 +187,61 @@ def err_vs(torch, out, ref, tol):
     return (a - b).abs().max().item(), bool(finite and not bad)
 
 
+def time_flash(torch, fa_ops, fa_ref, rnd, b: int) -> dict:
+    sq, h, hk, d, dtn = 512, 12, 2, 128, "bfloat16"
+    dt = getattr(torch, dtn)
+    flops = 4 * d * (sq * (sq + 1) // 2) * h * b
+    nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * hk * d)
+    copies = [(rnd((b, sq, h, d), dt), rnd((b, sq, hk, d), dt),
+               rnd((b, sq, hk, d), dt)) for _ in range(n_copies(nbytes))]
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
+    nxt, nxt_l = cycle(copies), cycle(bhsd)
+    q, k, v = copies[0]
+    err, _ = err_vs(torch, fa_ops.flash_attention(q, k, v),
+                    fa_ref.attention_ref(q, k, v), TOL[("prefill", dtn)])
+    return {"shape": f"B={b} Sq=Sk={sq} H={h}/{hk} D={d} {dtn} causal",
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(*nxt())),
+            "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(*nxt())),
+            "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), causal=True)),
+            "copies": len(copies), **bound(flops, nbytes, dtn)}
+
+
+def time_decode(torch, da_ops, da_ref, rnd, lens) -> dict:
+    b, h, hk, d, s, dtn = len(lens), 12, 2, 128, SERVE_S, "bfloat16"
+    dt = getattr(torch, dtn)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    live = sum(lens)
+    nbytes = 2 * (2 * live * hk * d + 2 * b * h * d) + 4 * b
+    flops = 4 * d * live * h
+    copies = [(rnd((b, h, d), dt), rnd((b, s, hk, d), dt),
+               rnd((b, s, hk, d), dt), lengths)
+              for _ in range(n_copies(nbytes))]
+    mask = (torch.arange(s, device="cuda")[None]
+            < lengths[:, None])[:, None, None]
+    sdpa_in = [(c[0][:, :, None], c[1].transpose(1, 2).contiguous(),
+                c[2].transpose(1, 2).contiguous()) for c in copies]
+    nxt, nxt_l = cycle(copies), cycle(sdpa_in)
+    q, kc, vc, _ = copies[0]
+    err, _ = err_vs(torch, da_ops.decode_attention(q, kc, vc, lengths),
+                    da_ref.decode_attention_ref(q, kc, vc, lengths),
+                    TOL[("decode", dtn)])
+    return {"shape": f"B={b} S={s} H={h}/{hk} D={d} {dtn}, {live} live rows",
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: da_ops.decode_attention(*nxt())),
+            "plain_ms": cuda_ms(torch, lambda: da_ref.decode_attention_ref(
+                *nxt())),
+            "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), mask=mask)),
+            "copies": len(copies), **bound(flops, nbytes, dtn)}
+
+
 def phase_kernels(torch, fa_ops, fa_ref, da_ops, da_ref) -> dict:
+    """Every case held against the plain version; then the serving shapes
+    timed. Returns {"flash_attention": {"fifo": ..., "batch": ...},
+    "decode_attention": {...}}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
-    rows, failures, main = [], [], {}
+    rows, failures = [], []
 
     def rnd(shape, dt):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -189,33 +259,6 @@ def phase_kernels(torch, fa_ops, fa_ref, da_ops, da_ref) -> dict:
         rows.append((tag, err, tol, ok))
         if not ok:
             failures.append(tag)
-    b, sq, h, hk, d = 1, 512, 12, 2, 128
-    dt = torch.bfloat16
-    copies = [(rnd((b, sq, h, d), dt), rnd((b, sq, hk, d), dt),
-               rnd((b, sq, hk, d), dt)) for _ in range(4)]
-    nxt = cycle(copies)
-    lib, expand = sdpa(torch, causal=True)
-    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
-    if expand:
-        bhsd = [(q_, expand_kv(k_, h // hk), expand_kv(v_, h // hk))
-                for q_, k_, v_ in bhsd]
-    nxt_l = cycle(bhsd)
-    q, k, v = copies[0]
-    out = fa_ops.flash_attention(q, k, v)
-    err, _ = err_vs(torch, out, fa_ref.attention_ref(q, k, v), 2e-2)
-    pairs = sq * (sq + 1) // 2
-    flops = 4 * d * pairs * h * b
-    nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * hk * d)
-    main["flash_attention"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(*nxt())),
-        "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(*nxt())),
-        "library_ms": cuda_ms(torch, lambda: lib(*nxt_l())),
-        "bound_ms": max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / FP32_FLOPS
-        > nbytes / HBM_BYTES_PER_S else "bytes",
-        "flops": flops, "bytes": nbytes}
-
     for (b, h, hk, d, s, dtn, lens) in DEC_CASES:
         dt = getattr(torch, dtn)
         q, kc, vc = rnd((b, h, d), dt), rnd((b, s, hk, d), dt), \
@@ -237,48 +280,24 @@ def phase_kernels(torch, fa_ops, fa_ref, da_ops, da_ref) -> dict:
         rows.append((tag, err, tol, ok))
         if not ok:
             failures.append(tag)
-    b, h, hk, d, s = 8, 12, 2, 128, 1024
-    lens = DEC_CASES[-1][-1]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    copies = [(rnd((b, h, d), dt), rnd((b, s, hk, d), dt),
-               rnd((b, s, hk, d), dt), lengths) for _ in range(8)]
-    nxt = cycle(copies)
-    mask = (torch.arange(s, device=dev)[None] < lengths[:, None])[:, None, None]
-    lib, expand = sdpa(torch, causal=False)
-    sdpa_in = [(c[0][:, :, None], c[1].transpose(1, 2).contiguous(),
-                c[2].transpose(1, 2).contiguous()) for c in copies]
-    if expand:
-        sdpa_in = [(q_, expand_kv(k_, h // hk), expand_kv(v_, h // hk))
-                   for q_, k_, v_ in sdpa_in]
-    nxt_l = cycle(sdpa_in)
-    q, kc, vc, _ = copies[0]
-    out = da_ops.decode_attention(q, kc, vc, lengths)
-    err, _ = err_vs(torch, out, da_ref.decode_attention_ref(q, kc, vc,
-                                                            lengths), 3e-2)
-    live = sum(lens)
-    nbytes = 2 * (2 * live * hk * d + 2 * b * h * d) + 4 * b
-    flops = 4 * d * live * h
-    main["decode_attention"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: da_ops.decode_attention(*nxt())),
-        "plain_ms": cuda_ms(torch, lambda: da_ref.decode_attention_ref(
-            *nxt())),
-        "library_ms": cuda_ms(torch, lambda: lib(*nxt_l(), mask=mask)),
-        "bound_ms": max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= flops / FP32_FLOPS else "operations",
-        "flops": flops, "bytes": nbytes}
     for tag, err, tol, ok in rows:
         say(f"  {'ok  ' if ok else 'FAIL'} {tag}: max |err| {err:.3g} "
             f"(tol {tol:g})")
-    for name, m in main.items():
-        say(f"  {name} @ serving shape: {m['ms']:.4f} ms kernel, "
-            f"{m['plain_ms']:.4f} ms plain, {m['library_ms']:.4f} ms SDPA, "
-            f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}), max |err| "
-            f"{m['max_abs_err']:.3g}")
     if failures:
         raise PhaseFailed(f"kernels disagree with the plain version: "
                           f"{failures}")
+    main = {"flash_attention": {p: time_flash(torch, fa_ops, fa_ref, rnd, b)
+                                for p, b in SERVE_FA.items()},
+            "decode_attention": {p: time_decode(torch, da_ops, da_ref, rnd,
+                                                lens)
+                                 for p, lens in SERVE_DEC.items()}}
+    for name, per in main.items():
+        for policy, m in per.items():
+            say(f"  {name} @ {policy} shape ({m['shape']}): {m['ms']:.4f} ms "
+                f"kernel, {m['plain_ms']:.4f} ms plain, {m['library_ms']:.4f}"
+                f" ms SDPA, bound {m['bound_ms']:.4f} ms ({m['bound_by']}; "
+                f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
+                f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
     say(f"[2/4] kernels: {len(rows)} cases agree with the plain versions")
     return main
 
@@ -342,42 +361,160 @@ def phase_golden(torch, np) -> dict:
 # phase 4
 # ---------------------------------------------------------------------------
 
-def phase_serve(torch, fa_ops, da_ops) -> dict:
-    from repro_torch.launch import serve
+def serve_policy(torch, serve, fa_ops, da_ops, policy: str) -> dict:
+    """One serving run through the CLI's ``main``, with the launch counts
+    set to 0 just before and read just after."""
     n_layers = 28
-    out = {}
-    for policy in ("fifo", "batch"):
-        fa_ops.flash_attention.launches = 0
-        da_ops.decode_attention.launches = 0
-        summary = serve.main(SERVE_ARGS + ["--policy", policy])
+    fa_ops.flash_attention.launches = 0
+    da_ops.decode_attention.launches = 0
+    summary = serve.main(SERVE_ARGS + ["--policy", policy])
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa_ops.flash_attention.launches,
+                "decode_attention": da_ops.decode_attention.launches}
+    comps = summary["completions"]
+    if len(comps) != 16 or any(c.finish_reason != "length"
+                               or len(c.tokens) != 32 for c in comps):
+        raise PhaseFailed(f"{policy}: not every request finished by "
+                          f"length with 32 tokens")
+    if any(not 0 <= t < 151936 for c in comps for t in c.tokens):
+        raise PhaseFailed(f"{policy}: token outside the vocabulary")
+    prefills = summary["stats"]["admissions"] if policy == "fifo" else 1
+    want = {"flash_attention": n_layers * prefills,
+            "decode_attention": n_layers * summary["decode_steps"]}
+    for name, n in want.items():
+        if launches[name] < n:
+            raise PhaseFailed(f"{policy}: {name} launched "
+                              f"{launches[name]} times, want >= {n}")
+    say(f"  {policy}: {summary['tok_per_s']:.1f} tok/s, TTFT p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms, decode "
+        f"{summary['decode_ms_per_step']:.2f} ms/step over "
+        f"{summary['decode_steps']} steps, launches {launches}")
+    return {"launches": launches, "summary": summary}
+
+
+def vs_plain(torch, model, fa_ref, da_ref) -> dict:
+    """The full-width model in bf16 run twice on the same inputs: through
+    the kernels, then with the plain versions in their place. A batch of
+    8 prompts of 512 tokens is prefilled into caches of the serving
+    runs' size; 4 decode steps follow with the slots at mixed lengths as
+    in a fifo step (slot 0 free, at length 0). Compares the 40 rows of
+    logits and every layer's cache."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
+                           device="cuda")
+    fed = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen,
+                        device="cuda")
+    # positions below a slot's length hold what a prefill of that length
+    # gives (causal), so this is the state of slots at these lengths
+    clen0 = torch.tensor([0, 505, 507, 509, 510, 511, 512, 512],
+                         dtype=torch.int32, device="cuda")
+
+    def drive():
+        logits, cache, _ = T.prefill(model, tokens, max_len=SERVE_S)
+        steps, clen = [logits.float()], clen0.clone()
+        for tok in fed:
+            logits, cache, clen = T.decode_step(model, tok, cache, clen)
+            steps.append(logits.float())
+        return torch.cat(steps), cache
+
+    got, got_cache = drive()
+    kernels = (L.flash_attention, L.decode_attention)
+    L.flash_attention, L.decode_attention = (fa_ref.attention_ref,
+                                             da_ref.decode_attention_ref)
+    try:
+        want, want_cache = drive()
+    finally:
+        L.flash_attention, L.decode_attention = kernels
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+    out = {"logits_rel_err": rel(got, want),
+           "cache_rel_err": max(rel(g[n], w[n]) for g, w in
+                                zip(got_cache, want_cache) for n in "kv"),
+           "argmax_agree": (got.argmax(-1) == want.argmax(-1)).float()
+           .mean().item(),
+           "rows": got.shape[0], "finite": bool(torch.isfinite(got).all())}
+    say(f"  kernels vs plain on the full-width model: logits max |err| "
+        f"{out['logits_rel_err']:.3g} of max |logit| (tol 5e-2), caches "
+        f"{out['cache_rel_err']:.3g} (tol 5e-2), argmax agrees on "
+        f"{out['argmax_agree']:.3f} of {out['rows']} rows (want >= 0.9)")
+    if not (out["finite"] and out["logits_rel_err"] <= 5e-2
+            and out["cache_rel_err"] <= 5e-2 and out["argmax_agree"] >= 0.9):
+        raise PhaseFailed("the full-width model through the kernels "
+                          "disagrees with its plain-version run")
+    return out
+
+
+def traced_fifo(torch, serve, model, want_tokens, top: int = 8) -> dict:
+    """The fifo run once more, on the same weights and requests, under
+    ``torch.profiler`` (device activity only): the device's busy time
+    (the union of the kernels' intervals) and the wall time of the same
+    run, and the kernels that take the most device time."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = model.cfg
+    eng = Engine(cfg, model, EngineConfig(max_slots=8, max_len=SERVE_S,
+                                          admission="fifo"), device="cuda")
+    reqs = serve.synthetic_requests(cfg, 16, 512, 32, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs = eng.generate(reqs)
         torch.cuda.synchronize()
-        launches = {"flash_attention": fa_ops.flash_attention.launches,
-                    "decode_attention": da_ops.decode_attention.launches}
-        comps = summary["completions"]
-        if len(comps) != 16 or any(c.finish_reason != "length"
-                                   or len(c.tokens) != 32 for c in comps):
-            raise PhaseFailed(f"{policy}: not every request finished by "
-                              f"length with 32 tokens")
-        if any(not 0 <= t < 151936 for c in comps for t in c.tokens):
-            raise PhaseFailed(f"{policy}: token outside the vocabulary")
-        prefills = summary["stats"]["admissions"] if policy == "fifo" else 1
-        want = {"flash_attention": n_layers * prefills,
-                "decode_attention": n_layers * summary["decode_steps"]}
-        for name, n in want.items():
-            if launches[name] < n:
-                raise PhaseFailed(f"{policy}: {name} launched "
-                                  f"{launches[name]} times, want >= {n}")
-        out[policy] = {"launches": launches, "summary": summary}
-        say(f"  {policy}: {summary['tok_per_s']:.1f} tok/s, TTFT p50 "
-            f"{summary['ttft_p50_ms']:.1f} ms, decode "
-            f"{summary['decode_ms_per_step']:.2f} ms/step over "
-            f"{summary['decode_steps']} steps, launches {launches}")
+        wall_s = time.perf_counter() - t0
+    if [o.tokens for o in outs] != want_tokens:
+        raise PhaseFailed("the traced fifo run's tokens differ from the "
+                          "fifo run's")
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise PhaseFailed("the trace holds no device kernels")
+    by_name = defaultdict(lambda: [0.0, 0])
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        by_name[e.name][0] += t - s
+        by_name[e.name][1] += 1
+        if t > end:
+            busy_us += t - max(s, end)
+            end = t
+    busy_s = busy_us / 1e6
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    out = {"wall_s": wall_s, "device_busy_s": busy_s,
+           "idle_share": 1.0 - busy_s / wall_s, "kernels": len(kernels),
+           "top": [{"kernel": n[:90], "ms": v[0] / 1e3, "calls": v[1]}
+                   for n, v in ranked]}
+    say(f"  traced fifo run: wall {wall_s:.4f} s, device busy {busy_s:.4f} s"
+        f", idle share {out['idle_share']:.4f}, {len(kernels)} kernels")
+    for k in out["top"]:
+        say(f"    {k['ms']:10.4f} ms  x{k['calls']:6d}  {k['kernel']}")
+    return out
+
+
+def phase_serve(torch, fa_ops, fa_ref, da_ops, da_ref) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    # the serving CLI's weights: the same config and seed
+    model = T.init_params(get_config("qwen2_1_5b"), 0, device="cuda")
+    out = {"vs_plain": vs_plain(torch, model, fa_ref, da_ref)}
+    for policy in ("fifo", "batch"):
+        out[policy] = serve_policy(torch, serve, fa_ops, da_ops, policy)
     fifo = [c.tokens for c in out["fifo"]["summary"]["completions"]]
     batch = [c.tokens for c in out["batch"]["summary"]["completions"]]
     if fifo != batch:
         raise PhaseFailed("fifo and batch greedy tokens differ")
+    out["trace"] = traced_fifo(torch, serve, model, fifo)
+    out["trace"]["untraced_wall_s"] = out["fifo"]["summary"]["wall_s"]
     say("[4/4] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
-        "'length', fifo tokens == batch tokens")
+        "'length', fifo tokens == batch tokens == traced fifo tokens")
     return out
 
 
@@ -407,7 +544,7 @@ def main() -> int:
         dev = phase_device(torch, build)
         kern = phase_kernels(torch, fa_ops, fa_ref, da_ops, da_ref)
         golden = phase_golden(torch, np)
-        serve = phase_serve(torch, fa_ops, da_ops)
+        serve = phase_serve(torch, fa_ops, fa_ref, da_ops, da_ref)
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
@@ -416,7 +553,8 @@ def main() -> int:
            "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention/kernel.py:173")}
     kernels = []
-    for name, m in kern.items():
+    for name, per in kern.items():
+        m = per["fifo"]       # the main path's shapes
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1],
@@ -426,10 +564,11 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     if args.out:
         record = {"device": dev, "kernels": kern, "golden": golden,
-                  "serve": {p: {"launches": s["launches"],
-                                **{k: v for k, v in s["summary"].items()
+                  "serve": {p: {"launches": serve[p]["launches"],
+                                **{k: v for k, v in serve[p]["summary"].items()
                                    if k != "completions"}}
-                            for p, s in serve.items()},
+                            for p in ("fifo", "batch")},
+                  "vs_plain": serve["vs_plain"], "trace": serve["trace"],
                   "total_s": time.perf_counter() - t0}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1, default=str))

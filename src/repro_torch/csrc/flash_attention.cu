@@ -5,11 +5,12 @@
 // attention forward with an online softmax whose m, l and acc stay in fp32.
 //
 // Bound on the H100: at the serving path's shape (one 512-token prompt,
-// 12 query heads over 2 KV heads, head_dim 128) the work is
-// compute-bound. This kernel does its products with fp32 FMAs on the
-// CUDA cores, so its bound is the fp32 FMA rate (67 TFLOP/s on the H100
-// SXM), not the tensor-core rate; moving the two products onto
-// wgmma/mma is the next step for speed.
+// 12 query heads over 2 KV heads, head_dim 128, bf16) the card's floor
+// is about 1.1 us, set by the bytes (3.7 MB at 3.35 TB/s); the FLOPs at
+// the bf16 tensor-core rate (989 TFLOP/s) take 0.8 us. This kernel does
+// its products with fp32 FMAs on the CUDA cores, so its own arithmetic
+// limits it to the fp32 FMA rate (67 TFLOP/s, 12 us at this shape);
+// moving the two products onto wgmma/mma is the next step for speed.
 //
 // Design. On the TPU the grid runs in order and carries m/l/acc in VMEM
 // from one kv grid step to the next. Here one CTA owns one
