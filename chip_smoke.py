@@ -47,6 +47,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,   # H100 SXM dense bf16 (tensor cores)
               "float32": 67e12}     # H100 SXM fp32 outside the tensor cores
 L2_BYTES = 50e6
+SM_HZ = 1.98e9                  # H100 SXM boost clock: spin cycles per s
 TOL = {("prefill", "float32"): 2e-5, ("prefill", "bfloat16"): 2e-2,
        ("decode", "float32"): 2e-5, ("decode", "bfloat16"): 3e-2}
 SERVE_ARGS = ["--arch", "qwen2_1_5b", "--no-smoke", "--slots", "8",
@@ -132,11 +133,21 @@ SERVE_DEC = {"fifo": FIFO_LENS, "batch": [528] * 16}   # slot lengths
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of ``fn``. The device is held by a spin kernel
+    while the host enqueues the timed loop, so the events time the
+    kernels and not the host's launch rate (a slow host would otherwise
+    set the figure)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4 * host_s * SM_HZ) + 10 ** 6)
     start.record()
     for _ in range(iters):
         fn()
@@ -147,8 +158,10 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 def n_copies(nbytes: int) -> int:
     """Copies of a call's inputs to take in turn so that together they
-    touch twice the L2: each timed call then reads its inputs from HBM,
-    as each of a step's 28 layers does after the layer before."""
+    touch twice the L2, and each timed call reads its inputs from HBM.
+    Decode finds its caches so in serving (a layer's cache was last
+    touched a step ago); prefill's q, k and v, just written by RoPE, may
+    still be in the L2 there, so its time here is an upper estimate."""
     return max(2, -(-int(2 * L2_BYTES) // nbytes))
 
 
