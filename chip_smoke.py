@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -9,25 +9,43 @@ Phases, one status line each; any failure exits non-zero:
    and the kernels built from ``src/repro_torch/csrc`` (timed);
 2. each kernel against its plain PyTorch version on the card, over the
    reference's test shapes, ragged lengths and the shapes the serving
-   runs give the kernels (tolerance 2e-5 fp32, 2e-2 bf16 prefill, 3e-2
-   bf16 decode); then, at the serving shapes, the kernel's, the plain
-   version's and SDPA's times (inputs rotated over twice the L2) and the
-   card's bound at the peak rate of the input type;
+   runs give the kernels (tolerance 2e-5 fp32; in bf16 2e-2 prefill,
+   3e-2 decode, 5e-3 flash with a per-sequence ``q_offset`` / ``kv_len``
+   as prefix resume and chunked prefill call it, 2e-3 paged decode):
+   flash attention, slotted decode, and paged decode over a block pool
+   (null and repeated blocks, lengths 0 and 1; at the paged fifo shape
+   also bit for bit equal to slotted decode over the gathered rows);
+   then, at the serving shapes, the kernel's,
+   the plain version's and the library's times (SDPA; for paged decode
+   a page gather then SDPA, two calls; inputs rotated over twice the
+   L2) and the card's bound at the peak rate of the input type;
 3. the JAX golden fixture (``src/repro_torch/testdata/golden_cm.npz``):
-   the port's Engine on the card in fp32 must give the reference's
-   greedy tokens and its logits within 1e-4;
+   the port on the card in fp32 must give the reference's logits within
+   1e-4 (prefill + decode, and a 5-token prefill extended by 4), and
+   its Engine the reference's greedy tokens under batch and fifo
+   admission, and on the paged, paged-chunked, paged-prefix and
+   paged-chunked-prefix fifo cells and a 7-block pool without and with
+   an admission watermark (which preempt) also JAX's counters;
 4. the serving path at full width and depth on qwen2-1.5b in bf16: the
    model's prefill and decode steps through the kernels against the same
    with the plain versions in their place (logits and caches within 5e-2
-   of their largest magnitude, argmax equal on 90% of rows); then
-   ``repro_torch.launch.serve`` with 16 requests of 512 prompt tokens and
-   32 new tokens over 8 slots, with fifo and then batch admission: every
-   request must finish by length, both kernels must have been launched
-   28 times per prefill and decode step, and fifo must equal batch; then
-   the fifo run once more under ``torch.profiler`` for the device's busy
-   time and idle share.
+   of their largest magnitude, argmax equal on 90% of rows), and a
+   512-token prompt prefilled 256 + extended 256 against its one-shot
+   prefill (same tolerances, argmax equal); then
+   ``repro_torch.launch.serve`` with 16 requests of 512 prompt tokens
+   and 32 new tokens over 8 slots: slotted fifo, batch, paged fifo (a
+   pool at slotted parity), a tight pool that must preempt, prefix
+   sharing, and prefix sharing with 128-token chunks. Every request
+   must finish by length; fifo must equal batch, paged fifo must equal
+   slotted fifo, the tight pool must equal paged fifo; each run's
+   launches must be 28 per prefill or extend call (flash) and 28 per
+   decode step (the layout's decode kernel, the other 0). The slotted
+   and the paged fifo runs are replayed under ``torch.profiler`` for the
+   device's busy time and idle share; the prefix runs' agreement with a
+   slotted run on their shared-preamble workload is reported.
 
-The line before the last holds the kernels' summary as JSON; the last
+``--phases`` runs a subset and prints no result line. With all phases,
+the line before the last holds the kernels' summary as JSON; the last
 line is ``{"ok": true, "device": {...}}``. Needs one card; imports
 nothing of JAX.
 """
@@ -49,10 +67,28 @@ PEAK_FLOPS = {"bfloat16": 989e12,   # H100 SXM dense bf16 (tensor cores)
 L2_BYTES = 50e6
 SM_HZ = 1.98e9                  # H100 SXM boost clock: spin cycles per s
 TOL = {("prefill", "float32"): 2e-5, ("prefill", "bfloat16"): 2e-2,
-       ("decode", "float32"): 2e-5, ("decode", "bfloat16"): 3e-2}
+       ("decode", "float32"): 2e-5, ("decode", "bfloat16"): 3e-2,
+       # this slice's kernels in bf16: set from the errors measured on the
+       # H100 (extend 9.8e-4, paged 1.2e-4), so a mask or a page off by
+       # one row shows; typical outputs are about 0.07 here
+       ("extend", "float32"): 2e-5, ("extend", "bfloat16"): 5e-3,
+       ("paged", "float32"): 2e-5, ("paged", "bfloat16"): 2e-3}
 SERVE_ARGS = ["--arch", "qwen2_1_5b", "--no-smoke", "--slots", "8",
               "--requests", "16", "--prompt-len", "512", "--max-new", "32",
               "--device", "cuda"]
+# the phase 4 runs, in order: label -> serve CLI arguments after SERVE_ARGS
+SERVE_RUNS = {
+    "fifo": ["--policy", "fifo"],
+    "batch": ["--policy", "batch"],
+    "paged": ["--policy", "fifo", "--paged", "--block-size", "16"],
+    # 264 usable blocks: 8 prompts take 256, growth at row 512 the
+    # rest, so growth at row 528 must preempt
+    "paged-tight": ["--policy", "fifo", "--paged", "--block-size", "16",
+                    "--num-blocks", "265"],
+    "prefix": ["--policy", "fifo", "--prefix-cache", "--block-size", "16"],
+    "prefix-chunked": ["--policy", "fifo", "--prefix-cache", "--block-size",
+                       "16", "--prefill-chunk", "128"],
+}
 
 
 class PhaseFailed(Exception):
@@ -130,6 +166,40 @@ DEC_CASES = [
 # main path) goes into the kernels line, "batch" into the --out record
 SERVE_FA = {"fifo": 1, "batch": 16}                    # prefill batch
 SERVE_DEC = {"fifo": FIFO_LENS, "batch": [528] * 16}   # slot lengths
+# the paged runs: max_len 552 rounds up to 35 pages of 16 rows, and a
+# pool at slotted parity holds 8 * 35 blocks + the null block
+BS, PAGES = 16, 35
+PARITY_BLOCKS = 8 * PAGES + 1
+PAGED_CASES = [
+    # (b, h, hk, d, num_blocks, block_size, pages, dtype, lengths or None
+    # = random in [1, pages * bs]); tables random over [0, N), so they
+    # name the null block and repeat blocks: tests/test_kernels.py
+    # PAGED_CASES, then lengths 0 and 1, then the paged fifo decode step
+    (2, 4, 2, 32, 9, 8, 4, "float32", None),
+    (3, 8, 1, 64, 5, 16, 2, "float32", None),
+    (1, 4, 4, 128, 17, 8, 8, "bfloat16", None),
+    (4, 8, 2, 64, 13, 16, 3, "float32", None),
+    (4, 12, 2, 128, 40, 16, 5, "bfloat16", [0, 1, 80, 33]),
+    (5, 4, 2, 12, 11, 8, 3, "float32", [1, 0, 24, 9, 17]),
+    (8, 12, 2, 128, PARITY_BLOCKS, BS, PAGES, "bfloat16", FIFO_LENS),
+]
+OFFSET_CASES = [
+    # (b, sq, sk, h, hk, d, q_offset, kv_len, dtype): flash with the
+    # ragged mask of chunked prefill and prefix resume; small fp32 cases
+    # (a chunk padded past kv_len, B=2 at different offsets), then the
+    # serving runs' extend calls
+    (1, 8, 24, 4, 2, 16, [5], [13], "float32"),
+    (2, 6, 20, 6, 2, 16, [3, 11], [9, 17], "float32"),
+    (2, 5, 40, 4, 2, 12, [0, 21], [5, 26], "float32"),
+    (1, 256, 560, 12, 2, 128, [256], [512], "bfloat16"),
+    (1, 128, 640, 12, 2, 128, [384], [512], "bfloat16"),
+    (2, 128, 640, 12, 2, 128, [128, 384], [256, 512], "bfloat16"),
+]
+# the extend calls timed below: prefix resume (a 256-token tail over a
+# 560-row scratch), a 128-token chunk over a 640-row scratch, and a
+# ragged batch of two chunks
+SERVE_EXT = {"prefix": OFFSET_CASES[3], "chunk": OFFSET_CASES[4],
+             "ragged": OFFSET_CASES[5]}
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -248,10 +318,106 @@ def time_decode(torch, da_ops, da_ref, rnd, lens) -> dict:
             "copies": len(copies), **bound(flops, nbytes, dtn)}
 
 
-def phase_kernels(torch, fa_ops, fa_ref, da_ops, da_ref) -> dict:
+def offset_mask(torch, b, sq, sk, q_offset, kv_len):
+    """The live (query, key) pairs of a causal extend: (B, Sq, Sk)."""
+    qp = torch.tensor(q_offset, device="cuda")[:, None] + torch.arange(
+        sq, device="cuda")[None]
+    kp = torch.arange(sk, device="cuda")
+    kl = torch.tensor(kv_len, device="cuda")
+    return (kp[None, None] < kl[:, None, None]) & (kp[None, None]
+                                                    <= qp[:, :, None])
+
+
+def time_flash_extend(torch, fa_ops, fa_ref, rnd, case) -> dict:
+    b, sq, sk, h, hk, d, qo, kl, dtn = case
+    dt = getattr(torch, dtn)
+    mask = offset_mask(torch, b, sq, sk, qo, kl)
+    pairs = int(mask.sum().item())
+    flops = 4 * d * h * pairs
+    # q read and o written; only the K/V rows below kv_len are needed
+    nbytes = 2 * (2 * b * sq * h * d + 2 * sum(kl) * hk * d) + 8 * b
+    kw = dict(q_offset=torch.tensor(qo, dtype=torch.int32, device="cuda"),
+              kv_len=torch.tensor(kl, dtype=torch.int32, device="cuda"))
+    copies = [(rnd((b, sq, h, d), dt), rnd((b, sk, hk, d), dt),
+               rnd((b, sk, hk, d), dt)) for _ in range(n_copies(nbytes))]
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
+    nxt, nxt_l = cycle(copies), cycle(bhsd)
+    q, k, v = copies[0]
+    err, _ = err_vs(torch, fa_ops.flash_attention(q, k, v, **kw),
+                    fa_ref.attention_ref(q, k, v, **kw), TOL[("extend", dtn)])
+    lmask = mask[:, None]
+    return {"shape": f"B={b} Sq={sq} Sk={sk} H={h}/{hk} D={d} {dtn}, "
+                     f"q_offset={qo} kv_len={kl}",
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(*nxt(), **kw)),
+            "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(
+                *nxt(), **kw)),
+            "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), mask=lmask)),
+            "copies": len(copies), **bound(flops, nbytes, dtn)}
+
+
+def fifo_tables(torch, np, lens, n_blocks, pages, bs, seed=0):
+    """Block tables as the paged fifo run holds them: each slot's live
+    pages on distinct blocks scattered over the pool, the rest (and a
+    free slot, length 1) on the null block 0."""
+    rng = np.random.RandomState(seed)
+    free = list(rng.permutation(np.arange(1, n_blocks)))
+    tables = np.zeros((len(lens), pages), np.int32)
+    for i, n in enumerate(lens):
+        if n > 1:
+            for p in range(-(-n // bs)):
+                tables[i, p] = free.pop()
+    return torch.as_tensor(tables, device="cuda")
+
+
+def time_paged(torch, np, da_ops, da_ref, rnd, lens) -> dict:
+    b, h, hk, d, dtn = len(lens), 12, 2, 128, "bfloat16"
+    n, bs, nb = PARITY_BLOCKS, BS, PAGES
+    dt = getattr(torch, dtn)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tables = fifo_tables(torch, np, lens, n, nb, bs)
+    live = sum(lens)
+    # live K/V rows (1,024 B a row at Hk=2, D=128, bf16), q, o, lengths
+    # and the tables, each once
+    nbytes = 2 * (2 * live * hk * d + 2 * b * h * d) + 4 * b + 4 * b * nb
+    flops = 4 * d * live * h
+    copies = [(rnd((b, h, d), dt), rnd((n, bs, hk, d), dt),
+               rnd((n, bs, hk, d), dt), tables, lengths)
+              for _ in range(n_copies(nbytes))]
+    nxt = cycle(copies)
+    tl = tables.long()
+    mask = (torch.arange(nb * bs, device="cuda")[None]
+            < lengths[:, None])[:, None, None]
+
+    def gather_sdpa():
+        q, kp, vp, _, _ = nxt()
+        k = kp[tl].view(b, nb * bs, hk, d).transpose(1, 2)
+        v = vp[tl].view(b, nb * bs, hk, d).transpose(1, 2)
+        return sdpa(q[:, :, None], k, v, mask=mask)
+    q, kp, vp, _, _ = copies[0]
+    err, _ = err_vs(torch, da_ops.paged_decode_attention(q, kp, vp, tables,
+                                                         lengths),
+                    da_ref.paged_decode_attention_ref(q, kp, vp, tables,
+                                                      lengths),
+                    TOL[("paged", dtn)])
+    return {"shape": f"B={b} pool {n}x{bs} pages {nb} H={h}/{hk} D={d} "
+                     f"{dtn}, {live} live rows",
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: da_ops.paged_decode_attention(
+                *nxt())),
+            "plain_ms": cuda_ms(torch, lambda: da_ref
+                                .paged_decode_attention_ref(*nxt())),
+            "library_ms": cuda_ms(torch, gather_sdpa),
+            "library": "page gather + SDPA (two calls)",
+            "copies": len(copies), **bound(flops, nbytes, dtn)}
+
+
+def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref) -> dict:
     """Every case held against the plain version; then the serving shapes
     timed. Returns {"flash_attention": {"fifo": ..., "batch": ...},
-    "decode_attention": {...}}."""
+    "decode_attention": {...}, "paged_decode_attention": {"fifo": ...},
+    "flash_attention_extend": {"prefix": ..., "chunk": ..., "ragged":
+    ...}}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
     rows, failures = [], []
@@ -293,6 +459,64 @@ def phase_kernels(torch, fa_ops, fa_ref, da_ops, da_ref) -> dict:
         rows.append((tag, err, tol, ok))
         if not ok:
             failures.append(tag)
+    for (b, h, hk, d, n, bs, nb, dtn, lens) in PAGED_CASES:
+        dt = getattr(torch, dtn)
+        q, kp, vp = rnd((b, h, d), dt), rnd((n, bs, hk, d), dt), \
+            rnd((n, bs, hk, d), dt)
+        if lens is None:
+            lengths = torch.randint(1, nb * bs + 1, (b,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+        else:
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if n == PARITY_BLOCKS:
+            tables = fifo_tables(torch, np, lens, n, nb, bs)
+        else:
+            tables = torch.randint(0, n, (b, nb), generator=gen, device=dev,
+                                   dtype=torch.int32)
+        out = da_ops.paged_decode_attention(q, kp, vp, tables, lengths)
+        ref = da_ref.paged_decode_attention_ref(q, kp, vp, tables, lengths)
+        torch.cuda.synchronize()
+        tol = TOL[("paged", dtn)]
+        err, ok = err_vs(torch, out, ref, tol)
+        zero_rows = (lengths == 0)
+        if zero_rows.any() and out[zero_rows].abs().max().item() != 0.0:
+            ok = False
+        if n == PARITY_BLOCKS:
+            # the slotted kernel over the same rows gathered into the
+            # serving runs' 552-row cache: the same splits, so the same
+            # fp32 operations in the same order, bit for bit
+            tl = tables.long()
+            kg = kp[tl].reshape(b, nb * bs, hk, d)[:, :SERVE_S].contiguous()
+            vg = vp[tl].reshape(b, nb * bs, hk, d)[:, :SERVE_S].contiguous()
+            slot = da_ops.decode_attention(q, kg, vg, lengths)
+            same = torch.equal(out, slot)
+            tag = (f"paged b{b} pool {n}x{bs} pages {nb} {dtn} == slotted "
+                   f"s{SERVE_S} on the gathered rows")
+            rows.append((tag, (out.float() - slot.float()).abs().max()
+                         .item(), 0.0, same))
+            if not same:
+                failures.append(tag)
+        tag = (f"paged b{b} h{h}/{hk} d{d} pool {n}x{bs} pages {nb} {dtn} "
+               f"lens={lens or 'random'}")
+        rows.append((tag, err, tol, ok))
+        if not ok:
+            failures.append(tag)
+    for (b, sq, sk, h, hk, d, qo, kl, dtn) in OFFSET_CASES:
+        dt = getattr(torch, dtn)
+        q, k, v = rnd((b, sq, h, d), dt), rnd((b, sk, hk, d), dt), \
+            rnd((b, sk, hk, d), dt)
+        kw = dict(q_offset=torch.tensor(qo, dtype=torch.int32, device=dev),
+                  kv_len=torch.tensor(kl, dtype=torch.int32, device=dev))
+        out = fa_ops.flash_attention(q, k, v, **kw)
+        ref = fa_ref.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = TOL[("extend", dtn)]
+        err, ok = err_vs(torch, out, ref, tol)
+        tag = (f"flash b{b} sq{sq} sk{sk} h{h}/{hk} d{d} q_offset={qo} "
+               f"kv_len={kl} {dtn}")
+        rows.append((tag, err, tol, ok))
+        if not ok:
+            failures.append(tag)
     for tag, err, tol, ok in rows:
         say(f"  {'ok  ' if ok else 'FAIL'} {tag}: max |err| {err:.3g} "
             f"(tol {tol:g})")
@@ -303,15 +527,22 @@ def phase_kernels(torch, fa_ops, fa_ref, da_ops, da_ref) -> dict:
                                 for p, b in SERVE_FA.items()},
             "decode_attention": {p: time_decode(torch, da_ops, da_ref, rnd,
                                                 lens)
-                                 for p, lens in SERVE_DEC.items()}}
+                                 for p, lens in SERVE_DEC.items()},
+            "paged_decode_attention": {"fifo": time_paged(
+                torch, np, da_ops, da_ref, rnd, FIFO_LENS)},
+            "flash_attention_extend": {
+                p: time_flash_extend(torch, fa_ops, fa_ref, rnd, case)
+                for p, case in SERVE_EXT.items()}}
     for name, per in main.items():
         for policy, m in per.items():
             say(f"  {name} @ {policy} shape ({m['shape']}): {m['ms']:.4f} ms "
                 f"kernel, {m['plain_ms']:.4f} ms plain, {m['library_ms']:.4f}"
-                f" ms SDPA, bound {m['bound_ms']:.4f} ms ({m['bound_by']}; "
+                f" ms {m.get('library', 'SDPA')}, bound {m['bound_ms']:.4f} "
+                f"ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/4] kernels: {len(rows)} cases agree with the plain versions")
+    say(f"[2/4] kernels: {len(rows)} cases agree with the plain versions "
+        f"(flash, flash with q_offset/kv_len, decode, paged decode)")
     return main
 
 
@@ -327,7 +558,8 @@ def phase_golden(torch, np) -> dict:
     from repro_torch.weights import from_jax_params
     data = np.load(GOLDEN)
     meta = json.loads(str(data["meta"]))
-    worst = 0.0
+    worst = worst_ext = 0.0
+    cell_counters = {}
     for name, kw in meta["configs"].items():
         cfg = ModelConfig(**{**kw, "layer_pattern": tuple(kw["layer_pattern"])})
         prefix = f"{name}|params|"
@@ -351,58 +583,127 @@ def phase_golden(torch, np) -> dict:
         worst = max(worst, err)
         if err > 1e-4:
             raise PhaseFailed(f"{name}: logits differ from JAX by {err:.3g}")
+        split = meta["extend_split"]
+        _, cache, clen = T.prefill(model, tokens[:, :split],
+                                   max_len=meta["logits_max_len"])
+        ext, _, _ = T.prefill_extend(model, tokens[:, split:], cache, clen)
+        ext_err = float(np.abs(ext.cpu().numpy()
+                               - data[f"{name}|extend_logits"]).max())
+        worst_ext = max(worst_ext, ext_err)
+        if not np.isfinite(ext_err) or ext_err > 1e-4:
+            raise PhaseFailed(f"{name}: {split} + {tokens.shape[1] - split} "
+                              f"extend logits differ from JAX by "
+                              f"{ext_err:.3g}")
         want_tokens = json.loads(str(data[f"{name}|oracle_tokens"]))
-        for adm in ("batch", "fifo"):
+        counters = json.loads(str(data[f"{name}|counters"]))
+        cells = [("batch", {}), ("fifo", {})] + [
+            ("fifo", lay) for lay in meta["counter_cells"]]
+        for adm, lay in cells:
             reqs = [Request(i, np.asarray(r["prompt"], np.int32),
                             max_new_tokens=r["max_new"],
                             priority=r["priority"],
                             deadline_s=r["deadline_s"])
                     for i, r in enumerate(meta["workload"][name])]
+            kw = meta["counter_cells"][lay] if lay else {}
             eng = Engine(cfg, model, EngineConfig(
-                max_len=meta["engine_max_len"], max_slots=3, admission=adm),
-                device="cuda")
+                max_len=meta["engine_max_len"], max_slots=3, admission=adm,
+                debug=adm != "batch", **kw), device="cuda")
             got_tokens = [c.tokens for c in eng.generate(reqs)]
             if got_tokens != want_tokens:
-                raise PhaseFailed(f"{name}/{adm}: tokens differ from JAX's "
-                                  f"batch oracle")
+                raise PhaseFailed(f"{name}/{adm}/{lay or 'slotted'}: tokens "
+                                  f"differ from JAX's batch oracle")
+            if lay:
+                st = eng.stats()
+                got_c = {k: st[k] for k in counters[lay]}
+                if got_c != counters[lay]:
+                    raise PhaseFailed(f"{name}/{lay}: counters {got_c}, "
+                                      f"JAX's {counters[lay]}")
+                if eng.scheduler.alloc.in_use:
+                    raise PhaseFailed(f"{name}/{lay}: the pool did not "
+                                      f"come home whole")
+                cell_counters[f"{name}/{lay}"] = got_c
     say(f"[3/4] JAX golden: tokens identical on {sorted(meta['configs'])} "
-        f"(batch, fifo); logits max |err| {worst:.3g} (tol 1e-4)")
-    return {"golden_max_abs_err": worst}
+        f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
+        f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
+        f"extend logits {worst_ext:.3g} (tol 1e-4)")
+    return {"golden_max_abs_err": worst, "extend_max_abs_err": worst_ext,
+            "counters": cell_counters}
 
 
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
-def serve_policy(torch, serve, fa_ops, da_ops, policy: str) -> dict:
-    """One serving run through the CLI's ``main``, with the launch counts
-    set to 0 just before and read just after."""
-    n_layers = 28
-    fa_ops.flash_attention.launches = 0
-    da_ops.decode_attention.launches = 0
-    summary = serve.main(SERVE_ARGS + ["--policy", policy])
+class Calls:
+    """Counts the model's prefill and extend calls: each wrapped entry
+    point adds one per call (the engine reaches both through the
+    ``transformer`` module), so a run's flash launches can be held to 28
+    per call."""
+
+    def __init__(self, T):
+        self.T = T
+        self.orig = {"prefill": T.prefill, "prefill_extend": T.prefill_extend}
+        self.n = dict.fromkeys(self.orig, 0)
+        for name, fn in self.orig.items():
+            setattr(T, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def counted(*a, **kw):
+            self.n[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+    def restore(self):
+        for name, fn in self.orig.items():
+            setattr(self.T, name, fn)
+
+
+KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention")
+
+
+def serve_run(torch, serve, cfg, ops, calls, label: str, argv) -> dict:
+    """One serving run through the CLI's ``main``, with the launch
+    counts and the prefill/extend call counts set to 0 just before and
+    read just after. Every request must finish by length with 32 tokens;
+    flash must have launched 28 times per prefill or extend call, the
+    layout's decode kernel 28 times per decode step, and the other decode
+    kernel not at all."""
+    n_layers = cfg.n_layers
+    for k in KERNELS:
+        ops[k].launches = 0
+    calls.n = dict.fromkeys(calls.n, 0)
+    summary = serve.main(SERVE_ARGS + argv)
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa_ops.flash_attention.launches,
-                "decode_attention": da_ops.decode_attention.launches}
+    launches = {k: ops[k].launches for k in KERNELS}
+    n_calls = dict(calls.n)
     comps = summary["completions"]
     if len(comps) != 16 or any(c.finish_reason != "length"
                                or len(c.tokens) != 32 for c in comps):
-        raise PhaseFailed(f"{policy}: not every request finished by "
+        raise PhaseFailed(f"{label}: not every request finished by "
                           f"length with 32 tokens")
-    if any(not 0 <= t < 151936 for c in comps for t in c.tokens):
-        raise PhaseFailed(f"{policy}: token outside the vocabulary")
-    prefills = summary["stats"]["admissions"] if policy == "fifo" else 1
-    want = {"flash_attention": n_layers * prefills,
-            "decode_attention": n_layers * summary["decode_steps"]}
-    for name, n in want.items():
-        if launches[name] < n:
-            raise PhaseFailed(f"{policy}: {name} launched "
-                              f"{launches[name]} times, want >= {n}")
-    say(f"  {policy}: {summary['tok_per_s']:.1f} tok/s, TTFT p50 "
-        f"{summary['ttft_p50_ms']:.1f} ms, decode "
-        f"{summary['decode_ms_per_step']:.2f} ms/step over "
-        f"{summary['decode_steps']} steps, launches {launches}")
-    return {"launches": launches, "summary": summary}
+    if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
+        raise PhaseFailed(f"{label}: token outside the vocabulary")
+    paged = summary["kv_layout"] == "paged"
+    steps = summary["decode_steps"]
+    want = {"flash_attention": n_layers * sum(n_calls.values()),
+            "decode_attention": 0 if paged else n_layers * steps,
+            "paged_decode_attention": n_layers * steps if paged else 0}
+    if launches != want or not launches["flash_attention"]:
+        raise PhaseFailed(f"{label}: launches {launches}, want {want} "
+                          f"({n_calls} prefill/extend calls, {steps} "
+                          f"decode steps)")
+    st = summary["stats"]
+    line = (f"  {label}: {summary['tok_per_s']:.1f} tok/s, TTFT p50 "
+            f"{summary['ttft_p50_ms']:.1f} ms, decode "
+            f"{summary['decode_ms_per_step']:.2f} ms/step over {steps} "
+            f"steps; calls {n_calls}; launches {launches}")
+    if paged:
+        line += (f"; {st['preemptions']} preemptions, {st['prefix_hits']} "
+                 f"prefix hits, {st['prefill_tokens_saved']} prompt tokens "
+                 f"saved, pool high-water "
+                 f"{summary['kv_stats']['paged_kv_hwm_blocks']:.0f} blocks")
+    say(line)
+    return {"launches": launches, "calls": n_calls, "summary": summary}
 
 
 def vs_plain(torch, model, fa_ref, da_ref) -> dict:
@@ -462,8 +763,47 @@ def vs_plain(torch, model, fa_ref, da_ref) -> dict:
     return out
 
 
-def traced_fifo(torch, serve, model, want_tokens, top: int = 8) -> dict:
-    """The fifo run once more, on the same weights and requests, under
+def extend_vs_one_shot(torch, model) -> dict:
+    """One 512-token prompt through the kernels twice: prefilled at once,
+    and prefilled 256 then extended by 256 (the prefix-resume call).
+    Last-position logits and the 28 layers' caches within 5e-2 of their
+    largest magnitude, argmax equal."""
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                           device="cuda")
+    max_len = PAGES * BS
+    one, one_cache, _ = T.prefill(model, tokens, max_len=max_len)
+    _, cache, clen = T.prefill(model, tokens[:, :256], max_len=max_len)
+    ext, cache, clen = T.prefill_extend(model, tokens[:, 256:], cache, clen)
+    last = ext[:, -1].float()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+    out = {"logits_rel_err": rel(last, one),
+           "cache_rel_err": max(rel(e[n], o[n]) for e, o in
+                                zip(cache, one_cache) for n in "kv"),
+           "argmax_equal": bool(last.argmax(-1).item()
+                                == one.float().argmax(-1).item()),
+           "cache_len": int(clen[0]),
+           "finite": bool(torch.isfinite(ext).all())}
+    say(f"  256 + 256 extend vs one-shot 512 prefill: last logits max |err| "
+        f"{out['logits_rel_err']:.3g} of max |logit| (tol 5e-2), caches "
+        f"{out['cache_rel_err']:.3g} (tol 5e-2), argmax equal "
+        f"{out['argmax_equal']}")
+    if not (out["finite"] and out["logits_rel_err"] <= 5e-2
+            and out["cache_rel_err"] <= 5e-2 and out["argmax_equal"]
+            and out["cache_len"] == 512):
+        raise PhaseFailed("the prefix-resume extend disagrees with the "
+                          "one-shot prefill")
+    return out
+
+
+def traced(torch, serve, model, want_tokens, label: str, top: int = 8,
+           **engine_kw) -> dict:
+    """A fifo run once more, on the same weights and requests, under
     ``torch.profiler`` (device activity only): the device's busy time
     (the union of the kernels' intervals) and the wall time of the same
     run, and the kernels that take the most device time."""
@@ -474,7 +814,8 @@ def traced_fifo(torch, serve, model, want_tokens, top: int = 8) -> dict:
     from repro_torch.runtime.engine import Engine, EngineConfig
     cfg = model.cfg
     eng = Engine(cfg, model, EngineConfig(max_slots=8, max_len=SERVE_S,
-                                          admission="fifo"), device="cuda")
+                                          admission="fifo", **engine_kw),
+                 device="cuda")
     reqs = serve.synthetic_requests(cfg, 16, 512, 32, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -483,8 +824,8 @@ def traced_fifo(torch, serve, model, want_tokens, top: int = 8) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     if [o.tokens for o in outs] != want_tokens:
-        raise PhaseFailed("the traced fifo run's tokens differ from the "
-                          "fifo run's")
+        raise PhaseFailed(f"the traced {label} run's tokens differ from "
+                          f"the untraced run's")
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -504,38 +845,114 @@ def traced_fifo(torch, serve, model, want_tokens, top: int = 8) -> dict:
            "idle_share": 1.0 - busy_s / wall_s, "kernels": len(kernels),
            "top": [{"kernel": n[:90], "ms": v[0] / 1e3, "calls": v[1]}
                    for n, v in ranked]}
-    say(f"  traced fifo run: wall {wall_s:.4f} s, device busy {busy_s:.4f} s"
-        f", idle share {out['idle_share']:.4f}, {len(kernels)} kernels")
+    say(f"  traced {label} run: wall {wall_s:.4f} s, device busy "
+        f"{busy_s:.4f} s, idle share {out['idle_share']:.4f}, "
+        f"{len(kernels)} kernels")
     for k in out["top"]:
         say(f"    {k['ms']:10.4f} ms  x{k['calls']:6d}  {k['kernel']}")
     return out
 
 
-def phase_serve(torch, fa_ops, fa_ref, da_ops, da_ref) -> dict:
+def agreement(torch, serve, model, runs) -> dict:
+    """The share of requests of each prefix run whose tokens equal a
+    slotted fifo run's on the same shared-preamble workload (reported,
+    not gated: the extend path tiles the tail differently from a
+    one-shot prefill, so bf16 rounding may move a greedy choice)."""
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    eng = Engine(model.cfg, model, EngineConfig(
+        max_slots=8, max_len=SERVE_S, admission="fifo"), device="cuda")
+    reqs = serve.synthetic_requests(model.cfg, 16, 512, 32, 0,
+                                    shared_prefix=True)
+    ref = [o.tokens for o in eng.generate(reqs)]
+    out = {}
+    for label, run in runs.items():
+        got = [c.tokens for c in run["summary"]["completions"]]
+        out[label] = sum(a == b for a, b in zip(got, ref)) / len(ref)
+    say(f"  agreement with a slotted fifo run on the shared-preamble "
+        f"workload: {out}")
+    return out
+
+
+def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     # the serving CLI's weights: the same config and seed
     model = T.init_params(get_config("qwen2_1_5b"), 0, device="cuda")
-    out = {"vs_plain": vs_plain(torch, model, fa_ref, da_ref)}
-    for policy in ("fifo", "batch"):
-        out[policy] = serve_policy(torch, serve, fa_ops, da_ops, policy)
-    fifo = [c.tokens for c in out["fifo"]["summary"]["completions"]]
-    batch = [c.tokens for c in out["batch"]["summary"]["completions"]]
-    if fifo != batch:
+    out = {"vs_plain": vs_plain(torch, model, fa_ref, da_ref),
+           "extend_vs_one_shot": extend_vs_one_shot(torch, model)}
+    calls = Calls(T)
+    try:
+        for label, argv in SERVE_RUNS.items():
+            out[label] = serve_run(torch, serve, model.cfg, ops, calls,
+                                   label, argv)
+    finally:
+        calls.restore()
+    tokens = {label: [c.tokens for c in out[label]["summary"]["completions"]]
+              for label in SERVE_RUNS}
+    if tokens["fifo"] != tokens["batch"]:
         raise PhaseFailed("fifo and batch greedy tokens differ")
-    out["trace"] = traced_fifo(torch, serve, model, fifo)
+    if tokens["paged"] != tokens["fifo"]:
+        raise PhaseFailed("paged fifo tokens differ from slotted fifo "
+                          "tokens")
+    if out["paged-tight"]["summary"]["stats"]["preemptions"] <= 0:
+        raise PhaseFailed("the tight pool never preempted")
+    if tokens["paged-tight"] != tokens["paged"]:
+        raise PhaseFailed("the tight pool's tokens differ from the paged "
+                          "fifo run's")
+    for label in ("prefix", "prefix-chunked"):
+        st = out[label]["summary"]["stats"]
+        if st["prefix_hits"] <= 0 or st["prefill_tokens_saved"] <= 0:
+            raise PhaseFailed(f"{label}: no prefix hits on a shared-"
+                              f"preamble workload")
+    out["trace"] = traced(torch, serve, model, tokens["fifo"], "fifo")
     out["trace"]["untraced_wall_s"] = out["fifo"]["summary"]["wall_s"]
+    out["trace_paged"] = traced(torch, serve, model, tokens["paged"],
+                                "paged fifo", kv_layout="paged",
+                                block_size=BS)
+    out["trace_paged"]["untraced_wall_s"] = out["paged"]["summary"]["wall_s"]
+    out["agreement"] = agreement(torch, serve, model,
+                                 {k: out[k] for k in ("prefix",
+                                                      "prefix-chunked")})
     say("[4/4] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
-        "'length', fifo tokens == batch tokens == traced fifo tokens")
+        "'length' in every run; fifo == batch == paged == tight pool "
+        "(preempting) tokens; prefix hits in both prefix runs")
     return out
+
+
+def without_completions(node):
+    """The record for ``--out``: every per-request completion list
+    dropped (the tokens are checked above; the record keeps numbers)."""
+    if isinstance(node, dict):
+        return {k: without_completions(v) for k, v in node.items()
+                if k != "completions"}
+    return node
+
+
+# the kernels line: each kernel's timed shape, and the run whose launches
+# it reports (the path that kernel serves)
+KERNEL_LINE = {
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:88",
+                        "fifo"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:173",
+                         "fifo"),
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:117", "paged"),
+}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
+    ap.add_argument("--phases", default="1,2,3,4",
+                    help="comma-separated phases to run; a subset prints "
+                         "no result line (phase 1 always runs)")
     args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")} | {1}
     if not (SRC / "repro_torch").is_dir():
         say(f"FAIL: no src/repro_torch beside {Path(__file__).name}; run "
             f"from a checkout of the repository")
@@ -552,40 +969,44 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    ops = {"flash_attention": fa_ops.flash_attention,
+           "decode_attention": da_ops.decode_attention,
+           "paged_decode_attention": da_ops.paged_decode_attention}
     t0 = time.perf_counter()
+    record = {}
     try:
-        dev = phase_device(torch, build)
-        kern = phase_kernels(torch, fa_ops, fa_ref, da_ops, da_ref)
-        golden = phase_golden(torch, np)
-        serve = phase_serve(torch, fa_ops, fa_ref, da_ops, da_ref)
+        record["device"] = phase_device(torch, build)
+        if 2 in phases:
+            record["kernels"] = phase_kernels(torch, np, fa_ops, fa_ref,
+                                              da_ops, da_ref)
+        if 3 in phases:
+            record["golden"] = phase_golden(torch, np)
+        if 4 in phases:
+            record["serve"] = phase_serve(torch, np, ops, fa_ref, da_ref)
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
-    src = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                               "src/repro/kernels/flash_attention/kernel.py:88"),
-           "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                "src/repro/kernels/decode_attention/kernel.py:173")}
+    record["total_s"] = time.perf_counter() - t0
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(without_completions(record),
+                                             indent=1, default=str,
+                                             sort_keys=True))
+    say(f"# total {record['total_s']:.1f} s")
+    if phases != {1, 2, 3, 4}:
+        say(f"# partial run (phases {sorted(phases)}): no result line")
+        return 0
+    kern, serve = record["kernels"], record["serve"]
     kernels = []
-    for name, per in kern.items():
-        m = per["fifo"]       # the main path's shapes
+    for name, (source, replaces, run) in KERNEL_LINE.items():
+        m = kern[name]["fifo"]      # the main path's shapes
         kernels.append({
-            "name": name, "route": "cuda", "source": src[name][0],
-            "replaces": src[name][1],
-            "launches": serve["fifo"]["launches"][name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": serve[run]["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-    if args.out:
-        record = {"device": dev, "kernels": kern, "golden": golden,
-                  "serve": {p: {"launches": serve[p]["launches"],
-                                **{k: v for k, v in serve[p]["summary"].items()
-                                   if k != "completions"}}
-                            for p in ("fifo", "batch")},
-                  "vs_plain": serve["vs_plain"], "trace": serve["trace"],
-                  "total_s": time.perf_counter() - t0}
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(record, indent=1, default=str))
-    say(f"# total {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

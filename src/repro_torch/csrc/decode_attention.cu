@@ -1,10 +1,15 @@
-// Slotted decode attention for Hopper (sm_90a): split-KV flash decoding.
+// Decode attention for Hopper (sm_90a): split-KV flash decoding over a
+// slotted cache or a paged pool.
 //
-// Replaces the TPU kernel `decode_attention_pallas` / `_decode_kernel` in
-// src/repro/kernels/decode_attention/kernel.py: one new query token per
-// sequence against a contiguous (B, S, Hk, D) K/V cache with a valid
-// length per sequence; the g = H/Hk query heads of one KV head share a
-// single K/V stream; online softmax with m, l and acc in fp32.
+// Replaces two TPU kernels in src/repro/kernels/decode_attention/kernel.py:
+// `decode_attention_pallas` / `_decode_kernel` (entry decode_attention_fwd:
+// one new query token per sequence against a contiguous (B, S, Hk, D) K/V
+// cache) and `paged_decode_attention_pallas` / `_paged_decode_kernel`
+// (entry paged_decode_attention_fwd: the same against a shared
+// (N, bs, Hk, D) pool, row `pos` of sequence b at
+// pool[tables[b, pos / bs], pos % bs]). Both with a valid length per
+// sequence; the g = H/Hk query heads of one KV head share a single K/V
+// stream; online softmax with m, l and acc in fp32.
 //
 // Bound on the H100: memory. A step reads every live K/V row once and
 // does about 4*g flops per byte pair it reads (g = 6 for qwen2-1.5b), far
@@ -21,6 +26,16 @@
 // context, not the cache size. A sequence with length 0 gets zeros
 // (acc / max(l, 1e-30) with l = 0), never NaN. Masked scores are
 // NEG_INF = -1e30 as in `_decode_kernel`; no fast-math exp.
+//
+// Paged layout. One kernel body serves both layouts: a row-address
+// functor maps (b, pos) to its row in the cache or the pool, and
+// nothing else differs. The paged kernel follows the table row by row
+// while it fills a tile, never gathering pages into a contiguous copy,
+// and reads no table entry at or past lengths[b] (those pages may name
+// the null block 0 or repeat a block). With the same split boundaries
+// as the slotted wrapper every live row goes through the same fp32
+// operations in the same order, so a paged run's tokens equal a slotted
+// run's bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -40,14 +55,30 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// partials: pm/pl (B, Hk, nsplit, g), pacc (B, Hk, nsplit, g, D), fp32
-template <typename T>
+// row index (in units of Hk*D elements) of sequence b's position pos
+struct SlottedRows {
+  int S;
+  __device__ __forceinline__ size_t operator()(int b, int pos) const {
+    return (size_t)b * S + pos;
+  }
+};
+struct PagedRows {
+  const int* tables;   // (B, nb) physical block per page
+  int nb, bs;
+  __device__ __forceinline__ size_t operator()(int b, int pos) const {
+    return (size_t)tables[b * nb + pos / bs] * bs + pos % bs;
+  }
+};
+
+// partials: pm/pl (B, Hk, nsplit, g), pacc (B, Hk, nsplit, g, D), fp32;
+// S is the rows a sequence can address (the cache length, or nb * bs)
+template <typename T, typename Rows>
 __global__ void __launch_bounds__(NT)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, const int* __restrict__ lengths,
                       float* __restrict__ pm, float* __restrict__ pl,
-                      float* __restrict__ pacc, int S, int H, int Hk, int D, int chunk,
-                      float scale) {
+                      float* __restrict__ pacc, Rows rows, int S, int H, int Hk, int D,
+                      int chunk, float scale) {
   __shared__ float sQ[GMAX * DMAX];
   __shared__ float sK[BKD * (DMAX + 1)];
   __shared__ float sV[BKD * DMAX];
@@ -95,7 +126,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const int c = i / D, d = i % D, pos = t0 + c;
       float kx = 0.f, vx = 0.f;
       if (pos < s_hi) {
-        const size_t off = (((size_t)b * S + pos) * Hk + kvh) * D + d;
+        const size_t off = (rows(b, pos) * Hk + kvh) * D + d;
         kx = to_f(kc[off]);
         vx = to_f(vc[off]);
       }
@@ -182,20 +213,40 @@ __global__ void decode_combine_kernel(const float* __restrict__ pm, const float*
   if (d < D) o[((size_t)b * H + h) * D + d] = from_f<T>(acc / fmaxf(l, 1e-30f));
 }
 
-template <typename T>
+template <typename T, typename Rows>
 int launch(const void* q, const void* kc, const void* vc, const int* lengths, float* pm,
-           float* pl, float* pacc, void* o, int B, int S, int H, int Hk, int D, int chunk,
-           float scale, cudaStream_t stream) {
+           float* pl, float* pacc, void* o, Rows rows, int B, int S, int H, int Hk, int D,
+           int chunk, float scale, cudaStream_t stream) {
   const int nsplit = (S + chunk - 1) / chunk;
   dim3 grid(nsplit, Hk, B);
-  decode_partial_kernel<T><<<grid, NT, 0, stream>>>(
+  decode_partial_kernel<T, Rows><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), lengths,
-      pm, pl, pacc, S, H, Hk, D, chunk, scale);
+      pm, pl, pacc, rows, S, H, Hk, D, chunk, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<T><<<dim3(H, B), D, 0, stream>>>(pm, pl, pacc, static_cast<T*>(o), H,
                                                           Hk, D, nsplit);
   return (int)cudaGetLastError();
+}
+
+template <typename Rows>
+int dispatch(const void* q, const void* kc, const void* vc, const void* lengths, void* pm,
+             void* pl, void* pacc, void* o, Rows rows, int B, int S, int H, int Hk, int D,
+             int chunk, float scale, int dtype, void* stream) {
+  if (Hk <= 0 || H % Hk != 0 || H / Hk > GMAX || D <= 0 || D > DMAX || S <= 0 || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* lens = static_cast<const int*>(lengths);
+  float* fm = static_cast<float*>(pm);
+  float* fl = static_cast<float*>(pl);
+  float* fa = static_cast<float*>(pacc);
+  if (dtype == 0)
+    return launch<float>(q, kc, vc, lens, fm, fl, fa, o, rows, B, S, H, Hk, D, chunk, scale,
+                         st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, kc, vc, lens, fm, fl, fa, o, rows, B, S, H, Hk, D, chunk,
+                                 scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -208,17 +259,20 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* v
                                     const void* lengths, void* pm, void* pl, void* pacc,
                                     void* o, int B, int S, int H, int Hk, int D, int chunk,
                                     float scale, int dtype, void* stream) {
-  if (Hk <= 0 || H % Hk != 0 || H / Hk > GMAX || D <= 0 || D > DMAX || S <= 0 || chunk <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(lengths);
-  float* fm = static_cast<float*>(pm);
-  float* fl = static_cast<float*>(pl);
-  float* fa = static_cast<float*>(pacc);
-  if (dtype == 0)
-    return launch<float>(q, kc, vc, lens, fm, fl, fa, o, B, S, H, Hk, D, chunk, scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kc, vc, lens, fm, fl, fa, o, B, S, H, Hk, D, chunk, scale,
-                                 st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(q, kc, vc, lengths, pm, pl, pacc, o, SlottedRows{S}, B, S, H, Hk, D, chunk,
+                  scale, dtype, stream);
+}
+
+// q (B,H,D), pools (N,bs,Hk,D), tables (B,nb) int32, lengths (B,) int32,
+// o (B,H,D); the scratch as above with S = nb * bs. Table entries at or
+// past a sequence's length are never read.
+extern "C" int paged_decode_attention_fwd(const void* q, const void* kp, const void* vp,
+                                          const void* tables, const void* lengths, void* pm,
+                                          void* pl, void* pacc, void* o, int B, int nb, int bs,
+                                          int H, int Hk, int D, int chunk, float scale,
+                                          int dtype, void* stream) {
+  if (nb <= 0 || bs <= 0) return (int)cudaErrorInvalidValue;
+  PagedRows rows{static_cast<const int*>(tables), nb, bs};
+  return dispatch(q, kp, vp, lengths, pm, pl, pacc, o, rows, B, nb * bs, H, Hk, D, chunk,
+                  scale, dtype, stream);
 }

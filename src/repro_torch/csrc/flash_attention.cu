@@ -24,7 +24,16 @@
 //   3. acc = acc * exp(m_prev - m_new) + P V, 4x8 register micro-tiles.
 // KV tiles wholly above the causal diagonal or outside the window are
 // skipped; ragged Sq and Sk tails are masked in the kernel, so no
-// length has to divide a block size. bf16 loads widen with
+// length has to divide a block size.
+//
+// Offset and ragged KV (chunked prefill and prefix resume). Optional
+// per-sequence q_offset[b] and kv_len[b] (device int32, (B,)): query row
+// i of sequence b sits at absolute position q_offset[b] + i, and a key
+// at kpos is live iff kpos < kv_len[b] (and kpos <= qpos when causal),
+// the ragged branch of `_fa_mask` in src/repro/models/layers.py. Tiles
+// at or past kv_len[b], or above the tile's last absolute query
+// position, are never loaded. Both absent: q_offset 0 and kv_len Sk,
+// exactly the plain prefill. bf16 loads widen with
 // __bfloat162float; the output is acc / max(l, 1e-30) in q's dtype.
 // No TF32 and no fast-math exp: fp32 inputs meet 2e-5 against the plain
 // version.
@@ -55,7 +64,8 @@ size_t smem_bytes(int D) {
 template <typename T>
 __global__ void __launch_bounds__(NT)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, int Sq, int Sk, int H, int Hk, int D, int bq,
+              T* __restrict__ o, const int* __restrict__ q_offset,
+              const int* __restrict__ kv_len, int Sq, int Sk, int H, int Hk, int D, int bq,
               int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int DP = D + 1;                   // padded stride: no bank conflicts
@@ -74,6 +84,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int b = blockIdx.z;
   const int q_lo = blockIdx.x * bq;
   const int q_hi = min(q_lo + bq, Sq) - 1;
+  const int qoff = q_offset ? q_offset[b] : 0;      // absolute position of row 0
+  const int kvl = kv_len ? min(max(kv_len[b], 0), Sk) : Sk;
 
   // rows are g-major: row r is head kvh*g + r/bq at position q_lo + r%bq
   for (int i = tid; i < ROWS * D; i += NT) {
@@ -99,18 +111,18 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
     for (int j = 0; j < DMAX / 16; ++j) acc[i][j] = 0.f;
 
-  const int nk = (Sk + BK - 1) / BK;
+  const int nk = (kvl + BK - 1) / BK;    // no tile at or past kv_len
   for (int kt = 0; kt < nk; ++kt) {
     const int k_lo = kt * BK;
     // block-level skips (uniform across the CTA): above the diagonal,
     // or wholly older than the window for every row of the tile
-    if (causal && k_lo > q_hi) break;
-    if (window > 0 && q_lo - (k_lo + BK - 1) >= window) continue;
+    if (causal && k_lo > qoff + q_hi) break;
+    if (window > 0 && qoff + q_lo - (k_lo + BK - 1) >= window) continue;
     __syncthreads();          // the previous tile is done with sK/sV/sS
     for (int i = tid; i < BK * D; i += NT) {
       const int c = i / D, d = i % D, kpos = k_lo + c;
       float kx = 0.f, vx = 0.f;
-      if (kpos < Sk) {
+      if (kpos < kvl) {
         const size_t off = (((size_t)b * Sk + kpos) * Hk + kvh) * D + d;
         kx = to_f(k[off]);
         vx = to_f(v[off]);
@@ -138,12 +150,12 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = rg * 4 + i;
-      const int qpos = q_lo + r % bq;
+      const int qpos = qoff + q_lo + r % bq;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = cg + 16 * j;
         const int kpos = k_lo + c;
-        bool ok = kpos < Sk;
+        bool ok = kpos < kvl;
         if (causal) ok = ok && qpos >= kpos;
         if (window > 0) ok = ok && (qpos - kpos < window);
         sS[r * (BK + 1) + c] = ok ? s[i][j] * scale : NEG_INF;
@@ -219,8 +231,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-           int H, int Hk, int D, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, const int* q_offset,
+           const int* kv_len, int B, int Sq, int Sk, int H, int Hk, int D, int causal,
+           int window, float scale, cudaStream_t stream) {
   const int g = H / Hk;
   const int bq = ROWS / g;
   const size_t smem = smem_bytes(D);
@@ -230,22 +243,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   dim3 grid((Sq + bq - 1) / bq, Hk, B);
   fa_fwd_kernel<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, Hk, D, bq, causal, window, scale);
+      static_cast<T*>(o), q_offset, kv_len, Sq, Sk, H, Hk, D, bq, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), k/v (B,Sk,Hk,D), o (B,Sq,H,D), all contiguous and of one
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16. q_offset and kv_len are (B,) int32
+// on the device, or null for 0 and Sk. Returns a cudaError_t code (0 = ok).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int Sq, int Sk, int H, int Hk, int D, int causal,
-                                   int window, float scale, int dtype, void* stream) {
+                                   const void* q_offset, const void* kv_len, int B, int Sq,
+                                   int Sk, int H, int Hk, int D, int causal, int window,
+                                   float scale, int dtype, void* stream) {
   if (Hk <= 0 || H % Hk != 0 || H / Hk > ROWS || D <= 0 || D > DMAX || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, B, Sq, Sk, H, Hk, D, causal, window, scale, st);
+  const int* qo = static_cast<const int*>(q_offset);
+  const int* kl = static_cast<const int*>(kv_len);
+  if (dtype == 0)
+    return launch<float>(q, k, v, o, qo, kl, B, Sq, Sk, H, Hk, D, causal, window, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hk, D, causal, window, scale, st);
+    return launch<__nv_bfloat16>(q, k, v, o, qo, kl, B, Sq, Sk, H, Hk, D, causal, window,
+                                 scale, st);
   return (int)cudaErrorInvalidValue;
 }

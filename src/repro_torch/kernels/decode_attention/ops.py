@@ -1,10 +1,12 @@
-"""Checked wrapper of the slotted decode-attention kernel
-(``repro_torch/csrc/decode_attention.cu``).
+"""Checked wrappers of the decode-attention kernels
+(``repro_torch/csrc/decode_attention.cu``): ``decode_attention`` over a
+slotted (B, S, Hk, D) cache and ``paged_decode_attention`` over a shared
+(N, bs, Hk, D) pool addressed by block tables.
 
-CPU tensors take the plain version (``ref.decode_attention_ref``); CUDA
-tensors launch the kernel or raise — there is no fallback from the card.
-``decode_attention.launches`` counts wrapper launches (each is the
-split-KV pass plus its combine pass).
+CPU tensors take the plain versions (``ref.py``); CUDA tensors launch
+the kernel or raise — there is no fallback from the card. Each wrapper's
+``.launches`` counts its launches (each is the split-KV pass plus its
+combine pass).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -62,6 +65,94 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention: kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM}, H/Hk <= {MAX_GROUP} and non-empty "
                          f"caches, got D={d}, H/Hk={h // hk}, B={b}, S={s}")
+    o, parts, chunk = _split_scratch(q, hk, s)
+    fn = _build.entry("decode_attention_fwd")
+    with torch.cuda.device(q.device):     # launches go to q's card
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                  lengths.data_ptr(), *(t.data_ptr() for t in parts),
+                  o.data_ptr(), b, s, h, hk, d, chunk, float(scale),
+                  _DTYPES[q.dtype], stream)
+    _build.check(code, "decode_attention")
+    decode_attention.launches += 1
+    return o
+
+
+decode_attention.launches = 0
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           scale=None) -> torch.Tensor:
+    """q: (B, H, D); pools: (N, bs, Hk, D); block_tables: (B, nb) int32
+    physical block per logical page (block 0 is the null block);
+    lengths: (B,) int32 valid rows. Returns (B, H, D) in q's dtype.
+    Pages at or past ``lengths[b]`` are never read. The KV axis splits
+    as the slotted wrapper's does over ``nb * bs`` rows, so a sequence
+    gets the same result here as from a slotted cache holding the same
+    rows."""
+    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"paged_decode_attention: want q (B,H,D) and pools "
+                         f"(N,bs,Hk,D), got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    b, h, d = q.shape
+    _, bs, hk, dk = k_pool.shape
+    if dk != d or hk == 0 or h % hk:
+        raise ValueError(f"paged_decode_attention: shapes {tuple(q.shape)} "
+                         f"and {tuple(k_pool.shape)} do not form GQA "
+                         f"attention")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or block_tables.dtype != torch.int32:
+        raise TypeError(f"paged_decode_attention: block_tables must be "
+                        f"({b}, nb) int32, got {tuple(block_tables.shape)} "
+                        f"{block_tables.dtype}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise TypeError(f"paged_decode_attention: lengths must be ({b},) "
+                        f"int32, got {tuple(lengths.shape)} {lengths.dtype}")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"paged_decode_attention: want one dtype of "
+                        f"{list(_DTYPES)}, got {q.dtype}, {k_pool.dtype}, "
+                        f"{v_pool.dtype}")
+    if not (q.device == k_pool.device == v_pool.device == block_tables.device
+            == lengths.device):
+        raise ValueError("paged_decode_attention: tensors on different "
+                         "devices")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
+                                          lengths, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
+    if not all(t.is_contiguous()
+               for t in (q, k_pool, v_pool, block_tables, lengths)):
+        raise ValueError("paged_decode_attention: tensors must be contiguous")
+    nb = block_tables.shape[1]
+    if d > MAX_HEAD_DIM or h // hk > MAX_GROUP or 0 in (b, nb, bs):
+        raise ValueError(f"paged_decode_attention: kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, H/Hk <= {MAX_GROUP} and non-empty "
+                         f"tables, got D={d}, H/Hk={h // hk}, B={b}, "
+                         f"nb={nb}, bs={bs}")
+    o, parts, chunk = _split_scratch(q, hk, nb * bs)
+    fn = _build.entry("paged_decode_attention_fwd")
+    with torch.cuda.device(q.device):     # launches go to q's card
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                  block_tables.data_ptr(), lengths.data_ptr(),
+                  *(t.data_ptr() for t in parts), o.data_ptr(), b, nb, bs,
+                  h, hk, d, chunk, float(scale), _DTYPES[q.dtype], stream)
+    _build.check(code, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return o
+
+
+paged_decode_attention.launches = 0
+
+
+def _split_scratch(q: torch.Tensor, hk: int, s: int):
+    """The output, the fp32 split partials (m, l, acc), and the rows
+    each split walks, for ``s`` addressable rows a sequence."""
+    b, h, d = q.shape
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     chunk = split_rows(b, hk, s, sms)
     nsplit = -(-s // chunk)
@@ -70,17 +161,4 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     pm = torch.empty((b, hk, nsplit, g), **f32)
     pl = torch.empty((b, hk, nsplit, g), **f32)
     pacc = torch.empty((b, hk, nsplit, g, d), **f32)
-    o = torch.empty_like(q)
-    fn = _build.entry("decode_attention_fwd")
-    with torch.cuda.device(q.device):     # launches go to q's card
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                  lengths.data_ptr(), pm.data_ptr(), pl.data_ptr(),
-                  pacc.data_ptr(), o.data_ptr(), b, s, h, hk, d, chunk,
-                  float(scale), _DTYPES[q.dtype], stream)
-    _build.check(code, "decode_attention")
-    decode_attention.launches += 1
-    return o
-
-
-decode_attention.launches = 0
+    return torch.empty_like(q), (pm, pl, pacc), chunk

@@ -1,7 +1,8 @@
-"""Plain PyTorch version of slotted decode attention, mirroring
-``repro.kernels.decode_attention.ref.decode_attention_ref``. The CPU
-path of ``ops.decode_attention`` and the yardstick the CUDA kernel is
-held against on the card.
+"""Plain PyTorch versions of decode attention, mirroring
+``repro.kernels.decode_attention.ref``: ``decode_attention_ref`` over a
+slotted cache and ``paged_decode_attention_ref`` over a paged pool. The
+CPU paths of ``ops.decode_attention`` / ``ops.paged_decode_attention``
+and the yardsticks the CUDA kernels are held against on the card.
 
 One difference from the JAX oracle, shared with the kernels: a sequence
 with ``lengths[b] == 0`` attends to nothing and gets zeros (the online
@@ -13,6 +14,24 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               lengths: torch.Tensor, *,
+                               scale=None) -> torch.Tensor:
+    """Gather each sequence's pages into a contiguous view, then run the
+    dense plain version. q: (B, H, D); pools: (N, bs, Hk, D);
+    block_tables: (B, nb) physical block per logical page; lengths: (B,)
+    valid rows (rows past a sequence's length, whole null or repeated
+    pages included, are masked)."""
+    b, nb = block_tables.shape
+    _, bs, hk, d = k_pool.shape
+    tables = block_tables.long()
+    k = k_pool[tables].reshape(b, nb * bs, hk, d)
+    v = v_pool[tables].reshape(b, nb * bs, hk, d)
+    return decode_attention_ref(q, k, v, lengths, scale=scale)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -8,6 +8,7 @@ launch the kernel or raise — there is no fallback from the card.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -20,11 +21,15 @@ MAX_GROUP = 64          # query heads per KV head held in one q-tile
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    scale=None) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, scale=None,
+                    q_offset: Optional[torch.Tensor] = None,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, Hk, D) with Hk | H. Returns
     (B, Sq, H, D) in q's dtype. Ragged lengths are fine: no block size
-    has to divide Sq or Sk."""
+    has to divide Sq or Sk. ``q_offset`` (B,) int32 puts q's row i of
+    sequence b at absolute position ``q_offset[b] + i``; ``kv_len`` (B,)
+    int32 masks keys at or past ``kv_len[b]`` (chunked prefill and
+    prefix resume extend a cache this way). Absent, they are 0 and Sk."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q (B,Sq,H,D) and k, v "
                          f"(B,Sk,Hk,D), got {tuple(q.shape)}, "
@@ -40,14 +45,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v on different devices")
+    for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
+        if t is not None and (t.shape != (b,) or t.dtype != torch.int32
+                              or t.device != q.device):
+            raise TypeError(f"flash_attention: {name} must be ({b},) int32 "
+                            f"on {q.device}, got {tuple(t.shape)} {t.dtype} "
+                            f"on {t.device}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+                             scale=scale, q_offset=q_offset, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
+    if not all(t.is_contiguous() for t in (q, k, v, q_offset, kv_len)
+               if t is not None):
+        raise ValueError("flash_attention: tensors must be contiguous")
     if d > MAX_HEAD_DIM or h // hk > MAX_GROUP or 0 in (b, sq, sk):
         raise ValueError(f"flash_attention: kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM}, H/Hk <= {MAX_GROUP} and non-empty "
@@ -58,11 +70,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):     # launches go to q's card
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  b, sq, sk, h, hk, d, int(causal), int(window), float(scale),
-                  _DTYPES[q.dtype], stream)
+                  _ptr(q_offset), _ptr(kv_len), b, sq, sk, h, hk, d,
+                  int(causal), int(window), float(scale), _DTYPES[q.dtype],
+                  stream)
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """Device pointer of an optional argument; None passes a null."""
+    return None if t is None else t.data_ptr()

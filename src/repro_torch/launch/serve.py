@@ -8,7 +8,14 @@ the full width and depth), makes ``--requests`` random prompts of
 ``--prompt-len`` tokens from ``--seed``, and serves them through the
 ``Engine``: ``--policy batch`` is the static-bucket oracle, ``fifo`` /
 ``priority`` / ``edf`` stream through the continuous scheduler (all
-requests arrive at t=0). Runs on ``--device`` (default ``cuda``).
+requests arrive at t=0). ``--paged`` serves from a paged KV pool
+(``--block-size``, ``--num-blocks``, 0 blocks = slotted parity;
+``--watermark`` holds that many blocks back at admission),
+``--prefix-cache`` (implies ``--paged``) shares the resident blocks of a
+common prompt prefix, and every synthetic prompt then opens with the
+same first half; ``--prefill-chunk N`` prefills N prompt tokens per
+scheduler step. Each of these implies fifo where the policy is batch.
+Runs on ``--device`` (default ``cuda``).
 
 ``main(argv)`` returns a summary dict (completions, throughput, TTFT,
 decode time per step) so that scripts can drive it; the replayed-trace,
@@ -30,12 +37,23 @@ from repro_torch.runtime.scheduler import Request
 
 
 def synthetic_requests(cfg, n: int, prompt_len: int, max_new: int,
-                       seed: int) -> List[Request]:
-    """The reference CLI's synthetic workload: uniform random prompts."""
+                       seed: int, shared_prefix: bool = False
+                       ) -> List[Request]:
+    """The reference CLI's synthetic workload: uniform random prompts.
+    With ``shared_prefix`` every prompt opens with the same first half
+    (the shared-preamble traffic a prefix cache exists for), drawn from
+    the seed before the prompts."""
     rng = np.random.RandomState(seed)
-    return [Request(i, rng.randint(0, cfg.vocab_size,
-                                   prompt_len).astype(np.int32),
-                    max_new_tokens=max_new) for i in range(n)]
+    shared = rng.randint(0, cfg.vocab_size,
+                         prompt_len // 2).astype(np.int32) \
+        if shared_prefix else None
+    reqs = []
+    for i in range(n):
+        prompt = rng.randint(0, cfg.vocab_size, prompt_len).astype(np.int32)
+        if shared is not None:
+            prompt[:len(shared)] = shared
+        reqs.append(Request(i, prompt, max_new_tokens=max_new))
+    return reqs
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -54,6 +72,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "others stream through the continuous scheduler")
     ap.add_argument("--slots", type=int, default=8,
                     help="decode batch width (continuous policies)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV pool instead of dense per-slot rows")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share resident prompt-prefix blocks (implies "
+                         "--paged); prompts share their first half")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prompt tokens prefilled per scheduler step "
+                         "(0 = one-shot)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV rows per paged block")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="paged pool size in blocks (0 = slotted parity)")
+    ap.add_argument("--watermark", type=int, default=0,
+                    help="paged admission watermark: keep this many "
+                         "blocks free beyond the prompt's need when "
+                         "admitting (growth headroom; damps preemption)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the synthetic prompts")
     ap.add_argument("--device", default="cuda")
@@ -62,16 +96,26 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
+    paged = args.paged or args.prefix_cache
+    policy = args.policy
+    if policy == "batch" and (paged or args.prefill_chunk):
+        policy = "fifo"
+        print("# --paged/--prefix-cache/--prefill-chunk imply a continuous "
+              "admission policy (fifo)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     t_init = time.perf_counter()
     model = T.init_params(cfg, args.seed, device=args.device)
     reqs = synthetic_requests(cfg, args.requests, args.prompt_len,
-                              args.max_new, args.seed)
+                              args.max_new, args.seed,
+                              shared_prefix=args.prefix_cache)
     eng = Engine(cfg, model, EngineConfig(
         max_slots=args.slots, max_len=args.prompt_len + args.max_new + 8,
-        admission=args.policy), device=args.device)
+        kv_layout="paged" if paged else "slotted",
+        block_size=args.block_size, num_blocks=args.num_blocks,
+        watermark=args.watermark, prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
+        admission=policy), device=args.device)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     init_s = time.perf_counter() - t_init
@@ -80,7 +124,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     wall_s = time.perf_counter() - t0
     toks = sum(len(o.tokens) for o in outs)
     st = eng.stats()
-    if args.policy == "batch":
+    if policy == "batch":
         # one bucket per prompt length; every request of a bucket gets its
         # first token when the bucket's prefill ends
         ttft = [o.prefill_s for o in outs]
@@ -95,7 +139,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         steps = st["steps"]
         decode_s = wall_s - sum(o.prefill_s for o in outs)
     summary = {
-        "arch": cfg.name, "policy": args.policy, "device": str(eng.device),
+        "arch": cfg.name, "policy": policy, "device": str(eng.device),
+        "kv_layout": eng.config.kv_layout, "kv_stats": eng.kv_stats(),
         "requests": len(outs), "tokens": toks, "wall_s": wall_s,
         "init_s": init_s, "tok_per_s": toks / wall_s,
         "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
@@ -106,12 +151,25 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         print(f"req {o.id}: prefill {o.prefill_s * 1e3:.1f} ms, "
               f"{len(o.tokens)} tokens, {o.finish_reason}, "
               f"first: {o.tokens[:8]}")
-    print(f"# {cfg.name} on {eng.device}, policy {args.policy}: "
+    print(f"# {cfg.name} on {eng.device}, policy {policy}, "
+          f"{eng.config.kv_layout} KV: "
           f"{len(outs)} requests / {toks} tokens in {wall_s:.3f} s "
           f"({summary['tok_per_s']:.1f} tok/s); TTFT p50 "
           f"{summary['ttft_p50_ms']:.1f} ms; {steps} decode steps at "
           f"{summary['decode_ms_per_step']:.2f} ms each (wall, host "
           f"included); init {init_s:.1f} s")
+    if policy != "batch":
+        print(f"# {st['preemptions']} preemptions; prefix cache: "
+              f"{st['prefix_hits']} admissions matched a resident chain, "
+              f"{st['prefill_tokens_saved']} of "
+              f"{st['prefill_tokens_total']} prompt tokens skipped prefill")
+    if paged:
+        ks = summary["kv_stats"]
+        print(f"# paged KV: pool {ks['paged_kv_pool_bytes'] / 1e6:.2f} MB, "
+              f"high-water {ks['paged_kv_hwm_bytes'] / 1e6:.2f} MB "
+              f"({ks['paged_kv_hwm_blocks']:.0f} blocks, watermark "
+              f"{args.watermark}) vs slotted "
+              f"reservation {ks['slotted_kv_reserved_bytes'] / 1e6:.2f} MB")
     return summary
 
 

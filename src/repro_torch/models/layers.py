@@ -5,7 +5,9 @@ functions keep the reference's layouts — activations (B, S, D), heads
 (B, S, H, hd), ``wq`` (d, h, hd), ``wo`` (h, hd, d) — so the parity tests
 compare like with like. Attention goes through the port's kernel
 wrappers (``repro_torch.kernels``): on the card the hand-written CUDA
-kernels, on the CPU their plain versions.
+kernels, on the CPU their plain versions. Where the reference returns an
+updated cache, the port writes its cache (a slotted cache, a scratch
+cache or a paged pool) in place.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 # ---------------------------------------------------------------------------
@@ -146,6 +149,74 @@ def attn_decode(p, x: torch.Tensor, cfg, *, kind: str,
     vc[rows, idx] = v[:, 0]
     valid = torch.clamp(cache_len + 1, max=size).to(torch.int32)
     o = decode_attention(q[:, 0].contiguous(), kc, vc, valid)
+    return x + _out_proj(o, p.wo)[:, None]
+
+
+def attn_extend(p, x: torch.Tensor, cfg, *, kind: str,
+                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor
+                ) -> torch.Tensor:
+    """Chunked-prefill extension: a (B, C) chunk attends over the cache
+    plus itself (causal within the chunk). Its K/V rows are written IN
+    PLACE at absolute positions ``[cache_len, cache_len + C)`` of
+    ``cache`` {"k","v"} (B, S, Hk, hd), then the flash kernel runs with
+    ``q_offset = cache_len`` and ``kv_len = cache_len + C``.
+    Global attention only (the cache is position-indexed). Padded rows
+    at the end of a chunk sit at later positions, so causal masking
+    keeps every real row independent of them. Returns the residual
+    output."""
+    assert kind == "attn", "chunked prefill pages global attention only"
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    c = x.shape[1]
+    positions = cache_len[:, None] + torch.arange(
+        c, dtype=torch.int32, device=x.device)[None]
+    q, k, v = _qkv(p, h, cfg)
+    theta = _theta_for(cfg, kind)
+    q = apply_rope(q, positions, theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, theta, cfg.rope_fraction)
+    kc, vc = cache["k"], cache["v"]
+    rows = torch.arange(kc.shape[0], device=kc.device)[:, None]
+    kc[rows, positions.long()] = k          # in-place cache write
+    vc[rows, positions.long()] = v
+    o = flash_attention(q, kc, vc, causal=True, q_offset=cache_len,
+                        kv_len=(cache_len + c).to(torch.int32))
+    return x + _out_proj(o, p.wo)
+
+
+def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Per-sequence contiguous K/V views of a block pool. pool: (N, bs,
+    Hk, D); tables: (B, nb) physical block per logical page. Returns
+    (B, nb * bs, Hk, D): row i is what a slotted cache would hold at
+    position i."""
+    b, nb = tables.shape
+    _, bs, hk, d = pool.shape
+    return pool[tables.long()].reshape(b, nb * bs, hk, d)
+
+
+def attn_decode_paged(p, x: torch.Tensor, cfg, *, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, tables: torch.Tensor,
+                      cache_len: torch.Tensor) -> torch.Tensor:
+    """One-token decode against a paged pool (global attention). x: (B,
+    1, D); pools (N, bs, Hk, hd); tables (B, nb) int32 with physical
+    block 0 the null block (free slots and unallocated pages point
+    there, so their masked, never-read writes collide harmlessly). The
+    new K/V row is written IN PLACE at block ``tables[b, cache_len //
+    bs]``, offset ``cache_len % bs`` (the scheduler allocates that block
+    before the step); then the paged kernel reads the slot's pages
+    through the table. Returns the residual output."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    positions = cache_len[:, None]
+    q, k, v = _qkv(p, h, cfg)
+    theta = _theta_for(cfg, "attn")
+    q = apply_rope(q, positions, theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, theta, cfg.rope_fraction)
+    bs = k_pool.shape[1]
+    clen = cache_len.long()
+    blk = tables.long().gather(1, (clen // bs)[:, None])[:, 0]
+    off = clen % bs
+    k_pool[blk, off] = k[:, 0]              # in-place pool write
+    v_pool[blk, off] = v[:, 0]
+    o = paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool, tables,
+                               cache_len + 1)
     return x + _out_proj(o, p.wo)[:, None]
 
 

@@ -11,12 +11,16 @@ shapes; they are held in the compute dtype (``cast_params_for_compute``
 applied once, where the reference casts at every step).
 
 The decode cache is a list with one ``{"k", "v"}`` dict per layer, each
-(B, S_cache, Hk, hd); ``decode_step`` updates it in place.
+(B, S_cache, Hk, hd), or with the paged layout (``init_paged_cache``)
+each a shared (N, bs, Hk, hd) pool addressed through block tables.
+``decode_step``, ``prefill_extend`` and the paged helpers
+(``paged_insert``, ``paged_seed``, ``paged_copy_block``) update caches
+in place where the reference returns new ones.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -228,6 +232,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return out
 
 
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Chunked prefill (and prefix resume) extends a position-indexed
+    global-attention cache chunk by chunk, so it needs no
+    ``max_cache_len`` ring cap. (The reference also needs every layer
+    ``attn`` and no encoder; ``check_supported`` already refuses the
+    rest here.)"""
+    return not cfg.max_cache_len
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     max_slots: int, *, max_len: int, device) -> Cache:
+    """Paged counterpart of ``init_cache``: each layer's global-attention
+    K/V live in one shared pool of ``num_blocks`` blocks of
+    ``block_size`` rows, {"k", "v"} (N, bs, Hk, hd), addressed through
+    per-slot block tables. Physical block 0 is the null block. The
+    port's configs are all-``attn``, so there are no slot-indexed leaves
+    (``max_slots`` and ``max_len`` size those in the reference)."""
+    dtype = _dtype(cfg.dtype)
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (num_blocks, block_size, hk, hd)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in cfg.layer_kinds]
+
+
 def kv_row_bytes(cfg: ModelConfig) -> int:
     """Bytes of global-attention K+V cached per token row."""
     n_global = sum(1 for k in cfg.layer_kinds if k == "attn")
@@ -266,23 +295,114 @@ def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int
 
 @torch.no_grad()
 def decode_step(model: Transformer, token: torch.Tensor, cache: Cache,
-                cache_len: torch.Tensor
+                cache_len: torch.Tensor, *,
+                block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """One serving step: next-token logits for one new token per
     sequence. token: (B,) int; cache_len: (B,) int32 current context
-    length. ``cache`` is updated in place (and returned, like the
+    length. ``block_tables`` (B, nb) int32 switches the layers to the
+    paged layout (``init_paged_cache``): each reads only the pages its
+    table names. ``cache`` is updated in place (and returned, like the
     reference's functional step)."""
     cfg = model.cfg
     x = _embed_inputs(model, token)[:, None]
     for layer, c in zip(model.layers, cache):
-        x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
-                          cache_len=cache_len)
+        if block_tables is None:
+            x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
+                              cache_len=cache_len)
+        else:
+            x = L.attn_decode_paged(layer.block, x, cfg, k_pool=c["k"],
+                                    v_pool=c["v"], tables=block_tables,
+                                    cache_len=cache_len)
         if layer.mlp is not None:
             x = L.mlp_apply(layer.mlp, x, cfg)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return _head_logits(x[:, 0], model), cache, cache_len + 1
 
 
+@torch.no_grad()
+def prefill_extend(model: Transformer, tokens: torch.Tensor, cache: Cache,
+                   cache_len: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+    """Chunked prefill: run a (B, C) chunk through the model against an
+    existing slotted (or scratch) cache, writing its K/V rows in place
+    at positions ``[cache_len, cache_len + C)``. Requires
+    ``supports_chunked_prefill(cfg)``. Returns per-position logits (B,
+    C, Vp) (the caller samples at the last real position), the cache
+    and ``cache_len + C``."""
+    cfg = model.cfg
+    assert supports_chunked_prefill(cfg), cfg.name
+    x = _embed_inputs(model, tokens)
+    c = x.shape[1]
+    for layer, lc in zip(model.layers, cache):
+        x = L.attn_extend(layer.block, x, cfg, kind=layer.kind, cache=lc,
+                          cache_len=cache_len)
+        if layer.mlp is not None:
+            x = L.mlp_apply(layer.mlp, x, cfg)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    return _head_logits(x, model), cache, cache_len + c
+
+
+# ---------------------------------------------------------------------------
+# paged-pool surgery (all in place)
+# ---------------------------------------------------------------------------
+
+def _ids(block_ids, device) -> torch.Tensor:
+    return torch.as_tensor(block_ids, dtype=torch.int64, device=device)
+
+
+@torch.no_grad()
+def paged_insert(cfg: ModelConfig, cache: Cache, req_cache: Cache,
+                 block_ids, slot: int, *, block_size: int) -> Cache:
+    """Write a batch=1 prefill (or scratch) cache into the paged pools:
+    each layer's K/V rows go page-wise into the physical blocks named by
+    ``block_ids`` (one per logical page; 0 = the null block, for pages
+    past the allocation or pages shared with another request). Rows of
+    ``req_cache`` past the slot's page span (a chunk-rounded scratch
+    cache is longer) are dropped: they lie beyond ``max_len``. ``slot``
+    indexes slot-held leaves in the reference; an all-``attn`` config
+    has none."""
+    for big, small in zip(cache, req_cache):
+        ids = _ids(block_ids, big["k"].device)
+        sg = ids.shape[0] * block_size
+        for key in ("k", "v"):
+            rows = small[key][0, :sg]
+            big[key][ids] = rows.reshape(ids.shape[0], block_size,
+                                         *rows.shape[1:])
+    return cache
+
+
+@torch.no_grad()
+def paged_seed(cfg: ModelConfig, scratch: Cache, cache: Cache,
+               block_ids) -> Cache:
+    """Inverse of ``paged_insert`` for a shared prompt prefix: copy the
+    K/V rows of the pool blocks ``block_ids`` (in page order) into the
+    head of a batch=1 scratch cache, so ``prefill_extend`` can resume
+    mid-prompt. Whole pages are copied; rows past the match are either
+    recomputed by the extend or lie beyond the prompt."""
+    for sc, c in zip(scratch, cache):
+        ids = _ids(block_ids, c["k"].device)
+        for key in ("k", "v"):
+            pool = c[key]
+            rows = pool[ids].reshape(ids.shape[0] * pool.shape[1],
+                                     *pool.shape[2:])
+            sc[key][0, :rows.shape[0]] = rows
+    return scratch
+
+
+@torch.no_grad()
+def paged_copy_block(cfg: ModelConfig, cache: Cache, src: int,
+                     dst: int) -> Cache:
+    """Copy one physical block's K/V rows to another: the device half of
+    copy-on-write."""
+    for c in cache:
+        for key in ("k", "v"):
+            c[key][dst] = c[key][src]
+    return cache
+
+
 __all__ = ["Transformer", "init_params", "cast_params_for_compute",
-           "init_cache", "kv_row_bytes", "prefill", "decode_step",
+           "init_cache", "init_paged_cache", "kv_row_bytes", "prefill",
+           "decode_step", "prefill_extend", "supports_chunked_prefill",
+           "paged_insert", "paged_seed", "paged_copy_block",
            "resolve_device", "Cache"]

@@ -6,19 +6,29 @@ surface — ``submit`` / ``step`` /
 ``run`` / ``generate`` / ``stats`` / ``kv_stats`` and a
 ``RequestHandle`` per request. ``admission`` picks the policy:
 ``"fifo"`` | ``"priority"`` | ``"edf"`` stream through the continuous
-scheduler over the slotted KV cache with one-shot prefill; ``"batch"``
-runs the static-bucket executor (closed batches grouped by prompt
-length), the oracle every other policy's greedy tokens must equal.
+scheduler; ``"batch"`` runs the static-bucket executor (closed batches
+grouped by prompt length), the oracle every other policy's greedy
+tokens must equal. Under a continuous policy:
 
-The engine runs on ``device`` (default ``"cuda"``); there the prefill
-and decode attention run the port's CUDA kernels. It raises without a
-card unless the caller passes ``device="cpu"``.
+* ``kv_layout`` — ``"slotted"`` (dense per-slot rows) | ``"paged"``
+  (a shared block pool of ``num_blocks`` blocks of ``block_size`` rows,
+  an admission ``watermark``, and growth preemption whose victims the
+  ``preemption`` policy picks);
+* ``prefix_cache`` (paged only) — admissions share the resident blocks
+  of a common prompt prefix copy-on-write and prefill only the rest;
+* ``prefill_chunk`` — prompts are prefilled that many tokens per
+  scheduler step, interleaved with decode steps.
+
+The engine runs on ``device`` (default ``"cuda"``); there prefill (and
+its chunked or prefix-resumed extension) runs the port's flash kernel
+and decode runs the slotted or the paged decode kernel. It raises
+without a card unless the caller passes ``device="cpu"``.
 
 This slice leaves out, each refused by ``EngineConfig`` with the
-ROADMAP item that brings it: the paged KV layout, prefix and victim
-caches, chunked prefill, deadline enforcement, the stage-partitioned
-decode step, observability — and, with no ``start()``, the background
-drain thread and its asyncio wrappers.
+ROADMAP item that brings it: the victim cache and tenant byte quotas,
+deadline enforcement, the stage-partitioned decode step, observability
+— and, with no ``start()``, the background drain thread and its asyncio
+wrappers.
 """
 from __future__ import annotations
 
@@ -40,12 +50,13 @@ from repro_torch.runtime.scheduler import (COUNTER_KEYS, Completion,
 
 __all__ = ["Engine", "EngineConfig", "RequestHandle"]
 
+KV_LAYOUTS = ("slotted", "paged")
+
 # (field, value the slice runs, what brings the rest)
 _LATER = (
-    ("kv_layout", "slotted", "the paged KV layout (ROADMAP queue 1, item 6)"),
-    ("prefill_chunk", 0, "chunked prefill (ROADMAP queue 1, item 5)"),
-    ("prefix_cache", False, "prefix sharing (ROADMAP queue 1, item 6)"),
-    ("victim_cache", False, "the victim cache (ROADMAP queue 1, item 6)"),
+    ("victim_cache", False, "the victim cache (ROADMAP queue 1, item 6b)"),
+    ("prefix_cache_tenants", None,
+     "tenant byte quotas (ROADMAP queue 1, item 6b)"),
     ("enforce_deadlines", False,
      "deadline shedding (ROADMAP queue 1, item 8)"),
     ("decode_stages", 1,
@@ -59,18 +70,28 @@ _LATER = (
 class EngineConfig:
     """Structured engine configuration: the reference's fields that this
     slice runs, plus the feature switches of later slices, which must
-    keep their defaults. The paged pool's parameters (``block_size``,
-    ``num_blocks``, ``watermark``, victim eviction and tenant quotas)
-    and ``step_delay_s`` come with the slices that use them."""
+    keep their defaults. Victim eviction order and ``step_delay_s``
+    come with the slices that use them."""
 
     max_slots: int = 8          # decode batch width (continuous policies)
     max_len: int = 512          # KV rows per slot
+    # cache shape: "slotted" dense rows | "paged" shared block pool
     kv_layout: str = "slotted"
-    prefill_chunk: int = 0
+    block_size: int = 16        # KV rows per paged block
+    num_blocks: int = 0         # 0 = slotted parity + reserved null block
+    # paged admission watermark: keep this many blocks free beyond the
+    # prompt's need when admitting, as growth headroom for running
+    # requests
+    watermark: int = 0
+    prefill_chunk: int = 0      # chunked prefill (0 = one-shot)
+    # prefix sharing (paged only): admission matches new prompts against
+    # resident block chains and maps shared blocks into the request's
+    # table copy-on-write, skipping prefill for the matched region
     prefix_cache: bool = False
     victim_cache: bool = False
+    prefix_cache_tenants: Optional[Dict[str, int]] = None
     admission: Any = "fifo"     # "fifo" | "priority" | "edf" | "batch"
-    # pool-pressure victims: takes effect with the paged layout
+    # who loses their blocks under paged pool pressure
     preemption: Any = "evict-latest"    # | "lowest-priority"
     enforce_deadlines: bool = False
     units: int = 1
@@ -180,11 +201,22 @@ class Engine:
         self.cfg = cfg
         self.model = model
         self.config = c = config or EngineConfig()
+        if c.kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout {c.kv_layout!r} not in {KV_LAYOUTS}")
+        if c.prefix_cache and c.kv_layout != "paged":
+            raise ValueError(
+                "prefix_cache shares paged KV blocks between requests; "
+                "it needs kv_layout='paged'")
         self.admission = make_admission(c.admission)
         self.preemption = make_preemption(c.preemption)
         self.batch_mode = isinstance(self.admission, BatchAdmission)
         self.max_len = c.max_len
         if self.batch_mode:
+            if c.kv_layout != "slotted" or c.prefill_chunk:
+                raise ValueError(
+                    "batch admission runs the static-bucket executor; the "
+                    "paged KV layout / chunked prefill need a continuous "
+                    "admission policy (fifo | priority | edf)")
             if failures:
                 raise ValueError(
                     "SlotFailure injection needs the continuous scheduler "
@@ -202,11 +234,16 @@ class Engine:
             self.scheduler = ContinuousScheduler(
                 cfg, model, SchedulerConfig(
                     max_slots=c.max_slots, max_len=c.max_len, greedy=c.greedy,
-                    temperature=c.temperature, seed=c.seed, units=c.units,
+                    temperature=c.temperature, seed=c.seed,
+                    paged=c.kv_layout == "paged", block_size=c.block_size,
+                    num_blocks=c.num_blocks, watermark=c.watermark,
+                    prefill_chunk=c.prefill_chunk,
+                    prefix_cache=c.prefix_cache, units=c.units,
                     prefill_units=c.prefill_units,
                     decode_stages=c.decode_stages, placement=c.placement,
                     debug=c.debug),
-                failures=failures, admission=self.admission)
+                failures=failures, admission=self.admission,
+                preemption=self.preemption)
             self.sampler = self.scheduler.sampler
 
     # -- lifecycle API ------------------------------------------------------

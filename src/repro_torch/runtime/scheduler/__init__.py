@@ -4,14 +4,16 @@ Counterpart of ``repro.runtime.scheduler``, split the same way:
 
 * ``types`` — ``Request`` / ``Completion`` / ``SchedulerConfig`` /
   ``SchedEvent`` / ``SlotFailure`` and the admission-time validator;
-* ``layouts`` — ``SlottedLayout`` KV surgery;
-* ``prefill`` — one-shot prompt admission;
+* ``allocator`` — the refcounted block pool of the paged layout;
+* ``layouts`` — ``SlottedLayout`` / ``PagedLayout`` KV surgery;
+* ``prefill`` — one-shot, prefix-resume and chunked prompt admission;
 * ``units`` — ``ExecutionCore`` on modeled per-unit clocks;
 * ``core`` — ``ContinuousScheduler``, the loop tying them together.
 """
 from repro_torch.runtime.policies import sample_tokens
+from repro_torch.runtime.scheduler.allocator import BlockAllocator
 from repro_torch.runtime.scheduler.core import ContinuousScheduler
-from repro_torch.runtime.scheduler.layouts import SlottedLayout
+from repro_torch.runtime.scheduler.layouts import PagedLayout, SlottedLayout
 from repro_torch.runtime.scheduler.types import (COUNTER_KEYS, FINISH_REASONS,
                                                  Completion, Request,
                                                  SchedEvent, SchedulerConfig,
@@ -24,7 +26,8 @@ from repro_torch.runtime.scheduler.units import (DecodeExecutor,
 
 __all__ = [
     "Request", "Completion", "SchedulerConfig", "SchedEvent", "SlotFailure",
-    "SlottedLayout", "ContinuousScheduler", "sample_tokens",
+    "SlottedLayout", "PagedLayout", "BlockAllocator", "ContinuousScheduler",
+    "sample_tokens",
     "validate_request_fits", "FINISH_REASONS", "COUNTER_KEYS",
     "UnitSpec", "UnitExecutor", "PrefillExecutor", "DecodeExecutor",
     "ExecutionCore",

@@ -1,23 +1,27 @@
 """Continuous-batching core loop: mechanism under pluggable policies.
 
-Counterpart of ``repro.runtime.scheduler.core`` for the slotted KV
-layout with one-shot prefill:
+Counterpart of ``repro.runtime.scheduler.core`` over the slotted and
+paged KV layouts:
 
 * the decode loop — one decode step over all ``max_slots`` slots; requests
   join and leave the running batch between steps;
-* the waiting set — *which* request is admitted next and *how* logits
-  become tokens are the injected policies' calls;
+* the waiting set — *which* request is admitted next, *who* is
+  preempted under pool pressure and *how* logits become tokens are the
+  injected policies' calls;
+* admission — one-shot prefill, prefix-resumed prefill on a prefix-cache
+  hit, or chunked prefill (one chunk per scheduler step, interleaved
+  with decode steps);
 * the request lifecycle — per-token streaming to a ``RequestHandle``,
-  cancellation, injected ``SlotFailure`` re-queue/terminate, and a
-  ``finish_reason`` on every ``Completion``;
+  cancellation, injected ``SlotFailure`` re-queue/terminate, paged
+  growth preemption, and a ``finish_reason`` on every ``Completion``;
 * the execution core (``units.ExecutionCore``): every prompt burst and
   decode step is also charged to modeled per-unit clocks.
 
 The reference's ``jax.jit`` sites are plain calls here: PyTorch runs
 eagerly. Host-side mirrors (``cache_len``, ``tokens``) become tensors on
-the model's device once per decode step. The paged layout, chunked and
-prefix-resumed prefill, deadline shedding and observability hooks come
-with later slices; ``EngineConfig`` refuses them.
+the model's device once per decode step. Deadline shedding and the
+observability hooks come with later slices; ``EngineConfig`` refuses
+them.
 """
 from __future__ import annotations
 
@@ -31,13 +35,16 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.policies import (BatchAdmission, FifoAdmission,
-                                          Sampler, make_admission)
+from repro_torch.runtime.policies import (BatchAdmission, EvictLatest,
+                                          FifoAdmission, Sampler,
+                                          make_admission, make_preemption)
 from repro_torch.runtime.scheduler import prefill as _prefill
-from repro_torch.runtime.scheduler.layouts import SlottedLayout
+from repro_torch.runtime.scheduler.allocator import BlockAllocator
+from repro_torch.runtime.scheduler.layouts import PagedLayout, SlottedLayout
 from repro_torch.runtime.scheduler.types import (Completion, Request,
                                                  SchedEvent, SchedulerConfig,
-                                                 SlotFailure, _Ticket,
+                                                 SlotFailure, _ChunkedPrefill,
+                                                 _Ticket,
                                                  validate_request_fits)
 from repro_torch.runtime.scheduler.units import ExecutionCore
 
@@ -45,17 +52,18 @@ __all__ = ["ContinuousScheduler"]
 
 
 class ContinuousScheduler:
-    """Admission queue + shared decode batch over a slotted KV cache.
+    """Admission queue + shared decode batch over a slotted or paged KV
+    cache.
 
-    Policies are injected (``admission``, ``sampler``) — names or
-    instances from ``runtime.policies``; the defaults are FIFO and
-    greedy. ``model`` is the port's ``Transformer``; the scheduler runs
-    on its device."""
+    Policies are injected (``admission``, ``preemption``, ``sampler``) —
+    names or instances from ``runtime.policies``; the defaults are FIFO,
+    evict-latest and greedy. ``model`` is the port's ``Transformer``;
+    the scheduler runs on its device."""
 
     def __init__(self, cfg: ModelConfig, model: T.Transformer,
                  sched: Optional[SchedulerConfig] = None, *,
                  failures: Optional[List[SlotFailure]] = None,
-                 admission: Any = None,
+                 admission: Any = None, preemption: Any = None,
                  sampler: Optional[Sampler] = None):
         self.cfg = cfg
         self.model = model
@@ -68,6 +76,8 @@ class ContinuousScheduler:
                 "batch admission is the Engine's static-bucket path; the "
                 "continuous scheduler needs an ordering policy "
                 "(fifo | priority | edf)")
+        self.preemption = make_preemption(preemption) \
+            if preemption is not None else EvictLatest()
         self.sampler = sampler or Sampler(greedy=s.greedy,
                                           temperature=s.temperature,
                                           seed=s.seed, device=self.device)
@@ -75,9 +85,27 @@ class ContinuousScheduler:
         # cursor keeps run() re-entrant
         self.failures = sorted(failures or [], key=lambda f: f.step)
         self._failure_pos = 0
-        self.max_len = s.max_len
-        self.layout = SlottedLayout(cfg, s, self.max_len, model)
+        # paged mode wants a whole number of blocks per slot
+        self.max_len = s.max_len if not s.paged else \
+            -(-s.max_len // s.block_size) * s.block_size
+        if s.prefill_chunk > 0 and not T.supports_chunked_prefill(cfg):
+            raise ValueError(
+                f"{cfg.name}: chunked prefill extends a position-indexed "
+                "cache; a max_cache_len ring cap needs one-shot prefill "
+                "(prefill_chunk=0)")
+        self._chunk = s.prefill_chunk
+        self._scratch_len = -(-self.max_len // self._chunk) * self._chunk \
+            if self._chunk else self.max_len
+        self._chunking: Optional[_ChunkedPrefill] = None
+        layout_cls = PagedLayout if s.paged else SlottedLayout
+        self.layout = layout_cls(cfg, s, self.max_len, model)
+        # prefix sharing resumes prefill mid-prompt through the extend
+        # path
+        self._prefix = getattr(self.layout, "prefix_cache", False)
+        # prompt tokens admitted vs prompt tokens whose K/V came from a
+        # shared prefix
         self.prefill_tokens_total = 0
+        self.prefill_tokens_saved = 0
         # host-side slot state; free slots keep cache_len == 0
         self.cache_len = np.zeros((s.max_slots,), np.int32)
         self.tokens = np.zeros((s.max_slots,), np.int32)
@@ -103,12 +131,21 @@ class ContinuousScheduler:
     def cache(self):
         return self.layout.cache
 
+    @property
+    def alloc(self) -> Optional[BlockAllocator]:
+        return getattr(self.layout, "alloc", None)
+
+    @property
+    def block_tables(self) -> Optional[np.ndarray]:
+        return getattr(self.layout, "block_tables", None)
+
     # -- public API ---------------------------------------------------------
 
     def submit(self, req: Request, arrival_s: float = 0.0) -> _Ticket:
         """Queue a request for admission at ``arrival_s`` (seconds from
         drain start). Returns the internal ticket."""
         validate_request_fits(self.cfg, req, self.max_len)
+        self.layout.validate(req)
         if self.done:
             self._t0 = None         # a fresh drain starts a fresh epoch
         ticket = _Ticket(req=req, arrival_s=arrival_s,
@@ -125,9 +162,11 @@ class ContinuousScheduler:
 
     @property
     def done(self) -> bool:
-        """True when nothing is queued, active or pending arrival."""
+        """True when nothing is queued, active, mid-prefill or pending
+        arrival."""
         return (self._backlog_pos >= len(self.backlog)
-                and self._waiting() == 0 and not self.active)
+                and self._waiting() == 0
+                and not self.active and self._chunking is None)
 
     # -- waiting-set heap ---------------------------------------------------
 
@@ -148,7 +187,8 @@ class ContinuousScheduler:
     def run(self, on_completion: Optional[Callable[[Completion], None]] = None
             ) -> List[Completion]:
         """Drain every submitted request; returns completions by id."""
-        if self._t0 is None or (self._waiting() == 0 and not self.active):
+        if self._t0 is None or (self._waiting() == 0 and not self.active
+                                and self._chunking is None):
             self._t0 = time.perf_counter()
         self._sort_pending()
         out: List[Completion] = []
@@ -173,7 +213,8 @@ class ContinuousScheduler:
             self._enqueue(self.backlog[self._backlog_pos])
             self._backlog_pos += 1
         done.extend(self._purge_cancelled(t0))
-        if self._waiting() == 0 and not self.active:
+        if (self._waiting() == 0 and not self.active
+                and self._chunking is None):
             if self._backlog_pos < len(self.backlog):
                 # idle until the next arrival; failures due now still apply
                 done.extend(self._apply_failures(t0))
@@ -181,6 +222,7 @@ class ContinuousScheduler:
                     0.0, self.backlog[self._backlog_pos].arrival_s - now))
             return self._deliver(done, on_completion)
         done.extend(self._apply_failures(t0))
+        _prefill.advance_chunked(self, t0)
         done.extend(self._admit(t0))
         if self.active:
             done.extend(self._decode_step(t0))
@@ -200,9 +242,10 @@ class ContinuousScheduler:
                 "cancellations": c["cancel"], "sheds": c["shed"],
                 "steps": self.step_count,
                 "tokens_generated": self.tokens_generated,
-                "prefix_hits": 0, "victim_hits": 0, "victim_evictions": 0,
+                "prefix_hits": getattr(self.layout, "prefix_hits", 0),
+                "victim_hits": 0, "victim_evictions": 0,
                 "prefill_tokens_total": self.prefill_tokens_total,
-                "prefill_tokens_saved": 0}
+                "prefill_tokens_saved": self.prefill_tokens_saved}
 
     def unit_stats(self) -> Dict[str, Any]:
         return self.core.summary()
@@ -249,9 +292,12 @@ class ContinuousScheduler:
         return c
 
     def _release_slot(self, slot: int) -> None:
+        """Return a slot (and, paged, its blocks, exactly once) to the
+        free pool, zeroing every host-side mirror."""
         self.free.append(slot)
         self.cache_len[slot] = 0
         self.tokens[slot] = 0
+        self.layout.release(slot)
         self.core.release(slot)
 
     @staticmethod
@@ -281,11 +327,17 @@ class ContinuousScheduler:
             elif ticket.where == "active":
                 out.append(self._evict(ticket.slot, t0, "cancelled",
                                        kind="cancel"))
+            elif ticket.where == "chunking":
+                st = self._chunking
+                self._chunking = None
+                self._release_slot(st.slot)
+                out.append(self._cancel_ticket(ticket, t0, slot=st.slot))
         return out
 
-    def _cancel_ticket(self, ticket: _Ticket, t0: float) -> Completion:
-        """Complete a never-admitted (backlog or queued) request."""
-        self._event(time.perf_counter() - t0, "cancel", ticket.req.id, -1)
+    def _cancel_ticket(self, ticket: _Ticket, t0: float,
+                       slot: int = -1) -> Completion:
+        """Complete a request that never reached the decode batch."""
+        self._event(time.perf_counter() - t0, "cancel", ticket.req.id, slot)
         return self._finish(ticket, "cancelled", t0)
 
     def _requeue_or_fail(self, victims: List[_Ticket],
@@ -324,12 +376,20 @@ class ContinuousScheduler:
                 self._release_slot(slot)
                 self._event(now, "fail", ticket.req.id, slot)
                 victims.append(ticket)
+            st = self._chunking
+            if st is not None and (f.slots is None or st.slot in f.slots):
+                self._chunking = None
+                self._release_slot(st.slot)
+                self._event(now, "fail", st.ticket.req.id, st.slot)
+                victims.append(st.ticket)
             out.extend(self._requeue_or_fail(victims, t0))
         return out
 
     def _admit(self, t0: float) -> List[Completion]:
-        """Admit waiting requests into free slots in the admission
-        policy's order."""
+        """Admit waiting requests into free slots, in the admission
+        policy's order, until slots or (paged) blocks run out. When the
+        policy's next pick cannot be served, admission stops: no head-
+        of-line bypass, so the policy order is also the service order."""
         out: List[Completion] = []
         while self.free:
             ticket = self._queue_head()
@@ -339,12 +399,38 @@ class ContinuousScheduler:
                 heapq.heappop(self.queue)
                 out.append(self._cancel_ticket(ticket, t0))
                 continue
+            r = ticket.req
+            chunked = self._chunk > 0 and r.embeds is None
+            if chunked and self._chunking is not None:
+                break           # one chunked prefill in flight at a time
+            res = self.layout.try_reserve(r)
+            if res is None:
+                break           # pool exhausted: wait, don't over-commit
             heapq.heappop(self.queue)
             slot = self.free.pop()
             ticket.admit_seq = self._admit_seq
             self._admit_seq += 1
-            self.prefill_tokens_total += len(ticket.req.prompt)
-            _prefill.admit_one_shot(self, ticket, slot, t0)
+            self.layout.bind(slot, res)
+            self.prefill_tokens_total += len(r.prompt)
+            matched = getattr(res, "matched_rows", 0)
+            if chunked:
+                # resume at the last chunk boundary inside the matched
+                # region, so every extend step has the chunk's shape
+                resume = (matched // self._chunk) * self._chunk
+                scratch = T.init_cache(self.cfg, 1, self._scratch_len,
+                                       device=self.device)
+                if resume:
+                    scratch = self.layout.seed_scratch(scratch, res, resume)
+                    self.prefill_tokens_saved += resume
+                ticket.slot = slot
+                ticket.where = "chunking"
+                self._chunking = _ChunkedPrefill(
+                    ticket=ticket, slot=slot, cache=scratch, pos=resume)
+            elif matched:
+                _prefill.admit_prefix_resume(self, ticket, slot, res,
+                                             matched, t0)
+            else:
+                _prefill.admit_one_shot(self, ticket, slot, t0)
         return out
 
     def _activate(self, ticket: _Ticket, slot: int, first: int, clen: int,
@@ -362,6 +448,59 @@ class ContinuousScheduler:
     def _finished(self, ticket: _Ticket) -> bool:
         return len(ticket.emitted) >= ticket.req.max_new_tokens
 
+    def _pick_preempt_victim(self, exclude: int) -> Optional[int]:
+        """Ask the preemption policy for a victim among the block
+        holders other than ``exclude``; an in-flight chunked prefill
+        counts (it holds its prompt blocks)."""
+        cands = [tk for s, tk in self.active.items() if s != exclude]
+        if self._chunking is not None and self._chunking.slot != exclude:
+            cands.append(self._chunking.ticket)
+        if not cands:
+            return None
+        return self.preemption.pick(cands).slot
+
+    def _preempt(self, slot: int, t0: float) -> Optional[Completion]:
+        """Evict and re-queue to reclaim blocks for another request's
+        decode growth: the victim restarts from its prompt (greedy decode
+        makes the re-run identical), or completes as "failed" once its
+        restart budget is spent (the returned Completion)."""
+        if self._chunking is not None and self._chunking.slot == slot:
+            ticket = self._chunking.ticket
+            self._chunking = None
+        else:
+            ticket = self.active.pop(slot)
+        self._release_slot(slot)
+        self._event(time.perf_counter() - t0, "preempt", ticket.req.id, slot)
+        out = self._requeue_or_fail([ticket], t0)
+        return out[0] if out else None
+
+    def _grow_blocks(self, t0: float) -> List[Completion]:
+        """Paged decode growth: before a decode step, every active slot
+        whose next K/V write falls in an unallocated (or shared) page
+        gets a block; when the pool runs dry the preemption policy picks
+        a victim to evict and re-queue. Terminates because ``submit``
+        checks that any one request's worst case fits the pool."""
+        out: List[Completion] = []
+        if not self.layout.paged:
+            return out
+        for slot in sorted(self.active,
+                           key=lambda s: self.active[s].admit_seq):
+            if slot not in self.active:     # preempted earlier this pass
+                continue
+            pos = int(self.cache_len[slot])
+            if not self.layout.needs_block(slot, pos):
+                continue
+            while not self.layout.grow_one(slot, pos):
+                victim = self._pick_preempt_victim(exclude=slot)
+                if victim is None:
+                    raise RuntimeError(
+                        f"paged KV pool exhausted growing slot {slot} with "
+                        f"no other active request to preempt")
+                c = self._preempt(victim, t0)
+                if c is not None:
+                    out.append(c)
+        return out
+
     def _decode_step(self, t0: float) -> List[Completion]:
         done: List[Completion] = []
         # requests satisfied by the prefill token alone never decode
@@ -369,6 +508,7 @@ class ContinuousScheduler:
             done.append(self._evict(slot, t0, "length"))
         if not self.active:
             return done
+        done.extend(self._grow_blocks(t0))
         logits = self.layout.decode(
             torch.as_tensor(self.tokens, device=self.device),
             torch.as_tensor(self.cache_len, device=self.device))
@@ -400,12 +540,17 @@ class ContinuousScheduler:
         return self._finish(ticket, reason, t0)
 
     def _check_invariants(self) -> None:
-        """Step-boundary slot accounting (``SchedulerConfig(debug=True)``)."""
+        """Step-boundary slot and block accounting
+        (``SchedulerConfig(debug=True)``): a free slot has no residual
+        length, token or table, and the layout's books balance."""
         free = set(self.free)
         occupied = set(self.active)
+        if self._chunking is not None:
+            occupied.add(self._chunking.slot)
         if free & occupied:
             raise AssertionError(f"slots both free and occupied: "
                                  f"{free & occupied}")
         for slot in free:
             if self.cache_len[slot] or self.tokens[slot]:
                 raise AssertionError(f"slot {slot}: stale length/token")
+        self.layout.check(occupied, self.sched.max_slots)

@@ -3,8 +3,11 @@
 Counterpart of ``repro.runtime.scheduler.types``, copied (plain data, no
 framework): the request the user submits, the completion they get back,
 the scheduler's configuration, the observable event log entries, and
-the internal ticket record. ``SchedulerConfig`` carries the knobs of the
-slotted, one-shot-prefill path this slice ports.
+the internal ticket record and the state of an in-flight chunked
+prefill. ``SchedulerConfig`` carries the knobs of the slotted and paged
+layouts, chunked prefill and prefix sharing; the victim cache, tenant
+quotas, deadline shedding and the observability hooks come with later
+slices.
 """
 from __future__ import annotations
 
@@ -101,10 +104,32 @@ def validate_request_fits(cfg: ModelConfig, req: Request,
 @dataclass
 class SchedulerConfig:
     max_slots: int = 8          # decode batch width
-    max_len: int = 512          # KV rows per slot
+    max_len: int = 512          # KV rows per slot (rounded up to a whole
+    #                             number of blocks in paged mode)
     greedy: bool = True
     temperature: float = 1.0
     seed: int = 0
+    # paged KV cache: global-attn K/V in a shared block pool instead of
+    # dense per-slot rows. num_blocks=0 sizes the pool for slotted parity
+    # (max_slots full slots) + the reserved null block; size it smaller
+    # to actually oversubscribe.
+    paged: bool = False
+    block_size: int = 16        # KV rows per block
+    num_blocks: int = 0
+    # admission watermark: require this many free blocks beyond the
+    # prompt's need before admitting, so decode growth of the already-
+    # running requests doesn't immediately preempt the newcomer back out
+    watermark: int = 0
+    # chunked prefill: admit prompts prefill_chunk tokens at a time,
+    # interleaved with decode steps (0 = one-shot prefill). Refused for
+    # configs outside supports_chunked_prefill (a max_cache_len cap).
+    prefill_chunk: int = 0
+    # prefix sharing (paged only): admission matches new prompts against
+    # resident block chains, maps fully-matched blocks into the request's
+    # table (refcounted, copy-on-write on any write into a shared block)
+    # and skips prefill for the matched region. The paged layout refuses
+    # a max_cache_len cap, the one config outside supports_chunked_prefill.
+    prefix_cache: bool = False
     # --- multi-unit execution core (modeled per-unit clocks) -----------
     # units: processing units the execution core schedules over.
     # prefill_units of them are dedicated to prompt prefill
@@ -166,5 +191,17 @@ class _Ticket:                          # removal must never compare prompts
     restarts: int = 0           # failure/preemption re-queues so far
     cancelled: bool = False     # set via request_cancel()
     retired: bool = False       # completed while a stale heap entry remains
-    where: str = "backlog"      # backlog | queued | active | done
+    where: str = "backlog"      # backlog | queued | active | chunking | done
     handle: Any = None          # RequestHandle, when served via Engine
+
+
+@dataclass
+class _ChunkedPrefill:
+    """A prompt mid-way through chunked admission: its slot (and, paged,
+    its prompt blocks) are reserved; K/V accumulates in a batch=1 scratch
+    cache that is inserted into the shared cache once the prompt is
+    done."""
+    ticket: _Ticket
+    slot: int
+    cache: Any
+    pos: int = 0                # prompt tokens consumed so far

@@ -1,7 +1,11 @@
 """Parity of the port's attention (the kernel wrappers' plain versions on
 the CPU) with the reference's four attention paths: the ``ref.py``
 oracles, the XLA production functions, and the Pallas kernels in
-interpret mode. fp32, tolerance 2e-5 as in tests/test_kernels.py.
+interpret mode. fp32, tolerance 2e-5 as in tests/test_kernels.py; bf16
+3e-2 (the frameworks round bf16 at other places). Covered: prefill
+flash attention (also with a per-sequence ``q_offset`` / ``kv_len``, the
+ragged path chunked prefill and prefix resume take), slotted decode,
+and paged decode over a block pool.
 
 On a CPU tensor a wrapper must reach its plain version and leave its
 launch counter at 0; on the card it launches the CUDA kernel
@@ -15,7 +19,10 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention.kernel import decode_attention_pallas
-from repro.kernels.decode_attention.ref import decode_attention_ref
+from repro.kernels.decode_attention.ops import \
+    paged_decode_attention as paged_decode_attention_jax
+from repro.kernels.decode_attention.ref import (decode_attention_ref,
+                                                paged_decode_attention_ref)
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models.layers import decode_attention_xla, flash_attention_xla
@@ -32,6 +39,25 @@ FA_SHAPES = [
     (2, 64, 64, 4, 1, 32, True, 24),
     (2, 20, 45, 4, 2, 12, False, 0),
     (1, 33, 33, 6, 2, 16, True, 5),
+]
+# tests/test_kernels.py PAGED_CASES: (b, h, hk, d, num_blocks, block_size,
+# pages, dtype); tables drawn over [0, N) name the null block 0 and
+# repeat blocks
+PAGED_CASES = [
+    (2, 4, 2, 32, 9, 8, 4, "float32"),
+    (3, 8, 1, 64, 5, 16, 2, "float32"),
+    (1, 4, 4, 128, 17, 8, 8, "bfloat16"),
+    (4, 8, 2, 64, 13, 16, 3, "float32"),
+]
+PAGED_TOL = {"float32": TOL, "bfloat16": 3e-2}
+# (b, sq, sk, h, hk, d, q_offset, kv_len): Sq != Sk with kv_len < Sk, a
+# chunk padded past kv_len (its last rows' keys are live but lie above
+# every real row), and B=2 at different offsets
+OFFSET_CASES = [
+    (1, 8, 24, 4, 2, 16, [5], [13]),
+    (1, 4, 16, 4, 1, 32, [8], [12]),
+    (2, 6, 20, 6, 2, 16, [3, 11], [9, 17]),
+    (2, 5, 40, 4, 2, 12, [0, 21], [5, 26]),
 ]
 DEC_SHAPES = [
     # (h, hk, d, s, lengths)
@@ -125,6 +151,83 @@ def test_decode_zero_length_gives_zeros():
         *[jnp.asarray(a[1:]) for a in (q, kc, vc, lens)]))
 
 
+def _paged(rng, b, h, hk, d, n, bs, nb, dtype):
+    np_dt = np.float32
+    q = rng.standard_normal((b, h, d)).astype(np_dt)
+    kp = rng.standard_normal((n, bs, hk, d)).astype(np_dt)
+    vp = rng.standard_normal((n, bs, hk, d)).astype(np_dt)
+    tables = rng.randint(0, n, (b, nb)).astype(np.int32)
+    lens = rng.randint(1, nb * bs + 1, (b,)).astype(np.int32)
+    if dtype == "bfloat16":         # the values both sides see
+        q, kp, vp = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                     for a in (q, kp, vp))
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("b,h,hk,d,n,bs,nb,dtype", PAGED_CASES)
+def test_paged_decode_plain_vs_jax_and_pallas(b, h, hk, d, n, bs, nb, dtype):
+    """The paged plain version (through the wrapper, on the CPU) against
+    JAX's paged oracle and the Pallas paged kernel in interpret mode."""
+    q, kp, vp, tables, lens = _paged(np.random.RandomState(n * bs + d),
+                                     b, h, hk, d, n, bs, nb, dtype)
+    assert (tables == 0).any() or len(np.unique(tables)) < tables.size
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    before = da_ops.paged_decode_attention.launches
+    out = da_ops.paged_decode_attention(
+        *[torch.from_numpy(a).to(tdt) for a in (q, kp, vp)],
+        torch.from_numpy(tables), torch.from_numpy(lens))
+    assert da_ops.paged_decode_attention.launches == before
+    assert out.dtype == tdt
+    j = [jnp.asarray(a, jdt) for a in (q, kp, vp)] + \
+        [jnp.asarray(tables), jnp.asarray(lens)]
+    tol = PAGED_TOL[dtype]
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(
+        paged_decode_attention_ref(*j), np.float32), rtol=tol, atol=tol)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(
+        paged_decode_attention_jax(*j), np.float32), rtol=tol, atol=tol)
+
+
+def test_paged_decode_equals_slotted_over_gathered_pages():
+    """The paged plain version is the slotted one over the gathered
+    pages; a zero length gives zeros."""
+    q, kp, vp, tables, lens = _paged(np.random.RandomState(1), 3, 4, 2, 16,
+                                     7, 4, 3, "float32")
+    lens[1] = 0
+    qt, kt, vt, tt, lt = _t(q, kp, vp, tables, lens)
+    out = da_ops.paged_decode_attention(qt, kt, vt, tt, lt)
+    gk = kt[tt.long()].reshape(3, 12, 2, 16)
+    gv = vt[tt.long()].reshape(3, 12, 2, 16)
+    assert torch.equal(out, da_ref.decode_attention_ref(qt, gk, gv, lt))
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,q_offset,kv_len", OFFSET_CASES)
+def test_flash_offset_ragged_plain_vs_xla(b, sq, sk, h, hk, d, q_offset,
+                                          kv_len):
+    """Flash attention with a per-sequence query offset and valid KV
+    length, against the reference's ragged XLA path."""
+    q, k, v = _qkv(np.random.RandomState(sk + d), b, sq, sk, h, hk, d)
+    qo, kl = np.asarray(q_offset, np.int32), np.asarray(kv_len, np.int32)
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(*_t(q, k, v), q_offset=torch.from_numpy(qo),
+                                 kv_len=torch.from_numpy(kl)).numpy()
+    assert fa_ops.flash_attention.launches == before
+    _close(out, flash_attention_xla(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_offset=jnp.asarray(qo), kv_len=jnp.asarray(kl), chunk=8))
+
+
+def test_flash_offset_matches_the_rows_of_a_full_prefill():
+    """A query block at offset o with kv_len o + Sq gives the rows
+    o .. o + Sq - 1 of the full causal prefill over the same keys."""
+    q, k, v = _qkv(np.random.RandomState(4), 1, 20, 20, 4, 2, 16)
+    full = fa_ref.attention_ref(*_t(q, k, v))
+    part = fa_ref.attention_ref(*_t(q[:, 12:17], k, v),
+                                q_offset=torch.tensor([12], dtype=torch.int32),
+                                kv_len=torch.tensor([17], dtype=torch.int32))
+    _close(part.numpy(), full[:, 12:17].numpy())
+
+
 def test_wrappers_refuse_what_no_kernel_takes():
     q = torch.zeros((1, 4, 2, 16))
     k = torch.zeros((1, 4, 1, 16))
@@ -141,6 +244,20 @@ def test_wrappers_refuse_what_no_kernel_takes():
         da_ops.decode_attention(qd.to("meta"), kc.to("meta"), kc.to("meta"),
                                 torch.ones(2, dtype=torch.int32,
                                            device="meta"))
+    with pytest.raises(TypeError, match="q_offset"):
+        fa_ops.flash_attention(q, k, k, q_offset=torch.zeros(1))
+    with pytest.raises(TypeError, match="kv_len"):
+        fa_ops.flash_attention(q, k, k, kv_len=torch.zeros(2,
+                                                           dtype=torch.int32))
+    tables, lens = torch.zeros((2, 3), dtype=torch.int32), \
+        torch.ones(2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="block_tables"):
+        da_ops.paged_decode_attention(qd, kc, kc, tables.long(), lens)
+    with pytest.raises(TypeError, match="lengths"):
+        da_ops.paged_decode_attention(qd, kc, kc, tables, lens.long())
+    with pytest.raises(ValueError, match="no kernel"):
+        da_ops.paged_decode_attention(*(t.to("meta") for t in
+                                        (qd, kc, kc, tables, lens)))
 
 
 @pytest.mark.cuda
@@ -160,3 +277,27 @@ def test_kernels_match_plain_on_card():
                         for a in _dec(rng, 8, 2, 12, 33, [0, 1, 33]))
     out = da_ops.decode_attention(qd, kc, vc, lens)
     _close(out.cpu(), da_ref.decode_attention_ref(qd, kc, vc, lens).cpu())
+
+
+@pytest.mark.cuda
+def test_paged_and_offset_kernels_match_plain_on_card():
+    """The paged decode kernel (null and repeated blocks, lengths 0 and
+    1) and the flash kernel with ``q_offset`` / ``kv_len`` against their
+    plain versions on the card, fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run: python3 chip_smoke.py")
+    rng = np.random.RandomState(0)
+    q, kp, vp, tables, lens = _paged(rng, 4, 8, 2, 64, 13, 16, 3, "float32")
+    lens[:2] = [0, 1]
+    args = [torch.from_numpy(a).cuda() for a in (q, kp, vp, tables, lens)]
+    before = da_ops.paged_decode_attention.launches
+    out = da_ops.paged_decode_attention(*args)
+    assert da_ops.paged_decode_attention.launches == before + 1
+    _close(out.cpu(), da_ref.paged_decode_attention_ref(*args).cpu())
+    for b, sq, sk, h, hk, d, qo, kl in OFFSET_CASES:
+        q, k, v = (torch.from_numpy(a).cuda()
+                   for a in _qkv(rng, b, sq, sk, h, hk, d))
+        kw = dict(q_offset=torch.tensor(qo, dtype=torch.int32).cuda(),
+                  kv_len=torch.tensor(kl, dtype=torch.int32).cuda())
+        _close(fa_ops.flash_attention(q, k, v, **kw).cpu(),
+               fa_ref.attention_ref(q, k, v, **kw).cpu())

@@ -3,14 +3,20 @@
 The conformance workload (tests/test_conformance_matrix.py ``_workload``)
 runs through ``repro_torch``'s ``Engine(device="cpu")`` on the reference's
 ``cm-scan`` and ``cm-rem`` weights under fifo, priority, edf and batch
-admission. Tokens and finish reasons must equal the reference's
-static-bucket oracle, which the golden fixture holds and
-tests/test_torch_golden.py holds against JAX. Also: the lifecycle hooks
-(streaming, cancellation, failure re-queue) and temperature sampling by
-its distribution.
+admission, and over the conformance matrix's layouts (slotted, chunked
+prefill, the paged pool, prefix sharing, and their combinations) on a
+diagonal of policies. Tokens and finish reasons must equal the
+reference's static-bucket oracle, which the golden fixture holds and
+tests/test_torch_golden.py holds against JAX; the paged pool must come
+home whole; the paged fifo cells, and a tight pool without and with an
+admission watermark, must count what JAX's engine counts. Also: the
+watermark's refusals word for word, the lifecycle hooks (streaming,
+cancellation, failure re-queue, growth preemption) and temperature
+sampling by its distribution.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -22,8 +28,9 @@ from repro_torch.runtime.engine import Engine, EngineConfig
 from repro_torch.runtime.policies import Sampler
 from repro_torch.runtime.scheduler import Request, SlotFailure
 from repro_torch.weights import from_jax_params
-from test_torch_golden import (CONFIG_KW, ENGINE_MAX_LEN, load_golden,
-                               requests, workload_specs)
+from test_torch_golden import (CONFIG_KW, COUNTERS, ENGINE_MAX_LEN,
+                               LAYOUTS, load_golden, params_from, requests,
+                               workload_specs)
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +44,8 @@ def zoo():
                 if k.startswith(f"{name}|params|")}
         out[name] = (cfg, from_jax_params(flat, cfg, device="cpu"),
                      json.loads(str(golden[f"{name}|oracle_tokens"])),
-                     json.loads(str(golden[f"{name}|oracle_reasons"])))
+                     json.loads(str(golden[f"{name}|oracle_reasons"])),
+                     json.loads(str(golden[f"{name}|counters"])))
     return out
 
 
@@ -50,7 +58,7 @@ def _engine(cfg, model, admission, **kw):
 @pytest.mark.parametrize("admission", ["fifo", "priority", "edf", "batch"])
 @pytest.mark.parametrize("name", sorted(CONFIG_KW))
 def test_engine_matches_jax_batch_oracle(zoo, name, admission):
-    cfg, model, tokens, reasons = zoo[name]
+    cfg, model, tokens, reasons, _ = zoo[name]
     eng = _engine(cfg, model, admission)
     outs = eng.generate(requests(workload_specs(cfg.vocab_size), Request))
     assert [c.id for c in outs] == list(range(len(tokens)))
@@ -63,8 +71,161 @@ def test_engine_matches_jax_batch_oracle(zoo, name, admission):
         assert not eng.scheduler.cache_len.any()
 
 
+# tests/test_conformance_matrix.py FAST, the rows of this slice's layouts:
+# every layout on both configs, fifo / priority / edf and both preemption
+# policies each at least once
+DIAGONAL = [
+    ("cm-scan", "slotted-chunked", "fifo", "evict-latest"),
+    ("cm-rem", "slotted-chunked", "edf", "evict-latest"),
+    ("cm-scan", "paged", "priority", "lowest-priority"),
+    ("cm-rem", "paged", "fifo", "evict-latest"),
+    ("cm-scan", "paged-chunked", "fifo", "evict-latest"),
+    ("cm-scan", "paged-chunked", "edf", "evict-latest"),
+    ("cm-rem", "paged-chunked", "priority", "lowest-priority"),
+    ("cm-scan", "paged-prefix", "fifo", "evict-latest"),
+    ("cm-rem", "paged-prefix", "fifo", "evict-latest"),
+    ("cm-rem", "paged-prefix", "edf", "lowest-priority"),
+    ("cm-scan", "paged-chunked-prefix", "fifo", "evict-latest"),
+    ("cm-rem", "paged-chunked-prefix", "fifo", "evict-latest"),
+    ("cm-scan", "paged-chunked-prefix", "edf", "lowest-priority"),
+    ("cm-scan", "paged-tight", "fifo", "evict-latest"),
+    ("cm-rem", "paged-tight", "fifo", "evict-latest"),
+    ("cm-scan", "paged-tight-watermark", "fifo", "evict-latest"),
+    ("cm-rem", "paged-tight-watermark", "fifo", "evict-latest"),
+]
+
+
+def _check_pool_home(eng, kw):
+    sched = eng.scheduler
+    if kw.get("kv_layout") == "paged":
+        assert sched.alloc.in_use == 0
+        assert sched.alloc.available == sched.alloc.capacity
+        assert not sched.block_tables.any()
+    assert not sched.cache_len.any() and not sched.tokens.any()
+
+
+@pytest.mark.parametrize("name,layout,admission,preemption", DIAGONAL)
+def test_layout_cell_matches_jax_batch_oracle(zoo, name, layout, admission,
+                                              preemption):
+    cfg, model, tokens, reasons, counters = zoo[name]
+    kw = LAYOUTS[layout]
+    eng = _engine(cfg, model, admission, preemption=preemption, **kw)
+    outs = eng.generate(requests(workload_specs(cfg.vocab_size), Request))
+    assert [c.tokens for c in outs] == tokens
+    assert [c.finish_reason for c in outs] == reasons
+    st = eng.stats()
+    assert st["admissions"] >= len(tokens)
+    _check_pool_home(eng, kw)
+    if kw.get("prefix_cache"):
+        assert st["prefix_hits"] > 0, "shared-prefix workload never shared"
+        assert st["prefill_tokens_saved"] > 0
+        assert eng.scheduler.layout.prefix_cache_stats() == {
+            "enabled": True, "victim_cache": False,
+            "prefix_hits": st["prefix_hits"]}
+    if layout in counters and admission == "fifo" \
+            and preemption == "evict-latest":   # JAX counted this cell
+        assert {k: st[k] for k in COUNTERS} == counters[layout]
+
+
+@pytest.mark.parametrize("preemption", ["evict-latest", "lowest-priority"])
+def test_tight_pool_preempts_and_keeps_tokens(zoo, preemption):
+    """A pool of 6 usable blocks cannot hold three growing requests:
+    growth preempts (and re-queues) under either policy, and the tokens
+    stay the oracle's."""
+    cfg, model, tokens, reasons, _ = zoo["cm-scan"]
+    kw = dict(kv_layout="paged", block_size=8, num_blocks=7,
+              prefill_chunk=4, prefix_cache=True)
+    eng = _engine(cfg, model, "priority", preemption=preemption, **kw)
+    outs = eng.generate(requests(workload_specs(cfg.vocab_size), Request))
+    assert [c.tokens for c in outs] == tokens
+    assert [c.finish_reason for c in outs] == reasons
+    assert eng.stats()["preemptions"] > 0
+    assert sum(c.restarts for c in outs) == eng.stats()["preemptions"]
+    _check_pool_home(eng, kw)
+
+
+def test_structural_errors(zoo):
+    """tests/test_conformance_matrix.py ``test_invalid_cells_are_rejected``
+    in the port: batch admission refuses paged layouts and chunked
+    prefill, prefix sharing refuses the slotted layout, and the victim
+    cache, a later slice, is refused by ``EngineConfig``."""
+    cfg, model, *_ = zoo["cm-scan"]
+    with pytest.raises(ValueError, match="batch admission"):
+        Engine(cfg, model, EngineConfig(admission="batch",
+                                        kv_layout="paged"), device="cpu")
+    with pytest.raises(ValueError, match="batch admission"):
+        Engine(cfg, model, EngineConfig(admission="batch", prefill_chunk=4),
+               device="cpu")
+    with pytest.raises(ValueError, match="prefix_cache"):
+        Engine(cfg, model, EngineConfig(kv_layout="slotted",
+                                        prefix_cache=True), device="cpu")
+    with pytest.raises(ValueError, match="victim_cache"):
+        Engine(cfg, model, EngineConfig(kv_layout="paged",
+                                        victim_cache=True), device="cpu")
+    with pytest.raises(ValueError, match="kv_layout"):
+        Engine(cfg, model, EngineConfig(kv_layout="ring"), device="cpu")
+    with pytest.raises(ValueError, match="blocks worst-case"):
+        _engine(cfg, model, "fifo", kv_layout="paged", block_size=8,
+                num_blocks=3).submit(Request(0, np.zeros(20, np.int32),
+                                             max_new_tokens=8))
+
+
+@pytest.mark.parametrize("kw", [dict(prefill_chunk=4),
+                                dict(kv_layout="paged", prefix_cache=True)])
+def test_ring_capped_cache_refuses_extend_paths(zoo, kw):
+    """A ``max_cache_len`` ring cap has no position-indexed cache to
+    extend: chunked prefill and prefix sharing are refused, not quietly
+    served one-shot (the reference falls back silently)."""
+    cfg, model, *_ = zoo["cm-scan"]
+    capped = dataclasses.replace(cfg, max_cache_len=16)
+    with pytest.raises(ValueError, match="max_cache_len"):
+        _engine(capped, model, "fifo", **kw)
+
+
+def test_watermark_admission_and_refusals_match_jax(zoo):
+    """tests/test_engine_lifecycle.py ``test_watermark_never_blocks_a_
+    servable_request`` in the port. With 7 usable blocks of 4 rows and
+    5 held back, a 2-block prompt that grows to 3 blocks is served (growth
+    bypasses the watermark) with the oracle's tokens; a 3-block prompt
+    can never clear admission, a worst case beyond the pool is refused,
+    and a watermark of the whole pool admits nothing. Each refusal is
+    the reference engine's, word for word."""
+    from repro.runtime.engine import Engine as JaxEngine
+    from repro.runtime.engine import EngineConfig as JaxEngineConfig
+    from repro.runtime.scheduler import Request as JaxRequest
+
+    cfg, model, tokens, reasons, _ = zoo["cm-scan"]
+    params = params_from(load_golden())("cm-scan", cfg)
+    kw = dict(max_len=32, max_slots=2, kv_layout="paged", block_size=4,
+              num_blocks=8, watermark=5)
+    eng = Engine(cfg, model, EngineConfig(debug=True, **kw), device="cpu")
+    jax_eng = JaxEngine(cfg, params, JaxEngineConfig(**kw))
+    (spec,) = workload_specs(cfg.vocab_size)[:1]   # 5 prompt + 6 new rows
+    (out,) = eng.generate(requests([spec], Request))
+    assert out.tokens == tokens[0] and out.finish_reason == reasons[0]
+    assert eng.scheduler.alloc.in_use == 0
+    assert eng.scheduler.alloc.hwm == 3
+
+    def refusal(engine, request_cls, n_prompt, max_new):
+        with pytest.raises(ValueError) as err:
+            engine.submit(request_cls(1, np.zeros(n_prompt, np.int32),
+                                      max_new_tokens=max_new))
+        return str(err.value)
+    for n_prompt, max_new, word in ((12, 2, "watermark"),
+                                    (8, 24, "worst-case")):
+        got = refusal(eng, Request, n_prompt, max_new)
+        assert word in got
+        assert got == refusal(jax_eng, JaxRequest, n_prompt, max_new)
+    kw["watermark"] = 7
+    with pytest.raises(ValueError, match="watermark") as got:
+        Engine(cfg, model, EngineConfig(**kw), device="cpu")
+    with pytest.raises(ValueError) as want:
+        JaxEngine(cfg, params, JaxEngineConfig(**kw))
+    assert str(got.value) == str(want.value)
+
+
 def test_eos_stops_agree_with_batch(zoo):
-    cfg, model, tokens, _ = zoo["cm-scan"]
+    cfg, model, tokens, *_ = zoo["cm-scan"]
     eos = tokens[2][3]                   # occurs mid-stream for request 2
     specs = workload_specs(cfg.vocab_size)
     runs = []
@@ -79,11 +240,13 @@ def test_eos_stops_agree_with_batch(zoo):
     assert "eos" in {c.finish_reason for c in runs[0]}
 
 
-def test_stream_cancel_and_failure_requeue(zoo):
-    cfg, model, tokens, _ = zoo["cm-rem"]
+@pytest.mark.parametrize("layout", ["slotted", "paged-chunked-prefix"])
+def test_stream_cancel_and_failure_requeue(zoo, layout):
+    cfg, model, tokens, *_ = zoo["cm-rem"]
     specs = workload_specs(cfg.vocab_size)
     eng = Engine(cfg, model, EngineConfig(max_len=ENGINE_MAX_LEN,
-                                          max_slots=3), device="cpu",
+                                          max_slots=3, debug=True,
+                                          **LAYOUTS[layout]), device="cpu",
                  failures=[SlotFailure(step=2)])
     reqs = requests(specs, Request)
     handles = [eng.submit(r) for r in reqs]
@@ -98,6 +261,7 @@ def test_stream_cancel_and_failure_requeue(zoo):
             assert by_id[i].tokens == want, i
     assert eng.stats()["slot_failures"] > 0
     assert eng.stats()["cancellations"] == 1
+    _check_pool_home(eng, LAYOUTS[layout])
 
 
 def test_temperature_sampling_by_distribution():

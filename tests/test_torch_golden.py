@@ -5,9 +5,13 @@ replayed on the GPU by ``chip_smoke.py``.
 configs ``cm-scan`` and ``cm-rem`` (tests/test_conformance_matrix.py):
 the reference's params (``repro.runtime.checkpoint`` flat keys), the
 conformance workload, the reference's static-bucket (batch) oracle
-tokens and finish reasons on it, and the prefill + 4 decode-step logits
-of a small batch. The card has no JAX; this file is its only view of
-JAX's own numbers. Regenerate with::
+tokens and finish reasons on it, the prefill + 4 decode-step logits of
+a small batch, the per-position logits of the same prompt prefilled 5
+tokens and then extended by 4 (``prefill_extend``), and the counters
+(prefix hits, prompt tokens saved, preemptions) of the reference's
+engine on the paged fifo cells of the conformance matrix and on a tight
+pool without and with an admission watermark. The card has no JAX; this
+file is its only view of JAX's own numbers. Regenerate with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_golden.py
 """
@@ -31,6 +35,34 @@ KEY = jax.random.PRNGKey(0)
 ENGINE_MAX_LEN = 48
 LOGITS_MAX_LEN = 16
 DECODE_STEPS = 4
+EXTEND_SPLIT = 5            # prompt tokens prefilled before the extend
+# tests/test_conformance_matrix.py LAYOUTS, less the victim-cache and
+# multi-unit columns (later slices), plus a pool of 7 usable blocks
+# without and with an admission watermark (tests/test_engine_lifecycle.py's
+# watermark cases on this workload): growth preempts in the first; the
+# watermark delays admissions, and the second preempts less
+LAYOUTS = {
+    "slotted": dict(kv_layout="slotted"),
+    "slotted-chunked": dict(kv_layout="slotted", prefill_chunk=4),
+    "paged": dict(kv_layout="paged", block_size=8, num_blocks=18),
+    "paged-chunked": dict(kv_layout="paged", block_size=8, num_blocks=18,
+                          prefill_chunk=4),
+    "paged-prefix": dict(kv_layout="paged", block_size=8, num_blocks=18,
+                         prefix_cache=True),
+    "paged-chunked-prefix": dict(kv_layout="paged", block_size=8,
+                                 num_blocks=18, prefill_chunk=4,
+                                 prefix_cache=True),
+    "paged-tight": dict(kv_layout="paged", block_size=8, num_blocks=8),
+    "paged-tight-watermark": dict(kv_layout="paged", block_size=8,
+                                  num_blocks=8, watermark=2),
+}
+# the cells whose counters the fixture holds (fifo, evict-latest), and
+# the one the golden test recomputes through a JAX engine run
+COUNTER_CELLS = ("paged", "paged-chunked", "paged-prefix",
+                 "paged-chunked-prefix", "paged-tight",
+                 "paged-tight-watermark")
+COUNTER_CELL = "paged-chunked-prefix"
+COUNTERS = ("prefix_hits", "prefill_tokens_saved", "preemptions")
 
 # tests/test_conformance_matrix.py CONFIGS, as constructor kwargs
 CONFIG_KW = {
@@ -104,6 +136,31 @@ def logits_run(params, cfg):
     return prompt, np.stack(fed), np.stack(steps)
 
 
+def extend_logits(params, cfg):
+    """The ``logits_run`` prompt prefilled ``EXTEND_SPLIT`` tokens, then
+    extended by the rest: per-position logits (2, 4, Vp)."""
+    rng = np.random.RandomState(11)
+    prompt = rng.randint(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    _, cache, clen = jax.jit(lambda p, t: T.prefill(
+        p, cfg, {"tokens": t}, max_len=LOGITS_MAX_LEN))(
+            params, jnp.asarray(prompt[:, :EXTEND_SPLIT]))
+    logits, _, _ = jax.jit(lambda p, t, c, n: T.prefill_extend(
+        p, cfg, t, c, n))(params, jnp.asarray(prompt[:, EXTEND_SPLIT:]),
+                          cache, clen)
+    return np.asarray(logits)
+
+
+def cell_counters(params, cfg, layout=COUNTER_CELL):
+    """The reference engine's counters on the ``layout`` fifo cell of
+    the conformance workload."""
+    eng = Engine(cfg, params, EngineConfig(
+        max_len=ENGINE_MAX_LEN, max_slots=3, admission="fifo",
+        **LAYOUTS[layout]))
+    eng.generate(requests(workload_specs(cfg.vocab_size), Request))
+    st = eng.stats()
+    return {k: int(st[k]) for k in COUNTERS}
+
+
 def unflatten(flat):
     """Inverse of ``flat_params`` for dict/list pytrees: numeric path
     components are list indices."""
@@ -129,7 +186,8 @@ def build_golden(params_of=None):
     each config's params (default: ``init_params`` under ``KEY``)."""
     arrays = {}
     meta = {"configs": {}, "workload": {}, "engine_max_len": ENGINE_MAX_LEN,
-            "logits_max_len": LOGITS_MAX_LEN}
+            "logits_max_len": LOGITS_MAX_LEN, "extend_split": EXTEND_SPLIT,
+            "counter_cells": {lay: LAYOUTS[lay] for lay in COUNTER_CELLS}}
     for name, kw in CONFIG_KW.items():
         cfg = ModelConfig(**kw)
         params = params_of(name, cfg) if params_of else \
@@ -140,6 +198,9 @@ def build_golden(params_of=None):
         arrays[f"{name}|logits_prompt"] = prompt
         arrays[f"{name}|logits_fed"] = fed
         arrays[f"{name}|logits"] = logits
+        arrays[f"{name}|extend_logits"] = extend_logits(params, cfg)
+        arrays[f"{name}|counters"] = np.asarray(json.dumps(
+            {lay: cell_counters(params, cfg, lay) for lay in COUNTER_CELLS}))
         specs = workload_specs(cfg.vocab_size)
         oracle = Engine(cfg, params, EngineConfig(
             max_len=ENGINE_MAX_LEN, admission="batch")).generate(
@@ -199,6 +260,9 @@ def test_golden_fixture_matches_jax():
     got = load_golden()
     params_of = params_from(got)
     meta = json.loads(str(got["meta"]))
+    assert meta["extend_split"] == EXTEND_SPLIT
+    assert meta["counter_cells"] == {lay: LAYOUTS[lay]
+                                     for lay in COUNTER_CELLS}
     for name, kw in CONFIG_KW.items():
         cfg = ModelConfig(**kw)
         params = params_of(name, cfg)
@@ -214,7 +278,29 @@ def test_golden_fixture_matches_jax():
         assert [len(t) for t in tokens] == [s["max_new"] for s in specs]
         assert reasons == ["length"] * len(specs)
         assert teacher_forced_argmax(params, cfg, specs, tokens) == tokens
+        np.testing.assert_allclose(got[f"{name}|extend_logits"],
+                                   extend_logits(params, cfg), rtol=1e-6,
+                                   atol=1e-6)
     assert GOLDEN.stat().st_size < 1 << 20
+
+
+def test_golden_counters_match_one_jax_engine_run():
+    """The fixture's engine counters are what the reference's engine
+    counts on the paged-chunked-prefix fifo cell, for cm-scan (one
+    engine run; cm-rem's counters come from the same code)."""
+    got = load_golden()
+    name = "cm-scan"
+    cfg = ModelConfig(**CONFIG_KW[name])
+    counters = json.loads(str(got[f"{name}|counters"]))
+    assert sorted(counters) == sorted(COUNTER_CELLS)
+    want = counters[COUNTER_CELL]
+    assert want == cell_counters(params_from(got)(name, cfg), cfg)
+    assert want["prefix_hits"] > 0
+    assert want["prefill_tokens_saved"] > 0
+    for cfg_counters in (counters, json.loads(str(got["cm-rem|counters"]))):
+        # the tight pool preempts on growth; its watermark damps that
+        assert 0 < cfg_counters["paged-tight-watermark"]["preemptions"] \
+            < cfg_counters["paged-tight"]["preemptions"]
 
 
 if __name__ == "__main__":

@@ -139,3 +139,70 @@ def test_attn_prefill_cache_and_decode():
     _close(dj, dt, 1e-5)
     _close(nj["k"], ct["k"], 1e-5)       # the port wrote its cache in place
     _close(nj["v"], ct["v"], 1e-5)
+
+
+def test_attn_extend_writes_rows_and_attends_with_offsets():
+    """A chunk extends a cache at per-sequence offsets (B=2, different
+    lengths): the output and the cache rows written in place match the
+    reference's functional update."""
+    jc, pc = _cfgs(qkv_bias=True)
+    rng = np.random.RandomState(RNG_SEED)
+    pj, pt = _both(_attn_params(jc, rng))
+    hk, hd = jc.n_kv_heads, jc.resolved_head_dim
+    cache = {"k": _np((2, 16, hk, hd), rng), "v": _np((2, 16, hk, hd), rng)}
+    x = _np((2, 4, jc.d_model), rng)
+    clen = np.array([3, 9], np.int32)
+    oj, cj = jax.jit(lambda p, a, c, n: JL.attn_extend(
+        p, a, jc, kind="attn", cache=c, cache_len=n))(
+            pj, jnp.asarray(x), {k: jnp.asarray(v) for k, v in cache.items()},
+            jnp.asarray(clen))
+    ct = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    ot = PL.attn_extend(pt, torch.from_numpy(x), pc, kind="attn", cache=ct,
+                        cache_len=torch.from_numpy(clen))
+    _close(oj, ot, 1e-5)
+    _close(cj["k"], ct["k"], 1e-5)
+    _close(cj["v"], ct["v"], 1e-5)
+
+
+def _pool_case(rng, cfg, n=7, bs=4, b=3, nb=3):
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    pools = {"k": _np((n, bs, hk, hd), rng), "v": _np((n, bs, hk, hd), rng)}
+    # slot 0 free (null block, length 0); slot 1 repeats block 2 past
+    # its length; slot 2 writes into its last page
+    tables = np.array([[0, 0, 0], [3, 2, 2], [5, 1, 6]], np.int32)[:b, :nb]
+    clen = np.array([0, 5, 10], np.int32)[:b]
+    return pools, tables, clen
+
+
+def test_paged_gather_matches_jax():
+    jc, _ = _cfgs()
+    rng = np.random.RandomState(RNG_SEED)
+    pools, tables, _ = _pool_case(rng, jc)
+    want = JL.paged_gather(jnp.asarray(pools["k"]), jnp.asarray(tables))
+    got = PL.paged_gather(torch.from_numpy(pools["k"]),
+                          torch.from_numpy(tables))
+    assert got.shape == want.shape
+    _close(want, got, 0.0)
+
+
+def test_attn_decode_paged_matches_jax():
+    """One decode step over a pool with null and repeated blocks: the
+    output, and the new rows written in place at tables[b, len // bs],
+    offset len % bs."""
+    jc, pc = _cfgs(qkv_bias=True)
+    rng = np.random.RandomState(RNG_SEED)
+    pj, pt = _both(_attn_params(jc, rng))
+    pools, tables, clen = _pool_case(rng, jc)
+    x = _np((3, 1, jc.d_model), rng)
+    oj, kj, vj = jax.jit(lambda p, a, kp, vp, t, n: JL.attn_decode_paged(
+        p, a, jc, k_pool=kp, v_pool=vp, tables=t, cache_len=n))(
+            pj, jnp.asarray(x), jnp.asarray(pools["k"]),
+            jnp.asarray(pools["v"]), jnp.asarray(tables), jnp.asarray(clen))
+    kt, vt = (torch.from_numpy(pools[k].copy()) for k in "kv")
+    ot = PL.attn_decode_paged(pt, torch.from_numpy(x), pc, k_pool=kt,
+                              v_pool=vt, tables=torch.from_numpy(tables),
+                              cache_len=torch.from_numpy(clen))
+    _close(oj[1:], ot[1:], 1e-5)          # slot 0 is free: its row is junk
+    # every block but the null block 0 holds what the reference wrote
+    _close(kj[1:], kt[1:], 1e-5)
+    _close(vj[1:], vt[1:], 1e-5)

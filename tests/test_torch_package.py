@@ -5,7 +5,8 @@
 * entry points default to ``"cuda"`` and raise without a card unless the
   caller passes ``device="cpu"``;
 * the ``EngineConfig`` fields of later slices, and the model families of
-  later slices, are refused with a ``ValueError`` that says so;
+  later slices, are refused with a ``ValueError`` that says so; the
+  fields this slice runs are accepted;
 * ``chip_smoke.py`` fails, printing no result, without a card or outside
   a checkout.
 """
@@ -77,12 +78,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_layout", "paged"), ("prefill_chunk", 4), ("prefix_cache", True),
-    ("victim_cache", True), ("enforce_deadlines", True), ("decode_stages", 2),
+    ("victim_cache", True), ("prefix_cache_tenants", {"a": 1 << 20}),
+    ("enforce_deadlines", True), ("decode_stages", 2),
     ("observability", True)])
 def test_later_slice_fields_are_refused(field, value):
     with pytest.raises(ValueError, match="later slice"):
         EngineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("kv_layout", "paged"), ("prefill_chunk", 4), ("prefix_cache", True)])
+def test_this_slice_fields_are_accepted(field, value):
+    """The paged layout, chunked prefill and prefix sharing run in this
+    slice: ``EngineConfig`` takes them, and an engine builds on them
+    (prefix sharing with the paged layout it needs)."""
+    kw = {field: value}
+    if field == "prefix_cache":
+        kw["kv_layout"] = "paged"
+    c = EngineConfig(max_len=32, **kw)
+    assert getattr(c, field) == value
+    cfg = ModelConfig(**TINY)
+    eng = Engine(cfg, PT.init_params(cfg, device="cpu"), c, device="cpu")
+    assert eng.scheduler.layout.paged == (c.kv_layout == "paged")
 
 
 @pytest.mark.parametrize("change", [
