@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -42,7 +42,28 @@ Phases, one status line each; any failure exits non-zero:
    decode step (the layout's decode kernel, the other 0). The slotted
    and the paged fifo runs are replayed under ``torch.profiler`` for the
    device's busy time and idle share; the prefix runs' agreement with a
-   slotted run on their shared-preamble workload is reported.
+   slotted run on their shared-preamble workload is reported;
+5. training recurrentgemma-9b through the RG-LRU scan kernel (forward
+   and reverse) and the flash kernel at head_dim 256: (a) the JAX golden
+   training fixture (``src/repro_torch/testdata/golden_train.npz``, a
+   tiny 5-layer hybrid in fp32) replayed through the kernels, two
+   ``make_train_step`` steps with 2 microbatches: loss, every step-1
+   gradient leaf and every param after the second AdamW step within the
+   limits set from the CPU's errors; (b) the full-width model (d_model
+   4096, 16/1 heads of 256, d_ff 12288, vocabulary 256000, depth cut to
+   5 layers: one scanned period and two remainder rglru layers) trained
+   4 steps on the copy task (S=4096, global batch 2 in 2 microbatches)
+   by ``repro_torch.launch.train.run`` in bf16 over fp32 masters: loss
+   finite and falling, launches exact per step, step time, peak memory
+   and tokens/s printed, the last step traced under ``torch.profiler``
+   (device busy time, idle share, the largest kernels); (c), run before
+   (b), one microbatch of it at
+   its initial weights through the kernels against the same with the
+   plain versions in their place (loss within 1e-2 relative, each
+   gradient leaf within 5e-2 of its largest magnitude). Phase 2 adds the scan on the reference's test shapes and
+   at B=1 S=4096 D=4096 (tol 1e-5, forward and reverse) and flash at
+   head_dim 256 with its lse (16 query heads over 1, window 2048 at
+   S=4096, bf16 and fp32), and times both at the training shapes.
 
 ``--phases`` runs a subset and prints no result line. With all phases,
 the line before the last holds the kernels' summary as JSON; the last
@@ -53,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -61,6 +83,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = SRC / "repro_torch" / "testdata" / "golden_cm.npz"
+GOLDEN_TRAIN = SRC / "repro_torch" / "testdata" / "golden_train.npz"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,   # H100 SXM dense bf16 (tensor cores)
               "float32": 67e12}     # H100 SXM fp32 outside the tensor cores
@@ -119,7 +142,7 @@ def phase_device(torch, build) -> dict:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}: {line.strip()}")
-    say(f"[1/4] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/5] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -200,6 +223,28 @@ OFFSET_CASES = [
 # ragged batch of two chunks
 SERVE_EXT = {"prefix": OFFSET_CASES[3], "chunk": OFFSET_CASES[4],
              "ragged": OFFSET_CASES[5]}
+# the training run: recurrentgemma-9b at full width, sequences of 4096
+TRAIN_S, TRAIN_D, TRAIN_WINDOW = 4096, 4096, 2048
+SCAN_CASES = [
+    # (B, S, D): tests/test_kernels.py SCAN_CASES (S=17/100 and D=40/96
+    # tails), then the full-width training shape; fp32, tol 1e-5
+    (2, 64, 128), (3, 100, 96), (1, 256, 512), (2, 17, 40),
+    (1, TRAIN_S, TRAIN_D),
+]
+FA256_CASES = [
+    # (b, s, h, hk, d, window, dtype): head_dim 256 (and a ragged 192 in
+    # the same instantiation), causal, with the log-sum-exp; small
+    # ragged cases, then the training shape in bf16 and fp32
+    (2, 37, 16, 1, 256, 8, "float32"),
+    (1, 100, 4, 2, 256, 0, "bfloat16"),
+    (2, 50, 4, 1, 192, 16, "float32"),
+    (1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW, "bfloat16"),
+    (1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW, "float32"),
+]
+# lse tolerance: fp32 as the output; bf16 inputs meet the same fp32
+# arithmetic on both sides, so the rows' lse agree far closer than o
+LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+SCAN_TOL = 1e-5
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -412,12 +457,88 @@ def time_paged(torch, np, da_ops, da_ref, rnd, lens) -> dict:
             "copies": len(copies), **bound(flops, nbytes, dtn)}
 
 
-def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref) -> dict:
+def window_pairs(s: int, window: int) -> int:
+    """Live (query, key) pairs of causal attention over s positions with
+    a sliding window (all pairs within ``window`` positions)."""
+    w = min(window, s) if window > 0 else s
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def time_flash_train(torch, fa_ops, fa_ref, rnd) -> dict:
+    """Flash at the training shape (recurrentgemma-9b's attn_local: B=1,
+    S=4096, 16 query heads over 1 KV head, head_dim 256, window 2048,
+    bf16), with the log-sum-exp the backward reads."""
+    b, s, h, hk, d, w, dtn = 1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW, "bfloat16"
+    dt = getattr(torch, dtn)
+    flops = 4 * d * h * window_pairs(s, w) * b
+    # q read, o written, k and v read, lse (fp32) written
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * hk * d) + 4 * b * h * s
+    copies = [(rnd((b, s, h, d), dt), rnd((b, s, hk, d), dt),
+               rnd((b, s, hk, d), dt)) for _ in range(n_copies(nbytes))]
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
+    nxt, nxt_l = cycle(copies), cycle(bhsd)
+    pos = torch.arange(s, device="cuda")
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w)
+    kw = dict(window=w, return_lse=True)
+    q, k, v = copies[0]
+    (o, lse), (ro, rlse) = (fa_ops.flash_attention(q, k, v, **kw),
+                            fa_ref.attention_ref(q, k, v, **kw))
+    err, _ = err_vs(torch, o, ro, TOL[("prefill", dtn)])
+    return {"shape": f"B={b} S={s} H={h}/{hk} D={d} {dtn} causal window "
+                     f"{w}, with lse",
+            "max_abs_err": err,
+            "lse_max_abs_err": (lse - rlse).abs().max().item(),
+            "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(*nxt(), **kw)),
+            "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(
+                *nxt(), **kw), iters=5, warmup=1),
+            "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), mask=mask)),
+            "library": "SDPA + window mask",
+            "copies": len(copies), **bound(flops, nbytes, dtn)}
+
+
+def time_scan(torch, scan_ops, scan_ref, rnd, reverse: bool) -> dict:
+    """The RG-LRU scan at the training shape (B=1, S=4096, D=4096, fp32):
+    forward (a, b read, y written) or reverse (a, dy, y read, db, da
+    written, dh0 too). No single PyTorch call computes the scan."""
+    b, s, d = 1, TRAIN_S, TRAIN_D
+    n = b * s * d
+    nbytes = (20 if reverse else 12) * n + (12 if reverse else 8) * b * d
+    flops = (3 if reverse else 2) * n
+
+    def inputs():
+        a = torch.rand((b, s, d), device="cuda") * 0.499 + 0.5
+        return a, rnd((b, s, d), torch.float32) * 0.1, \
+            rnd((b, d), torch.float32)
+    copies = [inputs() for _ in range(n_copies(nbytes))]
+    if reverse:
+        copies = [(a, x, scan_ref.rglru_scan_seq_ref(a, x, h0), h0)
+                  for a, x, h0 in copies]
+        kern, plain = scan_ops.rglru_scan_bwd, scan_ref.rglru_scan_reverse_ref
+    else:
+        kern, plain = scan_ops.rglru_scan_fwd, scan_ref.rglru_scan_seq_ref
+    nxt = cycle(copies)
+    got, want = kern(*copies[0]), plain(*copies[0])
+    if not reverse:
+        got, want = (got,), (want,)
+    err = max(err_vs(torch, g, w, SCAN_TOL)[0] for g, w in zip(got, want))
+    return {"shape": f"B={b} S={s} D={d} float32"
+                     f"{', reverse' if reverse else ''}",
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: kern(*nxt())),
+            "plain_ms": cuda_ms(torch, lambda: plain(*nxt()), iters=3,
+                                warmup=1),
+            "library_ms": None, "library": "no single call",
+            "copies": len(copies), **bound(flops, nbytes, "float32")}
+
+
+def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
+                  scan_ref) -> dict:
     """Every case held against the plain version; then the serving shapes
     timed. Returns {"flash_attention": {"fifo": ..., "batch": ...},
     "decode_attention": {...}, "paged_decode_attention": {"fifo": ...},
     "flash_attention_extend": {"prefix": ..., "chunk": ..., "ragged":
-    ...}}."""
+    ...}, "flash_attention_train": {"train": ...}, "rglru_scan_fwd":
+    {"train": ...}, "rglru_scan_bwd": {"train": ...}}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
     rows, failures = [], []
@@ -517,6 +638,37 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref) -> dict:
         rows.append((tag, err, tol, ok))
         if not ok:
             failures.append(tag)
+    for (b, s, h, hk, d, w, dtn) in FA256_CASES:
+        dt = getattr(torch, dtn)
+        q, k, v = rnd((b, s, h, d), dt), rnd((b, s, hk, d), dt), \
+            rnd((b, s, hk, d), dt)
+        o, lse = fa_ops.flash_attention(q, k, v, window=w, return_lse=True)
+        ro, rlse = fa_ref.attention_ref(q, k, v, window=w, return_lse=True)
+        torch.cuda.synchronize()
+        for part, got, want, tol in (("o", o, ro, TOL[("prefill", dtn)]),
+                                     ("lse", lse, rlse, LSE_TOL[dtn])):
+            err, ok = err_vs(torch, got, want, tol)
+            tag = f"flash {part} b{b} s{s} h{h}/{hk} d{d} w{w} {dtn}"
+            rows.append((tag, err, tol, ok))
+            if not ok:
+                failures.append(tag)
+        del q, k, v, o, lse, ro, rlse
+    for (b, s, d) in SCAN_CASES:
+        a = torch.rand((b, s, d), generator=gen, device=dev) * 0.499 + 0.5
+        x = rnd((b, s, d), torch.float32) * 0.1
+        h0, dy = rnd((b, d), torch.float32), rnd((b, s, d), torch.float32)
+        y = scan_ops.rglru_scan_fwd(a, x, h0)
+        got = (y,) + scan_ops.rglru_scan_bwd(a, dy, y, h0)
+        want = (scan_ref.rglru_scan_seq_ref(a, x, h0),) + \
+            scan_ref.rglru_scan_reverse_ref(a, dy, y, h0)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("y", "da", "db", "dh0"), got, want):
+            err, ok = err_vs(torch, g, w, SCAN_TOL)
+            tag = f"rglru {'forward' if part == 'y' else 'reverse'} {part} " \
+                  f"b{b} s{s} d{d} float32"
+            rows.append((tag, err, SCAN_TOL, ok))
+            if not ok:
+                failures.append(tag)
     for tag, err, tol, ok in rows:
         say(f"  {'ok  ' if ok else 'FAIL'} {tag}: max |err| {err:.3g} "
             f"(tol {tol:g})")
@@ -532,17 +684,26 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref) -> dict:
                 torch, np, da_ops, da_ref, rnd, FIFO_LENS)},
             "flash_attention_extend": {
                 p: time_flash_extend(torch, fa_ops, fa_ref, rnd, case)
-                for p, case in SERVE_EXT.items()}}
+                for p, case in SERVE_EXT.items()},
+            "flash_attention_train": {"train": time_flash_train(
+                torch, fa_ops, fa_ref, rnd)},
+            "rglru_scan_fwd": {"train": time_scan(torch, scan_ops, scan_ref,
+                                                  rnd, reverse=False)},
+            "rglru_scan_bwd": {"train": time_scan(torch, scan_ops, scan_ref,
+                                                  rnd, reverse=True)}}
     for name, per in main.items():
         for policy, m in per.items():
+            lib = "no single library call" if m["library_ms"] is None \
+                else f"{m['library_ms']:.4f} ms {m.get('library', 'SDPA')}"
             say(f"  {name} @ {policy} shape ({m['shape']}): {m['ms']:.4f} ms "
-                f"kernel, {m['plain_ms']:.4f} ms plain, {m['library_ms']:.4f}"
-                f" ms {m.get('library', 'SDPA')}, bound {m['bound_ms']:.4f} "
-                f"ms ({m['bound_by']}; "
+                f"kernel, {m['plain_ms']:.4f} ms plain, {lib}, bound "
+                f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/4] kernels: {len(rows)} cases agree with the plain versions "
-        f"(flash, flash with q_offset/kv_len, decode, paged decode)")
+    say(f"[2/5] kernels: {len(rows)} cases agree with the plain versions "
+        f"(flash, flash with q_offset/kv_len, decode, paged decode, flash "
+        f"at head_dim 256 with its lse, the RG-LRU scan forward and "
+        f"reverse)")
     return main
 
 
@@ -622,7 +783,7 @@ def phase_golden(torch, np) -> dict:
                     raise PhaseFailed(f"{name}/{lay}: the pool did not "
                                       f"come home whole")
                 cell_counters[f"{name}/{lay}"] = got_c
-    say(f"[3/4] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/5] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4)")
@@ -807,8 +968,6 @@ def traced(torch, serve, model, want_tokens, label: str, top: int = 8,
     ``torch.profiler`` (device activity only): the device's busy time
     (the union of the kernels' intervals) and the wall time of the same
     run, and the kernels that take the most device time."""
-    from collections import defaultdict
-
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.engine import Engine, EngineConfig
@@ -826,6 +985,14 @@ def traced(torch, serve, model, want_tokens, label: str, top: int = 8,
     if [o.tokens for o in outs] != want_tokens:
         raise PhaseFailed(f"the traced {label} run's tokens differ from "
                           f"the untraced run's")
+    return trace_summary(torch, prof, wall_s, f"{label} run", top)
+
+
+def trace_summary(torch, prof, wall_s: float, label: str, top: int) -> dict:
+    """The device's busy time in a ``torch.profiler`` trace (the union of
+    the kernels' intervals), its idle share of ``wall_s``, and the
+    kernels that take the most device time."""
+    from collections import defaultdict
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -845,7 +1012,7 @@ def traced(torch, serve, model, want_tokens, label: str, top: int = 8,
            "idle_share": 1.0 - busy_s / wall_s, "kernels": len(kernels),
            "top": [{"kernel": n[:90], "ms": v[0] / 1e3, "calls": v[1]}
                    for n, v in ranked]}
-    say(f"  traced {label} run: wall {wall_s:.4f} s, device busy "
+    say(f"  traced {label}: wall {wall_s:.4f} s, device busy "
         f"{busy_s:.4f} s, idle share {out['idle_share']:.4f}, "
         f"{len(kernels)} kernels")
     for k in out["top"]:
@@ -914,9 +1081,274 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/4] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/5] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ("flash_attention", "rglru_scan_fwd", "rglru_scan_bwd",
+                 "decode_attention", "paged_decode_attention")
+# the golden replay's limits: those of tests/test_torch_train.py, set
+# from the errors measured on the CPU (logits 1.5e-6, loss 7.7e-8 rel,
+# gradients 2.6e-6 of each leaf's largest magnitude, params after two
+# AdamW steps 3.3e-5 abs where lr = 1e-3)
+GOLDEN_TRAIN_TOL = {"logits": 2e-5, "loss": 1e-6, "grad": 1e-5,
+                    "params": 1e-4}
+# the full-width run: recurrentgemma-9b cut to 5 layers (one scanned
+# period of rglru, rglru, attn_local, then two remainder rglru layers),
+# the copy task at S=4096 > the 2048 window, global batch 2 in 2
+# microbatches, 4 steps on one repeated batch
+TRAIN_RUN = dict(steps=4, batch=2, seq=TRAIN_S, microbatches=2, lr=1e-3,
+                 data_name="copy", repeat=True)
+# one microbatch of that model through the kernels and through the plain
+# versions, bf16: the loss (relative) and each gradient leaf (of its
+# largest magnitude), as phase 4 holds the serving model
+TRAIN_VS_PLAIN_TOL = {"loss": 1e-2, "grad": 5e-2}
+
+
+def train_launches(cfg, microbatches: int) -> dict:
+    """Launches of one training step, from the code: per microbatch each
+    rglru layer launches the forward scan once and the reverse once and
+    each attention layer the flash kernel once; with ``cfg.remat`` every
+    scanned period's forward runs again in the backward."""
+    again = cfg.layer_pattern * cfg.n_periods if cfg.remat else ()
+    kinds = cfg.layer_kinds
+    rg = kinds.count("rglru") + again.count("rglru")
+    att = sum(k != "rglru" for k in kinds) + sum(k != "rglru" for k in again)
+    return {"flash_attention": att * microbatches,
+            "rglru_scan_fwd": rg * microbatches,
+            "rglru_scan_bwd": kinds.count("rglru") * microbatches,
+            "decode_attention": 0, "paged_decode_attention": 0}
+
+
+def counts(ops) -> dict:
+    return {k: ops[k].launches for k in TRAIN_KERNELS}
+
+
+def golden_train(torch, np, ops) -> dict:
+    """(a) The JAX golden training fixture replayed through the kernels in
+    fp32: forward logits, the loss of each of two ``make_train_step``
+    steps with 2 microbatches, every step-1 gradient leaf, and every
+    param after the second AdamW step; launches exact per step."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import optim
+    from repro_torch.runtime.trainstep import make_train_step
+    from repro_torch.weights import from_jax_params, to_flat
+    data = np.load(GOLDEN_TRAIN)
+    meta = json.loads(str(data["meta"]))
+    kw = {**meta["config"],
+          "layer_pattern": tuple(meta["config"]["layer_pattern"])}
+    cfg = replace(get_config("recurrentgemma_9b").smoke(), **kw)
+
+    def part(name):
+        return {k[len(name) + 1:]: data[k] for k in data.files
+                if k.startswith(name + "|")}
+    model = from_jax_params(part("params"), cfg, device="cuda",
+                            dtype=torch.float32).requires_grad_(True)
+    tokens = torch.as_tensor(data["batch0|tokens"], device="cuda")
+    with torch.no_grad():
+        logits = T.forward(model, cfg, {"tokens": tokens},
+                           train=False)[0].cpu().numpy()
+    step = make_train_step(cfg, optim.AdamWConfig(**meta["opt"]),
+                           microbatches=meta["microbatches"])
+    opt = optim.init(model)
+    want_n = train_launches(cfg, meta["microbatches"])
+    losses, grads, per_step = [], None, []
+    for i in range(meta["steps"]):
+        for k in TRAIN_KERNELS:
+            ops[k].launches = 0
+        batch = {k: data[f"batch{i}|{k}"] for k in ("tokens", "labels")}
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        per_step.append(counts(ops))
+        if grads is None:
+            grads = to_flat(model, grad=True)
+    after = to_flat(model)
+
+    def leaf_rel(got, want):
+        return max(float(np.abs(got[k] - want[k]).max()
+                         / max(np.abs(want[k]).max(), 1e-30)) for k in want)
+    want_g, want_p = part("grads"), part("after")
+    out = {"logits_max_abs_err": float(np.abs(logits - data["logits"]).max()),
+           "loss_rel_err": float(np.max(np.abs(np.asarray(losses)
+                                              - data["losses"])
+                                       / np.abs(data["losses"]))),
+           "grad_rel_err": leaf_rel(grads, want_g),
+           "params_max_abs_err": max(float(np.abs(after[k] - want_p[k]).max())
+                                     for k in want_p),
+           "losses": losses, "launches_per_step": per_step}
+    say(f"  (a) JAX golden training fixture ({cfg.n_layers} layers "
+        f"{'/'.join(cfg.layer_pattern)}, d {cfg.d_model}, fp32, "
+        f"{meta['steps']} steps x {meta['microbatches']} microbatches) "
+        f"through the kernels: logits {out['logits_max_abs_err']:.3g} (tol "
+        f"{GOLDEN_TRAIN_TOL['logits']:g}), loss {out['loss_rel_err']:.3g} "
+        f"rel (tol {GOLDEN_TRAIN_TOL['loss']:g}), step-1 gradients "
+        f"{out['grad_rel_err']:.3g} of each leaf's max (tol "
+        f"{GOLDEN_TRAIN_TOL['grad']:g}), params after "
+        f"{out['params_max_abs_err']:.3g} (tol "
+        f"{GOLDEN_TRAIN_TOL['params']:g}); launches per step {per_step[0]}")
+    if sorted(grads) != sorted(want_g) or sorted(after) != sorted(want_p):
+        raise PhaseFailed("golden training replay: the leaves differ from "
+                          "the fixture's")
+    if any(n != want_n for n in per_step):
+        raise PhaseFailed(f"golden training replay: launches {per_step}, "
+                          f"want {want_n} per step")
+    if not (out["logits_max_abs_err"] <= GOLDEN_TRAIN_TOL["logits"]
+            and out["loss_rel_err"] <= GOLDEN_TRAIN_TOL["loss"]
+            and out["grad_rel_err"] <= GOLDEN_TRAIN_TOL["grad"]
+            and out["params_max_abs_err"] <= GOLDEN_TRAIN_TOL["params"]):
+        raise PhaseFailed("golden training replay disagrees with JAX")
+    return out
+
+
+def full_width_config():
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    return replace(get_config("recurrentgemma_9b"), n_layers=5)
+
+
+def full_width_train(torch, ops, cfg) -> dict:
+    """(b) recurrentgemma-9b at full width, depth cut to 5 layers, trained
+    4 steps through ``repro_torch.launch.train.run`` with the launch
+    counts set to 0 just before the run: the loss finite at every step
+    and lower at the last than at the first; each step's launches
+    exactly ``train_launches``."""
+    from repro_torch.launch import train
+    want_n = train_launches(cfg, TRAIN_RUN["microbatches"])
+    from torch.profiler import ProfilerActivity, profile
+    per_step = []
+    last = TRAIN_RUN["steps"] - 1
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    for k in TRAIN_KERNELS:
+        ops[k].launches = 0
+    prev = counts(ops)
+
+    def on_step(i, m):
+        # the last step runs under the profiler: started after the one
+        # before it, stopped after it
+        nonlocal prev
+        now = counts(ops)
+        per_step.append({k: now[k] - prev[k] for k in now})
+        prev = now
+        if i == last - 1:
+            prof.start()
+        elif i == last:
+            prof.stop()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.run(cfg, device="cuda", on_step=on_step, log_every=1,
+                    **TRAIN_RUN)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    losses = [m["loss"] for m in out["metrics"]]
+    tokens = TRAIN_RUN["batch"] * TRAIN_RUN["seq"]
+    steady = out["step_s"][1:last]      # after the first, untraced
+    rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} "
+                     f"({'/'.join(cfg.layer_kinds)}) d={cfg.d_model} "
+                     f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} bf16 over "
+                     f"fp32 masters, remat={cfg.remat}",
+           "params": sum(p.numel() for p in out["model"].parameters()),
+           "losses": losses, "grad_norms": [m["grad_norm"]
+                                            for m in out["metrics"]],
+           "step_s": out["step_s"],
+           "steady_step_s": sum(steady) / len(steady),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_per_step": per_step}
+    rec["tokens_per_s"] = tokens / rec["steady_step_s"]
+    rec["trace"] = trace_summary(torch, prof, out["step_s"][last],
+                                 f"training step {last + 1}", top=12)
+    say(f"  (b) {rec['config']}, {rec['params'] / 1e9:.3f} B params: "
+        f"losses {[round(x, 4) for x in losses]}; step times "
+        f"{[round(x, 4) for x in out['step_s']]} s, steady "
+        f"{rec['steady_step_s']:.4f} s/step, {rec['tokens_per_s']:.1f} "
+        f"tokens/s, peak memory {rec['peak_mem_gb']:.2f} GB; launches per "
+        f"step {per_step[0]}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise PhaseFailed(f"full-width training: losses {losses} are not "
+                          f"finite and falling")
+    if any(n != want_n for n in per_step):
+        raise PhaseFailed(f"full-width training: launches {per_step}, want "
+                          f"{want_n} per step")
+    del out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_vs_plain(torch, cfg) -> dict:
+    """(c) One microbatch of the full-width model at the training run's
+    initial weights (``init_params`` seed 0, fp32 masters), loss and
+    gradients, through the kernels and then with the plain versions in
+    their place (flash with its lse, the scan forward and reverse)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import data
+    model = T.init_params(cfg, 0, device="cuda", dtype=torch.float32)
+    model.requires_grad_(True)
+    batch = next(data.copy_task_batches(TRAIN_RUN["batch"], TRAIN_RUN["seq"],
+                                        cfg.vocab_size))
+    one = {k: torch.as_tensor(v[:1], device="cuda") for k, v in batch.items()}
+
+    def loss_and_grads():
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = T.loss_fn(model, cfg, one)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+    lk, gk = loss_and_grads()
+    kernels = (L.flash_attention, scan_ops.rglru_scan_fwd,
+               scan_ops.rglru_scan_bwd)
+    L.flash_attention, scan_ops.rglru_scan_fwd, scan_ops.rglru_scan_bwd = (
+        fa_ref.attention_ref, scan_ref.rglru_scan_seq_ref,
+        scan_ref.rglru_scan_reverse_ref)
+    try:
+        lp, gp = loss_and_grads()
+    finally:
+        L.flash_attention, scan_ops.rglru_scan_fwd, \
+            scan_ops.rglru_scan_bwd = kernels
+    rel = {n: ((gk[n] - gp[n]).abs().max() / gp[n].abs().max()).item()
+           for n in gk}
+    worst = max(rel, key=rel.get)
+    out = {"loss_kernels": lk, "loss_plain": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "grad_rel_err": rel[worst], "worst_leaf": worst,
+           "finite": all(bool(torch.isfinite(g).all()) for g in gk.values())}
+    del model, gk, gp
+    torch.cuda.empty_cache()
+    say(f"  (c) one microbatch at the initial weights through the kernels vs "
+        f"the plain versions: "
+        f"loss {lk:.6f} vs {lp:.6f} ({out['loss_rel_err']:.3g} rel, tol "
+        f"{TRAIN_VS_PLAIN_TOL['loss']:g}); largest gradient difference "
+        f"{out['grad_rel_err']:.3g} of the leaf's max, at {worst} (tol "
+        f"{TRAIN_VS_PLAIN_TOL['grad']:g})")
+    if not (out["finite"] and out["loss_rel_err"] <= TRAIN_VS_PLAIN_TOL["loss"]
+            and out["grad_rel_err"] <= TRAIN_VS_PLAIN_TOL["grad"]):
+        raise PhaseFailed("the full-width training step through the kernels "
+                          "disagrees with its plain-version run")
+    return out
+
+
+def phase_train(torch, np, ops) -> dict:
+    torch.cuda.empty_cache()
+    cfg = full_width_config()
+    out = {"golden": golden_train(torch, np, ops),
+           "vs_plain": train_vs_plain(torch, cfg)}
+    out["full_width"] = full = full_width_train(torch, ops, cfg)
+    say(f"[5/5] training recurrentgemma-9b through the kernels: the JAX "
+        f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
+        f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
+        f"exact; kernels vs plain within the bf16 limits")
     return out
 
 
@@ -929,26 +1361,35 @@ def without_completions(node):
     return node
 
 
-# the kernels line: each kernel's timed shape, and the run whose launches
-# it reports (the path that kernel serves)
+# the kernels line: each kernel's source, the TPU kernel it replaces,
+# its timed shape, and the run whose launches it reports (the path that
+# kernel serves): (phase record, run)
 KERNEL_LINE = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:88",
-                        "fifo"),
+                        "fifo", ("serve", "fifo")),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:173",
-                         "fifo"),
+                         "fifo", ("serve", "fifo")),
     "paged_decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention/kernel.py:117", "paged"),
+        "src/repro/kernels/decode_attention/kernel.py:117", "fifo",
+        ("serve", "paged")),
+    "rglru_scan_fwd": ("src/repro_torch/csrc/rglru_scan.cu",
+                       "src/repro/kernels/rglru_scan/kernel.py:41", "train",
+                       ("train", "full_width")),
+    "rglru_scan_bwd": ("src/repro_torch/csrc/rglru_scan.cu",
+                       "src/repro/kernels/rglru_scan/kernel.py:41", "train",
+                       ("train", "full_width")),
 }
+ALL_PHASES = {1, 2, 3, 4, 5}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4",
+    ap.add_argument("--phases", default="1,2,3,4,5",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -969,20 +1410,27 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
     ops = {"flash_attention": fa_ops.flash_attention,
            "decode_attention": da_ops.decode_attention,
-           "paged_decode_attention": da_ops.paged_decode_attention}
+           "paged_decode_attention": da_ops.paged_decode_attention,
+           "rglru_scan_fwd": scan_ops.rglru_scan_fwd,
+           "rglru_scan_bwd": scan_ops.rglru_scan_bwd}
     t0 = time.perf_counter()
     record = {}
     try:
         record["device"] = phase_device(torch, build)
         if 2 in phases:
             record["kernels"] = phase_kernels(torch, np, fa_ops, fa_ref,
-                                              da_ops, da_ref)
+                                              da_ops, da_ref, scan_ops,
+                                              scan_ref)
         if 3 in phases:
             record["golden"] = phase_golden(torch, np)
         if 4 in phases:
             record["serve"] = phase_serve(torch, np, ops, fa_ref, da_ref)
+        if 5 in phases:
+            record["train"] = phase_train(torch, np, ops)
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
@@ -993,17 +1441,16 @@ def main() -> int:
                                              indent=1, default=str,
                                              sort_keys=True))
     say(f"# total {record['total_s']:.1f} s")
-    if phases != {1, 2, 3, 4}:
+    if phases != ALL_PHASES:
         say(f"# partial run (phases {sorted(phases)}): no result line")
         return 0
-    kern, serve = record["kernels"], record["serve"]
     kernels = []
-    for name, (source, replaces, run) in KERNEL_LINE.items():
-        m = kern[name]["fifo"]      # the main path's shapes
+    for name, (source, replaces, shape, (where, run)) in KERNEL_LINE.items():
+        m = record["kernels"][name][shape]      # the main path's shapes
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": serve[run]["launches"][name],
+            "launches": record[where][run]["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})

@@ -37,6 +37,24 @@
 // __bfloat162float; the output is acc / max(l, 1e-30) in q's dtype.
 // No TF32 and no fast-math exp: fp32 inputs meet 2e-5 against the plain
 // version.
+//
+// Head dims. The kernel is a template on DMAX, the largest head_dim an
+// instantiation takes: 128 (the serving models; its code is what it was
+// before the template) and 256 (RecurrentGemma's local attention). At
+// D=256 the shared memory is 140.7 KB, under the 227 KB a CTA may use,
+// and each thread holds 4 x 16 fp32 accumulators. With g = 16 query
+// heads over one KV head a q-tile holds only bq = 64 / g = 4 rows, so
+// each K/V tile is reused by 4 query positions: slow, and accepted. At
+// the training shape (B=1, S=4096, 16/1 heads, window 2048, bf16) the
+// bound is the operations: 6.3 M live (query, key) pairs, 103 GFLOP,
+// 0.10 ms at the bf16 tensor-core rate (1.5 ms at the fp32 FMA rate
+// this kernel computes at), against 71 MB of bytes (0.02 ms).
+//
+// Log-sum-exp. An optional fp32 lse (B, H, Sq) output, through a
+// nullable pointer as q_offset and kv_len are passed: lse = m +
+// log(max(l, 1e-30)) in the scaled-score units of `_fa_forward` in
+// src/repro/models/layers.py, which the training backward reads to
+// recompute P blockwise. Null, nothing is written.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -45,7 +63,7 @@ namespace {
 constexpr int ROWS = 64;    // g * bq rows of one q-tile (padded)
 constexpr int BK = 32;      // KV rows per tile
 constexpr int NT = 256;     // threads per CTA
-constexpr int DMAX = 128;   // largest head_dim taken
+constexpr int DMAX_ALL = 256;   // largest head_dim of any instantiation
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -61,12 +79,12 @@ size_t smem_bytes(int D) {
   return sizeof(float) * (size_t)(ROWS * DP + BK * DP + BK * D + ROWS * (BK + 1) + 3 * ROWS);
 }
 
-template <typename T>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(NT)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ o, const int* __restrict__ q_offset,
-              const int* __restrict__ kv_len, int Sq, int Sk, int H, int Hk, int D, int bq,
-              int causal, int window, float scale) {
+              const int* __restrict__ kv_len, float* __restrict__ lse, int Sq, int Sk, int H,
+              int Hk, int D, int bq, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int DP = D + 1;                   // padded stride: no bank conflicts
   float* sQ = smem;                       // [ROWS][DP]
@@ -221,7 +239,10 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int qpos = q_lo + r % bq;
     if (qpos >= Sq) continue;
     const float den = fmaxf(sL[r], 1e-30f);
-    T* out = o + (((size_t)b * Sq + qpos) * H + kvh * g + r / bq) * D;
+    const int head = kvh * g + r / bq;
+    if (lse != nullptr && cg == 0)
+      lse[((size_t)b * H + head) * Sq + qpos] = sM[r] + logf(den);
+    T* out = o + (((size_t)b * Sq + qpos) * H + head) * D;
 #pragma unroll
     for (int j = 0; j < DMAX / 16; ++j) {
       const int d = cg + 16 * j;
@@ -230,41 +251,57 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-template <typename T>
+template <typename T, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, const int* q_offset,
-           const int* kv_len, int B, int Sq, int Sk, int H, int Hk, int D, int causal,
-           int window, float scale, cudaStream_t stream) {
+           const int* kv_len, float* lse, int B, int Sq, int Sk, int H, int Hk, int D,
+           int causal, int window, float scale, cudaStream_t stream) {
   const int g = H / Hk;
   const int bq = ROWS / g;
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + bq - 1) / bq, Hk, B);
-  fa_fwd_kernel<T><<<grid, NT, smem, stream>>>(
+  fa_fwd_kernel<T, DMAX><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), q_offset, kv_len, Sq, Sk, H, Hk, D, bq, causal, window, scale);
+      static_cast<T*>(o), q_offset, kv_len, lse, Sq, Sk, H, Hk, D, bq, causal, window,
+      scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v, void* o, const int* q_offset,
+             const int* kv_len, float* lse, int B, int Sq, int Sk, int H, int Hk, int D,
+             int causal, int window, float scale, cudaStream_t stream) {
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, o, q_offset, kv_len, lse, B, Sq, Sk, H, Hk, D, causal,
+                          window, scale, stream);
+  return launch<T, 256>(q, k, v, o, q_offset, kv_len, lse, B, Sq, Sk, H, Hk, D, causal,
+                        window, scale, stream);
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), k/v (B,Sk,Hk,D), o (B,Sq,H,D), all contiguous and of one
 // dtype: 0 = float32, 1 = bfloat16. q_offset and kv_len are (B,) int32
-// on the device, or null for 0 and Sk. Returns a cudaError_t code (0 = ok).
+// on the device, or null for 0 and Sk; lse is (B,H,Sq) float32 on the
+// device, or null. Returns a cudaError_t code (0 = ok).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   const void* q_offset, const void* kv_len, int B, int Sq,
-                                   int Sk, int H, int Hk, int D, int causal, int window,
-                                   float scale, int dtype, void* stream) {
-  if (Hk <= 0 || H % Hk != 0 || H / Hk > ROWS || D <= 0 || D > DMAX || Sq <= 0 || Sk <= 0)
+                                   const void* q_offset, const void* kv_len, void* lse,
+                                   int B, int Sq, int Sk, int H, int Hk, int D, int causal,
+                                   int window, float scale, int dtype, void* stream) {
+  if (Hk <= 0 || H % Hk != 0 || H / Hk > ROWS || D <= 0 || D > DMAX_ALL || Sq <= 0 ||
+      Sk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* qo = static_cast<const int*>(q_offset);
   const int* kl = static_cast<const int*>(kv_len);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, qo, kl, B, Sq, Sk, H, Hk, D, causal, window, scale, st);
+    return launch_d<float>(q, k, v, o, qo, kl, ls, B, Sq, Sk, H, Hk, D, causal, window,
+                           scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, qo, kl, B, Sq, Sk, H, Hk, D, causal, window,
-                                 scale, st);
+    return launch_d<__nv_bfloat16>(q, k, v, o, qo, kl, ls, B, Sq, Sk, H, Hk, D, causal,
+                                   window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -29,11 +29,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t code as int
 SIGNATURES: Dict[str, Tuple[str, List]] = {
     "flash_attention_fwd": ("flash_attention",
-                            [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
+                            [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
     "decode_attention_fwd": ("decode_attention",
                              [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
     "paged_decode_attention_fwd": ("decode_attention",
                                    [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
+    "rglru_scan_fwd": ("rglru_scan", [_P] * 4 + [_I] * 3 + [_P]),
+    "rglru_scan_bwd": ("rglru_scan", [_P] * 7 + [_I] * 3 + [_P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,9 @@
 
 CPU tensors take the plain version (``ref.attention_ref``); CUDA tensors
 launch the kernel or raise — there is no fallback from the card.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches. The kernel takes
+head dims up to 256 (instantiated for 128 and 256) and optionally
+returns the rows' log-sum-exp, which the training backward reads.
 """
 from __future__ import annotations
 
@@ -16,20 +18,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_GROUP = 64          # query heads per KV head held in one q-tile
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, scale=None,
                     q_offset: Optional[torch.Tensor] = None,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Sk, Hk, D) with Hk | H. Returns
     (B, Sq, H, D) in q's dtype. Ragged lengths are fine: no block size
     has to divide Sq or Sk. ``q_offset`` (B,) int32 puts q's row i of
     sequence b at absolute position ``q_offset[b] + i``; ``kv_len`` (B,)
     int32 masks keys at or past ``kv_len[b]`` (chunked prefill and
-    prefix resume extend a cache this way). Absent, they are 0 and Sk."""
+    prefix resume extend a cache this way). Absent, they are 0 and Sk.
+    ``return_lse`` also returns the fp32 log-sum-exp of each row's
+    scaled, masked scores, (B, H, Sq): ``(o, lse)``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q (B,Sq,H,D) and k, v "
                          f"(B,Sk,Hk,D), got {tuple(q.shape)}, "
@@ -54,7 +59,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale, q_offset=q_offset, kv_len=kv_len)
+                             scale=scale, q_offset=q_offset, kv_len=kv_len,
+                             return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if not all(t.is_contiguous() for t in (q, k, v, q_offset, kv_len)
@@ -66,16 +72,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"sequences, got D={d}, H/Hk={h // hk}, Sq={sq}, "
                          f"Sk={sk}")
     o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     fn = _build.entry("flash_attention_fwd")
     with torch.cuda.device(q.device):     # launches go to q's card
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  _ptr(q_offset), _ptr(kv_len), b, sq, sk, h, hk, d,
-                  int(causal), int(window), float(scale), _DTYPES[q.dtype],
-                  stream)
+                  _ptr(q_offset), _ptr(kv_len), _ptr(lse), b, sq, sk, h, hk,
+                  d, int(causal), int(window), float(scale),
+                  _DTYPES[q.dtype], stream)
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0

@@ -15,10 +15,13 @@ import torch
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, scale=None,
                   q_offset: Optional[torch.Tensor] = None,
-                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  kv_len: Optional[torch.Tensor] = None,
+                  return_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Sk, Hk, D) with Hk | H (GQA).
     ``q_offset`` (B,): absolute position of q's row 0 (default 0);
-    ``kv_len`` (B,): keys at or past it are masked (default Sk)."""
+    ``kv_len`` (B,): keys at or past it are masked (default Sk).
+    ``return_lse`` also returns the fp32 log-sum-exp of each row's
+    scaled, masked scores, (B, H, Sq): ``(o, lse)``."""
     b, sq, h, d = q.shape
     _, sk, hk, _ = k.shape
     g = h // hk
@@ -39,4 +42,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(b, sq, h, d).to(q.dtype)
+    o = o.reshape(b, sq, h, d).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)

@@ -1,6 +1,7 @@
 """Transformer building blocks of the port: norms, RoPE, GQA attention, MLP.
 
-Counterpart of ``repro.models.layers`` for the ``attn`` block kind. The
+Counterpart of ``repro.models.layers`` for the ``attn`` and
+``attn_local`` block kinds. The
 functions keep the reference's layouts — activations (B, S, D), heads
 (B, S, H, hd), ``wq`` (d, h, hd), ``wo`` (h, hd, d) — so the parity tests
 compare like with like. Attention goes through the port's kernel
@@ -8,6 +9,11 @@ wrappers (``repro_torch.kernels``): on the card the hand-written CUDA
 kernels, on the CPU their plain versions. Where the reference returns an
 updated cache, the port writes its cache (a slotted cache, a scratch
 cache or a paged pool) in place.
+
+Training (``attn_apply``) differentiates through the flash kernel with
+``FlashAttention``, a ``torch.autograd.Function`` whose backward is a
+port of the reference's custom-VJP backward ``_fa_bwd`` in torch ops:
+blockwise recompute of P from (q, k, lse), the reference's XLA code.
 """
 from __future__ import annotations
 
@@ -70,6 +76,117 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
+# the flash backward (training)
+# ---------------------------------------------------------------------------
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _fa_mask(qp: torch.Tensor, kp: torch.Tensor, causal: bool, window: int,
+             sk_valid: int) -> torch.Tensor:
+    """(bq, bk) mask of one (q-block, k-block) tile: the static path of
+    the reference's ``_fa_mask`` (no ragged ``kv_len``), with the
+    zero-padded kv tail at or past ``sk_valid`` masked."""
+    mask = (kp[None, :] < sk_valid).expand(qp.shape[0], kp.shape[0])
+    if causal:
+        mask = mask & (qp[:, None] >= kp[None, :])
+    if window > 0:
+        mask = mask & (qp[:, None] - kp[None, :] < window)
+    return mask
+
+
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad dim 1 by ``n`` rows."""
+    if not n:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], n) + x.shape[2:])], dim=1)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool, window: int, chunk: int,
+                        scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward, a port of the reference's ``_fa_bwd``:
+    P is recomputed blockwise from (q, k, lse) in fp32, with bq = bk =
+    ``min(chunk, ceil8(S))``, O(bq * bk) live score memory. q, o, do:
+    (B, Sq, H, D); k, v: (B, Sk, Hk, D); lse: (B, H, Sq) fp32 from the
+    forward. Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, sq, h, d = q.shape
+    _, sk, hk, _ = k.shape
+    g = h // hk
+    dev = q.device
+    bq = min(chunk, _ceil_to(sq, 8))
+    bk = min(chunk, _ceil_to(sk, 8))
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    pq, pk = nq * bq - sq, nk * bk - sk
+    f32 = torch.float32
+    qf = _pad_seq(q, pq).reshape(b, nq, bq, hk, g, d)
+    dof = _pad_seq(do.to(f32), pq).reshape(b, nq, bq, hk, g, d)
+    # delta = rowsum(dout * out)  (B, Hk, g, nq, bq)
+    delta = torch.einsum("bshd,bshd->bhs", do.to(f32), o.to(f32))
+    delta = _pad_seq(delta.transpose(1, 2), pq).transpose(1, 2) \
+        .reshape(b, hk, g, nq, bq)
+    lsef = _pad_seq(lse.reshape(b, h, sq).transpose(1, 2), pq) \
+        .transpose(1, 2).reshape(b, hk, g, nq, bq)
+    kf = _pad_seq(k, pk).reshape(b, nk, bk, hk, d)
+    vf = _pad_seq(v, pk).reshape(b, nk, bk, hk, d)
+    q_pos = torch.arange(nq * bq, device=dev).reshape(nq, bq)
+    k_pos = torch.arange(nk * bk, device=dev).reshape(nk, bk)
+    dk = torch.zeros((b, nk * bk, hk, d), dtype=f32, device=dev)
+    dv = torch.zeros((b, nk * bk, hk, d), dtype=f32, device=dev)
+    dqs = []
+    for i in range(nq):
+        qb, dob = qf[:, i].to(f32), dof[:, i]
+        dl, ls = delta[..., i, :], lsef[..., i, :]
+        dq = torch.zeros((b, bq, hk, g, d), dtype=f32, device=dev)
+        dk_blks, dv_blks = [], []
+        for j in range(nk):
+            kb, vb = kf[:, j].to(f32), vf[:, j].to(f32)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
+            mask = _fa_mask(q_pos[i], k_pos[j], causal, window, sk)
+            s = torch.where(mask, s, torch.full_like(s, -1e30))
+            p = torch.exp(s - ls[..., None])                # (B,Hk,g,bq,bk)
+            dv_blks.append(torch.einsum("bhgqk,bqhgd->bkhd", p, dob))
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
+            ds = p * (dp - dl[..., None]) * scale
+            dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
+            dk_blks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qb))
+        dk = dk + torch.cat(dk_blks, dim=1)
+        dv = dv + torch.cat(dv_blks, dim=1)
+        dqs.append(dq)
+    dq = torch.stack(dqs, dim=1).reshape(b, nq * bq, h, d)
+    return (dq[:, :sq].to(q.dtype), dk[:, :sk].to(k.dtype),
+            dv[:, :sk].to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal (optionally windowed) GQA attention for training: forward
+    the flash kernel (``flash_attention`` with its log-sum-exp), backward
+    ``flash_attention_bwd``. ``flash_attention`` is looked up when
+    called, so a caller may put the plain version in its place."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, chunk: int, scale: float):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention(q, k, v, causal=True, window=window,
+                                 scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (window, chunk, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        window, chunk, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                         window=window, chunk=chunk,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
 
@@ -98,6 +215,22 @@ def _theta_for(cfg, kind: str) -> float:
     if kind == "attn" and cfg.rope_theta_global is not None:
         return cfg.rope_theta_global
     return cfg.rope_theta
+
+
+def attn_apply(p, x: torch.Tensor, cfg, *, kind: str,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence (train) attention sublayer with residual: causal,
+    with the sliding window for ``attn_local``, differentiable through
+    the flash kernel (``FlashAttention``)."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg)
+    theta = _theta_for(cfg, kind)
+    q = apply_rope(q, positions, theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, theta, cfg.rope_fraction)
+    window = cfg.window if kind == "attn_local" else 0
+    o = FlashAttention.apply(q, k, v, window, cfg.attn_chunk,
+                             1.0 / math.sqrt(q.shape[-1]))
+    return x + _out_proj(o, p.wo)
 
 
 def attn_prefill_cache(p, x: torch.Tensor, cfg, *, kind: str,

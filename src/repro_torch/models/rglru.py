@@ -1,0 +1,107 @@
+"""RG-LRU recurrent block of the port (RecurrentGemma / Griffin,
+arXiv:2402.19427): the counterpart of ``repro.models.rglru`` for the
+full-sequence (train) path.
+
+    x -> RMSNorm -> { gate branch: W_gate -> GeLU            } -> * -> W_out -> +x
+                    { rec branch:  W_rec -> causal conv(4)
+                                   -> RG-LRU                 }
+
+with, per channel, r_t = sigmoid(W_a h_t + b_a), i_t = sigmoid(W_x h_t +
+b_x), a_t = exp(-c softplus(Lambda) r_t) (c = 8) and
+
+    y_t = a_t y_{t-1} + sqrt(1 - a_t^2) (i_t h_t).
+
+The recurrence runs through ``kernels.rglru_scan``: on the card the
+hand-written scan kernel, forward and reverse; on the CPU its plain
+versions. The leaves keep the reference's names and shapes. The decode
+state (``rglru_prefill_cache``, ``rglru_decode``) comes with the hybrid
+serving slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.models.layers import dense_init, rms_norm
+
+_C = 8.0
+
+
+class RGLRUBlock(nn.Module):
+    """``rglru`` block params: ln (d,), w_in (d, 2d) as [gate | rec],
+    conv_w (W, d) depthwise, conv_b (d,), w_gates (d, 2d) as [r | i],
+    b_gates (2d,), lam (d,) (kept fp32), w_out (d, d)."""
+
+    def __init__(self, cfg, dtype, device, param):
+        super().__init__()
+        d, w = cfg.d_model, cfg.rglru_conv_width
+        self.ln = param((d,), dtype, device)
+        self.w_in = param((d, 2 * d), dtype, device)
+        self.conv_w = param((w, d), dtype, device)
+        self.conv_b = param((d,), dtype, device)
+        self.w_gates = param((d, 2 * d), dtype, device)
+        self.b_gates = param((2 * d,), dtype, device)
+        self.lam = param((d,), torch.float32, device)
+        self.w_out = param((d, d), dtype, device)
+
+
+@torch.no_grad()
+def rglru_init(block: RGLRUBlock, cfg, gen: torch.Generator) -> None:
+    """The reference ``rglru_init``'s shapes and scales: dense leaves
+    N(0, 1) / sqrt(in_dim), norms and biases zero, and Lambda the
+    inverse softplus of -log(u) / c for u ~ U(0.001, 0.1), so that a
+    starts between 0.9 and 0.999."""
+    d, w = cfg.d_model, cfg.rglru_conv_width
+    dev, dt = block.w_in.device, block.w_in.dtype
+    block.w_in.copy_(dense_init(gen, d, (2 * d,), dt, dev))
+    block.conv_w.copy_(dense_init(gen, w, (d,), dt, dev))
+    block.w_gates.copy_(dense_init(gen, d, (2 * d,), dt, dev))
+    block.w_out.copy_(dense_init(gen, d, (d,), dt, dev))
+    u = torch.rand((d,), generator=gen, device=dev) * (0.1 - 0.001) + 0.001
+    block.lam.copy_(torch.log(torch.exp(-torch.log(u) / _C) - 1.0))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), with no threshold (torch's
+    ``F.softplus`` returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over zeros before the sequence. x: (B, S,
+    D); w: (W, D). Summed over the taps i = 0 .. W-1 in the reference's
+    order."""
+    width, s = w.shape[0], x.shape[1]
+    xp = torch.cat([x.new_zeros((x.shape[0], width - 1, x.shape[2])), x],
+                   dim=1)
+    out = sum(xp[:, i:i + s] * w[i] for i in range(width))
+    return out + b
+
+
+def _gates(p, xc: torch.Tensor):
+    """(a, b) of the recurrence, fp32: a = exp(log_a) and b = beta * (i *
+    xc) with beta = sqrt(max(1 - exp(2 log_a), 1e-12))."""
+    gates = xc @ p.w_gates + p.b_gates
+    r, i = torch.sigmoid(gates.float()).chunk(2, dim=-1)
+    log_a = -_C * _softplus(p.lam) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, beta * (i * xc.float())
+
+
+def rglru_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence recurrent block with residual. x: (B, S, D)."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    gate, rec = (h @ p.w_in).chunk(2, dim=-1)
+    gate = F.gelu(gate, approximate="tanh")
+    xc = _causal_conv(rec, p.conv_w, p.conv_b)
+    a, b = _gates(p, xc)
+    y = rglru_scan(a, b, torch.zeros_like(a[:, 0]))
+    out = (y.to(x.dtype) * gate) @ p.w_out
+    return x + out
+
+
+__all__ = ["RGLRUBlock", "rglru_init", "rglru_apply"]

@@ -1,14 +1,23 @@
-"""Decoder stack of the port: an ``nn.Module`` plus prefill / decode.
+"""Decoder stack of the port: an ``nn.Module``, the training forward and
+loss, and prefill / decode.
 
-Counterpart of ``repro.models.transformer`` for dense decoders whose
-every layer is global attention (``layer_pattern`` of ``"attn"``), with
-scan-plus-remainder depth and tied or untied embeddings. The reference
-stacks each period's params under ``lax.scan``; here the decoder layers
-sit in one ``nn.ModuleList`` in ``cfg.layer_kinds`` order (scanned
-periods first, then the remainder), and ``repro_torch.weights`` maps one
-layout onto the other. Parameters keep the reference's names and
-shapes; they are held in the compute dtype (``cast_params_for_compute``
-applied once, where the reference casts at every step).
+Counterpart of ``repro.models.transformer`` with scan-plus-remainder
+depth and tied or untied embeddings. The reference stacks each period's
+params under ``lax.scan``; here the decoder layers sit in one
+``nn.ModuleList`` in ``cfg.layer_kinds`` order (scanned periods first,
+then the remainder), and ``repro_torch.weights`` maps one layout onto
+the other. Parameters keep the reference's names and shapes.
+
+Two uses, two checks. ``forward`` / ``loss_fn`` (training) run the
+``attn``, ``attn_local`` and ``rglru`` block kinds (``check_trainable``)
+on fp32 master parameters: ``cast_params_for_compute`` makes the
+compute-dtype copy out of place at every call, as the reference casts
+at every step, and autograd carries the gradients back to the masters.
+When ``cfg.remat`` is set each scanned period runs under
+``torch.utils.checkpoint``, as the reference wraps its scan body in
+``jax.checkpoint``. Serving (``prefill``, ``decode_step``,
+``prefill_extend``) runs all-``attn`` decoders (``check_servable``) on
+parameters held in the compute dtype (``to_compute_dtype_``, once).
 
 The decode cache is a list with one ``{"k", "v"}`` dict per layer, each
 (B, S_cache, Hk, hd), or with the paged layout (``init_paged_cache``)
@@ -20,12 +29,15 @@ in place where the reference returns new ones.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -53,15 +65,30 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The configs this slice of the port runs."""
-    if any(k != "attn" for k in cfg.layer_kinds):
-        raise ValueError(f"{cfg.name}: the port runs all-'attn' decoders; "
-                         f"{sorted(set(cfg.layer_kinds))} come with later "
-                         f"slices (queue 1, item 10)")
+_TRAIN_KINDS = ("attn", "attn_local", "rglru")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """The configs the port builds and trains: decoders of ``attn``,
+    ``attn_local`` and ``rglru`` blocks."""
+    if any(k not in _TRAIN_KINDS for k in cfg.layer_kinds):
+        raise ValueError(f"{cfg.name}: the port runs {list(_TRAIN_KINDS)} "
+                         f"blocks; {sorted(set(cfg.layer_kinds))} come with "
+                         f"later slices (queue 1, item 10)")
     if cfg.moe is not None or cfg.frontend or cfg.n_encoder_layers:
         raise ValueError(f"{cfg.name}: MoE, frontends and encoders come "
                          f"with later slices (queue 1, item 10)")
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """The configs the port serves (prefill, decode, the ``Engine``):
+    all-``attn`` decoders. The hybrid's ring cache and recurrent state
+    come with later slices."""
+    check_trainable(cfg)
+    if any(k != "attn" for k in cfg.layer_kinds):
+        raise ValueError(f"{cfg.name}: the port serves all-'attn' decoders; "
+                         f"serving {sorted(set(cfg.layer_kinds))} comes with "
+                         f"later slices (queue 1, item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -103,11 +130,17 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    """One decoder layer: its ``kind``'s block (``Attention`` for
+    ``attn`` / ``attn_local``, ``RGLRUBlock`` for ``rglru``) and the MLP
+    when ``d_ff``."""
+
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
         self.kind = kind
-        self.block = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg, dtype, device) if cfg.d_ff else None
+        self.block = R.RGLRUBlock(cfg, dtype, device, _param) \
+            if kind == "rglru" else Attention(cfg, dtype, device)
+        self.register_module("mlp", MLP(cfg, dtype, device)
+                             if cfg.d_ff else None)
 
 
 class Transformer(nn.Module):
@@ -119,15 +152,15 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None):
         super().__init__()
-        check_supported(cfg)
+        check_trainable(cfg)
         dev = resolve_device(device)
         dtype = dtype or _dtype(cfg.dtype)
         self.cfg = cfg
         d, vp = cfg.d_model, cfg.padded_vocab_size
         self.embed = _param((vp, d), dtype, dev)
         self.final_norm = _param((d,), dtype, dev)
-        self.lm_head = None if cfg.tie_embeddings else \
-            _param((d, vp), dtype, dev)
+        self.register_parameter("lm_head", None if cfg.tie_embeddings else
+                                _param((d, vp), dtype, dev))
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, kind, dtype, dev) for kind in cfg.layer_kinds)
 
@@ -136,15 +169,44 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
-def cast_params_for_compute(model: Transformer, cfg: ModelConfig
-                            ) -> Transformer:
-    """Master params -> compute dtype, in place: every floating leaf but
-    the ``_KEEP_F32`` names (none of which an all-'attn' decoder has)."""
+def _keeps_f32(name: str, p: torch.Tensor) -> bool:
+    return name in _KEEP_F32 or not p.is_floating_point()
+
+
+def to_compute_dtype_(model: Transformer, cfg: ModelConfig) -> Transformer:
+    """Params -> compute dtype, in place, for serving: every floating
+    leaf but the ``_KEEP_F32`` names (``lam`` among them)."""
     ct = _dtype(cfg.dtype)
     for name, p in model.named_parameters():
-        if name.rsplit(".", 1)[-1] not in _KEEP_F32 and p.is_floating_point():
+        if not _keeps_f32(name.rsplit(".", 1)[-1], p):
             p.data = p.data.to(ct)
     return model
+
+
+def cast_params_for_compute(model: Transformer, cfg: ModelConfig):
+    """Master params (fp32) -> the compute copy, out of place: a tree of
+    namespaces shaped like ``model`` (``.embed``, ``.layers[i].block.wq``,
+    ``.layers[i].kind`` ...) whose floating leaves but the ``_KEEP_F32``
+    names are ``.to(compute dtype)`` of the masters. The casts are
+    differentiable, so gradients reach the masters, as through the
+    reference's ``astype``."""
+    ct = _dtype(cfg.dtype)
+
+    def view(mod):
+        if isinstance(mod, nn.ModuleList):
+            return [view(m) for m in mod]
+        out = SimpleNamespace()
+        for name, p in mod._parameters.items():
+            if p is not None and not _keeps_f32(name, p):
+                p = p.to(ct)
+            setattr(out, name, p)
+        for name, child in mod._modules.items():
+            setattr(out, name, None if child is None else view(child))
+        for name in ("kind", "cfg"):
+            if hasattr(mod, name):
+                setattr(out, name, getattr(mod, name))
+        return out
+    return view(model)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
@@ -166,11 +228,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                                              dt, dev))
         for layer in model.layers:
             a = layer.block
-            a.wq.copy_(L.dense_init(gen, d, a.wq.shape[1:], dt, dev))
-            a.wk.copy_(L.dense_init(gen, d, a.wk.shape[1:], dt, dev))
-            a.wv.copy_(L.dense_init(gen, d, a.wv.shape[1:], dt, dev))
-            a.wo.copy_(L.dense_init(gen, h * hd, (d,), dt, dev)
-                       .reshape(a.wo.shape))
+            if layer.kind == "rglru":
+                R.rglru_init(a, cfg, gen)
+            else:
+                a.wq.copy_(L.dense_init(gen, d, a.wq.shape[1:], dt, dev))
+                a.wk.copy_(L.dense_init(gen, d, a.wk.shape[1:], dt, dev))
+                a.wv.copy_(L.dense_init(gen, d, a.wv.shape[1:], dt, dev))
+                a.wo.copy_(L.dense_init(gen, h * hd, (d,), dt, dev)
+                           .reshape(a.wo.shape))
             if layer.mlp is not None:
                 m = layer.mlp
                 m.w_gate.copy_(L.dense_init(gen, d, (cfg.d_ff,), dt, dev))
@@ -202,6 +267,77 @@ def _head_logits(x: torch.Tensor, model: Transformer) -> torch.Tensor:
         logits = torch.where(pad, torch.full_like(logits.float(), -1e30),
                              logits.float()).to(logits.dtype)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# forward (train / no-cache)
+# ---------------------------------------------------------------------------
+
+def _layer_apply(layer, x: torch.Tensor, cfg: ModelConfig, *,
+                 positions: torch.Tensor) -> torch.Tensor:
+    if layer.kind == "rglru":
+        x = R.rglru_apply(layer.block, x, cfg)
+    else:
+        x = L.attn_apply(layer.block, x, cfg, kind=layer.kind,
+                         positions=positions)
+    if layer.mlp is not None:
+        x = L.mlp_apply(layer.mlp, x, cfg)
+    return x
+
+
+def _run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor, train: bool = True) -> torch.Tensor:
+    """The decoder layers in ``layer_kinds`` order. With ``cfg.remat and
+    train`` each scanned period runs under ``torch.utils.checkpoint``
+    (its activations recomputed in the backward, as the reference's
+    ``jax.checkpoint`` of the scan body); the remainder layers do not."""
+    period = len(cfg.layer_pattern)
+
+    def run_period(x, first):
+        for layer in params.layers[first:first + period]:
+            x = _layer_apply(layer, x, cfg, positions=positions)
+        return x
+
+    for p in range(cfg.n_periods):
+        if cfg.remat and train:
+            x = checkpoint(run_period, x, p * period, use_reentrant=False)
+        else:
+            x = run_period(x, p * period)
+    for layer in params.layers[cfg.n_periods * period:]:
+        x = _layer_apply(layer, x, cfg, positions=positions)
+    return x
+
+
+def forward(model: Transformer, cfg: ModelConfig, batch: Dict, *,
+            train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: {"tokens": (B, S) int}. Returns (logits (B, S, Vp) in the
+    compute dtype, aux loss 0.0: the port's configs have no MoE). The
+    compute copy is cast from ``model``'s params at every call."""
+    params = cast_params_for_compute(model, cfg)
+    x = _embed_inputs(params, batch["tokens"])
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    x = _run_stack(params, x, cfg, positions=positions, train=train)
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return _head_logits(x, params), torch.zeros((), device=x.device)
+
+
+def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy in fp32, as the reference computes it:
+    logits[:, :-1] against ``labels[:, 1:]`` (B, S), with -1 = masked.
+    The picked logit is a gather (the reference's one-hot contraction is
+    the same sum). Returns (loss, {"ce", "aux"})."""
+    logits, aux = forward(model, cfg, batch, train=True)
+    logits = logits[:, :-1].float()
+    targets = batch["labels"][:, 1:].long()
+    mask = (targets >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    ce = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce, {"ce": ce.detach(), "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +411,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int
     cache. Returns (last-position logits (B, Vp), cache, cache_len (B,)
     int32)."""
     cfg = model.cfg
+    check_servable(cfg)
     x = _embed_inputs(model, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
@@ -305,6 +442,7 @@ def decode_step(model: Transformer, token: torch.Tensor, cache: Cache,
     table names. ``cache`` is updated in place (and returned, like the
     reference's functional step)."""
     cfg = model.cfg
+    check_servable(cfg)
     x = _embed_inputs(model, token)[:, None]
     for layer, c in zip(model.layers, cache):
         if block_tables is None:
@@ -331,6 +469,7 @@ def prefill_extend(model: Transformer, tokens: torch.Tensor, cache: Cache,
     C, Vp) (the caller samples at the last real position), the cache
     and ``cache_len + C``."""
     cfg = model.cfg
+    check_servable(cfg)
     assert supports_chunked_prefill(cfg), cfg.name
     x = _embed_inputs(model, tokens)
     c = x.shape[1]
@@ -402,7 +541,8 @@ def paged_copy_block(cfg: ModelConfig, cache: Cache, src: int,
 
 
 __all__ = ["Transformer", "init_params", "cast_params_for_compute",
-           "init_cache", "init_paged_cache", "kv_row_bytes", "prefill",
+           "to_compute_dtype_", "check_trainable", "check_servable",
+           "forward", "loss_fn", "init_cache", "init_paged_cache", "kv_row_bytes", "prefill",
            "decode_step", "prefill_extend", "supports_chunked_prefill",
            "paged_insert", "paged_seed", "paged_copy_block",
            "resolve_device", "Cache"]

@@ -193,6 +193,7 @@ class Engine:
                  failures: Optional[List[SlotFailure]] = None,
                  device="cuda"):
         self.device = T.resolve_device(device)
+        T.check_servable(cfg)
         if model.device.type != self.device.type or (
                 self.device.index is not None
                 and model.device != self.device):

@@ -33,7 +33,7 @@ class Sampler:
     engine's device, seeded with ``seed``."""
 
     def __init__(self, *, greedy: bool = True, temperature: float = 1.0,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device):
         self.greedy = greedy
         self.temperature = temperature
         self.gen = torch.Generator(device=device).manual_seed(seed)

@@ -12,19 +12,28 @@ path-keyed dict that ``repro.runtime.checkpoint`` saves (keys such as
 * ``embed``, ``final_norm`` and, unless embeddings are tied,
   ``lm_head`` map by name.
 
-Every leaf is cast to the compute dtype, as the reference's
-``cast_params_for_compute`` does at each step.
+A layer's leaves map by name whatever its kind (``block/wq`` of an
+``attn`` or ``attn_local`` layer, ``block/w_in`` or ``block/lam`` of an
+``rglru`` one, ``mlp/w_gate``). By default every leaf but the
+``_KEEP_F32`` ones is cast to the compute dtype for serving, as the
+reference's ``cast_params_for_compute`` does at each step; training
+asks for ``dtype=torch.float32`` masters.
+
+``to_flat`` is the inverse: the port's model as the reference's flat
+checkpoint dict, scan leaves stacked over periods again, for
+checkpoints and tests. ``reference_leaves`` lists the port's tensors
+behind each reference leaf in the reference's flatten order (the order
+in which the optimizer sums the gradient norm).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (Transformer,
-                                            cast_params_for_compute)
+from repro_torch.models.transformer import Transformer, to_compute_dtype_
 
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -65,33 +74,66 @@ def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda",
     misshapen leaf."""
     flat = tree if (isinstance(tree, dict) and any("/" in k for k in tree)) \
         else flatten(tree)
-    model = Transformer(cfg, device=device, dtype=torch.float32)
-    used = set()
+    model = load_flat_(Transformer(cfg, device=device, dtype=torch.float32),
+                       flat)
+    if dtype is None:
+        return to_compute_dtype_(model, cfg)
+    return model.to(dtype)
 
-    def put(param: torch.Tensor, key: str, index: int = -1) -> None:
+
+def _tree_order(key: str):
+    """Sort key of a flat key in ``jax.tree`` flatten order: dict keys
+    sorted as strings at each level, list indices in numeric order."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in key.split("/"))
+
+
+def reference_leaves(model: Transformer) -> Dict[str, List[torch.Tensor]]:
+    """Reference flat key -> the port's parameters that make that leaf:
+    one for an unstacked leaf, one per period (in period order) for a
+    ``scan/...`` leaf. Keys in the reference's flatten order."""
+    out: Dict[str, List[torch.Tensor]] = {
+        "embed": [model.embed], "final_norm": [model.final_norm]}
+    if model.lm_head is not None:
+        out["lm_head"] = [model.lm_head]
+    for li, prefix, _ in layer_sources(model.cfg):
+        for name, param in model.layers[li].named_parameters():
+            out.setdefault(f"{prefix}/{name.replace('.', '/')}",
+                           []).append(param)
+    return dict(sorted(out.items(), key=lambda kv: _tree_order(kv[0])))
+
+
+def to_flat(model: Transformer, *, grad: bool = False
+            ) -> Dict[str, np.ndarray]:
+    """The model's parameters (or, with ``grad``, their ``.grad``) as the
+    reference's flat checkpoint dict of fp32 numpy arrays, ``scan/...``
+    leaves stacked over periods on a leading axis."""
+    out = {}
+    for key, params in reference_leaves(model).items():
+        arrs = [(p.grad if grad else p).detach().float().cpu().numpy()
+                for p in params]
+        out[key] = np.stack(arrs) if key.startswith("scan/") else arrs[0]
+    return out
+
+
+@torch.no_grad()
+def load_flat_(model: Transformer, flat: Dict[str, Any]) -> Transformer:
+    """Copy reference params in the flat checkpoint keys into ``model``
+    in place (each ``scan/...`` leaf split over its periods). Raises on
+    a missing, extra or misshapen leaf. Returns the model."""
+    leaves = reference_leaves(model)
+    extra = sorted(set(flat) - set(leaves))
+    if extra:
+        raise ValueError(f"reference params the port does not take: {extra}")
+    for key, params in leaves.items():
         if key not in flat:
             raise KeyError(f"reference params lack {key!r}")
         arr = np.asarray(flat[key], dtype=np.float32)
-        if index >= 0:
-            arr = arr[index]
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"{key}: shape {arr.shape} vs port "
-                             f"{tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.array(arr, np.float32)))
-        used.add(key)
-
-    with torch.no_grad():
-        put(model.embed, "embed")
-        put(model.final_norm, "final_norm")
-        if model.lm_head is not None:
-            put(model.lm_head, "lm_head")
-        for li, prefix, idx in layer_sources(cfg):
-            layer = model.layers[li]
-            for name, param in layer.named_parameters():
-                put(param, f"{prefix}/{name.replace('.', '/')}", idx)
-    extra = sorted(set(flat) - used)
-    if extra:
-        raise ValueError(f"reference params the port does not take: {extra}")
-    if dtype is None:
-        return cast_params_for_compute(model, cfg)
-    return model.to(dtype)
+        stacked = key.startswith("scan/")
+        want = ((len(params),) if stacked else ()) + tuple(params[0].shape)
+        if arr.shape != want:
+            raise ValueError(f"{key}: shape {arr.shape} vs port {want}")
+        for i, param in enumerate(params):
+            param.copy_(torch.from_numpy(np.array(arr[i] if stacked
+                                                  else arr)))
+    return model

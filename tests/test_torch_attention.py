@@ -5,7 +5,12 @@ interpret mode. fp32, tolerance 2e-5 as in tests/test_kernels.py; bf16
 3e-2 (the frameworks round bf16 at other places). Covered: prefill
 flash attention (also with a per-sequence ``q_offset`` / ``kv_len``, the
 ragged path chunked prefill and prefix resume take), slotted decode,
-and paged decode over a block pool.
+and paged decode over a block pool. For training: the flash wrapper's
+log-sum-exp at head_dim 64 and 256 against the reference's
+``_fa_forward``, and the port of the flash backward ``_fa_bwd``
+(through the ``FlashAttention`` autograd function) against ``jax.grad``
+of ``flash_attention_xla`` with a window and GQA, at head_dim 64 and
+256, within 2e-5 of each gradient's largest magnitude.
 
 On a CPU tensor a wrapper must reach its plain version and leave its
 launch counter at 0; on the card it launches the CUDA kernel
@@ -13,6 +18,7 @@ launch counter at 0; on the card it launches the CUDA kernel
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,11 +31,13 @@ from repro.kernels.decode_attention.ref import (decode_attention_ref,
                                                 paged_decode_attention_ref)
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref
-from repro.models.layers import decode_attention_xla, flash_attention_xla
+from repro.models.layers import (_fa_forward, decode_attention_xla,
+                                 flash_attention_xla)
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models import layers as PL
 
 TOL = 2e-5
 
@@ -58,6 +66,12 @@ OFFSET_CASES = [
     (1, 4, 16, 4, 1, 32, [8], [12]),
     (2, 6, 20, 6, 2, 16, [3, 11], [9, 17]),
     (2, 5, 40, 4, 2, 12, [0, 21], [5, 26]),
+]
+# (b, s, h, hk, d, window, chunk): training attention, causal with a
+# window, GQA; blocks of 16 over a ragged 37 rows, and head_dim 256
+FA_BWD_CASES = [
+    (2, 37, 4, 1, 64, 8, 16),
+    (1, 24, 4, 2, 256, 8, 8),
 ]
 DEC_SHAPES = [
     # (h, hk, d, s, lengths)
@@ -301,3 +315,40 @@ def test_paged_and_offset_kernels_match_plain_on_card():
                   kv_len=torch.tensor(kl, dtype=torch.int32).cuda())
         _close(fa_ops.flash_attention(q, k, v, **kw).cpu(),
                fa_ref.attention_ref(q, k, v, **kw).cpu())
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,window,chunk", FA_BWD_CASES)
+def test_flash_lse_plain_vs_jax(b, s, h, hk, d, window, chunk):
+    """The wrapper's output and log-sum-exp (B, H, S) against the
+    reference's blocked forward, whose lse is (B, Hk, g, S)."""
+    q, k, v = _qkv(np.random.RandomState(s + d), b, s, s, h, hk, d)
+    before = fa_ops.flash_attention.launches
+    o, lse = fa_ops.flash_attention(*_t(q, k, v), window=window,
+                                    return_lse=True)
+    assert fa_ops.flash_attention.launches == before
+    want_o, want_lse = _fa_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, None, True,
+        window, chunk, 1.0 / np.sqrt(d))
+    _close(o.numpy(), want_o)
+    _close(lse.numpy(), np.asarray(want_lse).reshape(b, h, s))
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,window,chunk", FA_BWD_CASES)
+def test_flash_backward_vs_jax_grad(b, s, h, hk, d, window, chunk):
+    """d(sum(o * do)) / d(q, k, v) through ``FlashAttention`` (the plain
+    forward with its lse, then the ported ``_fa_bwd``) against
+    ``jax.grad`` of ``flash_attention_xla`` (its custom-VJP backward)."""
+    rng = np.random.RandomState(s * d)
+    q, k, v = _qkv(rng, b, s, s, h, hk, d)
+    do = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    tq, tk, tv = (t.requires_grad_(True) for t in _t(q, k, v))
+    o = PL.FlashAttention.apply(tq, tk, tv, window, chunk, 1.0 / np.sqrt(d))
+    (o * torch.from_numpy(do)).sum().backward()
+    want = jax.jit(jax.grad(
+        lambda x, y, z, w: jnp.sum(flash_attention_xla(
+            x, y, z, causal=True, window=window, chunk=chunk) * w),
+        argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v, do)))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        w = np.asarray(w)
+        err = np.abs(got.numpy() - w).max() / np.abs(w).max()
+        assert err <= TOL, err

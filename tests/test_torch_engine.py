@@ -268,10 +268,13 @@ def test_temperature_sampling_by_distribution():
     """Temperature sampling cannot replay JAX's PRNG: hold it to the
     softmax distribution instead."""
     logits = torch.log(torch.tensor([[0.1, 0.2, 0.3, 0.4]])).repeat(4000, 1)
-    toks = Sampler(greedy=False, temperature=1.0, seed=3)(logits)
+    toks = Sampler(greedy=False, temperature=1.0, seed=3,
+                   device="cpu")(logits)
     freq = np.bincount(toks.numpy(), minlength=4) / toks.numel()
     np.testing.assert_allclose(freq, [0.1, 0.2, 0.3, 0.4], atol=0.03)
-    hot = Sampler(greedy=False, temperature=0.25, seed=3)(logits)
+    hot = Sampler(greedy=False, temperature=0.25, seed=3,
+                  device="cpu")(logits)
     assert (hot == 3).float().mean() > 0.5
-    greedy = Sampler(greedy=True)(torch.tensor([[1.0, 3.0, 3.0, 0.0]]))
+    greedy = Sampler(greedy=True, device="cpu")(
+        torch.tensor([[1.0, 3.0, 3.0, 0.0]]))
     assert greedy.tolist() == [1]        # ties take the first index

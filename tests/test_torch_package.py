@@ -5,8 +5,9 @@
 * entry points default to ``"cuda"`` and raise without a card unless the
   caller passes ``device="cpu"``;
 * the ``EngineConfig`` fields of later slices, and the model families of
-  later slices, are refused with a ``ValueError`` that says so; the
-  fields this slice runs are accepted;
+  later slices, are refused with a ``ValueError`` that says so (the
+  hybrid's ``rglru`` and ``attn_local`` blocks build and train, and
+  serving refuses them); the fields this slice runs are accepted;
 * ``chip_smoke.py`` fails, printing no result, without a card or outside
   a checkout.
 """
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import transformer as PT
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.engine import Engine, EngineConfig
@@ -102,13 +103,36 @@ def test_this_slice_fields_are_accepted(field, value):
     assert eng.scheduler.layout.paged == (c.kv_layout == "paged")
 
 
+def test_train_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "recurrentgemma_9b", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.run(ModelConfig(**TINY), steps=1, batch=2, seq=8)
+
+
 @pytest.mark.parametrize("change", [
     dict(layer_pattern=("attn_local",), window=4),
     dict(layer_pattern=("attn", "rglru")), dict(frontend="vision",
                                                 frontend_dim=8)])
 def test_later_model_families_are_refused(change):
+    """Frontends (and MoE, encoders) are refused when the model is
+    built. The hybrid's block kinds build and train in this slice, and
+    the serving entry points (``Engine``, ``prefill``, ``decode_step``)
+    refuse them: their ring cache and recurrent state come later."""
+    cfg = ModelConfig(**{**TINY, **change})
+    if cfg.frontend:
+        with pytest.raises(ValueError, match="later slices"):
+            PT.Transformer(cfg, device="cpu")
+        return
+    model = PT.init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="later slices"):
-        PT.Transformer(ModelConfig(**{**TINY, **change}), device="cpu")
+        Engine(cfg, model, device="cpu")
+    with pytest.raises(ValueError, match="later slices"):
+        PT.prefill(model, torch.zeros((1, 4), dtype=torch.int32), max_len=8)
+    with pytest.raises(ValueError, match="later slices"):
+        PT.decode_step(model, torch.zeros((1,), dtype=torch.int32), [],
+                       torch.zeros((1,), dtype=torch.int32))
 
 
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path):

@@ -1,0 +1,61 @@
+#!/usr/bin/env python3
+"""Time the flash-attention kernel at the serving shapes for two
+checkouts of the repository, in turns (other, this, this, other), on one
+NVIDIA GPU:
+
+    python3 tools/time_flash_turns.py OTHER_CHECKOUT
+
+``OTHER_CHECKOUT`` is a second checkout, e.g. the parent commit unpacked
+with ``git archive`` into a directory that ``.gitignore`` lists. Each
+turn runs in a fresh process from that checkout's root, builds that
+checkout's kernel, and times it with that checkout's ``chip_smoke.py``
+(``time_flash`` at the fifo and batch prefills, ``time_flash_extend`` at
+the prefix-resume, chunk and ragged extends), so that the two versions
+meet the same card in one call. Prints one JSON line per turn.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+TURN = r'''
+import json, sys
+sys.path.insert(0, "src")
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops, ref
+_build.build_all(["flash_attention"])
+gen = torch.Generator(device="cuda").manual_seed(0)
+rnd = lambda shape, dt: torch.randn(shape, generator=gen, device="cuda").to(dt)
+out = {p: cs.time_flash(torch, ops, ref, rnd, b)["ms"]
+       for p, b in cs.SERVE_FA.items()}
+out.update({p: cs.time_flash_extend(torch, ops, ref, rnd, case)["ms"]
+            for p, case in cs.SERVE_EXT.items()})
+print("RESULT " + json.dumps(out))
+'''
+
+
+def main() -> int:
+    if len(sys.argv) != 2:
+        print(__doc__)
+        return 2
+    here = Path(__file__).resolve().parents[1]
+    other = Path(sys.argv[1]).resolve()
+    for root in (other, here, here, other):
+        run = subprocess.run([sys.executable, "-c", TURN], cwd=root,
+                             capture_output=True, text=True)
+        got = [ln[7:] for ln in run.stdout.splitlines()
+               if ln.startswith("RESULT ")]
+        if run.returncode or not got:
+            print(run.stdout[-2000:], run.stderr[-4000:])
+            return 1
+        print(json.dumps({"checkout": str(root), "ms": json.loads(got[0])}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
