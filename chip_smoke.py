@@ -15,7 +15,12 @@ Phases, one status line each; any failure exits non-zero:
    flash attention, slotted decode, and paged decode over a block pool
    (null and repeated blocks, lengths 0 and 1; at the paged fifo shape
    also bit for bit equal to slotted decode over the gathered rows);
-   then, at the serving shapes, the kernel's,
+   the edges of the kernels' bodies (flash in bf16 at head dims 12 to
+   256, lengths that are no multiple of a tile, g = 1, 16 and 128,
+   windows and kv_len ending mid-tile; decode lengths 0, 1, 31, 33, one
+   ending a split mid-tile and the full cache, block sizes 8 and 16,
+   24-byte rows), and flash on B > 1 sequences bit for bit equal to
+   each sequence run alone; then, at the serving shapes, the kernel's,
    the plain version's and the library's times (SDPA; for paged decode
    a page gather then SDPA, two calls; inputs rotated over twice the
    L2) and the card's bound at the peak rate of the input type;
@@ -75,6 +80,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -138,10 +144,15 @@ def phase_device(torch, build) -> dict:
     times = build.build_all()
     build_s = time.perf_counter() - t0
     for stem in build.sources():
-        log = build.lib_path(stem).with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {stem}: {line.strip()}")
+        log = build.lib_path(stem).with_suffix(".log").read_text()
+        if shutil.which("c++filt"):
+            log = subprocess.run(["c++filt"], input=log, capture_output=True,
+                                 text=True).stdout
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
+            elif "registers" in line or "spill" in line:
+                say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
     say(f"[1/5] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
@@ -167,10 +178,25 @@ FA_CASES = [
     (2, 20, 45, 4, 1, 64, False, 0, "float32"),
     (1, 512, 512, 12, 2, 128, True, 0, "bfloat16"),    # fifo: one request
     (16, 512, 512, 12, 2, 128, True, 0, "bfloat16"),   # batch: the bucket
+    # the tensor-core body's edges, bf16: head dims 16, 64, 96, 192 and
+    # 12 (not a multiple of 8: element-wise loads), lengths that are no
+    # multiple of the 64-position q-tile or the 64- (32- at D > 128) row
+    # KV tile, Sq != Sk, g = 1, 16 and 128, windows that cut a KV tile
+    (2, 100, 100, 4, 2, 16, True, 0, "bfloat16"),
+    (1, 130, 130, 8, 2, 64, True, 0, "bfloat16"),
+    (2, 77, 77, 6, 3, 96, True, 40, "bfloat16"),
+    (1, 150, 150, 4, 1, 192, True, 0, "bfloat16"),
+    (2, 37, 37, 4, 2, 12, True, 0, "bfloat16"),
+    (1, 70, 133, 4, 2, 128, False, 0, "bfloat16"),
+    (2, 90, 90, 4, 4, 128, True, 0, "bfloat16"),
+    (1, 200, 200, 16, 1, 128, True, 0, "bfloat16"),
+    (1, 40, 40, 128, 1, 64, True, 0, "bfloat16"),
+    (1, 300, 300, 16, 1, 256, True, 50, "bfloat16"),
 ]
 # the serving runs' cache: --prompt-len 512 + --max-new 32 + 8 rows
 SERVE_S = 512 + 32 + 8
 FIFO_LENS = [1, 513, 518, 523, 528, 533, 538, 544]  # one free slot
+EDGE_LENS = [0, 1, 31, 33, 80, 300, 551, SERVE_S]
 DEC_CASES = [
     # (b, h, hk, d, s, dtype, lengths or None = random in [1, s]):
     # tests/test_kernels.py DEC_CASES, ragged lengths, the serving decodes
@@ -184,6 +210,12 @@ DEC_CASES = [
      [520, 544, 1, 1024, 700, 512, 33, 600]),
     (8, 12, 2, 128, SERVE_S, "bfloat16", FIFO_LENS),   # fifo decode step
     (16, 12, 2, 128, SERVE_S, "bfloat16", [528] * 16),  # batch decode step
+    # the redesigned body's edges: lengths 0, 1, 31, 33, 80 (ends the
+    # second 64-row split mid-tile), the full S; rows of 24 bytes (D=12
+    # in bf16) take the element-wise loads
+    (8, 12, 2, 128, SERVE_S, "bfloat16", EDGE_LENS),
+    (8, 12, 2, 128, SERVE_S, "float32", EDGE_LENS),
+    (5, 4, 2, 12, 45, "bfloat16", [0, 1, 45, 17, 33]),
 ]
 # the shapes the serving runs give the kernels, timed below; "fifo" (the
 # main path) goes into the kernels line, "batch" into the --out record
@@ -205,6 +237,11 @@ PAGED_CASES = [
     (4, 12, 2, 128, 40, 16, 5, "bfloat16", [0, 1, 80, 33]),
     (5, 4, 2, 12, 11, 8, 3, "float32", [1, 0, 24, 9, 17]),
     (8, 12, 2, 128, PARITY_BLOCKS, BS, PAGES, "bfloat16", FIFO_LENS),
+    # the redesigned body's edges over random tables (null and repeated
+    # blocks): the decode edge lengths at bs = 8 and 16, and D=12 in bf16
+    (8, 12, 2, 128, 100, 8, 69, "bfloat16", EDGE_LENS),
+    (8, 12, 2, 128, 60, 16, 35, "bfloat16", EDGE_LENS),
+    (5, 4, 2, 12, 11, 8, 3, "bfloat16", [1, 0, 24, 9, 17]),
 ]
 OFFSET_CASES = [
     # (b, sq, sk, h, hk, d, q_offset, kv_len, dtype): flash with the
@@ -217,6 +254,17 @@ OFFSET_CASES = [
     (1, 256, 560, 12, 2, 128, [256], [512], "bfloat16"),
     (1, 128, 640, 12, 2, 128, [384], [512], "bfloat16"),
     (2, 128, 640, 12, 2, 128, [128, 384], [256, 512], "bfloat16"),
+    # kv_len ending mid-tile, and a chunk padded past kv_len, bf16
+    (2, 70, 200, 8, 2, 128, [30, 100], [100, 170], "bfloat16"),
+    (1, 48, 160, 4, 1, 64, [77], [101], "bfloat16"),
+]
+# flash on B sequences at once against each sequence alone, bit for bit
+# (fifo = batch tokens rest on it): (b, sq, sk, h, hk, d, window,
+# q_offset, kv_len or None), bf16, causal
+BATCH_CASES = [
+    (3, 150, 150, 12, 2, 128, 0, None, None),
+    (3, 70, 200, 8, 2, 128, 0, [0, 30, 100], [70, 100, 170]),
+    (2, 100, 100, 16, 1, 256, 50, None, None),
 ]
 # the extend calls timed below: prefix resume (a 256-token tail over a
 # 560-row scratch), a 128-token chunk over a 640-row scratch, and a
@@ -238,6 +286,7 @@ FA256_CASES = [
     (2, 37, 16, 1, 256, 8, "float32"),
     (1, 100, 4, 2, 256, 0, "bfloat16"),
     (2, 50, 4, 1, 192, 16, "float32"),
+    (1, 300, 16, 1, 256, 50, "bfloat16"),
     (1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW, "bfloat16"),
     (1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW, "float32"),
 ]
@@ -638,6 +687,24 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
         rows.append((tag, err, tol, ok))
         if not ok:
             failures.append(tag)
+    for (b, sq, sk, h, hk, d, w, qo, kl) in BATCH_CASES:
+        q, k, v = rnd((b, sq, h, d), torch.bfloat16), \
+            rnd((b, sk, hk, d), torch.bfloat16), \
+            rnd((b, sk, hk, d), torch.bfloat16)
+
+        def ragged(i, j):
+            return {} if qo is None else dict(
+                q_offset=torch.tensor(qo[i:j], dtype=torch.int32, device=dev),
+                kv_len=torch.tensor(kl[i:j], dtype=torch.int32, device=dev))
+        out = fa_ops.flash_attention(q, k, v, window=w, **ragged(0, b))
+        same = all(torch.equal(out[i:i + 1], fa_ops.flash_attention(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], window=w, **ragged(i, i + 1)))
+            for i in range(b))
+        tag = (f"flash b{b} sq{sq} sk{sk} h{h}/{hk} d{d} w{w} q_offset={qo} "
+               f"kv_len={kl} bfloat16: each row == its B=1 run")
+        rows.append((tag, 0.0, 0.0, same))
+        if not same:
+            failures.append(tag)
     for (b, s, h, hk, d, w, dtn) in FA256_CASES:
         dt = getattr(torch, dtn)
         q, k, v = rnd((b, s, h, d), dt), rnd((b, s, hk, d), dt), \
@@ -988,6 +1055,11 @@ def traced(torch, serve, model, want_tokens, label: str, top: int = 8,
     return trace_summary(torch, prof, wall_s, f"{label} run", top)
 
 
+# the port's own kernels, by name, reported from every trace
+PORT_KERNELS = ("fa_fwd", "decode_partial_kernel", "decode_combine_kernel",
+                "rglru_fwd_kernel", "rglru_bwd_kernel")
+
+
 def trace_summary(torch, prof, wall_s: float, label: str, top: int) -> dict:
     """The device's busy time in a ``torch.profiler`` trace (the union of
     the kernels' intervals), its idle share of ``wall_s``, and the
@@ -1007,15 +1079,23 @@ def trace_summary(torch, prof, wall_s: float, label: str, top: int) -> dict:
             busy_us += t - max(s, end)
             end = t
     busy_s = busy_us / 1e6
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+
+    def rows(items):
+        return [{"kernel": n[:90], "ms": v[0] / 1e3, "calls": v[1]}
+                for n, v in items]
     out = {"wall_s": wall_s, "device_busy_s": busy_s,
            "idle_share": 1.0 - busy_s / wall_s, "kernels": len(kernels),
-           "top": [{"kernel": n[:90], "ms": v[0] / 1e3, "calls": v[1]}
-                   for n, v in ranked]}
+           "top": rows(ranked[:top]),
+           "port": rows((n, v) for n, v in ranked
+                        if any(k in n for k in PORT_KERNELS))}
     say(f"  traced {label}: wall {wall_s:.4f} s, device busy "
         f"{busy_s:.4f} s, idle share {out['idle_share']:.4f}, "
         f"{len(kernels)} kernels")
     for k in out["top"]:
+        say(f"    {k['ms']:10.4f} ms  x{k['calls']:6d}  {k['kernel']}")
+    say("    the port's kernels:")
+    for k in out["port"]:
         say(f"    {k['ms']:10.4f} ms  x{k['calls']:6d}  {k['kernel']}")
     return out
 

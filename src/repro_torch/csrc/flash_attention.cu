@@ -1,57 +1,94 @@
-// Prefill flash attention for Hopper (sm_90a), fp32 FMA on shared-memory tiles.
+// Prefill flash attention for Hopper (sm_90a): a tensor-core body for
+// bf16 and an fp32 FMA body for fp32, chosen by dtype at the entry.
 //
 // Replaces the TPU kernel `flash_attention_pallas` / `_fa_kernel` in
 // src/repro/kernels/flash_attention/kernel.py: causal / sliding-window GQA
 // attention forward with an online softmax whose m, l and acc stay in fp32.
 //
-// Bound on the H100: at the serving path's shape (one 512-token prompt,
-// 12 query heads over 2 KV heads, head_dim 128, bf16) the card's floor
-// is about 1.1 us, set by the bytes (3.7 MB at 3.35 TB/s); the FLOPs at
-// the bf16 tensor-core rate (989 TFLOP/s) take 0.8 us. This kernel does
-// its products with fp32 FMAs on the CUDA cores, so its own arithmetic
-// limits it to the fp32 FMA rate (67 TFLOP/s, 12 us at this shape);
-// moving the two products onto wgmma/mma is the next step for speed.
+// Which body serves which dtype, and why. bf16 inputs (every serving and
+// training call) run `fa_fwd_tc_kernel`: both products on the tensor
+// cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate). fp32 inputs
+// run `fa_fwd_kernel`, the FMA body of the first port, unchanged: with
+// TF32 off it is the only way to keep the fp32 golden fixtures at 2e-5,
+// and no main path sends fp32. A bf16 call never reaches the FMA body,
+// and nothing falls back from one body to the other.
 //
-// Design. On the TPU the grid runs in order and carries m/l/acc in VMEM
-// from one kv grid step to the next. Here one CTA owns one
-// (batch, kv-head, q-tile) and loops over its own KV tiles; nothing is
-// carried between CTAs. A q-tile holds all g = H/Hk query heads of the
-// kv head times bq rows (g*bq <= 64), so each K/V tile is loaded into
-// shared memory once per group, as on the TPU. Per KV tile:
+// Bound on the H100. Serving prefill (one 512-token prompt, 12 query
+// heads over 2 KV heads, head_dim 128): about 1.1 us, set by the bytes
+// (3.7 MB at 3.35 TB/s); the FLOPs at 989 TFLOP/s take 0.8 us. Training
+// (B=1, S=4096, 16/1 heads, head_dim 256, window 2048): the operations,
+// 6.3 M live (query, key) pairs, 103 GFLOP, 0.10 ms at 989 TFLOP/s.
+//
+// Tensor-core body (bf16). One CTA of 4 warps per (batch, query head,
+// q-tile of BQ = 64 positions), 16 query rows a warp. Query head h reads
+// KV head h / g; the g heads of a group sit next to each other in the
+// grid, so they reread the same K/V tiles from the 50 MB L2 at about
+// the same time. BQ = 64 rather than 128: the fifo prefill (B=1, 512
+// positions, 12 heads) then has 96 CTAs instead of 48 on 132 SMs, and
+// at g = 16 every K/V tile still feeds 64 positions (the first port
+// split 64 rows over the group: 4 positions a tile at g = 16). The grid
+// runs the q-tiles with the most live KV tiles first (causal imbalance).
+// Per KV tile:
+//   1. S = Q K^T on mma.sync m16n8k16 fed by ldmatrix from shared
+//      memory. Q's fragments stay in registers at head_dim <= 128; at
+//      256 they are reread from shared memory (registers hold O).
+//   2. The causal / window / ragged mask (NEG_INF = -1e30, exactly as
+//      `_fa_kernel`; only on tiles the mask can reach), then the online
+//      softmax in fp32 with the row max shared over the 4 lanes of a
+//      quad.
+//   3. O = O * exp(m_prev - m_new) + P V: P is rounded to bf16 in
+//      registers (the S accumulator's layout is the A operand's, as in
+//      FlashAttention-2) and V's fragments come from ldmatrix.trans. m,
+//      l and O stay fp32; l sums P before rounding. O is rescaled only
+//      when a row max of the warp moved (a factor of exactly 1 skipped).
+// The next k-step's (or 16 columns') fragments are loaded while the
+// current ones multiply, so an mma seldom waits on its ldmatrix; exp is
+// ex2.approx (relative error ~2^-22, far below P's bf16 rounding).
+// Loads: K/V tiles (BK = 64 rows at head_dim <= 128; 32 at 256, where O
+// takes 128 registers a thread) move with 16-byte cp.async into a ring
+// of 2 stages, the next tile in flight while this one computes; Q comes
+// with the first tile. Of the rings tried on the H100 (32 or 64 rows, 2
+// to 4 stages; tools/attention_sweep.py) this one was fastest at both
+// the serving and the training shapes: a deeper ring costs the second
+// CTA on an SM. Tiles stay bf16 in shared memory with rows padded
+// by 16 bytes, so the 8 rows an ldmatrix phase reads fall in 8 distinct
+// bank groups. Shared memory: 85 KB at head_dim 128, 99 KB at 256, so
+// two CTAs share an SM. A head_dim that is not a multiple of 16 is
+// zero-padded in shared memory to the next one; a head_dim that is not a
+// multiple of 8, or a base pointer that is not 16-byte aligned, loads
+// element by element (the same body otherwise). The KV loop runs from
+// the first tile the window reaches to the last below the diagonal and
+// kv_len: no other tile is loaded. Rows past Sq, Sk or kv_len are
+// zero-filled by cp.async (nothing is read), and padding columns are
+// never written back.
+//
+// FMA body (fp32). One CTA owns one (batch, kv-head, q-tile) and loops
+// over its own KV tiles; nothing is carried between CTAs. A q-tile holds
+// all g = H/Hk query heads of the kv head times bq rows (g*bq <= 64), so
+// each K/V tile is loaded into shared memory once per group. Per KV
+// tile:
 //   1. S = Q K^T from shared memory, 4x2 register micro-tiles a thread;
 //   2. the causal / window / ragged-tail mask (NEG_INF = -1e30, exactly
 //      as `_fa_kernel`), then the online-softmax update, 4 threads a row;
 //   3. acc = acc * exp(m_prev - m_new) + P V, 4x8 register micro-tiles.
 // KV tiles wholly above the causal diagonal or outside the window are
-// skipped; ragged Sq and Sk tails are masked in the kernel, so no
-// length has to divide a block size.
+// skipped; ragged Sq and Sk tails are masked in the kernel. No TF32 and
+// no fast-math exp: fp32 inputs meet 2e-5 against the plain version. It
+// is a template on DMAX, the largest head_dim an instantiation takes
+// (128 and 256; 140.7 KB of shared memory at 256).
 //
-// Offset and ragged KV (chunked prefill and prefix resume). Optional
-// per-sequence q_offset[b] and kv_len[b] (device int32, (B,)): query row
-// i of sequence b sits at absolute position q_offset[b] + i, and a key
-// at kpos is live iff kpos < kv_len[b] (and kpos <= qpos when causal),
-// the ragged branch of `_fa_mask` in src/repro/models/layers.py. Tiles
-// at or past kv_len[b], or above the tile's last absolute query
-// position, are never loaded. Both absent: q_offset 0 and kv_len Sk,
-// exactly the plain prefill. bf16 loads widen with
-// __bfloat162float; the output is acc / max(l, 1e-30) in q's dtype.
-// No TF32 and no fast-math exp: fp32 inputs meet 2e-5 against the plain
-// version.
+// Offset and ragged KV (chunked prefill and prefix resume), both bodies.
+// Optional per-sequence q_offset[b] and kv_len[b] (device int32, (B,)):
+// query row i of sequence b sits at absolute position q_offset[b] + i,
+// and a key at kpos is live iff kpos < kv_len[b] (and kpos <= qpos when
+// causal), the ragged branch of `_fa_mask` in src/repro/models/layers.py.
+// Both absent: q_offset 0 and kv_len Sk, exactly the plain prefill. The
+// output is acc / max(l, 1e-30) in q's dtype. A sequence's result does
+// not depend on B or on the other sequences: every CTA reads one
+// sequence only, in a fixed order of operations.
 //
-// Head dims. The kernel is a template on DMAX, the largest head_dim an
-// instantiation takes: 128 (the serving models; its code is what it was
-// before the template) and 256 (RecurrentGemma's local attention). At
-// D=256 the shared memory is 140.7 KB, under the 227 KB a CTA may use,
-// and each thread holds 4 x 16 fp32 accumulators. With g = 16 query
-// heads over one KV head a q-tile holds only bq = 64 / g = 4 rows, so
-// each K/V tile is reused by 4 query positions: slow, and accepted. At
-// the training shape (B=1, S=4096, 16/1 heads, window 2048, bf16) the
-// bound is the operations: 6.3 M live (query, key) pairs, 103 GFLOP,
-// 0.10 ms at the bf16 tensor-core rate (1.5 ms at the fp32 FMA rate
-// this kernel computes at), against 71 MB of bytes (0.02 ms).
-//
-// Log-sum-exp. An optional fp32 lse (B, H, Sq) output, through a
-// nullable pointer as q_offset and kv_len are passed: lse = m +
+// Log-sum-exp, both bodies. An optional fp32 lse (B, H, Sq) output,
+// through a nullable pointer as q_offset and kv_len are passed: lse = m +
 // log(max(l, 1e-30)) in the scaled-score units of `_fa_forward` in
 // src/repro/models/layers.py, which the training backward reads to
 // recompute P blockwise. Null, nothing is written.
@@ -67,12 +104,8 @@ constexpr int DMAX_ALL = 256;   // largest head_dim of any instantiation
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 size_t smem_bytes(int D) {
   const int DP = D + 1;
@@ -251,57 +284,403 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-template <typename T, int DMAX>
+// ---------------------------------------------------------------------------
+// the tensor-core body (bf16)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 64;          // query positions a CTA: 4 warps x 16 rows
+constexpr int NW = 4;
+constexpr int NTC = 32 * NW;
+constexpr float L2E = 1.4426950408889634f;
+
+// KV rows a tile (BK) and tiles in the ring (NS) for each instantiation
+template <int DMAX> struct Tile;
+template <> struct Tile<128> { static constexpr int BK = 64, NS = 2; };
+template <> struct Tile<256> { static constexpr int BK = 32, NS = 2; };
+
+// shared-memory row stride in elements: head_dim rounded up to 16, plus
+// 8 (16 bytes), so consecutive rows start 16 bytes apart modulo 128
+__host__ __device__ __forceinline__ int row_stride(int D) { return ((D + 15) & ~15) + 8; }
+
+template <int DMAX>
+size_t smem_bytes(int D) {
+  return sizeof(bf16) * (size_t)row_stride(D) * (BQ + 2 * Tile<DMAX>::NS * Tile<DMAX>::BK);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; pred false zero-fills and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16x16 row-major) * b (16x8 col-major), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x: ex2.approx (relative error ~2^-22; 0 and 1 exact), flushing
+// results below 2^-126 to 0 -- P is rounded to bf16 in any case
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// rows [row0, row0 + R) of one head of one sequence into dst (stride SD);
+// `src` is the sequence's row 0 at that head, `stride` the elements
+// between rows. Rows at or past `nrows` are zero-filled, never read.
+// CMAX = DMAX / 8 chunks a row at most, so the vector path's index
+// arithmetic is shifts.
+template <int R, int CMAX>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int nrows,
+                                          size_t stride, int D, int SD, bool vec) {
+  static_assert((R * CMAX) % NTC == 0, "a tile is whole chunks a thread");
+  if (vec) {                    // D % 8 == 0, 16-byte aligned: cp.async
+#pragma unroll
+    for (int j = 0; j < R * CMAX / NTC; ++j) {
+      const int i = j * NTC + threadIdx.x;
+      const int r = i / CMAX, c = i % CMAX;
+      if (c * 8 >= D) continue;
+      const bool ok = row0 + r < nrows;
+      const bf16* s = ok ? src + (size_t)(row0 + r) * stride + c * 8 : src;
+      cp_async16(dst + r * SD + c * 8, s, ok);
+    }
+  } else {                      // element by element, synchronous
+    for (int i = threadIdx.x; i < R * D; i += NTC) {
+      const int r = i / D, d = i % D;
+      dst[r * SD + d] = row0 + r < nrows ? src[(size_t)(row0 + r) * stride + d]
+                                         : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(NTC, 2)
+fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 const int* __restrict__ q_offset, const int* __restrict__ kv_len,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int Hk, int D, int causal,
+                 int window, float scale, int vec) {
+  constexpr int BK = Tile<DMAX>::BK;
+  constexpr int NS = Tile<DMAX>::NS;
+  constexpr int CMAX = DMAX / 8;
+  constexpr int NKS = DMAX / 16;    // k-steps over d of S = Q K^T
+  constexpr int NST = BK / 8;       // 8-key n-tiles of S
+  constexpr int NDT = DMAX / 8;     // 8-column n-tiles of O
+  constexpr bool QREG = DMAX <= 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int SD = row_stride(D);
+  const int D16 = SD - 8;
+  const int nks = D16 / 16;         // the k-steps (and 16-column pairs) in use
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);     // [BQ][SD]
+  bf16* sKV = sQ + BQ * SD;                          // NS x {K [BK][SD], V [BK][SD]}
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kvh = h / (H / Hk);
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest q-tiles first
+  const int q_hi = min(q_lo + BQ, Sq) - 1;
+  const int qoff = q_offset ? q_offset[b] : 0;
+  const int kvl = kv_len ? min(max(kv_len[b], 0), Sk) : Sk;
+
+  // the live KV tiles: from the first the window reaches to the last at
+  // or below the diagonal and below kv_len
+  int kt_lo = 0, kt_hi = (kvl + BK - 1) / BK;
+  if (causal) {
+    const int last = qoff + q_hi;
+    kt_hi = last < 0 ? 0 : min(kt_hi, last / BK + 1);
+  }
+  if (window > 0) {
+    const int first = qoff + q_lo - window + 1;
+    if (first > 0) kt_lo = first / BK;
+  }
+
+  // padding columns [D, D16) of every buffer are zero for the whole run
+  if (D16 > D)
+    for (int i = tid; i < (BQ + 2 * NS * BK) * (D16 - D); i += NTC)
+      sQ[(i / (D16 - D)) * SD + D + i % (D16 - D)] = __float2bfloat16(0.f);
+
+  const size_t kv_stride = (size_t)Hk * D;
+  const bf16* kseq = k + ((size_t)b * Sk * Hk + kvh) * D;
+  const bf16* vseq = v + ((size_t)b * Sk * Hk + kvh) * D;
+  // Q and the first NS - 1 tiles in flight before any is consumed; one
+  // commit group a tile (Q rides with the first)
+  load_rows<BQ, CMAX>(sQ, q + ((size_t)b * Sq * H + h) * D, q_lo, Sq, (size_t)H * D, D, SD,
+                      vec);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (kt_lo + i < kt_hi) {
+      bf16* nK = sKV + i * 2 * BK * SD;
+      load_rows<BK, CMAX>(nK, kseq, (kt_lo + i) * BK, kvl, kv_stride, D, SD, vec);
+      load_rows<BK, CMAX>(nK + BK * SD, vseq, (kt_lo + i) * BK, kvl, kv_stride, D, SD, vec);
+    }
+    cp_commit();
+  }
+
+  const int wrow = warp * 16;                    // this warp's rows of the tile
+  const int qpos0 = qoff + q_lo + wrow + gid;    // absolute positions of its
+  const int qpos1 = qpos0 + 8;                   // two rows a thread
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float acc[NDT][4];
+#pragma unroll
+  for (int j = 0; j < NDT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  unsigned qf[QREG ? NKS : 1][4];
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int it = kt - kt_lo;
+    const bf16* sK = sKV + (it % NS) * 2 * BK * SD;
+    const bf16* sV = sK + BK * SD;
+    __syncthreads();              // tile it - 1 consumed: its stage is free
+    if (kt + NS - 1 < kt_hi) {
+      bf16* nK = sKV + ((it + NS - 1) % NS) * 2 * BK * SD;
+      load_rows<BK, CMAX>(nK, kseq, (kt + NS - 1) * BK, kvl, kv_stride, D, SD, vec);
+      load_rows<BK, CMAX>(nK + BK * SD, vseq, (kt + NS - 1) * BK, kvl, kv_stride, D, SD, vec);
+    }
+    cp_commit();
+    cp_wait<NS - 1>();            // this tile (and Q) have landed
+    __syncthreads();
+    if (QREG && kt == kt_lo) {
+#pragma unroll
+      for (int ks = 0; ks < (QREG ? NKS : 1); ++ks)
+        if (ks < nks) ldsm_x4(qf[ks], sQ + (wrow + lane % 16) * SD + ks * 16 + (lane / 16) * 8);
+    }
+
+    // 1. S = Q K^T; the fragments of k-step ks + 1 load while ks multiplies
+    float s[NST][4];
+#pragma unroll
+    for (int j = 0; j < NST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    unsigned kb[2][NST / 2][4], qa[2][4];
+    auto load_ks = [&](int ks, unsigned (&kd)[NST / 2][4], unsigned (&qd)[4]) {
+      if constexpr (!QREG)
+        ldsm_x4(qd, sQ + (wrow + lane % 16) * SD + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < NST / 2; ++np)
+        ldsm_x4(kd[np], sK + (np * 16 + (lane / 16) * 8 + lane % 8) * SD + ks * 16 +
+                            ((lane / 8) % 2) * 8);
+    };
+    load_ks(0, kb[0], qa[0]);
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      if (ks >= nks) break;
+      if (ks + 1 < nks) load_ks(ks + 1, kb[(ks + 1) % 2], qa[(ks + 1) % 2]);
+      const unsigned(&a)[4] = QREG ? qf[QREG ? ks : 0] : qa[ks % 2];
+#pragma unroll
+      for (int np = 0; np < NST / 2; ++np) {
+        mma16816(s[2 * np], a, kb[ks % 2][np][0], kb[ks % 2][np][1]);
+        mma16816(s[2 * np + 1], a, kb[ks % 2][np][2], kb[ks % 2][np][3]);
+      }
+    }
+
+    // 2. scale and mask (only where the mask can reach this warp's
+    // rows), then the online softmax; a row's 4 lanes share its max
+    const int k_lo = kt * BK;
+    const bool masked = k_lo + BK > kvl || (causal && k_lo + BK - 1 > qpos0 - gid) ||
+                        (window > 0 && qpos0 - gid + 15 - k_lo >= window);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (masked) {
+          const int kpos = k_lo + j * 8 + tig * 2 + (e & 1);
+          const int qpos = e < 2 ? qpos0 : qpos1;
+          bool ok = kpos < kvl;
+          if (causal) ok = ok && qpos >= kpos;
+          if (window > 0) ok = ok && (qpos - kpos < window);
+          x = ok ? x : NEG_INF;
+        }
+        s[j][e] = x;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2_approx((m0 - mn0) * L2E), c1 = exp2_approx((m1 - mn1) * L2E);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+      s[j][0] = exp2_approx((s[j][0] - mn0) * L2E);
+      s[j][1] = exp2_approx((s[j][1] - mn0) * L2E);
+      s[j][2] = exp2_approx((s[j][2] - mn1) * L2E);
+      s[j][3] = exp2_approx((s[j][3] - mn1) * L2E);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * c0 + sum0;          // this lane's part of the row sums
+    l1 = l1 * c1 + sum1;
+    if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {   // a row max moved
+#pragma unroll
+      for (int j = 0; j < NDT; ++j) {
+        acc[j][0] *= c0;
+        acc[j][1] *= c0;
+        acc[j][2] *= c1;
+        acc[j][3] *= c1;
+      }
+    }
+
+    // 3. O += P V, P rounded to bf16 in registers; V's fragments for the
+    // next 16 columns load while these multiply
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const bf16* vrow = sV + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * SD + (lane / 16) * 8;
+      unsigned vb[2][4];
+      ldsm_x4_t(vb[0], vrow);
+#pragma unroll
+      for (int dp = 0; dp < NKS; ++dp) {
+        if (dp >= nks) break;
+        if (dp + 1 < nks) ldsm_x4_t(vb[(dp + 1) % 2], vrow + (dp + 1) * 16);
+        mma16816(acc[2 * dp], pa, vb[dp % 2][0], vb[dp % 2][1]);
+        mma16816(acc[2 * dp + 1], pa, vb[dp % 2][2], vb[dp % 2][3]);
+      }
+    }
+  }
+  cp_wait<0>();                   // nothing in flight at exit
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = q_lo + wrow + gid + 8 * half;
+    if (qpos >= Sq) continue;
+    const float den = half ? den1 : den0;
+    if (lse != nullptr && tig == 0)
+      lse[((size_t)b * H + h) * Sq + qpos] = (half ? m1 : m0) + logf(den);
+    bf16* out = o + (((size_t)b * Sq + qpos) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NDT; ++j) {
+      const int d = j * 8 + tig * 2;
+      if (d >= D) break;
+      const float x0 = acc[j][2 * half] / den, x1 = acc[j][2 * half + 1] / den;
+      if (d + 1 < D && D % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(out + d) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        out[d] = __float2bfloat16(x0);
+        if (d + 1 < D) out[d + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+template <int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, const int* q_offset,
            const int* kv_len, float* lse, int B, int Sq, int Sk, int H, int Hk, int D,
            int causal, int window, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<DMAX>(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_tc_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool aligned = ((reinterpret_cast<size_t>(q) | reinterpret_cast<size_t>(k) |
+                         reinterpret_cast<size_t>(v)) % 16) == 0;
+  const int vec = D % 8 == 0 && aligned;
+  dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  fa_fwd_tc_kernel<DMAX><<<grid, NTC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), q_offset, kv_len, lse, Sq, Sk, H, Hk, D, causal, window, scale,
+      vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <int DMAX>
+int launch_fma(const void* q, const void* k, const void* v, void* o, const int* q_offset,
+               const int* kv_len, float* lse, int B, int Sq, int Sk, int H, int Hk, int D,
+               int causal, int window, float scale, cudaStream_t stream) {
   const int g = H / Hk;
   const int bq = ROWS / g;
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd_kernel<float, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + bq - 1) / bq, Hk, B);
-  fa_fwd_kernel<T, DMAX><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), q_offset, kv_len, lse, Sq, Sk, H, Hk, D, bq, causal, window,
-      scale);
+  fa_fwd_kernel<float, DMAX><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), q_offset, kv_len, lse, Sq, Sk, H,
+      Hk, D, bq, causal, window, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, const int* q_offset,
-             const int* kv_len, float* lse, int B, int Sq, int Sk, int H, int Hk, int D,
-             int causal, int window, float scale, cudaStream_t stream) {
-  if (D <= 128)
-    return launch<T, 128>(q, k, v, o, q_offset, kv_len, lse, B, Sq, Sk, H, Hk, D, causal,
-                          window, scale, stream);
-  return launch<T, 256>(q, k, v, o, q_offset, kv_len, lse, B, Sq, Sk, H, Hk, D, causal,
-                        window, scale, stream);
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), k/v (B,Sk,Hk,D), o (B,Sq,H,D), all contiguous and of one
-// dtype: 0 = float32, 1 = bfloat16. q_offset and kv_len are (B,) int32
-// on the device, or null for 0 and Sk; lse is (B,H,Sq) float32 on the
-// device, or null. Returns a cudaError_t code (0 = ok).
+// dtype: 0 = float32 (the FMA body; H/Hk <= 64), 1 = bfloat16 (the
+// tensor-core body; any H/Hk). q_offset and kv_len are (B,) int32 on the
+// device, or null for 0 and Sk; lse is (B,H,Sq) float32 on the device,
+// or null. Returns a cudaError_t code (0 = ok).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const void* q_offset, const void* kv_len, void* lse,
                                    int B, int Sq, int Sk, int H, int Hk, int D, int causal,
                                    int window, float scale, int dtype, void* stream) {
-  if (Hk <= 0 || H % Hk != 0 || H / Hk > ROWS || D <= 0 || D > DMAX_ALL || Sq <= 0 ||
-      Sk <= 0)
+  if (Hk <= 0 || H % Hk != 0 || D <= 0 || D > DMAX_ALL || B <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* qo = static_cast<const int*>(q_offset);
   const int* kl = static_cast<const int*>(kv_len);
   float* ls = static_cast<float*>(lse);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, qo, kl, ls, B, Sq, Sk, H, Hk, D, causal, window,
-                           scale, st);
+  if (dtype == 0) {
+    if (H / Hk > ROWS) return (int)cudaErrorInvalidValue;
+    return D <= 128 ? launch_fma<128>(q, k, v, o, qo, kl, ls, B, Sq, Sk, H, Hk, D, causal,
+                                      window, scale, st)
+                    : launch_fma<256>(q, k, v, o, qo, kl, ls, B, Sq, Sk, H, Hk, D, causal,
+                                      window, scale, st);
+  }
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, qo, kl, ls, B, Sq, Sk, H, Hk, D, causal,
-                                   window, scale, st);
+    return D <= 128 ? tc::launch<128>(q, k, v, o, qo, kl, ls, B, Sq, Sk, H, Hk, D, causal,
+                                      window, scale, st)
+                    : tc::launch<256>(q, k, v, o, qo, kl, ls, B, Sq, Sk, H, Hk, D, causal,
+                                      window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

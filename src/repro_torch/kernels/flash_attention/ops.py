@@ -5,7 +5,9 @@ CPU tensors take the plain version (``ref.attention_ref``); CUDA tensors
 launch the kernel or raise — there is no fallback from the card.
 ``flash_attention.launches`` counts kernel launches. The kernel takes
 head dims up to 256 (instantiated for 128 and 256) and optionally
-returns the rows' log-sum-exp, which the training backward reads.
+returns the rows' log-sum-exp, which the training backward reads. bf16
+runs its tensor-core body (any number of query heads per KV head), fp32
+its FMA body (at most ``MAX_GROUP_FP32`` query heads per KV head).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_GROUP = 64          # query heads per KV head held in one q-tile
+MAX_GROUP_FP32 = 64     # query heads per KV head in one fp32 q-tile
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -66,11 +68,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not all(t.is_contiguous() for t in (q, k, v, q_offset, kv_len)
                if t is not None):
         raise ValueError("flash_attention: tensors must be contiguous")
-    if d > MAX_HEAD_DIM or h // hk > MAX_GROUP or 0 in (b, sq, sk):
+    fp32_group = q.dtype == torch.float32 and h // hk > MAX_GROUP_FP32
+    if d > MAX_HEAD_DIM or fp32_group or 0 in (b, sq, sk):
         raise ValueError(f"flash_attention: kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM}, H/Hk <= {MAX_GROUP} and non-empty "
-                         f"sequences, got D={d}, H/Hk={h // hk}, Sq={sq}, "
-                         f"Sk={sk}")
+                         f"{MAX_HEAD_DIM}, in fp32 H/Hk <= {MAX_GROUP_FP32}, "
+                         f"and non-empty sequences, got D={d}, "
+                         f"H/Hk={h // hk}, {q.dtype}, Sq={sq}, Sk={sk}")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None

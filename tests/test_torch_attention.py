@@ -352,3 +352,134 @@ def test_flash_backward_vs_jax_grad(b, s, h, hk, d, window, chunk):
         w = np.asarray(w)
         err = np.abs(got.numpy() - w).max() / np.abs(w).max()
         assert err <= TOL, err
+
+
+# the tensor-core flash body's numerics on the CPU: (b, sq, sk, h, hk, d,
+# window, q_offset, kv_len, KV rows a tile, tol); the tolerances are
+# chip_smoke.py's bf16 limits for the prefill (2e-2), the q_offset /
+# kv_len extends (5e-3) and head_dim 256 (2e-2)
+TC_CASES = [
+    (1, 128, 128, 12, 2, 128, 0, None, None, 64, 2e-2),
+    (1, 64, 160, 12, 2, 128, 0, [64], [128], 64, 5e-3),
+    (2, 48, 150, 6, 2, 128, 0, [30, 100], [78, 148], 64, 5e-3),
+    (1, 160, 160, 16, 1, 256, 48, None, None, 32, 2e-2),
+]
+
+
+def _flash_tc_emulation(q, k, v, window, q_offset, kv_len, bk, bq=64):
+    """The bf16 tensor-core body's arithmetic in torch: fp32 scores of
+    bf16 inputs, masked with -1e30, an online softmax over KV tiles of
+    ``bk`` rows with m, l and O in fp32, l summing P before rounding, and
+    P rounded to bf16 before P V; the output rounded to bf16."""
+    b, sq, h, d = q.shape
+    _, sk, hk, _ = k.shape
+    g, scale = h // hk, 1.0 / np.sqrt(d)
+    qf = q.float().permute(0, 2, 1, 3)                           # (B,H,Sq,D)
+    kf = k.float().repeat_interleave(g, 2).permute(0, 2, 1, 3)   # (B,H,Sk,D)
+    vf = v.float().repeat_interleave(g, 2).permute(0, 2, 1, 3)
+    qo = torch.zeros(b, dtype=torch.long) if q_offset is None \
+        else torch.tensor(q_offset)
+    kl = torch.full((b,), sk) if kv_len is None else torch.tensor(kv_len)
+    out = torch.empty(b, h, sq, d)
+    for q0 in range(0, sq, bq):
+        qp = qo[:, None] + torch.arange(q0, min(q0 + bq, sq))[None]
+        m = torch.full((b, h, qp.shape[1], 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, qp.shape[1], d)
+        for k0 in range(0, sk, bk):
+            kp = torch.arange(k0, min(k0 + bk, sk))
+            s = qf[:, :, q0:q0 + bq] @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+            ok = (kp[None, None] < kl[:, None, None]) & \
+                (qp[:, :, None] >= kp[None, None])
+            if window > 0:
+                ok = ok & (qp[:, :, None] - kp[None, None] < window)
+            s = torch.where(ok[:, None], s * scale, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
+            m = m_new
+        out[:, :, q0:q0 + bq] = acc / l.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,window,q_offset,kv_len,bk,tol",
+                         TC_CASES)
+def test_flash_bf16_rounding_stays_within_the_chip_limits(
+        b, sq, sk, h, hk, d, window, q_offset, kv_len, bk, tol):
+    """Rounding P to bf16 before P V (the tensor-core body; m, l and O in
+    fp32) keeps the output within the limits chip_smoke.py holds the
+    kernel to, against the plain version on the same bf16 inputs."""
+    rng = np.random.RandomState(sq + sk + d)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, b, sq, sk, h, hk, d))
+    kw = {} if q_offset is None else dict(
+        q_offset=torch.tensor(q_offset, dtype=torch.int32),
+        kv_len=torch.tensor(kv_len, dtype=torch.int32))
+    got = _flash_tc_emulation(q, k, v, window, q_offset, kv_len, bk).float()
+    want = fa_ref.attention_ref(q, k, v, window=window, **kw).float()
+    unrounded = (got - want).abs().max().item()
+    assert unrounded > 0.0                # the rounding shows
+    assert ((got - want).abs() <= tol + tol * want.abs()).all(), unrounded
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_edges_match_plain_on_card():
+    """The bf16 bodies at their edges against the plain versions on the
+    card, at chip_smoke.py's bf16 limits: flash at head dims 12 to 256,
+    ragged tiles, g = 1, 16 and 128, a window and kv_len ending mid-tile,
+    and a batch whose rows equal their B=1 runs bit for bit; slotted and
+    paged decode at lengths 0, 1, 31, 33, 80 and the full cache, block
+    sizes 8 and 16, and 24-byte rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run: python3 chip_smoke.py")
+    rng = np.random.RandomState(0)
+    bf = torch.bfloat16
+
+    def dev(*arrays):
+        return [torch.from_numpy(a).cuda().to(bf) for a in arrays]
+
+    def close(got, want, tol):
+        got, want = got.float().cpu(), want.float().cpu()
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs() <= tol + tol * want.abs()).all(), \
+            (got - want).abs().max().item()
+
+    for b, sq, sk, h, hk, d, causal, window in [
+            (2, 100, 100, 4, 2, 16, True, 0), (1, 130, 130, 8, 2, 64, True, 0),
+            (2, 77, 77, 6, 3, 96, True, 40), (1, 150, 150, 4, 1, 192, True, 0),
+            (2, 37, 37, 4, 2, 12, True, 0), (1, 70, 133, 4, 2, 128, False, 0),
+            (2, 90, 90, 4, 4, 128, True, 0), (1, 200, 200, 16, 1, 128, True, 0),
+            (1, 40, 40, 128, 1, 64, True, 0), (1, 300, 300, 16, 1, 256, True, 50)]:
+        q, k, v = dev(*_qkv(rng, b, sq, sk, h, hk, d))
+        before = fa_ops.flash_attention.launches
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert fa_ops.flash_attention.launches == before + 1
+        close(out, fa_ref.attention_ref(q, k, v, causal=causal,
+                                        window=window), 2e-2)
+    q, k, v = dev(*_qkv(rng, 3, 70, 200, 8, 2, 128))
+    kw = dict(q_offset=torch.tensor([0, 30, 100], dtype=torch.int32).cuda(),
+              kv_len=torch.tensor([70, 100, 170], dtype=torch.int32).cuda())
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    close(out, fa_ref.attention_ref(q, k, v, **kw), 5e-3)
+    for i in range(3):
+        one = fa_ops.flash_attention(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1],
+            **{n: t[i:i + 1] for n, t in kw.items()})
+        assert torch.equal(out[i:i + 1], one)
+    lens = np.asarray([0, 1, 31, 33, 80, 300, 551, 552], np.int32)
+    for d in (128, 12):
+        qd, kc, vc, _ = _dec(rng, 12, 2, d, 552, lens)
+        qd, kc, vc = dev(qd, kc, vc)
+        lt = torch.from_numpy(lens).cuda()
+        out = da_ops.decode_attention(qd, kc, vc, lt)
+        close(out, da_ref.decode_attention_ref(qd, kc, vc, lt), 3e-2)
+        assert out[0].abs().max().item() == 0.0
+    for n, bs, nb in ((100, 8, 69), (60, 16, 35)):
+        q, kp, vp, tables, _ = _paged(rng, 8, 12, 2, 128, n, bs, nb, "float32")
+        args = dev(q, kp, vp) + [torch.from_numpy(tables).cuda(),
+                                 torch.from_numpy(lens).cuda()]
+        out = da_ops.paged_decode_attention(*args)
+        close(out, da_ref.paged_decode_attention_ref(*args), 2e-3)
+        assert out[0].abs().max().item() == 0.0

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Time the flash-attention kernel at the serving shapes for two
+"""Time the attention kernels at the main paths' shapes for two
 checkouts of the repository, in turns (other, this, this, other), on one
 NVIDIA GPU:
 
     python3 tools/time_flash_turns.py OTHER_CHECKOUT
 
+e.g. ``mkdir -p build/parent && git archive PARENT | tar -x -C
+build/parent`` (``build/`` is gitignored), then ``build/parent``.
+
 ``OTHER_CHECKOUT`` is a second checkout, e.g. the parent commit unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists. Each
 turn runs in a fresh process from that checkout's root, builds that
-checkout's kernel, and times it with that checkout's ``chip_smoke.py``
-(``time_flash`` at the fifo and batch prefills, ``time_flash_extend`` at
-the prefix-resume, chunk and ragged extends), so that the two versions
-meet the same card in one call. Prints one JSON line per turn.
+checkout's kernels, and times them with that checkout's
+``chip_smoke.py``: flash (``time_flash`` at the fifo and batch
+prefills, ``time_flash_extend`` at the prefix-resume, chunk and ragged
+extends, and ``time_flash_train`` at the training shape where the
+checkout has it), slotted decode (``time_decode`` at the fifo and batch
+steps) and paged decode (``time_paged`` at the fifo step), so that the
+two versions meet the same card in one call. Prints one JSON line per
+turn, times in ms.
 """
 from __future__ import annotations
 
@@ -26,14 +33,22 @@ sys.path.insert(0, "src")
 import torch
 import chip_smoke as cs
 from repro_torch.kernels import _build
+import numpy as np
 from repro_torch.kernels.flash_attention import ops, ref
-_build.build_all(["flash_attention"])
+from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
+_build.build_all(["flash_attention", "decode_attention"])
 gen = torch.Generator(device="cuda").manual_seed(0)
 rnd = lambda shape, dt: torch.randn(shape, generator=gen, device="cuda").to(dt)
-out = {p: cs.time_flash(torch, ops, ref, rnd, b)["ms"]
+out = {"flash " + p: cs.time_flash(torch, ops, ref, rnd, b)["ms"]
        for p, b in cs.SERVE_FA.items()}
-out.update({p: cs.time_flash_extend(torch, ops, ref, rnd, case)["ms"]
+out.update({"flash " + p: cs.time_flash_extend(torch, ops, ref, rnd, case)["ms"]
             for p, case in cs.SERVE_EXT.items()})
+if hasattr(cs, "time_flash_train"):
+    out["flash train"] = cs.time_flash_train(torch, ops, ref, rnd)["ms"]
+out.update({"decode " + p: cs.time_decode(torch, da_ops, da_ref, rnd, lens)["ms"]
+            for p, lens in cs.SERVE_DEC.items()})
+out["paged fifo"] = cs.time_paged(torch, np, da_ops, da_ref, rnd,
+                                  cs.FIFO_LENS)["ms"]
 print("RESULT " + json.dumps(out))
 '''
 
