@@ -65,8 +65,11 @@ Phases, one status line each; any failure exits non-zero:
    (b), one microbatch of it at
    its initial weights through the kernels against the same with the
    plain versions in their place (loss within 1e-2 relative, each
-   gradient leaf within 5e-2 of its largest magnitude). Phase 2 adds the scan on the reference's test shapes and
-   at B=1 S=4096 D=4096 (tol 1e-5, forward and reverse) and flash at
+   gradient leaf within 5e-2 of its largest magnitude). Phase 2 adds the scan on the reference's test shapes,
+   the chunked body's edges (a partial last chunk with B > 1, D = 37,
+   S = 1) and at B=1 S=4096 D=4096 (tol 1e-5, forward and reverse; two
+   calls there bitwise equal; back-to-back calls on rotated inputs each
+   within 1e-5) and flash at
    head_dim 256 with its lse (16 query heads over 1, window 2048 at
    S=4096, bf16 and fp32), and times both at the training shapes.
 
@@ -278,7 +281,11 @@ SCAN_CASES = [
     # tails), then the full-width training shape; fp32, tol 1e-5
     (2, 64, 128), (3, 100, 96), (1, 256, 512), (2, 17, 40),
     (1, TRAIN_S, TRAIN_D),
+    # the chunked body's edges: several chunks with a partial last one
+    # and B > 1, D not a multiple of 4 (the scalar path), S = 1
+    (2, 1000, 512), (2, 300, 37), (3, 1, 64),
 ]
+SCAN_ROTATED = (2, 1000, 512, 3)    # back-to-back calls on 3 input copies
 FA256_CASES = [
     # (b, s, h, hk, d, window, dtype): head_dim 256 (and a ragged 192 in
     # the same instantiation), causal, with the log-sum-exp; small
@@ -580,6 +587,42 @@ def time_scan(torch, scan_ops, scan_ref, rnd, reverse: bool) -> dict:
             "copies": len(copies), **bound(flops, nbytes, "float32")}
 
 
+def scan_repeats(torch, gen, scan_ops, scan_ref):
+    """The chunked scan's carries are one chain whatever order its CTAs
+    ran in, and its flags are zeroed per call: two calls at the training
+    shape must give bitwise equal y, da, db and dh0, and calls back to
+    back on rotated inputs must each agree with the plain version.
+    Returns [(tag, max |err|, ok)]."""
+    def inputs(b, s, d):
+        a = torch.rand((b, s, d), generator=gen, device="cuda") * 0.499 + 0.5
+        return a, *(torch.randn(shape, generator=gen, device="cuda")
+                    for shape in ((b, s, d), (b, d), (b, s, d)))
+
+    def both(a, x, h0, dy):
+        y = scan_ops.rglru_scan_fwd(a, x * 0.1, h0)
+        return (y,) + scan_ops.rglru_scan_bwd(a, dy, y, h0)
+
+    out = []
+    train = inputs(1, TRAIN_S, TRAIN_D)
+    first, second = both(*train), both(*train)
+    torch.cuda.synchronize()
+    for part, g, h in zip(("y", "da", "db", "dh0"), first, second):
+        out.append((f"rglru bitwise repeat {part} b1 s{TRAIN_S} d{TRAIN_D}",
+                    (g - h).abs().max().item(), bool(torch.equal(g, h))))
+    del train, first, second
+    b, s, d, n = SCAN_ROTATED
+    copies = [inputs(b, s, d) for _ in range(n)]
+    got = [both(*c) for c in copies * 2]      # no sync between calls
+    for i, (c, g) in enumerate(zip(copies * 2, got)):
+        a, x, h0, dy = c
+        want = (scan_ref.rglru_scan_seq_ref(a, x * 0.1, h0),) + \
+            scan_ref.rglru_scan_reverse_ref(a, dy, g[0], h0)
+        errs = [err_vs(torch, gg, w, SCAN_TOL) for gg, w in zip(g, want)]
+        out.append((f"rglru back-to-back call {i} (copy {i % n}) b{b} s{s} "
+                    f"d{d}", max(e for e, _ in errs), all(k for _, k in errs)))
+    return out
+
+
 def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                   scan_ref) -> dict:
     """Every case held against the plain version; then the serving shapes
@@ -736,6 +779,10 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
             rows.append((tag, err, SCAN_TOL, ok))
             if not ok:
                 failures.append(tag)
+    for tag, err, ok in scan_repeats(torch, gen, scan_ops, scan_ref):
+        rows.append((tag, err, 0.0 if "bitwise" in tag else SCAN_TOL, ok))
+        if not ok:
+            failures.append(tag)
     for tag, err, tol, ok in rows:
         say(f"  {'ok  ' if ok else 'FAIL'} {tag}: max |err| {err:.3g} "
             f"(tol {tol:g})")

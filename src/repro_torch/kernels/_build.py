@@ -25,6 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> (source stem, argtypes); every one returns a
 # cudaError_t code as int
 SIGNATURES: Dict[str, Tuple[str, List]] = {
@@ -34,8 +35,10 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
                              [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
     "paged_decode_attention_fwd": ("decode_attention",
                                    [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
-    "rglru_scan_fwd": ("rglru_scan", [_P] * 4 + [_I] * 3 + [_P]),
-    "rglru_scan_bwd": ("rglru_scan", [_P] * 7 + [_I] * 3 + [_P]),
+    "rglru_scan_workspace": ("rglru_scan",
+                             [_I] * 4 + [ctypes.POINTER(_L)]),
+    "rglru_scan_fwd": ("rglru_scan", [_P] * 5 + [_L] + [_I] * 3 + [_P]),
+    "rglru_scan_bwd": ("rglru_scan", [_P] * 8 + [_L] + [_I] * 3 + [_P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -2,7 +2,11 @@
 (``repro_torch/csrc/rglru_scan.cu``) and its gradient.
 
 ``rglru_scan_fwd`` runs the forward scan and ``rglru_scan_bwd`` the
-reverse pass; each counts its own launches (``.launches``). CPU tensors
+reverse pass; each counts its own launches (``.launches``). The kernel
+is a chunked single-pass scan whose CTAs hand their chunks' carries on
+through a small workspace (a few MB at the training shape), taken from
+torch's caching allocator on the call's stream; its flags are zeroed by
+the C entry, so nothing here waits on the device. CPU tensors
 take the plain versions (``ref.py``); CUDA tensors launch the kernel or
 raise — there is no fallback from the card. ``rglru_scan`` is the
 differentiable entry the model calls: a ``torch.autograd.Function``
@@ -11,6 +15,8 @@ whose forward is ``rglru_scan_fwd`` and whose backward is
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -46,6 +52,23 @@ def _check(name: str, seq, state) -> Tuple[int, int, int]:
     return b, s, d
 
 
+@functools.lru_cache(maxsize=64)
+def _workspace_bytes(shape: Tuple[int, int, int], reverse: bool) -> int:
+    """Bytes of workspace the kernel needs at (B, S, D)."""
+    n = ctypes.c_longlong()
+    _build.check(_build.entry("rglru_scan_workspace")(*shape, int(reverse),
+                                                      ctypes.byref(n)),
+                 "rglru_scan_workspace")
+    return n.value
+
+
+def _workspace(a: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The kernel's scratch for a scan over ``a``: from torch's caching
+    allocator, ordered on the current stream."""
+    return torch.empty(_workspace_bytes(tuple(a.shape), reverse),
+                       dtype=torch.uint8, device=a.device)
+
+
 def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor,
                    h0: torch.Tensor) -> torch.Tensor:
     """y_t = a_t * y_{t-1} + b_t from y_{-1} = h0. a, b: (B, S, D)
@@ -56,9 +79,10 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor,
     y = torch.empty_like(a)
     fn = _build.entry("rglru_scan_fwd")
     with torch.cuda.device(a.device):
+        ws = _workspace(a, reverse=False)
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                  bsz, s, d, stream)
+                  ws.data_ptr(), ws.numel(), bsz, s, d, stream)
     _build.check(code, "rglru_scan_fwd")
     rglru_scan_fwd.launches += 1
     return y
@@ -79,10 +103,11 @@ def rglru_scan_bwd(a: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
     dh0 = torch.empty_like(h0)
     fn = _build.entry("rglru_scan_bwd")
     with torch.cuda.device(a.device):
+        ws = _workspace(a, reverse=True)
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(a.data_ptr(), dy.data_ptr(), y.data_ptr(), h0.data_ptr(),
-                  db.data_ptr(), da.data_ptr(), dh0.data_ptr(), bsz, s, d,
-                  stream)
+                  db.data_ptr(), da.data_ptr(), dh0.data_ptr(), ws.data_ptr(),
+                  ws.numel(), bsz, s, d, stream)
     _build.check(code, "rglru_scan_bwd")
     rglru_scan_bwd.launches += 1
     return da, db, dh0

@@ -15,6 +15,10 @@ with the reference.
   gradients against the reference's, fp32, at 2e-5 (the forward) and
   1e-5 of each gradient's largest magnitude.
 
+* The CUDA kernel's order of operations (chunked pairs, carries
+  composed in chunk order, rescans from the carries), emulated in plain
+  torch at the kernel's tiles, against both references.
+
 On CPU tensors the wrappers reach their plain versions and leave their
 launch counters alone; the card runs the CUDA kernel
 (``test_scan_kernel_matches_plain_on_card``, marked ``cuda``).
@@ -40,6 +44,12 @@ from repro_torch.models import transformer as PT
 
 SCAN_CASES = [(2, 64, 128), (3, 100, 96), (1, 256, 512), (2, 17, 40)]
 TOL = 1e-5
+# the CUDA kernel's tiles, (rows a thread walks, warps a CTA), forward and
+# reverse: FWD_ROWS/FWD_WARPS and BWD_ROWS/BWD_WARPS in csrc/rglru_scan.cu
+FWD_TILE, BWD_TILE = (16, 4), (16, 4)
+# the edges of the chunked body, held on the card: several chunks with a
+# partial last one and B > 1, D not a multiple of 4, S = 1
+CARD_CASES = [(2, 1000, 512), (2, 300, 37), (3, 1, 64)]
 SMALL = dict(d_model=64, n_heads=4, n_kv_heads=1, head_dim=16, window=8)
 
 
@@ -113,6 +123,98 @@ def test_scan_wrappers_refuse_what_no_kernel_takes():
         ops.rglru_scan_bwd(a, a, a[:, :3], a[:, 0])
 
 
+def _fma(x, h, c):
+    """fmaf: x*h + c rounded once (the float64 product is exact)."""
+    return (x.double() * h.double() + c.double()).float()
+
+
+def _tiles(x, rows, warps, fill):
+    """(B, S, D) -> (B, chunks, warps, rows, D), the last chunk padded."""
+    bsz, s, d = x.shape
+    n = -(-s // (rows * warps))
+    pad = x.new_full((bsz, n * rows * warps - s, d), fill)
+    return torch.cat([x, pad], 1).reshape(bsz, n, warps, rows, d)
+
+
+def _carries(pa, py, start, reverse):
+    """The kernel's carries from the warps' pairs (B, N, W, D): each
+    chunk's aggregate (its warps composed in scan order), the chain over
+    the chunks' pairs from ``start``, and each warp's carry-in."""
+    n, w = pa.shape[1], pa.shape[2]
+    worder = range(w - 1, -1, -1) if reverse else range(w)
+    first, *rest = worder
+    ca, cy = pa[:, :, first], py[:, :, first]
+    for k in rest:
+        ca, cy = ca * pa[:, :, k], _fma(pa[:, :, k], cy, py[:, :, k])
+    h, chunk_in = start, [None] * n
+    for c in (range(n - 1, -1, -1) if reverse else range(n)):
+        chunk_in[c] = h
+        h = _fma(ca[:, c], h, cy[:, c])
+    h, warp_in = torch.stack(chunk_in, 1), [None] * w
+    for k in worder:
+        warp_in[k] = h
+        h = _fma(pa[:, :, k], h, py[:, :, k])
+    return torch.stack(warp_in, 2)
+
+
+def _chunked_fwd(a, b, h0, rows, warps):
+    """The forward kernel's order of operations in plain torch: per-warp
+    pairs (A, Y) over ``rows`` rows, carries composed in chunk order,
+    each warp's rows rescanned from its carry."""
+    s = a.shape[1]
+    a4, b4 = _tiles(a, rows, warps, 1.0), _tiles(b, rows, warps, 0.0)
+    pa, py = torch.ones_like(a4[:, :, :, 0]), torch.zeros_like(a4[:, :, :, 0])
+    for r in range(rows):
+        py, pa = _fma(a4[:, :, :, r], py, b4[:, :, :, r]), pa * a4[:, :, :, r]
+    h, ys = _carries(pa, py, h0, reverse=False), []
+    for r in range(rows):
+        h = _fma(a4[:, :, :, r], h, b4[:, :, :, r])
+        ys.append(h)
+    return torch.stack(ys, 3).reshape(a.shape[0], -1, a.shape[2])[:, :s]
+
+
+def _chunked_bwd(a, dy, y, h0, rows, warps):
+    """The reverse kernel's order of operations: chunks and warps from
+    the last to the first, a shifted by one row (0 from t = S-1 on).
+    Returns (da, db, dh0)."""
+    bsz, s, d = a.shape
+    an = _tiles(torch.cat([a[:, 1:], a.new_zeros((bsz, 1, d))], 1), rows,
+                warps, 0.0)
+    gv = _tiles(dy, rows, warps, 0.0)
+    yp = _tiles(torch.cat([h0[:, None], y[:, :-1]], 1), rows, warps, 0.0)
+    pa, py = torch.ones_like(an[:, :, :, 0]), torch.zeros_like(an[:, :, :, 0])
+    for r in range(rows - 1, -1, -1):
+        py, pa = _fma(an[:, :, :, r], py, gv[:, :, :, r]), pa * an[:, :, :, r]
+    g = _carries(pa, py, torch.zeros_like(h0), reverse=True)
+    dbs, das = [None] * rows, [None] * rows
+    for r in range(rows - 1, -1, -1):
+        g = _fma(an[:, :, :, r], g, gv[:, :, :, r])
+        dbs[r], das[r] = g, g * yp[:, :, :, r]
+    db, da = (torch.stack(x, 3).reshape(bsz, -1, d)[:, :s] for x in (dbs, das))
+    return da, db, a[:, 0] * db[:, 0]
+
+
+@pytest.mark.parametrize("B,S,D", [(1, 4096, 64), *SCAN_CASES, *CARD_CASES])
+def test_chunked_order_of_operations_vs_jax(B, S, D):
+    """The CUDA kernel's arithmetic, emulated on the CPU at its tiles
+    (chunks of 64 rows of 128 channels, 4 warps of 16 rows each way): the
+    forward against ``rglru_scan_seq_ref`` at 1e-5 (largest error seen
+    1.2e-7, at (2, 1000, 512)), the reverse against ``jax.grad`` of the
+    associative scan at 1e-5 of each gradient's largest magnitude
+    (largest seen 2.3e-7, at (1, 256, 512))."""
+    a, b, h0, dy = map(torch.from_numpy, _scan_inputs(B, S, D))
+    y = _chunked_fwd(a, b, h0, *FWD_TILE)
+    ja, jb, jh = map(jnp.asarray, (a.numpy(), b.numpy(), h0.numpy()))
+    np.testing.assert_allclose(y.numpy(), rglru_scan_seq_ref(ja, jb, jh),
+                               rtol=TOL, atol=TOL)
+    got = _chunked_bwd(a, dy, y, h0, *BWD_TILE)
+    want = jax.jit(jax.grad(
+        lambda x, z, u, w: jnp.sum(JR.rglru_scan_ref(x, z, u) * w),
+        argnums=(0, 1, 2)))(ja, jb, jh, jnp.asarray(dy.numpy()))
+    for g, w in zip(got, want):
+        _rel_close(g.numpy(), w, TOL)
+
+
 def _block_params(cfg, seed=1):
     """Reference-layout rglru params with nonzero norms and biases."""
     p = JR.rglru_init(jax.random.PRNGKey(seed), cfg, jnp.float32)
@@ -183,18 +285,39 @@ def test_conv_and_gates_match_jax():
 @pytest.mark.cuda
 def test_scan_kernel_matches_plain_on_card():
     """The CUDA scan, forward and reverse, against the plain versions on
-    the card, on ``SCAN_CASES``."""
+    the card, on ``SCAN_CASES`` and the chunked body's edges
+    (``CARD_CASES``); two calls at the training shape bitwise equal; and
+    calls back to back on rotated inputs, each against its plain
+    version (no flag of one call is read by the next)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; run: python3 chip_smoke.py")
-    for B, S, D in SCAN_CASES:
-        a, b, h0, dy = (torch.from_numpy(x).cuda()
-                        for x in _scan_inputs(B, S, D))
-        f0, r0 = ops.rglru_scan_fwd.launches, ops.rglru_scan_bwd.launches
+
+    def inputs(B, S, D, seed=0):
+        return tuple(torch.from_numpy(x).cuda()
+                     for x in _scan_inputs(B, S, D, seed))
+
+    def both(a, b, h0, dy):
         y = ops.rglru_scan_fwd(a, b, h0)
-        got = ops.rglru_scan_bwd(a, dy, y, h0)
+        return (y,) + ops.rglru_scan_bwd(a, dy, y, h0)
+
+    def check(a, b, h0, dy, got):
+        torch.testing.assert_close(got[0], ref.rglru_scan_seq_ref(a, b, h0),
+                                   rtol=TOL, atol=TOL)
+        for g, w in zip(got[1:], ref.rglru_scan_reverse_ref(a, dy, got[0],
+                                                           h0)):
+            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+    for B, S, D in SCAN_CASES + CARD_CASES:
+        args = inputs(B, S, D)
+        f0, r0 = ops.rglru_scan_fwd.launches, ops.rglru_scan_bwd.launches
+        got = both(*args)
         assert (ops.rglru_scan_fwd.launches, ops.rglru_scan_bwd.launches) \
             == (f0 + 1, r0 + 1)
-        torch.testing.assert_close(y, ref.rglru_scan_seq_ref(a, b, h0),
-                                   rtol=TOL, atol=TOL)
-        for g, w in zip(got, ref.rglru_scan_reverse_ref(a, dy, y, h0)):
-            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+        check(*args, got)
+    train = inputs(1, 4096, 4096)
+    for x, z in zip(both(*train), both(*train)):
+        assert torch.equal(x, z)
+    rotated = [inputs(2, 1000, 512, seed) for seed in range(3)]
+    outs = [both(*args) for args in rotated * 2]
+    for args, got in zip(rotated * 2, outs):
+        check(*args, got)

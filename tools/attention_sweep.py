@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Sweep the attention kernels' tile parameters on one NVIDIA GPU:
+"""Sweep the attention kernels' and the scan's tile parameters on one
+NVIDIA GPU:
 
     python3 tools/attention_sweep.py [--flash-tiles 64,2,32,2 32,3,32,3]
                                      [--flash-seqs 64 128 256 512]
                                      [--decode-chunks 32 64 128 576]
+                                     [--scan-tiles 8,8,4,8 16,4,8,4]
 
 ``--flash-tiles``: each variant is ``BK128,NS128,BK256,NS256``, the KV
 rows a tile and the tiles in the ring of the tensor-core flash body's
@@ -24,6 +26,13 @@ the device time of its partial and combine kernels taken from
 ``torch.profiler``; the inputs stay in the L2, so this is the kernels'
 latency, not their bytes.
 
+``--scan-tiles``: each variant is ``FWD_ROWS,FWD_WARPS,BWD_ROWS,
+BWD_WARPS`` of the chunked RG-LRU scan (rows a thread walks, warps a
+CTA; a chunk is their product), a copy of ``csrc/rglru_scan.cu`` with
+that line changed, built as the flash variants are and timed with
+``chip_smoke.time_scan`` forward and reverse at the training shape
+(B=1, S=4096, D=4096, fp32), with its registers and spills.
+
 Prints one JSON line per variant or chunk.
 """
 from __future__ import annotations
@@ -43,23 +52,20 @@ TILE = re.compile(r"template <> struct Tile<(128|256)> \{ static constexpr int "
                   r"BK = \d+, NS = \d+; \};")
 
 
-def build_flash_variants(build, variants):
-    """One shared library per (bk128, ns128, bk256, ns256); returns
-    [(path, registers)]."""
+SCAN_TILE = re.compile(r"constexpr int FWD_ROWS = \d+, FWD_WARPS = \d+, "
+                       r"BWD_ROWS = \d+, BWD_WARPS = \d+;")
+
+
+def build_variants(build, name, texts):
+    """One shared library per variant source text, built all at once
+    into ``build/sweep/``; returns [(path, registers and spills)]."""
     out = ROOT / "build" / "sweep"
     out.mkdir(parents=True, exist_ok=True)
-    src = (build.CSRC / "flash_attention.cu").read_text()
-    assert len(TILE.findall(src)) == 2, "Tile<128> and Tile<256> lines"
     procs = []
-    for i, (b1, n1, b2, n2) in enumerate(variants):
-        tiles = {"128": (b1, n1), "256": (b2, n2)}
-        text = TILE.sub(lambda m: (
-            f"template <> struct Tile<{m.group(1)}> {{ static constexpr int "
-            f"BK = {tiles[m.group(1)][0]}, NS = {tiles[m.group(1)][1]}; }};"),
-            src)
-        cu, so = out / f"flash_v{i}.cu", out / f"libflash_v{i}.so"
+    for i, text in enumerate(texts):
+        cu, so = out / f"{name}_v{i}.cu", out / f"lib{name}_v{i}.so"
         cu.write_text(text)
-        log = open(out / f"flash_v{i}.log", "w")
+        log = open(out / f"{name}_v{i}.log", "w")
         procs.append((so, log, subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
             stdout=log, stderr=subprocess.STDOUT)))
@@ -70,9 +76,35 @@ def build_flash_variants(build, variants):
         log.close()
         regs = [ln.split(":")[-1].strip()
                 for ln in Path(log.name).read_text().splitlines()
-                if "registers" in ln]
+                if "registers" in ln or "spill" in ln]
         built.append((so, regs))
     return built
+
+
+def build_flash_variants(build, variants):
+    """One shared library per (bk128, ns128, bk256, ns256); returns
+    [(path, registers)]."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert len(TILE.findall(src)) == 2, "Tile<128> and Tile<256> lines"
+    texts = []
+    for b1, n1, b2, n2 in variants:
+        tiles = {"128": (b1, n1), "256": (b2, n2)}
+        texts.append(TILE.sub(lambda m: (
+            f"template <> struct Tile<{m.group(1)}> {{ static constexpr int "
+            f"BK = {tiles[m.group(1)][0]}, NS = {tiles[m.group(1)][1]}; }};"),
+            src))
+    return build_variants(build, "flash", texts)
+
+
+def bind(build, so, names):
+    """Put the entries ``names`` of the library ``so`` in place of the
+    ones the wrappers load."""
+    lib = ctypes.CDLL(str(so))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = build.SIGNATURES[name][1]
+        fn.restype = ctypes.c_int
+        build._entries[name] = fn
 
 
 def sweep_flash(torch, cs, build, variants) -> None:
@@ -82,10 +114,7 @@ def sweep_flash(torch, cs, build, variants) -> None:
     def rnd(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
     for (so, regs), v in zip(build_flash_variants(build, variants), variants):
-        fn = ctypes.CDLL(str(so)).flash_attention_fwd
-        fn.argtypes = build.SIGNATURES["flash_attention_fwd"][1]
-        fn.restype = ctypes.c_int
-        build._entries["flash_attention_fwd"] = fn
+        bind(build, so, ["flash_attention_fwd"])
         ms = {p: cs.time_flash(torch, ops, ref, rnd, b)
               for p, b in cs.SERVE_FA.items()}
         ms["prefix"] = cs.time_flash_extend(torch, ops, ref, rnd,
@@ -97,6 +126,40 @@ def sweep_flash(torch, cs, build, variants) -> None:
             "max_abs_err": {p: m["max_abs_err"] for p, m in ms.items()}}),
             flush=True)
     build._entries.pop("flash_attention_fwd", None)
+
+
+SCAN_ENTRIES = ["rglru_scan_workspace", "rglru_scan_fwd", "rglru_scan_bwd"]
+
+
+def sweep_scan(torch, cs, build, variants) -> None:
+    """Each (FWD_ROWS, FWD_WARPS, BWD_ROWS, BWD_WARPS) of the chunked
+    scan: a copy of ``csrc/rglru_scan.cu`` with that line changed, timed
+    with ``chip_smoke.time_scan`` forward and reverse at the training
+    shape."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+    src = (build.CSRC / "rglru_scan.cu").read_text()
+    assert len(SCAN_TILE.findall(src)) == 1, "the FWD_ROWS ... line"
+    texts = [SCAN_TILE.sub(
+        f"constexpr int FWD_ROWS = {fr}, FWD_WARPS = {fw}, BWD_ROWS = {br}, "
+        f"BWD_WARPS = {bw};", src) for fr, fw, br, bw in variants]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    for (so, regs), v in zip(build_variants(build, "scan", texts), variants):
+        bind(build, so, SCAN_ENTRIES)
+        ops._workspace_bytes.cache_clear()
+        ms = {p: cs.time_scan(torch, ops, ref, rnd, reverse=p == "reverse")
+              for p in ("forward", "reverse")}
+        print(json.dumps({
+            "scan_tiles": v, "registers": regs,
+            "ms": {p: m["ms"] for p, m in ms.items()},
+            "bound_ms": {p: m["bound_ms"] for p, m in ms.items()},
+            "max_abs_err": {p: m["max_abs_err"] for p, m in ms.items()}}),
+            flush=True)
+    for name in SCAN_ENTRIES:
+        build._entries.pop(name, None)
+    ops._workspace_bytes.cache_clear()
 
 
 def sweep_flash_seq(torch, cs, seqs) -> None:
@@ -172,6 +235,8 @@ def main() -> int:
                     help="variants BK128,NS128,BK256,NS256")
     ap.add_argument("--flash-seqs", nargs="*", type=int, default=[])
     ap.add_argument("--decode-chunks", nargs="*", type=int, default=[])
+    ap.add_argument("--scan-tiles", nargs="*", default=[],
+                    help="variants FWD_ROWS,FWD_WARPS,BWD_ROWS,BWD_WARPS")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -190,6 +255,9 @@ def main() -> int:
         sweep_flash_seq(torch, cs, args.flash_seqs)
     if args.decode_chunks:
         sweep_decode(torch, cs, _build, args.decode_chunks)
+    if args.scan_tiles:
+        sweep_scan(torch, cs, _build, [tuple(int(x) for x in v.split(","))
+                                       for v in args.scan_tiles])
     return 0
 
 

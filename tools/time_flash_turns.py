@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention kernels at the main paths' shapes for two
+"""Time the attention and scan kernels at the main paths' shapes for two
 checkouts of the repository, in turns (other, this, this, other), on one
 NVIDIA GPU:
 
@@ -16,9 +16,10 @@ checkout's kernels, and times them with that checkout's
 prefills, ``time_flash_extend`` at the prefix-resume, chunk and ragged
 extends, and ``time_flash_train`` at the training shape where the
 checkout has it), slotted decode (``time_decode`` at the fifo and batch
-steps) and paged decode (``time_paged`` at the fifo step), so that the
-two versions meet the same card in one call. Prints one JSON line per
-turn, times in ms.
+steps), paged decode (``time_paged`` at the fifo step) and the RG-LRU
+scan forward and reverse (``time_scan`` at the training shape, where
+the checkout has it), so that the two versions meet the same card in
+one call. Prints one JSON line per turn, times in ms.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from repro_torch.kernels import _build
 import numpy as np
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_ref
-_build.build_all(["flash_attention", "decode_attention"])
+from repro_torch.kernels.rglru_scan import ops as scan_ops, ref as scan_ref
+_build.build_all(["flash_attention", "decode_attention", "rglru_scan"])
 gen = torch.Generator(device="cuda").manual_seed(0)
 rnd = lambda shape, dt: torch.randn(shape, generator=gen, device="cuda").to(dt)
 out = {"flash " + p: cs.time_flash(torch, ops, ref, rnd, b)["ms"]
@@ -49,6 +51,10 @@ out.update({"decode " + p: cs.time_decode(torch, da_ops, da_ref, rnd, lens)["ms"
             for p, lens in cs.SERVE_DEC.items()})
 out["paged fifo"] = cs.time_paged(torch, np, da_ops, da_ref, rnd,
                                   cs.FIFO_LENS)["ms"]
+if hasattr(cs, "time_scan"):
+    for part in ("forward", "reverse"):
+        out["scan " + part] = cs.time_scan(torch, scan_ops, scan_ref, rnd,
+                                           reverse=part == "reverse")["ms"]
 print("RESULT " + json.dumps(out))
 '''
 
