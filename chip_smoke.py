@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -29,8 +29,13 @@ Phases, one status line each; any failure exits non-zero:
    1e-4 (prefill + decode, and a 5-token prefill extended by 4), and
    its Engine the reference's greedy tokens under batch and fifo
    admission, and on the paged, paged-chunked, paged-prefix and
-   paged-chunked-prefix fifo cells and a 7-block pool without and with
-   an admission watermark (which preempt) also JAX's counters;
+   paged-chunked-prefix, paged-prefix-victim, disagg and pipelined-decode
+   fifo cells and a 7-block pool without and with an admission watermark
+   (which preempt) also JAX's counters; then the reference's prefix-cache
+   service scenarios (a parked chain re-hit, eviction under pressure, a
+   tenant quota breach, one prompt under two tenants) and a fresh engine
+   restored from the JAX-saved ``golden_prefix.npz`` (``prefix-victim-v1``)
+   replaying its wave: JAX's tokens, counters and parked bytes per tenant;
 4. the serving path at full width and depth on qwen2-1.5b in bf16: the
    model's prefill and decode steps through the kernels against the same
    with the plain versions in their place (logits and caches within 5e-2
@@ -65,7 +70,31 @@ Phases, one status line each; any failure exits non-zero:
    (b), one microbatch of it at
    its initial weights through the kernels against the same with the
    plain versions in their place (loss within 1e-2 relative, each
-   gradient leaf within 5e-2 of its largest magnitude). Phase 2 adds the scan on the reference's test shapes,
+   gradient leaf within 5e-2 of its largest magnitude);
+6. the serving surface: qwen2-1.5b at full width and depth in bf16 behind
+   ``repro_torch.runtime.server.EngineServer`` on 127.0.0.1 (ephemeral
+   port), its ``Engine`` background-drained on the paged pool (281 blocks
+   of 16 rows, 8 slots) with prefix sharing, the victim cache and tenant
+   byte quotas (b's below one 256-token chain), decode in 2 stages over 2
+   units, deadline shedding and observability: (a) 16 requests of 512
+   prompt tokens and 32 new, 8 per tenant sharing a 256-token preamble,
+   half streamed as NDJSON, sent in order by one client, must end by
+   length with the tokens of the same requests through a caller-pumped
+   engine with the same pool and one decode stage, bit for bit; (b) their
+   agreement with slice 1's slotted fifo engine is reported; (c) 4
+   concurrent clients resend them: all complete, agreement reported; (d)
+   two requests with 1 ms deadlines shed as timeout and the pool's books
+   balance; (e) ``/metrics`` parses with counters equal to the requests
+   sent and a TTFT histogram, ``/trace`` validates with its ``units``
+   tracks, ``/status`` shows more victim hits in the second wave and
+   quota evictions of tenant b only; (f) the prefix cache saved, the
+   server shut down, a fresh engine restored from the file serves tenant
+   a's prompts again from the restored blocks with (a)'s tokens; (g) every
+   run launches flash 28 times per prefill or extend call and paged decode
+   28 times per decode step (slotted decode none; the slotted run the
+   other way round); (h) wall time, output tok/s and TTFT p50 over HTTP
+   against the in-process run, beside the card's name and power limit.
+   Phase 2 adds the scan on the reference's test shapes,
    the chunked body's edges (a partial last chunk with B > 1, D = 37,
    S = 1) and at B=1 S=4096 D=4096 (tol 1e-5, forward and reverse; two
    calls there bitwise equal; back-to-back calls on rotated inputs each
@@ -86,6 +115,8 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -93,6 +124,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = SRC / "repro_torch" / "testdata" / "golden_cm.npz"
 GOLDEN_TRAIN = SRC / "repro_torch" / "testdata" / "golden_train.npz"
+GOLDEN_PREFIX = SRC / "repro_torch" / "testdata" / "golden_prefix.npz"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,   # H100 SXM dense bf16 (tensor cores)
               "float32": 67e12}     # H100 SXM fp32 outside the tensor cores
@@ -156,7 +188,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/5] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/6] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -814,7 +846,7 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/5] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/6] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode, paged decode, flash "
         f"at head_dim 256 with its lse, the RG-LRU scan forward and "
         f"reverse)")
@@ -893,16 +925,101 @@ def phase_golden(torch, np) -> dict:
                 if got_c != counters[lay]:
                     raise PhaseFailed(f"{name}/{lay}: counters {got_c}, "
                                       f"JAX's {counters[lay]}")
-                if eng.scheduler.alloc.in_use:
-                    raise PhaseFailed(f"{name}/{lay}: the pool did not "
-                                      f"come home whole")
+                if eng.config.kv_layout == "paged":
+                    home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
-    say(f"[3/5] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    service = golden_service(torch, np, data, meta)
+    say(f"[3/6] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
-        f"extend logits {worst_ext:.3g} (tol 1e-4)")
+        f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
+        f"scenarios {sorted(service['scenarios'])} and the JAX-saved "
+        f"prefix-victim-v1 file restored and replayed with JAX's tokens and "
+        f"counters")
     return {"golden_max_abs_err": worst, "extend_max_abs_err": worst_ext,
-            "counters": cell_counters}
+            "counters": cell_counters, "service": service}
+
+
+def home_whole(eng, label: str) -> None:
+    """At drain every pool block is back, less the victim cache's parked
+    chains, and the pool's books balance (``PagedLayout.check``)."""
+    lay = eng.scheduler.layout
+    parked = len(lay.victim) if lay.victim is not None else 0
+    if eng.scheduler.alloc.in_use != parked:
+        raise PhaseFailed(f"{label}: {eng.scheduler.alloc.in_use} blocks "
+                          f"held at drain, {parked} parked")
+    try:
+        lay.check(set(), eng.scheduler.sched.max_slots)
+    except AssertionError as exc:
+        raise PhaseFailed(f"{label}: the pool's books do not balance: "
+                          f"{exc}") from None
+
+
+def golden_service(torch, np, data, meta) -> dict:
+    """The fixture's prefix-cache scenarios on the card in fp32 (a parked
+    chain re-hit, eviction under pressure, a tenant quota breach, one
+    prompt under two tenants), and a fresh engine restored from the
+    JAX-saved ``golden_prefix.npz`` replaying its wave: tokens, counters
+    and the parked bytes per tenant must be JAX's."""
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.scheduler import Request
+    from repro_torch.weights import from_jax_params
+    svc = meta["service"]
+    name = svc["config"]
+    kw = meta["configs"][name]
+    cfg = ModelConfig(**{**kw, "layer_pattern": tuple(kw["layer_pattern"])})
+    prefix = f"{name}|params|"
+    model = from_jax_params({k[len(prefix):]: data[k] for k in data.files
+                             if k.startswith(prefix)}, cfg, device="cuda")
+    want = json.loads(str(data[f"{name}|service"]))
+    keys = ("prefix_hits", "prefill_tokens_saved", "preemptions",
+            "victim_hits", "victim_evictions")
+
+    def engine(override):
+        return Engine(cfg, model, EngineConfig(**{**svc["engine"],
+                                                  **override}),
+                      device="cuda")
+
+    def wave(w):
+        return [Request(i, ((np.arange(n, dtype=np.int32) * (seed + 3)
+                             + seed) % cfg.vocab_size).astype(np.int32),
+                        max_new_tokens=m, tenant=t)
+                for i, (seed, n, t, m) in enumerate(w)]
+
+    def record(eng):
+        st = eng.stats()
+        pc = eng.snapshot()["prefix_cache"]
+        home_whole(eng, f"service/{name}")
+        return {**{k: int(st[k]) for k in keys},
+                "victim_blocks": int(pc["victim_blocks"]),
+                "per_tenant_bytes": {k: int(v) for k, v in
+                                     sorted(pc["per_tenant_bytes"].items())}}
+
+    got = {}
+    for label, (override, waves) in svc["scenarios"].items():
+        eng = engine(override)
+        tokens = [[c.tokens for c in eng.generate(wave(w))] for w in waves]
+        got[label] = {"tokens": tokens, **record(eng)}
+    eng = engine({})
+    blocks = eng.restore_prefix_cache(str(GOLDEN_PREFIX))
+    outs = eng.generate(wave(svc["restore_wave"]))
+    got["restore"] = {"blocks": blocks, "tokens": [c.tokens for c in outs],
+                      **record(eng)}
+    for label, rec in got.items():
+        if rec != want[label]:
+            raise PhaseFailed(f"prefix-cache scenario {label}: "
+                              f"{without_tokens(rec)}, JAX's "
+                              f"{without_tokens(want[label])}"
+                              + ("" if rec["tokens"] == want[label]["tokens"]
+                                 else " (tokens differ)"))
+    if got["restore"]["victim_hits"] <= 0:
+        raise PhaseFailed("the restored prefix cache was never hit")
+    return {"scenarios": {k: without_tokens(v) for k, v in got.items()}}
+
+
+def without_tokens(rec: dict) -> dict:
+    return {k: v for k, v in rec.items() if k != "tokens"}
 
 
 # ---------------------------------------------------------------------------
@@ -913,20 +1030,29 @@ class Calls:
     """Counts the model's prefill and extend calls: each wrapped entry
     point adds one per call (the engine reaches both through the
     ``transformer`` module), so a run's flash launches can be held to 28
-    per call."""
+    per call. Safe across threads: a drain thread makes the calls while
+    the main thread reads and resets the counts."""
 
     def __init__(self, T):
         self.T = T
         self.orig = {"prefill": T.prefill, "prefill_extend": T.prefill_extend}
         self.n = dict.fromkeys(self.orig, 0)
+        self.lock = threading.Lock()
         for name, fn in self.orig.items():
             setattr(T, name, self._wrap(name, fn))
 
     def _wrap(self, name, fn):
         def counted(*a, **kw):
-            self.n[name] += 1
+            with self.lock:
+                self.n[name] += 1
             return fn(*a, **kw)
         return counted
+
+    def take(self) -> dict:
+        """The counts so far, set back to 0."""
+        with self.lock:
+            n, self.n = dict(self.n), dict.fromkeys(self.orig, 0)
+        return n
 
     def restore(self):
         for name, fn in self.orig.items():
@@ -943,14 +1069,14 @@ def serve_run(torch, serve, cfg, ops, calls, label: str, argv) -> dict:
     flash must have launched 28 times per prefill or extend call, the
     layout's decode kernel 28 times per decode step, and the other decode
     kernel not at all."""
+    from repro_torch.kernels import _build
     n_layers = cfg.n_layers
-    for k in KERNELS:
-        ops[k].launches = 0
-    calls.n = dict.fromkeys(calls.n, 0)
+    _build.reset_launches(*(ops[k] for k in KERNELS))
+    calls.take()
     summary = serve.main(SERVE_ARGS + argv)
     torch.cuda.synchronize()
     launches = {k: ops[k].launches for k in KERNELS}
-    n_calls = dict(calls.n)
+    n_calls = calls.take()
     comps = summary["completions"]
     if len(comps) != 16 or any(c.finish_reason != "length"
                                or len(c.tokens) != 32 for c in comps):
@@ -1208,7 +1334,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/5] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/6] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -1472,10 +1598,379 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/5] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/6] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+# the served engine: qwen2-1.5b's paged pool at slotted parity, prefix
+# sharing with the victim cache, decode in 2 stages over 2 units, deadline
+# shedding and observability on; tenant quotas are set in http_config
+HTTP_ENGINE = dict(kv_layout="paged", block_size=BS, num_blocks=PARITY_BLOCKS,
+                   max_slots=8, max_len=SERVE_S, prefix_cache=True,
+                   victim_cache=True, units=2, decode_stages=2,
+                   enforce_deadlines=True, observability=True)
+HTTP_PROMPT, HTTP_SHARED, HTTP_NEW = 512, 256, 32
+HTTP_TENANTS = ("a", "b")
+HTTP_QUOTA_B_BLOCKS = 8     # b's budget: half of its 16-block shared preamble
+HTTP_CLIENTS = 4
+HTTP_TIMEOUT_S = 300
+
+
+def http_config(cfg):
+    """``HTTP_ENGINE`` with the tenants' byte budgets: a's holds its whole
+    parked population, b's less than one 256-token chain."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import EngineConfig
+    block = BS * T.kv_row_bytes(cfg)
+    return EngineConfig(**HTTP_ENGINE, prefix_cache_tenants={
+        "a": 4 * PARITY_BLOCKS * block, "b": HTTP_QUOTA_B_BLOCKS * block})
+
+
+def http_workload(cfg, np) -> list:
+    """16 requests of 512 prompt tokens, 8 per tenant in turns; each
+    tenant's prompts share their first 256 tokens; requests 0, 1, 4, 5,
+    ... stream NDJSON. Returns dicts of (prompt, tenant, stream)."""
+    rng = np.random.RandomState(6)
+    shared = {t: rng.randint(0, cfg.vocab_size, HTTP_SHARED)
+              for t in HTTP_TENANTS}
+    out = []
+    for i in range(16):
+        tenant = HTTP_TENANTS[i % 2]
+        prompt = np.concatenate([shared[tenant], rng.randint(
+            0, cfg.vocab_size, HTTP_PROMPT - HTTP_SHARED)]).astype(np.int32)
+        out.append({"prompt": prompt, "tenant": tenant,
+                    "stream": (i // 2) % 2 == 0})
+    return out
+
+
+def post(port: int, body: dict, stream: bool = False) -> dict:
+    """One request over HTTP; returns the completion JSON (for a stream,
+    its final line, checked against the streamed tokens)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("POST", "/generate", json.dumps({**body,
+                                                      "stream": stream}),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        raw = r.read()
+    finally:
+        conn.close()
+    if r.status != 200:
+        raise PhaseFailed(f"/generate -> {r.status}: {raw[:200]!r}")
+    if not stream:
+        return json.loads(raw)
+    lines = [json.loads(ln) for ln in raw.splitlines() if ln.strip()]
+    final = lines[-1]
+    if not final.get("done") or final["tokens"] != [
+            ln["token"] for ln in lines[:-1]]:
+        raise PhaseFailed("an NDJSON stream disagrees with its final line")
+    return final
+
+
+def get(port: int, path: str):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        raw = r.read()
+    finally:
+        conn.close()
+    if r.status != 200:
+        raise PhaseFailed(f"GET {path} -> {r.status}")
+    return raw
+
+
+def body_of(req: dict) -> dict:
+    return {"prompt": [int(t) for t in req["prompt"]],
+            "max_new_tokens": HTTP_NEW, "tenant": req["tenant"]}
+
+
+class LaunchRun:
+    """One run's kernel launches, prefill/extend calls and decode steps:
+    the counts set to 0 (and the engine's step counter read) just before
+    the run, read just after it, once the engine is idle; 28 flash
+    launches per prefill or extend call and 28 launches of the layout's
+    decode kernel per decode step, the other decode kernel none."""
+
+    def __init__(self, torch, ops, calls, eng, label: str):
+        from repro_torch.kernels import _build
+        self.torch, self.ops, self.calls = torch, ops, calls
+        self.eng, self.label = eng, label
+        _build.reset_launches(*(ops[k] for k in KERNELS))
+        calls.take()
+        self.steps0 = eng.stats()["steps"]
+
+    def check(self) -> dict:
+        self.eng.snapshot()             # under the engine lock: idle
+        self.torch.cuda.synchronize()
+        launches = {k: self.ops[k].launches for k in KERNELS}
+        n_calls = self.calls.take()
+        steps = self.eng.stats()["steps"] - self.steps0
+        n = self.eng.cfg.n_layers
+        paged = self.eng.config.kv_layout == "paged"
+        want = {"flash_attention": n * sum(n_calls.values()),
+                "decode_attention": 0 if paged else n * steps,
+                "paged_decode_attention": n * steps if paged else 0}
+        if launches != want or not launches["flash_attention"] or not steps:
+            raise PhaseFailed(f"{self.label}: launches {launches}, want "
+                              f"{want} ({n_calls} prefill/extend calls, "
+                              f"{steps} decode steps)")
+        return {"launches": launches, "calls": n_calls, "steps": steps}
+
+
+def check_lengths(label: str, comps: list, vocab: int) -> None:
+    for c in comps:
+        if c["finish_reason"] != "length" or len(c["tokens"]) != HTTP_NEW:
+            raise PhaseFailed(f"{label}: a request ended {c['finish_reason']} "
+                              f"with {len(c['tokens'])} tokens")
+        if any(not 0 <= t < vocab for t in c["tokens"]):
+            raise PhaseFailed(f"{label}: token outside the vocabulary")
+
+
+def timing(comps: list, wall_s: float) -> dict:
+    toks = sum(len(c["tokens"]) for c in comps)
+    ttft = sorted(c["ttft_s"] for c in comps)
+    return {"wall_s": wall_s, "tok_per_s": toks / wall_s,
+            "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3}
+
+
+def inprocess_run(eng, reqs, warm_prompt) -> tuple:
+    """The ordered run through a caller-pumped engine: the server's
+    warmup request, then each request submitted after the previous one
+    completed, as the single HTTP client sends them."""
+    from repro_torch.runtime.scheduler import Request
+    eng.submit(Request(10 ** 6, warm_prompt, max_new_tokens=2)).result()
+    out, t0 = [], time.perf_counter()
+    for i, r in enumerate(reqs):
+        c = eng.submit(Request(i, r["prompt"], max_new_tokens=HTTP_NEW,
+                               tenant=r["tenant"])).result()
+        out.append({"tokens": c.tokens, "finish_reason": c.finish_reason,
+                    "ttft_s": c.ttft_s})
+    return out, time.perf_counter() - t0
+
+
+def agree(a: list, b: list) -> float:
+    return sum(x["tokens"] == y["tokens"] for x, y in zip(a, b)) / len(a)
+
+
+def phase_http(torch, np, ops, smi: str) -> dict:
+    """qwen2-1.5b at full width and depth in bf16 served over HTTP by an
+    ``EngineServer`` whose ``Engine`` is background-drained on the paged
+    pool with the victim cache, tenant quotas, decode in 2 stages over 2
+    units, deadline shedding and observability; see the module
+    docstring for (a)-(h)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.observability import (parse_prometheus,
+                                                   validate_chrome_trace)
+    from repro_torch.runtime.server import EngineServer, ServerConfig
+    from repro_torch.runtime.scheduler import Request
+    torch.cuda.empty_cache()
+    model = T.init_params(get_config("qwen2_1_5b"), 0, device="cuda")
+    cfg = model.cfg
+    ec = http_config(cfg)
+    reqs = http_workload(cfg, np)
+    block = BS * T.kv_row_bytes(cfg)
+    warm_prompt = np.ones(8, np.int32)      # EngineServer's warmup request
+    out = {}
+    calls = Calls(T)
+    try:
+        # (a) the in-process reference: decode in one stage, same pool,
+        # same order, caller-pumped
+        ref_eng = Engine(cfg, model, dataclasses.replace(
+            ec, units=1, decode_stages=1), device="cuda")
+        run = LaunchRun(torch, ops, calls, ref_eng, "in-process ordered run")
+        inproc, inproc_s = inprocess_run(ref_eng, reqs, warm_prompt)
+        out["inprocess"] = {**run.check(), **timing(inproc, inproc_s)}
+        check_lengths("in-process ordered run", inproc, cfg.vocab_size)
+        del ref_eng
+        # (b) slice 1's path: the same requests through a slotted fifo
+        # engine, all submitted at once
+        slot_eng = Engine(cfg, model, EngineConfig(
+            max_slots=8, max_len=SERVE_S, admission="fifo"), device="cuda")
+        run = LaunchRun(torch, ops, calls, slot_eng, "slotted fifo run")
+        slotted = [{"tokens": c.tokens} for c in slot_eng.generate(
+            [Request(i, r["prompt"], max_new_tokens=HTTP_NEW)
+             for i, r in enumerate(reqs)])]
+        out["slotted"] = run.check()
+        del slot_eng
+        eng = Engine(cfg, model, ec, device="cuda")
+        srv = EngineServer(eng, ServerConfig(port=0, max_inflight=32))
+        t0 = time.perf_counter()
+        srv.start()
+        out["start_s"] = time.perf_counter() - t0
+        try:
+            if get(srv.port, "/health/ready") != b'{"status": "ready"}':
+                raise PhaseFailed("/health/ready is not ready after start")
+            # (a) the ordered run over HTTP, one client
+            run = LaunchRun(torch, ops, calls, eng, "HTTP ordered run")
+            t0 = time.perf_counter()
+            http = [post(srv.port, body_of(r), r["stream"]) for r in reqs]
+            http_s = time.perf_counter() - t0
+            out["http"] = {**run.check(), **timing(http, http_s)}
+            check_lengths("HTTP ordered run", http, cfg.vocab_size)
+            if [c["tokens"] for c in http] != [c["tokens"] for c in inproc]:
+                raise PhaseFailed(
+                    "the HTTP run's tokens (2 decode stages, drain thread) "
+                    "differ from the in-process run's (1 stage, pumped): "
+                    f"{agree(http, inproc):.3f} of requests agree")
+            pc_a = json.loads(get(srv.port, "/status"))["prefix_cache"]
+            out["agreement_slotted"] = agree(http, slotted)
+            # (c) the same requests from concurrent clients
+            run = LaunchRun(torch, ops, calls, eng, "concurrent HTTP run")
+            conc, errs = [None] * len(reqs), []
+
+            def client(k):
+                try:
+                    for i in range(k, len(reqs), HTTP_CLIENTS):
+                        conc[i] = post(srv.port, body_of(reqs[i]),
+                                       reqs[i]["stream"])
+                except Exception as exc:    # noqa: BLE001 — reported below
+                    errs.append(exc)
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(HTTP_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=HTTP_TIMEOUT_S)
+            conc_s = time.perf_counter() - t0
+            if errs or any(t.is_alive() for t in threads) or None in conc:
+                raise PhaseFailed(f"concurrent clients: not every request "
+                                  f"completed ({errs[:1]})")
+            out["concurrent"] = {**run.check(), **timing(conc, conc_s)}
+            check_lengths("concurrent HTTP run", conc, cfg.vocab_size)
+            out["agreement_concurrent"] = agree(conc, http)
+            # (d) deadlines of 1 ms: shed as timeout, books balanced
+            rng = np.random.RandomState(7)
+            shed = [post(srv.port, {"prompt": [int(t) for t in rng.randint(
+                0, cfg.vocab_size, HTTP_PROMPT)], "max_new_tokens": HTTP_NEW,
+                "deadline_s": 0.001}) for _ in range(2)]
+            if any(c["finish_reason"] != "timeout" for c in shed):
+                raise PhaseFailed(f"1 ms deadlines: "
+                                  f"{[c['finish_reason'] for c in shed]}")
+            with eng._entry_lock():
+                home_whole(eng, "after the deadline sheds")
+            # (e) metrics, trace and status
+            st = json.loads(get(srv.port, "/status"))
+            metrics = parse_prometheus(get(srv.port, "/metrics").decode())
+            sent = 1 + 2 * len(reqs) + len(shed)    # the warmup included
+            never = sum(not c["tokens"] for c in shed)
+            mc = metrics["counters"]
+            if (mc["repro_requests_submitted_total"] != sent
+                    or mc["repro_admissions_total"] != sent - never
+                    or mc["repro_sheds_total"] != len(shed)
+                    or metrics["histograms"]["repro_ttft_seconds"]["count"]
+                    != sent - never):
+                raise PhaseFailed(f"/metrics counters {mc} and TTFT "
+                                  f"histogram do not match {sent} requests "
+                                  f"sent ({never} shed before admission)")
+            trace = json.loads(get(srv.port, "/trace"))
+            n_events = validate_chrome_trace(trace)
+            meta = [m for m in trace["traceEvents"] if m.get("ph") == "M"]
+            unit_pids = {m["pid"] for m in meta if m["name"] == "process_name"
+                         and m["args"]["name"] == "units"}
+            units = {m["args"]["name"] for m in meta
+                     if m["name"] == "thread_name" and m["pid"] in unit_pids}
+            if units != {"decode0", "decode1"}:
+                raise PhaseFailed(f"/trace: units tracks {units}")
+            pc = st["prefix_cache"]
+            per = pc["per_tenant_bytes"]
+            a_blocks = (HTTP_SHARED + 8 * (HTTP_PROMPT - HTTP_SHARED)) // BS
+            if not (pc["victim_hits"] > pc_a["victim_hits"]
+                    and pc["victim_evictions"] > 0
+                    and per["a"] == a_blocks * block
+                    and per["b"] <= HTTP_QUOTA_B_BLOCKS * block):
+                raise PhaseFailed(f"/status prefix cache {pc}: want more "
+                                  f"victim hits in the second wave than "
+                                  f"{pc_a['victim_hits']}, tenant a whole "
+                                  f"({a_blocks} blocks), b evicted to its "
+                                  f"quota")
+            out["status"] = {"prefix_cache": pc, "counters": st["counters"],
+                             "units": st["units"], "trace_events": n_events,
+                             "victim_hits_after_a": pc_a["victim_hits"]}
+            # (f) save, shut down, restore into a fresh engine, resend a
+            with tempfile.TemporaryDirectory() as tmp:
+                path = str(Path(tmp) / "prefix.npz")
+                chains = eng.save_prefix_cache(path)
+                parked = len(eng.scheduler.layout.victim)
+                srv.close()
+                srv = None
+                eng = Engine(cfg, model, ec, device="cuda")
+                t0 = time.perf_counter()
+                restored = eng.restore_prefix_cache(path)
+                restore_s = time.perf_counter() - t0
+            if restored != parked:
+                raise PhaseFailed(f"restored {restored} blocks of "
+                                  f"{parked} parked")
+            srv = EngineServer(eng, ServerConfig(port=0, max_inflight=32))
+            srv.start()
+            run = LaunchRun(torch, ops, calls, eng, "restored run")
+            mine = [i for i, r in enumerate(reqs) if r["tenant"] == "a"]
+            again = [post(srv.port, body_of(reqs[i])) for i in mine]
+            out["restored"] = run.check()
+            check_lengths("restored run", again, cfg.vocab_size)
+            st2 = eng.stats()
+            out["restore"] = {
+                "chains": chains, "blocks": restored, "restore_s": restore_s,
+                "victim_hits": st2["victim_hits"],
+                "prefill_tokens_saved": st2["prefill_tokens_saved"],
+                "agreement_ordered": agree(again, [http[i] for i in mine]),
+                "agreement_concurrent": agree(again, [conc[i] for i in mine])}
+            if st2["victim_hits"] < len(mine) \
+                    or st2["prefill_tokens_saved"] <= 0:
+                raise PhaseFailed(f"the restored engine's hits: {st2}")
+            if out["restore"]["agreement_ordered"] != 1.0:
+                raise PhaseFailed(
+                    f"tenant a's tokens after the restore differ from the "
+                    f"ordered run's: {out['restore']}")
+        finally:
+            if srv is not None:
+                srv.close()
+    finally:
+        calls.restore()
+    h, ip = out["http"], out["inprocess"]
+    say(f"  {smi}")
+    for label, m in (("in-process ordered", ip), ("HTTP ordered", h),
+                     ("HTTP 4 clients", out["concurrent"])):
+        say(f"  {label} run: wall {m['wall_s']:.3f} s, {m['tok_per_s']:.1f} "
+            f"output tok/s, TTFT p50 {m['ttft_p50_ms']:.1f} ms; "
+            f"{m['steps']} decode steps, launches {m['launches']}")
+    say(f"  HTTP against in-process (ordered, one request at a time): wall "
+        f"x{h['wall_s'] / ip['wall_s']:.4f}, TTFT p50 "
+        f"{h['ttft_p50_ms'] - ip['ttft_p50_ms']:+.1f} ms; server start with "
+        f"warmup {out['start_s']:.2f} s")
+    say(f"  agreement with the slotted fifo run {out['agreement_slotted']:.3f}"
+        f", concurrent with ordered {out['agreement_concurrent']:.3f}; "
+        f"deadlines: 2 shed as timeout; victim hits "
+        f"{out['status']['victim_hits_after_a']} -> "
+        f"{out['status']['prefix_cache']['victim_hits']}, evictions "
+        f"{out['status']['prefix_cache']['victim_evictions']} (tenant b), "
+        f"{out['status']['trace_events']} trace events")
+    r = out["restore"]
+    say(f"  restore: {r['chains']} chains, {r['blocks']} blocks in "
+        f"{r['restore_s']:.3f} s; tenant a resent: {r['victim_hits']} victim "
+        f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
+        f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
+        f"concurrent run's {r['agreement_concurrent']:.3f})")
+    say("[6/6] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+        "victim cache, tenant quotas, 2 decode stages, deadlines, "
+        "observability): tokens equal the in-process run, the restored "
+        "cache's and launches exact in every run")
     return out
 
 
@@ -1509,14 +2004,14 @@ KERNEL_LINE = {
                        "src/repro/kernels/rglru_scan/kernel.py:41", "train",
                        ("train", "full_width")),
 }
-ALL_PHASES = {1, 2, 3, 4, 5}
+ALL_PHASES = {1, 2, 3, 4, 5, 6}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -1558,6 +2053,9 @@ def main() -> int:
             record["serve"] = phase_serve(torch, np, ops, fa_ref, da_ref)
         if 5 in phases:
             record["train"] = phase_train(torch, np, ops)
+        if 6 in phases:
+            record["http"] = phase_http(torch, np, ops,
+                                        record["device"]["nvidia_smi"])
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1

@@ -7,6 +7,12 @@ Each source ``repro_torch/csrc/<name>.cu`` becomes
 use and again only when its source changes. ``build_all()`` starts one
 ``nvcc`` per missing library, all at once. Nothing here runs at import
 time, so the package imports on machines without ``nvcc`` or a card.
+
+Thread-safe: a serving engine's drain thread and a server's warmup may
+be the first to reach a kernel, so ``entry`` and ``build_all`` run under
+one lock, each build writes a temporary library named for its process
+and thread, and ``count_launch`` / ``reset_launches`` keep the
+wrappers' ``.launches`` counters exact across threads.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -43,6 +50,10 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, object] = {}
+# guards building, loading and binding (re-entrant: entry builds)
+_lock = threading.RLock()
+# guards the wrappers' launch counters
+_count_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -71,12 +82,17 @@ def build_all(stems: Optional[List[str]] = None) -> Dict[str, float]:
     library built (empty when all were cached). The compiler's output,
     ``-Xptxas -v`` register and shared-memory counts included, is kept
     beside each library as ``.log``."""
+    with _lock:
+        return _build_all(stems)
+
+
+def _build_all(stems: Optional[List[str]]) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [s for s in (stems or sources()) if not lib_path(s).exists()]
     procs = []
     for stem in todo:
         out = lib_path(stem)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         log = open(out.with_suffix(".log"), "w")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
         procs.append((stem, tmp, log, time.perf_counter(),
@@ -104,17 +120,35 @@ def entry(name: str):
     fn = _entries.get(name)
     if fn is not None:
         return fn
-    stem, argtypes = SIGNATURES[name]
-    lib = _loaded.get(stem)
-    if lib is None:
-        build_all([stem])
-        lib = ctypes.CDLL(str(lib_path(stem)))
-        _loaded[stem] = lib
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    _entries[name] = fn
-    return fn
+    with _lock:
+        fn = _entries.get(name)
+        if fn is not None:
+            return fn
+        stem, argtypes = SIGNATURES[name]
+        lib = _loaded.get(stem)
+        if lib is None:
+            build_all([stem])
+            lib = ctypes.CDLL(str(lib_path(stem)))
+            _loaded[stem] = lib
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+        return fn
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: called by a wrapper where it
+    launches its kernel, and nowhere else."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def reset_launches(*wrappers) -> None:
+    """Set the launch counters of ``wrappers`` to 0."""
+    with _count_lock:
+        for w in wrappers:
+            w.launches = 0
 
 
 def check(code: int, name: str) -> None:

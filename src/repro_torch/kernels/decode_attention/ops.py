@@ -74,7 +74,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                   o.data_ptr(), b, s, h, hk, d, chunk, float(scale),
                   _DTYPES[q.dtype], stream)
     _build.check(code, "decode_attention")
-    decode_attention.launches += 1
+    _build.count_launch(decode_attention)
     return o
 
 
@@ -142,7 +142,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                   *(t.data_ptr() for t in parts), o.data_ptr(), b, nb, bs,
                   h, hk, d, chunk, float(scale), _DTYPES[q.dtype], stream)
     _build.check(code, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return o
 
 

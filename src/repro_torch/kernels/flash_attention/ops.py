@@ -85,7 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   d, int(causal), int(window), float(scale),
                   _DTYPES[q.dtype], stream)
     _build.check(code, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return (o, lse) if return_lse else o
 
 

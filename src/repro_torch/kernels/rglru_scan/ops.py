@@ -84,7 +84,7 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor,
         code = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(),
                   ws.data_ptr(), ws.numel(), bsz, s, d, stream)
     _build.check(code, "rglru_scan_fwd")
-    rglru_scan_fwd.launches += 1
+    _build.count_launch(rglru_scan_fwd)
     return y
 
 
@@ -109,7 +109,7 @@ def rglru_scan_bwd(a: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
                   db.data_ptr(), da.data_ptr(), dh0.data_ptr(), ws.data_ptr(),
                   ws.numel(), bsz, s, d, stream)
     _build.check(code, "rglru_scan_bwd")
-    rglru_scan_bwd.launches += 1
+    _build.count_launch(rglru_scan_bwd)
     return da, db, dh0
 
 

@@ -15,15 +15,24 @@ requests arrive at t=0). ``--paged`` serves from a paged KV pool
 common prompt prefix, and every synthetic prompt then opens with the
 same first half; ``--prefill-chunk N`` prefills N prompt tokens per
 scheduler step. Each of these implies fifo where the policy is batch.
-Runs on ``--device`` (default ``cuda``).
+Runs on ``--device`` (default ``cuda``). The engine flags are
+``EngineConfig.add_cli_args``'s, as in the reference: also
+``--victim-cache`` (implies ``--prefix-cache``), ``--units``,
+``--prefill-units``, ``--decode-stages``, ``--placement``,
+``--enforce-deadlines``, ``--preemption`` and ``--observability``;
+``--trace PATH`` writes the engine's Chrome trace (``trace_json()``,
+empty without ``--observability``) there after the run.
 
 ``main(argv)`` returns a summary dict (completions, throughput, TTFT,
-decode time per step) so that scripts can drive it; the replayed-trace,
-HTTP and partitioned modes of the reference come with later slices.
+decode time per step) so that scripts can drive it. The HTTP front end
+is ``repro_torch.runtime.server``; the reference CLI's replayed request
+traces, ``--serve``, ``--partition`` and ``--mode`` come with later
+slices (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Any, Dict, List, Optional
 
@@ -66,42 +75,31 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--policy", default="batch",
-                    choices=("batch", "fifo", "priority", "edf"),
-                    help="admission policy: 'batch' = static buckets, the "
-                         "others stream through the continuous scheduler")
-    ap.add_argument("--slots", type=int, default=8,
-                    help="decode batch width (continuous policies)")
-    ap.add_argument("--paged", action="store_true",
-                    help="paged KV pool instead of dense per-slot rows")
-    ap.add_argument("--prefix-cache", action="store_true",
-                    help="share resident prompt-prefix blocks (implies "
-                         "--paged); prompts share their first half")
-    ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="prompt tokens prefilled per scheduler step "
-                         "(0 = one-shot)")
-    ap.add_argument("--block-size", type=int, default=16,
-                    help="KV rows per paged block")
-    ap.add_argument("--num-blocks", type=int, default=0,
-                    help="paged pool size in blocks (0 = slotted parity)")
-    ap.add_argument("--watermark", type=int, default=0,
-                    help="paged admission watermark: keep this many "
-                         "blocks free beyond the prompt's need when "
-                         "admitting (growth headroom; damps preemption)")
+    # the engine flags, registered as the reference registers them;
+    # --policy defaults to batch here
+    EngineConfig.add_cli_args(ap)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the synthetic prompts")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the engine's Chrome trace JSON here after "
+                         "the run (needs --observability to hold events)")
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
-    paged = args.paged or args.prefix_cache
-    policy = args.policy
-    if policy == "batch" and (paged or args.prefill_chunk):
+    prefix = args.prefix_cache or args.victim_cache
+    paged = args.paged or prefix
+    policy = args.policy or "batch"
+    multi_unit = (args.units != 1 or args.prefill_units
+                  or args.decode_stages != 1)
+    if policy == "batch" and (paged or args.prefill_chunk
+                              or args.enforce_deadlines or multi_unit):
         policy = "fifo"
-        print("# --paged/--prefix-cache/--prefill-chunk imply a continuous "
-              "admission policy (fifo)")
+        print("# --paged/--prefix-cache/--victim-cache/--prefill-chunk/"
+              "--enforce-deadlines/--units/--decode-stages imply a "
+              "continuous admission policy (fifo)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -109,13 +107,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     model = T.init_params(cfg, args.seed, device=args.device)
     reqs = synthetic_requests(cfg, args.requests, args.prompt_len,
                               args.max_new, args.seed,
-                              shared_prefix=args.prefix_cache)
-    eng = Engine(cfg, model, EngineConfig(
-        max_slots=args.slots, max_len=args.prompt_len + args.max_new + 8,
-        kv_layout="paged" if paged else "slotted",
-        block_size=args.block_size, num_blocks=args.num_blocks,
-        watermark=args.watermark, prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
-        admission=policy), device=args.device)
+                              shared_prefix=prefix)
+    eng = Engine(cfg, model, EngineConfig.from_args(
+        args, max_len=args.prompt_len + args.max_new + 8, admission=policy),
+        device=args.device)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     init_s = time.perf_counter() - t_init
@@ -170,6 +165,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
               f"({ks['paged_kv_hwm_blocks']:.0f} blocks, watermark "
               f"{args.watermark}) vs slotted "
               f"reservation {ks['slotted_kv_reserved_bytes'] / 1e6:.2f} MB")
+    if args.trace:
+        with open(args.trace, "w") as fh:
+            json.dump(eng.trace_json(), fh)
+        print(f"# trace -> {args.trace}")
     return summary
 
 

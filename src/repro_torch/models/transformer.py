@@ -22,9 +22,9 @@ parameters held in the compute dtype (``to_compute_dtype_``, once).
 The decode cache is a list with one ``{"k", "v"}`` dict per layer, each
 (B, S_cache, Hk, hd), or with the paged layout (``init_paged_cache``)
 each a shared (N, bs, Hk, hd) pool addressed through block tables.
-``decode_step``, ``prefill_extend`` and the paged helpers
-(``paged_insert``, ``paged_seed``, ``paged_copy_block``) update caches
-in place where the reference returns new ones.
+``decode_step``, ``decode_step_staged``, ``prefill_extend`` and the
+paged helpers (``paged_insert``, ``paged_seed``, ``paged_copy_block``)
+update caches in place where the reference returns new ones.
 """
 from __future__ import annotations
 
@@ -430,6 +430,24 @@ def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int
                                      device=x.device)
 
 
+def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
+                   cache_len: torch.Tensor, block_tables, lo: int, hi: int
+                   ) -> torch.Tensor:
+    """Decoder layers ``lo .. hi - 1`` of one decode step."""
+    cfg = model.cfg
+    for layer, c in zip(model.layers[lo:hi], cache[lo:hi]):
+        if block_tables is None:
+            x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
+                              cache_len=cache_len)
+        else:
+            x = L.attn_decode_paged(layer.block, x, cfg, k_pool=c["k"],
+                                    v_pool=c["v"], tables=block_tables,
+                                    cache_len=cache_len)
+        if layer.mlp is not None:
+            x = L.mlp_apply(layer.mlp, x, cfg)
+    return x
+
+
 @torch.no_grad()
 def decode_step(model: Transformer, token: torch.Tensor, cache: Cache,
                 cache_len: torch.Tensor, *,
@@ -444,16 +462,56 @@ def decode_step(model: Transformer, token: torch.Tensor, cache: Cache,
     cfg = model.cfg
     check_servable(cfg)
     x = _embed_inputs(model, token)[:, None]
-    for layer, c in zip(model.layers, cache):
-        if block_tables is None:
-            x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
-                              cache_len=cache_len)
-        else:
-            x = L.attn_decode_paged(layer.block, x, cfg, k_pool=c["k"],
-                                    v_pool=c["v"], tables=block_tables,
-                                    cache_len=cache_len)
-        if layer.mlp is not None:
-            x = L.mlp_apply(layer.mlp, x, cfg)
+    x = _decode_layers(model, x, cache, cache_len, block_tables, 0,
+                       len(model.layers))
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    return _head_logits(x[:, 0], model), cache, cache_len + 1
+
+
+def decode_stage_bounds(cfg: ModelConfig, num_stages: int) -> list:
+    """Contiguous near-even partition of the decode depth (scan periods
+    first, then remainder layers) into ``num_stages`` groups: returns
+    ``num_stages + 1`` monotone boundaries over
+    ``n_periods + len(remainder_kinds)`` depth units, as the reference's
+    ``decode_stage_bounds``. A stage may be empty when there are more
+    stages than depth units."""
+    total = cfg.n_periods + len(cfg.remainder_kinds)
+    return [s * total // num_stages for s in range(num_stages + 1)]
+
+
+def _unit_layer(cfg: ModelConfig, unit: int) -> int:
+    """First decoder layer of depth unit ``unit`` (a scanned period is
+    one unit of ``len(layer_pattern)`` layers, a remainder layer one)."""
+    per = len(cfg.layer_pattern)
+    if unit <= cfg.n_periods:
+        return unit * per
+    return cfg.n_periods * per + (unit - cfg.n_periods)
+
+
+@torch.no_grad()
+def decode_step_staged(model: Transformer, token: torch.Tensor,
+                       cache: Cache, cache_len: torch.Tensor, *,
+                       num_stages: int,
+                       block_tables: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+    """``decode_step`` with the layer stack partitioned into
+    ``num_stages`` contiguous depth groups (``decode_stage_bounds``),
+    the stage-partitioned step behind pipelined decode: the execution
+    core models stage k of one microbatch overlapping stage k-1 of the
+    next, and this is the matching split of the computation. The embed
+    feeds the first stage and the head reads the last; each layer runs
+    the same kernels on the same values in the same order as in
+    ``decode_step``, so logits and cache are bit-identical to it."""
+    if num_stages <= 1:
+        return decode_step(model, token, cache, cache_len,
+                           block_tables=block_tables)
+    cfg = model.cfg
+    check_servable(cfg)
+    x = _embed_inputs(model, token)[:, None]
+    cuts = decode_stage_bounds(cfg, num_stages)
+    for lo, hi in zip(cuts, cuts[1:]):
+        x = _decode_layers(model, x, cache, cache_len, block_tables,
+                           _unit_layer(cfg, lo), _unit_layer(cfg, hi))
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return _head_logits(x[:, 0], model), cache, cache_len + 1
 
@@ -543,6 +601,7 @@ def paged_copy_block(cfg: ModelConfig, cache: Cache, src: int,
 __all__ = ["Transformer", "init_params", "cast_params_for_compute",
            "to_compute_dtype_", "check_trainable", "check_servable",
            "forward", "loss_fn", "init_cache", "init_paged_cache", "kv_row_bytes", "prefill",
-           "decode_step", "prefill_extend", "supports_chunked_prefill",
+           "decode_step", "decode_step_staged", "decode_stage_bounds",
+           "prefill_extend", "supports_chunked_prefill",
            "paged_insert", "paged_seed", "paged_copy_block",
            "resolve_device", "Cache"]

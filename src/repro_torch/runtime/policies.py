@@ -1,13 +1,14 @@
 """Serving policies of the port: admission order, preemption victims,
-unit placement, sampling.
+unit placement, victim-cache eviction, sampling.
 
-Counterpart of ``repro.runtime.policies``. The admission, preemption and
-placement classes are framework-neutral and copied as they are; the
+Counterpart of ``repro.runtime.policies``. The admission, preemption,
+placement and victim-eviction classes are framework-neutral and copied
+as they are; the
 sampler draws from a ``torch.Generator`` instead of a JAX key. Greedy
 sampling never touches the generator, so greedy tokens agree with the
 reference; temperature sampling cannot replay JAX's PRNG stream and is
-held to the reference by its distribution. The escalation and
-victim-eviction policies come with the slices that use them.
+held to the reference by its distribution. The escalation policies come
+with the slice that uses them (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -149,6 +150,36 @@ class LeastLoadedPlacement:
 
 
 # ---------------------------------------------------------------------------
+# victim-cache eviction: which reclaimable prefix block goes first
+# ---------------------------------------------------------------------------
+#
+# The victim pool (scheduler/prefix_pool.VictimCache) sorts its blocks by
+# ``policy.key(view)`` ascending and evicts from the front. ``view`` is an
+# EvictionView: per-block re-match count (``hits``, persistent across
+# revive/re-admit cycles), admission stamp (``stamp``, one per released
+# chain), page depth within the chain (``page``) and owning ``tenant``.
+
+
+class LruEviction:
+    """Least recently admitted chain first; within a chain, deepest page
+    first, so the chain head survives longest."""
+    name = "lru"
+
+    def key(self, view) -> Any:
+        return (view.stamp, -view.page)
+
+
+class WeightedLruEviction:
+    """Recency weighted by proven reuse: a never-re-matched chain evicts
+    before a matched one whatever its age (hits first), then LRU stamp,
+    then deepest page first."""
+    name = "weighted-lru"
+
+    def key(self, view) -> Any:
+        return (view.hits, view.stamp, -view.page)
+
+
+# ---------------------------------------------------------------------------
 # factories (EngineConfig carries policy names or instances)
 # ---------------------------------------------------------------------------
 
@@ -169,6 +200,11 @@ PREEMPTION_POLICIES = {
 PLACEMENT_POLICIES = {
     "round-robin": RoundRobinPlacement,
     "least-loaded": LeastLoadedPlacement,
+}
+
+VICTIM_EVICTION_POLICIES = {
+    "lru": LruEviction,
+    "weighted-lru": WeightedLruEviction,
 }
 
 
@@ -195,3 +231,9 @@ def make_preemption(spec) -> Any:
 def make_placement(spec) -> Any:
     """Resolve a unit-placement policy name or pass an instance through."""
     return _make("placement", PLACEMENT_POLICIES, spec)
+
+
+def make_victim_eviction(spec) -> Any:
+    """Resolve a victim-eviction policy name or pass an instance
+    through."""
+    return _make("victim-eviction", VICTIM_EVICTION_POLICIES, spec)

@@ -1,15 +1,14 @@
 """Refcounted fixed-pool block allocator for the paged KV cache.
 
 Counterpart of ``repro.runtime.scheduler.allocator``, copied (it is pure
-Python) without the victim cache's reclaim hook, which the port does not
-have yet. Prefill writes a slot's K/V into blocks held at refcount >= 1,
+Python), with the victim cache's ``reclaim`` hook. Prefill writes a slot's K/V into blocks held at refcount >= 1,
 prefix sharing maps one physical block into several tables (``share``),
 and the prefill -> decode handoff is zero-copy because the blocks never
 move: the decode step reads the same pool pages the prefill wrote.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 __all__ = ["BlockAllocator"]
 
@@ -58,9 +57,17 @@ class BlockAllocator:
         """Current reference count of ``block`` (0 = not held)."""
         return self._refs.get(block, 0)
 
-    def alloc(self, n: int, watermark: int = 0) -> Optional[List[int]]:
+    def alloc(self, n: int, watermark: int = 0,
+              reclaim: Optional[Callable[[int], None]] = None,
+              ) -> Optional[List[int]]:
         """``n`` blocks at refcount 1, or None when fewer than
-        ``n + watermark`` are free."""
+        ``n + watermark`` are free. ``reclaim``, when given, is called
+        with the shortfall before giving up: the victim cache's hook,
+        which evicts up to that many parked prefix blocks back into the
+        free pool, so parked blocks never block an allocation and are
+        evicted only under this pressure."""
+        if n + watermark > len(self._free) and reclaim is not None:
+            reclaim(n + watermark - len(self._free))
         if n + watermark > len(self._free):
             return None
         blocks = [self._free.pop() for _ in range(n)]

@@ -13,15 +13,17 @@ paged KV layouts:
   with decode steps);
 * the request lifecycle — per-token streaming to a ``RequestHandle``,
   cancellation, injected ``SlotFailure`` re-queue/terminate, paged
-  growth preemption, and a ``finish_reason`` on every ``Completion``;
-* the execution core (``units.ExecutionCore``): every prompt burst and
-  decode step is also charged to modeled per-unit clocks.
+  growth preemption, wall-clock deadline shedding, and a
+  ``finish_reason`` on every ``Completion``;
+* the execution core (``units.ExecutionCore``): every prompt burst, K/V
+  handoff and decode step is also charged to modeled per-unit clocks;
+* observability (``obs``, None when off): latency and size histograms,
+  per-step phase times, and request, slot and step spans in a Chrome
+  trace.
 
 The reference's ``jax.jit`` sites are plain calls here: PyTorch runs
 eagerly. Host-side mirrors (``cache_len``, ``tokens``) become tensors on
-the model's device once per decode step. Deadline shedding and the
-observability hooks come with later slices; ``EngineConfig`` refuses
-them.
+the model's device once per decode step.
 """
 from __future__ import annotations
 
@@ -35,9 +37,12 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.observability import (SIZE_BUCKETS, TIME_BUCKETS_S,
+                                               Observability)
 from repro_torch.runtime.policies import (BatchAdmission, EvictLatest,
                                           FifoAdmission, Sampler,
-                                          make_admission, make_preemption)
+                                          make_admission, make_preemption,
+                                          request_due_s)
 from repro_torch.runtime.scheduler import prefill as _prefill
 from repro_torch.runtime.scheduler.allocator import BlockAllocator
 from repro_torch.runtime.scheduler.layouts import PagedLayout, SlottedLayout
@@ -64,7 +69,8 @@ class ContinuousScheduler:
                  sched: Optional[SchedulerConfig] = None, *,
                  failures: Optional[List[SlotFailure]] = None,
                  admission: Any = None, preemption: Any = None,
-                 sampler: Optional[Sampler] = None):
+                 sampler: Optional[Sampler] = None,
+                 obs: Optional[Observability] = None):
         self.cfg = cfg
         self.model = model
         self.device = model.device
@@ -124,8 +130,49 @@ class ContinuousScheduler:
         self.step_count = 0
         self._t0: Optional[float] = None
         self._cancel_requests: List[_Ticket] = []
+        # deadline enforcement: min-heap of (due_s, submit_seq, ticket)
+        # over live deadline-carrying tickets, so the per-boundary shed
+        # check costs O(expired log n); finished tickets are skipped
+        # lazily at the top
+        self._deadline_heap: List[tuple] = []
         self.tokens_generated = 0
-        self.core = ExecutionCore(s)
+        # observability (None = off: the hot path pays one `is None` test
+        # per hook). Trace timestamps run on a construction-epoch clock
+        # (`_obs_now`), since `_t0` resets between drains and a track's
+        # timestamps must never go backwards; metric durations are
+        # differences of scheduler-clock stamps.
+        self.obs = obs if (obs is not None and obs.enabled) else None
+        if self.obs is not None:
+            self._obs_epoch = time.perf_counter()
+            self._phase: Dict[str, float] = {}
+            r = self.obs.registry
+            self._m = {
+                "ttft": r.histogram(
+                    "repro_ttft_seconds", TIME_BUCKETS_S,
+                    help="arrival to first token (admission wait + prefill)"),
+                "inter_token": r.histogram(
+                    "repro_inter_token_seconds", TIME_BUCKETS_S,
+                    help="steady-state gap between consecutive tokens "
+                         "of one request"),
+                "step": r.histogram(
+                    "repro_step_duration_seconds", TIME_BUCKETS_S,
+                    help="one scheduler iteration, boundary to boundary"),
+                "queue_wait": r.histogram(
+                    "repro_queue_wait_seconds", TIME_BUCKETS_S,
+                    help="enqueue to admission pop"),
+                "chunk": r.histogram(
+                    "repro_prefill_chunk_tokens", SIZE_BUCKETS,
+                    help="prompt tokens prefilled per admission/chunk step"),
+                "blocks": r.histogram(
+                    "repro_blocks_in_use", SIZE_BUCKETS,
+                    help="paged KV blocks held, sampled each step"),
+            }
+            for ph in ("admission", "prefill", "decode", "sampling", "kv"):
+                self._m["step_" + ph] = r.histogram(
+                    f"repro_step_{ph}_seconds", TIME_BUCKETS_S,
+                    help=f"per-step time inside the {ph} phase")
+        # built after obs, so its per-unit tracks share the tracer
+        self.core = ExecutionCore(s, obs=self.obs)
 
     @property
     def cache(self):
@@ -153,6 +200,9 @@ class ContinuousScheduler:
         self._submit_seq += 1
         self.backlog.append(ticket)
         self._backlog_dirty = True
+        if self.sched.enforce_deadlines and req.deadline_s is not None:
+            heapq.heappush(self._deadline_heap,
+                           (request_due_s(ticket), ticket.submit_seq, ticket))
         return ticket
 
     def request_cancel(self, ticket: _Ticket) -> None:
@@ -177,6 +227,13 @@ class ContinuousScheduler:
         ticket.where = "queued"
         heapq.heappush(self.queue, (self.admission.key(ticket),
                                     ticket.submit_seq, ticket))
+        if self.obs is not None:
+            # only ever called while stepping, so _t0 is set
+            ticket.queued_at_s = time.perf_counter() - self._t0
+            self.obs.tracer.async_begin(
+                "engine", "queue", f"req {ticket.req.id} queued",
+                ticket.req.id, self._obs_now(),
+                args={"restarts": ticket.restarts})
 
     def _queue_head(self) -> Optional[_Ticket]:
         while self.queue and self.queue[0][2].retired:
@@ -199,8 +256,19 @@ class ContinuousScheduler:
     def step_once(self, on_completion: Optional[
             Callable[[Completion], None]] = None) -> List[Completion]:
         """One scheduler iteration: deliver arrivals, purge cancellations,
-        apply due failures, admit, and (if anything is active) run one
+        shed expired deadlines, apply due failures, advance the in-flight
+        chunked prefill, admit, and (if anything is active) run one
         decode step. Returns the completions this iteration produced."""
+        if self.obs is None:
+            return self._step_impl(on_completion)
+        self._phase = {}
+        w0 = time.perf_counter()
+        out = self._step_impl(on_completion)
+        self._obs_step_done(w0, time.perf_counter())
+        return out
+
+    def _step_impl(self, on_completion: Optional[
+            Callable[[Completion], None]] = None) -> List[Completion]:
         if self._t0 is None:
             self._t0 = time.perf_counter()
         if self._backlog_dirty:
@@ -213,37 +281,101 @@ class ContinuousScheduler:
             self._enqueue(self.backlog[self._backlog_pos])
             self._backlog_pos += 1
         done.extend(self._purge_cancelled(t0))
+        done.extend(self._shed_expired(t0))
         if (self._waiting() == 0 and not self.active
                 and self._chunking is None):
+            if self.obs is not None:
+                # an arrival-gap sleep (or a no-op boundary) is not an
+                # engine step: keep it out of the step histograms
+                self._phase["idle"] = 1.0
             if self._backlog_pos < len(self.backlog):
                 # idle until the next arrival; failures due now still apply
                 done.extend(self._apply_failures(t0))
                 time.sleep(max(
                     0.0, self.backlog[self._backlog_pos].arrival_s - now))
             return self._deliver(done, on_completion)
+        wa = time.perf_counter()
         done.extend(self._apply_failures(t0))
         _prefill.advance_chunked(self, t0)
         done.extend(self._admit(t0))
+        if self.obs is not None:
+            # admission machinery: this whole region less the prefill
+            # compute the prefill helpers attributed to their own phase
+            self._phase["admission"] = (
+                time.perf_counter() - wa - self._phase.get("prefill", 0.0))
         if self.active:
             done.extend(self._decode_step(t0))
         if self.sched.debug:
             self._check_invariants()
         return self._deliver(done, on_completion)
 
+    # -- observability hooks (self.obs is not None on every call) -----------
+
+    def _obs_now(self) -> float:
+        return time.perf_counter() - self._obs_epoch
+
+    def _obs_step_done(self, w0: float, w1: float) -> None:
+        ph = self._phase
+        if "idle" in ph:
+            return
+        m = self._m
+        m["step"].observe(w1 - w0)
+        for k in ("admission", "prefill", "decode", "sampling", "kv"):
+            if k in ph:
+                m["step_" + k].observe(ph[k])
+        alloc = self.alloc
+        if alloc is not None:
+            m["blocks"].observe(alloc.in_use)
+        args = {k: round(v * 1e3, 4) for k, v in ph.items()}
+        args.update(active=len(self.active), queued=self._waiting())
+        self.obs.tracer.complete(
+            "engine", "steps", f"step {self.step_count}",
+            w0 - self._obs_epoch, w1 - w0, args=args)
+
+    def _obs_dequeue(self, ticket: _Ticket) -> None:
+        """Close the request's queued span (admission pop, queue-side
+        shed or cancel: every way a ticket leaves the waiting set)."""
+        self.obs.tracer.async_end(
+            "engine", "queue", ticket.req.id, self._obs_now())
+
+    def _obs_slot_begin(self, ticket: _Ticket, slot: int,
+                        matched: int) -> None:
+        ts = self._obs_now()
+        tr = self.obs.tracer
+        tr.begin("engine", f"slot {slot}", f"req {ticket.req.id}", ts,
+                 args={"prompt_tokens": len(ticket.req.prompt),
+                       "restarts": ticket.restarts})
+        if matched:
+            tr.instant("engine", f"slot {slot}", "prefix-hit", ts,
+                       args={"request": ticket.req.id,
+                             "matched_rows": matched})
+
+    def _obs_prefill(self, slot: int, name: str, tp: float, dt: float,
+                     tokens: int) -> None:
+        """Attribute one prefill compute burst: phase accounting, the
+        chunk-size histogram, and a span nested in the slot track.
+        ``tp`` is the raw perf_counter() start stamp."""
+        self._phase["prefill"] = self._phase.get("prefill", 0.0) + dt
+        self._m["chunk"].observe(tokens)
+        self.obs.tracer.complete("engine", f"slot {slot}", name,
+                                 tp - self._obs_epoch, dt,
+                                 args={"tokens": tokens})
+
     def kv_stats(self) -> Dict[str, float]:
         return self.layout.kv_stats(self.sched, self.cfg)
 
     def stats(self) -> Dict[str, int]:
         """Lifecycle counters accumulated so far."""
-        c = Counter(e.kind for e in self.events)
+        c, lay = Counter(e.kind for e in self.events), self.layout
         return {"requests_submitted": self._submit_seq,
                 "admissions": c["admit"], "evictions": c["evict"],
                 "preemptions": c["preempt"], "slot_failures": c["fail"],
                 "cancellations": c["cancel"], "sheds": c["shed"],
                 "steps": self.step_count,
                 "tokens_generated": self.tokens_generated,
-                "prefix_hits": getattr(self.layout, "prefix_hits", 0),
-                "victim_hits": 0, "victim_evictions": 0,
+                "prefix_hits": getattr(lay, "prefix_hits", 0),
+                "victim_hits": getattr(lay, "victim_hits", 0),
+                "victim_evictions": getattr(lay, "victim_evictions", 0),
                 "prefill_tokens_total": self.prefill_tokens_total,
                 "prefill_tokens_saved": self.prefill_tokens_saved}
 
@@ -268,7 +400,15 @@ class ContinuousScheduler:
         return done
 
     def _event(self, t_s: float, kind: str, rid: int, slot: int) -> None:
+        """Record a lifecycle event; disruptions (preempt, fail, shed,
+        cancel) also land as instant markers on the trace track of the
+        slot (or the queue, for never-admitted requests)."""
         self.events.append(SchedEvent(t_s, kind, rid, slot, self.step_count))
+        if self.obs is not None and kind in ("preempt", "fail",
+                                             "shed", "cancel"):
+            thread = f"slot {slot}" if slot >= 0 else "queue"
+            self.obs.tracer.instant("engine", thread, kind, self._obs_now(),
+                                    args={"request": rid})
 
     def _emit(self, ticket: _Ticket, tok: int) -> None:
         """Append a token and stream it to the handle (which dedups a
@@ -299,6 +439,10 @@ class ContinuousScheduler:
         self.tokens[slot] = 0
         self.layout.release(slot)
         self.core.release(slot)
+        if self.obs is not None:
+            # every occupied slot opened its span at admission; closing
+            # here covers every exit path
+            self.obs.tracer.end("engine", f"slot {slot}", self._obs_now())
 
     @staticmethod
     def _reset_ticket(ticket: _Ticket) -> None:
@@ -323,6 +467,8 @@ class ContinuousScheduler:
             elif ticket.where == "queued":
                 ticket.retired = True
                 self._queue_stale += 1
+                if self.obs is not None:
+                    self._obs_dequeue(ticket)
                 out.append(self._cancel_ticket(ticket, t0))
             elif ticket.where == "active":
                 out.append(self._evict(ticket.slot, t0, "cancelled",
@@ -339,6 +485,48 @@ class ContinuousScheduler:
         """Complete a request that never reached the decode batch."""
         self._event(time.perf_counter() - t0, "cancel", ticket.req.id, slot)
         return self._finish(ticket, "cancelled", t0)
+
+    def _shed_expired(self, t0: float) -> List[Completion]:
+        """Deadline enforcement at a step boundary: complete every live
+        request whose due instant has passed with
+        ``finish_reason="timeout"``. A waiting request is retired in place
+        (never prefilled); an active one is evicted before this step's
+        decode, so not one token is emitted after the shed; a ticket
+        mid-chunked-prefill releases its slot and blocks. The heap is fed
+        only with ``enforce_deadlines=True``."""
+        out: List[Completion] = []
+        if not self._deadline_heap:
+            return out
+        now = time.perf_counter() - t0
+        while self._deadline_heap and self._deadline_heap[0][0] <= now:
+            _, _, ticket = heapq.heappop(self._deadline_heap)
+            if ticket.where == "done" or ticket.cancelled:
+                continue                    # finished or cancelled first
+            if ticket.where == "backlog":
+                # due <= now implies arrival_s <= now, so the arrival was
+                # delivered above; kept for a ticket submitted mid-step
+                self.backlog.remove(ticket)
+                out.append(self._shed_ticket(ticket, t0))
+            elif ticket.where == "queued":
+                ticket.retired = True       # lazy heap deletion
+                self._queue_stale += 1
+                if self.obs is not None:
+                    self._obs_dequeue(ticket)
+                out.append(self._shed_ticket(ticket, t0))
+            elif ticket.where == "active":
+                out.append(self._evict(ticket.slot, t0, "timeout",
+                                       kind="shed"))
+            elif ticket.where == "chunking":
+                st = self._chunking
+                self._chunking = None
+                self._release_slot(st.slot)
+                out.append(self._shed_ticket(ticket, t0, slot=st.slot))
+        return out
+
+    def _shed_ticket(self, ticket: _Ticket, t0: float,
+                     slot: int = -1) -> Completion:
+        self._event(time.perf_counter() - t0, "shed", ticket.req.id, slot)
+        return self._finish(ticket, "timeout", t0)
 
     def _requeue_or_fail(self, victims: List[_Ticket],
                          t0: float) -> List[Completion]:
@@ -397,7 +585,18 @@ class ContinuousScheduler:
                 break
             if ticket.cancelled:
                 heapq.heappop(self.queue)
+                if self.obs is not None:
+                    self._obs_dequeue(ticket)
                 out.append(self._cancel_ticket(ticket, t0))
+                continue
+            if (self.sched.enforce_deadlines
+                    and request_due_s(ticket) <= time.perf_counter() - t0):
+                # expired while queued behind this pass's earlier
+                # prefills: shed before prefill, not after
+                heapq.heappop(self.queue)
+                if self.obs is not None:
+                    self._obs_dequeue(ticket)
+                out.append(self._shed_ticket(ticket, t0))
                 continue
             r = ticket.req
             chunked = self._chunk > 0 and r.embeds is None
@@ -413,6 +612,11 @@ class ContinuousScheduler:
             self.layout.bind(slot, res)
             self.prefill_tokens_total += len(r.prompt)
             matched = getattr(res, "matched_rows", 0)
+            if self.obs is not None:
+                self._m["queue_wait"].observe(
+                    time.perf_counter() - t0 - ticket.queued_at_s)
+                self._obs_dequeue(ticket)
+                self._obs_slot_begin(ticket, slot, matched)
             if chunked:
                 # resume at the last chunk boundary inside the matched
                 # region, so every extend step has the chunk's shape
@@ -442,8 +646,14 @@ class ContinuousScheduler:
         self.cache_len[slot] = clen
         self.tokens[slot] = first
         self.active[slot] = ticket
-        self.core.handoff(slot)
+        # prefill -> decode handoff: the slot's K/V joins the decode
+        # batch in place (same pool blocks, same refcounts)
+        self.core.handoff(slot, blocks=len(
+            getattr(self.layout, "_slot_blocks", {}).get(slot, ())))
         self._event(ticket.first_token_s, "admit", ticket.req.id, slot)
+        if self.obs is not None:
+            self._m["ttft"].observe(ticket.first_token_s - ticket.arrival_s)
+            ticket.last_emit_s = ticket.first_token_s
 
     def _finished(self, ticket: _Ticket) -> bool:
         return len(ticket.emitted) >= ticket.req.max_new_tokens
@@ -508,11 +718,28 @@ class ContinuousScheduler:
             done.append(self._evict(slot, t0, "length"))
         if not self.active:
             return done
+        obs = self.obs
+        wk = time.perf_counter()
         done.extend(self._grow_blocks(t0))
+        if obs is not None:
+            wd = time.perf_counter()
+            self._phase["kv"] = self._phase.get("kv", 0.0) + (wd - wk)
         logits = self.layout.decode(
             torch.as_tensor(self.tokens, device=self.device),
             torch.as_tensor(self.cache_len, device=self.device))
+        if obs is not None:
+            # wait for the device, so that decode and sampling are timed
+            # apart; the values are untouched
+            if logits.is_cuda:
+                torch.cuda.synchronize(logits.device)
+            ws = time.perf_counter()
+            self._phase["decode"] = self._phase.get("decode", 0.0) + (ws - wd)
         toks = self.sampler(logits).cpu().numpy()
+        if obs is not None:
+            now_s = time.perf_counter()
+            self._phase["sampling"] = \
+                self._phase.get("sampling", 0.0) + (now_s - ws)
+            now_s -= t0
         self.step_count += 1
         self.core.decode_step(sorted(self.active))
         for slot in self.active:     # free slots keep cache_len == 0
@@ -527,6 +754,9 @@ class ContinuousScheduler:
                 done.append(self._evict(slot, t0, "eos"))
                 continue
             self._emit(ticket, t)
+            if obs is not None:
+                self._m["inter_token"].observe(now_s - ticket.last_emit_s)
+                ticket.last_emit_s = now_s
             self.tokens[slot] = t
             if self._finished(ticket):
                 done.append(self._evict(slot, t0, "length"))

@@ -3,12 +3,16 @@
 Counterpart of ``repro.runtime.scheduler.layouts``: ``SlottedLayout``
 gives every slot dense ``max_len`` rows; ``PagedLayout`` pools
 global-attention K/V behind per-slot block tables (allocator-backed,
-prefix-sharing, copy-on-write). Caches are updated in place. The paged
-layout keeps its block tables in numpy on the host, as the reference
-does, and uploads them to the device only when a table changed (insert,
-growth, release), not on every decode step. The victim cache, its
-tenant quotas and prefix-cache persistence come with a later slice
-(``PagedLayout.victim`` is None).
+prefix-sharing, copy-on-write, with the victim cache and its tenant
+quotas). Caches are updated in place. The paged layout keeps its block
+tables in numpy on the host, as the reference does, and uploads them to
+the device only when a table changed (insert, growth, release), not on
+every decode step. When ``SchedulerConfig.decode_stages > 1`` both
+layouts decode through the stage-partitioned step
+(``transformer.decode_step_staged``), whose contiguous layer groups are
+what the execution core's ``DecodeExecutor`` pipeline charges its
+per-stage clocks for; it runs the same kernels on the same values in
+the same order, so tokens stay bit-identical to the single-stage step.
 """
 from __future__ import annotations
 
@@ -22,9 +26,26 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.scheduler.allocator import BlockAllocator
+from repro_torch.runtime.scheduler.prefix_pool import VictimCache
 from repro_torch.runtime.scheduler.types import Request, SchedulerConfig
 
 __all__ = ["SlottedLayout", "PagedLayout", "_PagedReservation"]
+
+
+def _decode(model: T.Transformer, s: SchedulerConfig, tokens: torch.Tensor,
+            cache: T.Cache, cache_len: torch.Tensor,
+            block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layouts' decode step: whole-model, or stage-partitioned when
+    the config pipelines decode across units. Returns the logits; the
+    cache updates in place."""
+    if s.decode_stages > 1:
+        logits, _, _ = T.decode_step_staged(
+            model, tokens, cache, cache_len, num_stages=s.decode_stages,
+            block_tables=block_tables)
+    else:
+        logits, _, _ = T.decode_step(model, tokens, cache, cache_len,
+                                     block_tables=block_tables)
+    return logits
 
 
 class SlottedLayout:
@@ -39,6 +60,7 @@ class SlottedLayout:
                  model: T.Transformer):
         self.max_len = max_len
         self.model = model
+        self.sched = s
         self.cache = T.init_cache(cfg, s.max_slots, max_len,
                                   device=model.device)
 
@@ -68,9 +90,7 @@ class SlottedLayout:
     def decode(self, tokens: torch.Tensor,
                cache_len: torch.Tensor) -> torch.Tensor:
         """One decode step over every slot; the cache updates in place."""
-        logits, _, _ = T.decode_step(self.model, tokens, self.cache,
-                                     cache_len)
-        return logits
+        return _decode(self.model, self.sched, tokens, self.cache, cache_len)
 
     def needs_block(self, slot: int, pos: int) -> bool:
         return False
@@ -119,7 +139,6 @@ class PagedLayout:
     chains."""
 
     paged = True
-    victim = None                       # the victim cache: a later slice
 
     def __init__(self, cfg: ModelConfig, s: SchedulerConfig, max_len: int,
                  model: T.Transformer):
@@ -133,6 +152,7 @@ class PagedLayout:
                 "but this config has none — use the slotted layout")
         self.cfg = cfg
         self.model = model
+        self.sched = s
         self.max_len = max_len
         self.block_size = s.block_size
         self.watermark = s.watermark
@@ -170,6 +190,18 @@ class PagedLayout:
         self._shared_pages: Dict[int, int] = {}     # slot -> shared pages
         self._table_pending: Dict[int, List[int]] = {}  # bound, not inserted
         self.prefix_hits = 0            # admissions that matched a chain
+        self.victim_hits = 0            # matches that touched pooled blocks
+        self.victim_evictions = 0       # pooled blocks freed under pressure
+        # victim cache: released refcount-1 indexed blocks park here
+        # (still held, K/V resident, index entries alive) instead of
+        # freeing, so the prefix index outlives requests and drain
+        # epochs; evicted only under allocation pressure or a quota
+        self.victim: Optional[VictimCache] = None
+        self._protect: frozenset = frozenset()      # mid-reservation blocks
+        if self.prefix_cache and s.victim_cache:
+            self.victim = VictimCache(
+                block_bytes=s.block_size * T.kv_row_bytes(cfg),
+                policy=s.victim_eviction, quotas=s.prefix_cache_tenants)
 
     def _prompt_need(self, req: Request) -> int:
         return max(1, -(-len(req.prompt) // self.block_size))
@@ -310,25 +342,63 @@ class PagedLayout:
         supplies: fully matched pages map resident blocks into the table
         (one more reference each) and only the rest is allocated. Returns
         None when the pool, less the watermark, cannot supply the private
-        need: admission waits rather than over-commit."""
-        if 1 + self.watermark > self.alloc.available:
+        need: admission waits rather than over-commit. Victim-pooled
+        blocks count as available (they are reclaimable on demand); a
+        matched chain's pooled blocks are revived, the pool's reference
+        becoming the slot's, rather than allocated again."""
+        victims = len(self.victim) if self.victim is not None else 0
+        if 1 + self.watermark > self.alloc.available + victims:
             # the boundary page is always private: no reservation can
             # succeed, so skip the prefix match
             return None
         need = self._prompt_need(req)
-        src: List[int] = []
-        matched = 0
-        if self.prefix_cache and req.embeds is None:
-            src, matched = self.match_prefix(req.prompt, req.tenant)
-        shared_pages = matched // self.block_size
-        private = self.alloc.alloc(need - shared_pages,
-                                   watermark=self.watermark)
-        if private is None:
-            return None
+        while True:
+            src: List[int] = []
+            matched = 0
+            if self.prefix_cache and req.embeds is None:
+                src, matched = self.match_prefix(req.prompt, req.tenant)
+            shared_pages = matched // self.block_size
+            reclaim = None
+            if self.victim is not None:
+                # eviction under this allocation's pressure must not eat
+                # the chain it is about to share or seed from
+                self._protect = frozenset(src)
+                reclaim = self._reclaim
+            try:
+                private = self.alloc.alloc(need - shared_pages,
+                                           watermark=self.watermark,
+                                           reclaim=reclaim)
+            finally:
+                self._protect = frozenset()
+            if private is not None:
+                break
+            if self.victim is None:
+                return None
+            pooled = [b for b in src if b in self.victim]
+            if not pooled:
+                return None
+            # every evictable block is protected by this very match:
+            # sacrifice the deepest matched page and retry shorter
+            self.victim.drop(pooled[-1:])
+            self._free_blocks(pooled[-1:])
+            self.victim_evictions += 1
         chain = src[:shared_pages]
         if matched:
             self.prefix_hits += 1
-        self.alloc.share(chain)
+        if self.victim is None:
+            self.alloc.share(chain)
+        else:
+            if matched and any(b in self.victim for b in src):
+                self.victim_hits += 1
+            share = []
+            for b in chain:
+                if b in self.victim:
+                    self.victim.revive(b)
+                else:
+                    share.append(b)
+            self.alloc.share(share)
+            if matched:
+                self.victim.record_match(src)
         return _PagedReservation(blocks=chain + private,
                                  shared_pages=shared_pages,
                                  seed_blocks=src, matched_rows=matched,
@@ -381,9 +451,8 @@ class PagedLayout:
 
     def decode(self, tokens: torch.Tensor,
                cache_len: torch.Tensor) -> torch.Tensor:
-        logits, _, _ = T.decode_step(self.model, tokens, self.cache,
-                                     cache_len, block_tables=self._tables())
-        return logits
+        return _decode(self.model, self.sched, tokens, self.cache, cache_len,
+                       block_tables=self._tables())
 
     # -- growth and release -------------------------------------------------
 
@@ -397,9 +466,12 @@ class PagedLayout:
         block some other request still references into a fresh one
         first (copy-on-write; with prompt-only sharing this branch is
         unreachable, and kept as the invariant's safety net). Growth
-        ignores the admission watermark."""
+        ignores the admission watermark, but reclaims victim-pooled
+        blocks before failing into a preemption: idle cached prefixes
+        never evict a live request."""
         page = pos // self.block_size
-        blocks = self.alloc.alloc(1)
+        blocks = self.alloc.alloc(
+            1, reclaim=self._reclaim if self.victim is not None else None)
         if blocks is None:
             return False
         cur = int(self.block_tables[slot, page])
@@ -416,18 +488,60 @@ class PagedLayout:
 
     def _free_blocks(self, blocks: List[int]) -> None:
         """Drop a reference per block; blocks that leave the pool take
-        their prefix-index entries with them."""
-        self._unregister(self.alloc.release(blocks))
+        their prefix-index entries and their victim-cache hit history
+        with them (block ids are reused)."""
+        freed = self.alloc.release(blocks)
+        self._unregister(freed)
+        if self.victim is not None:
+            self.victim.forget(freed)
+
+    def _reclaim(self, shortfall: int) -> None:
+        """Allocation-pressure hook (``BlockAllocator.alloc``): evict up
+        to ``shortfall`` victim-pooled blocks, least valuable first, so
+        the retried allocation can succeed. Blocks the in-flight
+        reservation matched are protected."""
+        picks = self.victim.pick(shortfall, exclude=self._protect)
+        if picks:
+            self.victim.drop(picks)
+            self._free_blocks(picks)
+            self.victim_evictions += len(picks)
+
+    def enforce_quota(self, tenant: str) -> None:
+        """Evict the tenant's own pooled blocks (never another's) until
+        it is back under its byte budget."""
+        evict = self.victim.over_quota(tenant)
+        if evict:
+            self.victim.drop(evict)
+            self._free_blocks(evict)
+            self.victim_evictions += len(evict)
 
     def release(self, slot: int) -> None:
-        """Give back a slot's blocks: every last reference frees its
-        block and kills its index entries."""
+        """Give back a slot's blocks. Without a victim cache every last
+        reference frees its block and kills its index entries; with one,
+        indexed blocks whose last reference this was pass to the victim
+        pool instead (K/V resident, index alive), so the chain survives
+        the request and the drain epoch until pressure or a quota
+        reclaims it."""
         blocks = self._slot_blocks.pop(slot, [])
         self._shared_pages.pop(slot, None)
         self._table_pending.pop(slot, None)
-        self._slot_tenant.pop(slot, None)
+        tenant = self._slot_tenant.pop(slot, "")
         if blocks:
-            self._free_blocks(blocks)
+            if self.victim is not None:
+                keep = [(self._block_tenant.get(b, tenant), page, b)
+                        for page, b in enumerate(blocks)
+                        if self.alloc.refcount(b) == 1
+                        and b in self._block_keys]
+                keepset = {b for _, _, b in keep}
+                rest = [b for b in blocks if b not in keepset]
+            else:
+                keep, rest = [], blocks
+            if rest:
+                self._free_blocks(rest)
+            if keep:
+                self.victim.admit(keep)
+                for t in {t for t, _, _ in keep}:
+                    self.enforce_quota(t)
         if self.block_tables[slot].any():
             self.block_tables[slot] = 0
             self._tables_dev = None
@@ -440,23 +554,42 @@ class PagedLayout:
         bs = s.block_size
         # the slotted baseline reserves the configured max_len, not the
         # paged path's block-rounded one
-        return {
+        out = {
             "slotted_kv_reserved_bytes": float(s.max_slots * s.max_len * row),
             "paged_kv_pool_bytes": float(self.alloc.capacity * bs * row),
             "paged_kv_hwm_bytes": float(self.alloc.hwm * bs * row),
             "paged_kv_hwm_blocks": float(self.alloc.hwm),
         }
+        if self.victim is not None:
+            out["victim_kv_blocks"] = float(len(self.victim))
+            out["victim_kv_bytes"] = float(self.victim.total_bytes)
+        return out
 
     def prefix_cache_stats(self) -> Dict[str, object]:
-        return {"enabled": self.prefix_cache, "victim_cache": False,
-                "prefix_hits": self.prefix_hits}
+        """Cache-service gauges for ``Engine.snapshot`` and the server's
+        /status: hit counters plus victim-pool occupancy per tenant."""
+        out: Dict[str, object] = {
+            "enabled": self.prefix_cache,
+            "victim_cache": self.victim is not None,
+            "prefix_hits": self.prefix_hits,
+            "victim_hits": self.victim_hits,
+            "victim_evictions": self.victim_evictions,
+        }
+        if self.victim is not None:
+            out["victim_blocks"] = len(self.victim)
+            out["victim_bytes"] = self.victim.total_bytes
+            out["per_tenant_bytes"] = self.victim.per_tenant_bytes()
+            out["tenant_quotas"] = dict(self.victim.quotas)
+        return out
 
     def check(self, occupied_slots: set, max_slots: int) -> None:
         """Block books: every held block's reference count equals the
         number of table entries naming it across occupied slots (a slot
-        never maps one block at two pages), free slots have zero tables,
-        the prefix index names only held blocks, and the device copy of
-        the tables, when current, equals the host's."""
+        never maps one block at two pages) plus one for victim-pool
+        ownership (a block is never both live and pooled), free slots
+        have zero tables, the prefix index names only held blocks, and
+        the device copy of the tables, when current, equals the
+        host's."""
         self.alloc.check()
         assert set(self._slot_blocks) == occupied_slots, \
             (set(self._slot_blocks), occupied_slots)
@@ -472,6 +605,13 @@ class PagedLayout:
                 assert sorted(entries.tolist()) == sorted(blocks), \
                     f"slot {slot}: table and block list disagree"
             refs.update(blocks)
+        if self.victim is not None:
+            for blk in self.victim.blocks:
+                assert blk not in refs, \
+                    f"block {blk} simultaneously live and in victim pool"
+                assert blk in self._block_keys, \
+                    f"victim pool holds unindexed block {blk}"
+                refs[blk] += 1
         assert dict(refs) == self.alloc._refs, (dict(refs), self.alloc._refs)
         for slot in range(max_slots):
             if slot not in occupied_slots:

@@ -22,6 +22,21 @@ def _lengths(sched, n: int) -> torch.Tensor:
     return torch.full((1,), n, dtype=torch.int32, device=sched.device)
 
 
+def _charge(sched, ticket: _Ticket, slot: int, tp: float, tokens: int,
+            label: str) -> None:
+    """Account one prefill burst that started at ``tp``: the ticket's
+    prefill time, the execution core's prefill unit and, with
+    observability on, the prefill phase and span (after waiting for the
+    device, so that the span times the burst and not its enqueue)."""
+    if sched.obs is not None and sched.device.type == "cuda":
+        torch.cuda.synchronize(sched.device)
+    dt = time.perf_counter() - tp
+    ticket.prefill_s += dt
+    sched.core.prefill(slot, tokens, label=label)
+    if sched.obs is not None:
+        sched._obs_prefill(slot, label, tp, dt, tokens)
+
+
 def admit_one_shot(sched, ticket: _Ticket, slot: int, t0: float) -> None:
     """Whole-prompt prefill at admission: compute, insert into the
     shared cache, register the prefix, sample the first token (which
@@ -36,8 +51,7 @@ def admit_one_shot(sched, ticket: _Ticket, slot: int, t0: float) -> None:
     if sched._prefix and r.embeds is None:
         sched.layout.register_prefix(slot, r.prompt)
     first = int(sched.sampler(logits)[0])
-    ticket.prefill_s += time.perf_counter() - tp
-    sched.core.prefill(slot, len(r.prompt))
+    _charge(sched, ticket, slot, tp, len(r.prompt), "prefill")
     sched._activate(ticket, slot, first, int(clen[0]), t0)
 
 
@@ -60,8 +74,8 @@ def admit_prefix_resume(sched, ticket: _Ticket, slot: int, res,
     sched.layout.insert_scratch(scratch, slot)
     sched.layout.register_prefix(slot, r.prompt)
     first = int(sched.sampler(logits[:, -1])[0])
-    ticket.prefill_s += time.perf_counter() - tp
-    sched.core.prefill(slot, len(r.prompt) - matched)
+    _charge(sched, ticket, slot, tp, len(r.prompt) - matched,
+            "prefill (prefix resume)")
     sched.prefill_tokens_saved += matched
     sched._activate(ticket, slot, first, len(r.prompt), t0)
 
@@ -90,8 +104,7 @@ def advance_chunked(sched, t0: float) -> None:
         if sched._prefix and r.embeds is None:
             sched.layout.register_prefix(st.slot, r.prompt)
         first = int(sched.sampler(logits[:, real - 1])[0])
-    st.ticket.prefill_s += time.perf_counter() - tp
-    sched.core.prefill(st.slot, real)
+    _charge(sched, st.ticket, st.slot, tp, real, "prefill chunk")
     if done:
         sched._chunking = None
         sched._activate(st.ticket, st.slot, first, len(r.prompt), t0)

@@ -5,14 +5,15 @@ framework): the request the user submits, the completion they get back,
 the scheduler's configuration, the observable event log entries, and
 the internal ticket record and the state of an in-flight chunked
 prefill. ``SchedulerConfig`` carries the knobs of the slotted and paged
-layouts, chunked prefill and prefix sharing; the victim cache, tenant
-quotas, deadline shedding and the observability hooks come with later
-slices.
+layouts, chunked prefill, prefix sharing with its victim cache and
+tenant quotas, deadline shedding and the multi-unit execution core;
+``step_delay_s`` comes with the hierarchical tiers (ROADMAP queue 1,
+item 9).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -130,16 +131,39 @@ class SchedulerConfig:
     # and skips prefill for the matched region. The paged layout refuses
     # a max_cache_len cap, the one config outside supports_chunked_prefill.
     prefix_cache: bool = False
+    # victim cache (requires prefix_cache): when a request completes,
+    # its refcount-1 indexed blocks move to a reclaimable victim pool
+    # instead of freeing, so the prefix index outlives the request and
+    # cold admissions (even across drain epochs) still hit. Victim
+    # blocks are evicted only under allocation pressure, in
+    # victim_eviction order, and count as available for admission.
+    victim_cache: bool = False
+    # eviction order among victim blocks: a name from
+    # policies.VICTIM_EVICTION_POLICIES ("lru" | "weighted-lru") or a
+    # policy instance
+    victim_eviction: Any = "weighted-lru"
+    # per-tenant victim-pool byte budgets ({tenant: bytes}); a tenant
+    # over its budget evicts only its own chains, never another
+    # tenant's. Unlisted tenants are unbudgeted.
+    prefix_cache_tenants: Optional[Dict[str, int]] = None
+    # wall-clock deadline enforcement (EDF admission only orders by
+    # deadline): a request whose due instant (arrival_s + deadline_s,
+    # see policies.request_due_s) passes is shed at the next step
+    # boundary, retired before prefill or evicted mid-decode, and
+    # completes with finish_reason="timeout". Requests without a
+    # deadline are untouched.
+    enforce_deadlines: bool = False
     # --- multi-unit execution core (modeled per-unit clocks) -----------
     # units: processing units the execution core schedules over.
     # prefill_units of them are dedicated to prompt prefill
     # (0 = prefill shares the decode units — the classic colocated
     # setup); the remaining units run decode, with decode microbatches
     # pipelined across decode_stages stage-partitioned units (1 = whole-
-    # model decode steps; the staged step is a later slice). The clocks are MODELED: token content is
-    # bit-identical to the single-unit path in every configuration —
-    # units=1/prefill_units=0/decode_stages=1 is the degenerate case
-    # with pure accounting and no behavior change at all.
+    # model decode steps; more runs transformer.decode_step_staged). The
+    # clocks are MODELED: token content is bit-identical to the single-
+    # unit path in every configuration — units=1/prefill_units=0/
+    # decode_stages=1 is the degenerate case with pure accounting and no
+    # behavior change at all.
     units: int = 1
     prefill_units: int = 0
     decode_stages: int = 1
@@ -193,6 +217,9 @@ class _Ticket:                          # removal must never compare prompts
     retired: bool = False       # completed while a stale heap entry remains
     where: str = "backlog"      # backlog | queued | active | chunking | done
     handle: Any = None          # RequestHandle, when served via Engine
+    # observability bookkeeping (scheduler-clock seconds)
+    queued_at_s: float = 0.0    # last _enqueue instant (queue-wait metric)
+    last_emit_s: float = 0.0    # last token instant (inter-token metric)
 
 
 @dataclass

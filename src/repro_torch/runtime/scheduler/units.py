@@ -1,7 +1,9 @@
 """Unit-aware execution core: prefill/decode disaggregation on modeled clocks.
 
-Counterpart of ``repro.runtime.scheduler.units``, copied; the port has
-no tracer yet, so the per-unit trace tracks are left out.
+Counterpart of ``repro.runtime.scheduler.units``, copied with its trace
+hooks: with observability on and more than one unit, each unit gets a
+modeled-clock track in the trace, in a process ``"units"`` with one
+thread per unit.
 
 The serving paper's collaborative-inference story, brought to the
 ``Engine``: the scheduler's work no longer all lands on one implicit
@@ -37,9 +39,10 @@ beats single-unit by >= 1.3x).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.core.clocks import UnitClocks
+from repro_torch.runtime.observability import MODELED
 from repro_torch.runtime.policies import make_placement
 
 __all__ = ["UnitSpec", "UnitExecutor", "PrefillExecutor", "DecodeExecutor",
@@ -100,7 +103,7 @@ class ExecutionCore:
     inherits a stale ready time.
     """
 
-    def __init__(self, s):
+    def __init__(self, s, obs: Any = None):
         if s.units < 1:
             raise ValueError(f"units must be >= 1, got {s.units}")
         if not 0 <= s.prefill_units < s.units:
@@ -143,10 +146,17 @@ class ExecutionCore:
         self.sequential_s = 0.0     # sum of all work = 1-unit makespan
         self.handoffs = 0
         self.steps = 0
+        # per-unit MODELED trace tracks only for non-trivial topologies:
+        # the single-unit degenerate timeline would just duplicate the
+        # wall-clock step slices, and the engine's default trace stays
+        # wall-clock-only (tests/test_server.py pins that)
+        self._obs = obs if (obs is not None and s.units > 1
+                            and getattr(obs, "enabled", False)) else None
 
     # -- scheduler hooks ----------------------------------------------------
 
-    def prefill(self, slot: int, tokens: int) -> float:
+    def prefill(self, slot: int, tokens: int,
+                label: str = "prefill") -> float:
         """Charge one prompt compute burst of ``tokens`` to a placement-
         chosen prefill unit; returns (and records) the slot's new K/V-
         ready instant. Chunks of one slot chain: each starts no earlier
@@ -155,17 +165,24 @@ class ExecutionCore:
             return self.slot_ready.get(slot, 0.0)
         ex = self.placement.pick(self.prefill_execs)
         cost = tokens * self.prefill_spt
-        _, finish = ex.charge(self.slot_ready.get(slot, 0.0), cost)
+        start, finish = ex.charge(self.slot_ready.get(slot, 0.0), cost)
         self.slot_ready[slot] = finish
         self.sequential_s += cost
+        if self._obs is not None:
+            self._trace(ex.name, label, start, finish - start,
+                        {"slot": slot, "tokens": tokens})
         return finish
 
-    def handoff(self, slot: int) -> None:
+    def handoff(self, slot: int, blocks: int = 0) -> None:
         """The slot's finished K/V joins the decode batch. Zero-copy by
         construction: the KV blocks stay in the shared pool where the
         prefill unit wrote them (no bytes charged, no refcount change) —
         only the ready-time bookkeeping crosses units."""
         self.handoffs += 1
+        if self._obs is not None and self.decode_execs:
+            self._instant(self.decode_execs[0].name, "kv-handoff",
+                          self.slot_ready.get(slot, 0.0),
+                          {"slot": slot, "blocks": blocks})
 
     def decode_step(self, slots: List[int]) -> None:
         """Charge one batched decode step. The batch splits into
@@ -178,6 +195,7 @@ class ExecutionCore:
             return
         k = len(self.decode_execs)
         self.steps += 1
+        step = self.steps
         # contiguous split keeps lane membership stable step to step
         # while the active set is stable, so the token-feedback chain
         # (lane m waits for its own previous token) is honest
@@ -195,7 +213,11 @@ class ExecutionCore:
             cost = len(lane) * self.decode_spt / k  # per-stage share
             finish = ready
             for ex in self.decode_execs:
-                _, finish = ex.charge(finish, cost)
+                start, finish = ex.charge(finish, cost)
+                if self._obs is not None:
+                    self._trace(ex.name, f"step {step} mb{m}", start,
+                                finish - start,
+                                {"slots": len(lane), "stage": ex.stage})
             self._lane_done[m] = finish
             self.sequential_s += len(lane) * self.decode_spt
 
@@ -227,3 +249,15 @@ class ExecutionCore:
             "unit_busy_s": self.clocks.busy_s,
             "kv_handoffs": self.handoffs,
         }
+
+    # -- per-unit trace tracks (modeled clock) ------------------------------
+
+    def _trace(self, unit: str, name: str, start_s: float, dur_s: float,
+               args: Dict[str, Any]) -> None:
+        self._obs.tracer.complete("units", unit, name, start_s, dur_s,
+                                  clock=MODELED, args=args)
+
+    def _instant(self, unit: str, name: str, ts_s: float,
+                 args: Dict[str, Any]) -> None:
+        self._obs.tracer.instant("units", unit, name, ts_s,
+                                 clock=MODELED, args=args)

@@ -1,0 +1,42 @@
+"""Public serving surface of the port.
+
+Counterpart of ``repro.serving``: the import path for everything a
+serving caller needs — the policy-configured ``Engine`` facade, its
+config, the request/handle/completion lifecycle types, the HTTP front
+end, the observability pieces, and the closed set of ``finish_reason``
+values::
+
+    from repro_torch.serving import Engine, EngineConfig, Request
+
+    eng = Engine(cfg, model, EngineConfig(admission="fifo")).start()
+    handle = eng.submit(Request(id=0, prompt=prompt, max_new_tokens=32))
+    for tok in handle.stream():
+        ...
+
+The hierarchical-serving names (``TieredEngine`` and the escalation
+journal and transports) come with ROADMAP queue 1, item 9.
+"""
+from repro_torch.runtime.engine import Engine, EngineConfig, RequestHandle
+from repro_torch.runtime.observability import (MetricsRegistry, Observability,
+                                               Tracer, parse_prometheus,
+                                               validate_chrome_trace)
+from repro_torch.runtime.scheduler import (FINISH_REASONS, Completion,
+                                           Request, SlotFailure)
+from repro_torch.runtime.server import EngineServer, ServerConfig
+
+__all__ = [
+    "Engine",
+    "EngineConfig",
+    "Request",
+    "RequestHandle",
+    "Completion",
+    "SlotFailure",
+    "FINISH_REASONS",
+    "EngineServer",
+    "ServerConfig",
+    "Observability",
+    "MetricsRegistry",
+    "Tracer",
+    "parse_prometheus",
+    "validate_chrome_trace",
+]

@@ -14,7 +14,7 @@ of ``flash_attention_xla`` with a window and GQA, at head_dim 64 and
 
 On a CPU tensor a wrapper must reach its plain version and leave its
 launch counter at 0; on the card it launches the CUDA kernel
-(``test_kernels_match_plain_on_card``, marked ``cuda``).
+(tests/test_torch_cuda.py, marked ``cuda``).
 """
 from __future__ import annotations
 
@@ -274,49 +274,6 @@ def test_wrappers_refuse_what_no_kernel_takes():
                                         (qd, kc, kc, tables, lens)))
 
 
-@pytest.mark.cuda
-def test_kernels_match_plain_on_card():
-    """The CUDA kernels against their plain versions on the card, at a
-    ragged prefill and a ragged decode shape in fp32."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; run: python3 chip_smoke.py")
-    rng = np.random.RandomState(0)
-    q, k, v = (torch.from_numpy(a).cuda()
-               for a in _qkv(rng, 2, 37, 37, 4, 2, 16))
-    before = fa_ops.flash_attention.launches
-    out = fa_ops.flash_attention(q, k, v)
-    assert fa_ops.flash_attention.launches == before + 1
-    _close(out.cpu(), fa_ref.attention_ref(q, k, v).cpu())
-    qd, kc, vc, lens = (torch.from_numpy(a).cuda()
-                        for a in _dec(rng, 8, 2, 12, 33, [0, 1, 33]))
-    out = da_ops.decode_attention(qd, kc, vc, lens)
-    _close(out.cpu(), da_ref.decode_attention_ref(qd, kc, vc, lens).cpu())
-
-
-@pytest.mark.cuda
-def test_paged_and_offset_kernels_match_plain_on_card():
-    """The paged decode kernel (null and repeated blocks, lengths 0 and
-    1) and the flash kernel with ``q_offset`` / ``kv_len`` against their
-    plain versions on the card, fp32."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; run: python3 chip_smoke.py")
-    rng = np.random.RandomState(0)
-    q, kp, vp, tables, lens = _paged(rng, 4, 8, 2, 64, 13, 16, 3, "float32")
-    lens[:2] = [0, 1]
-    args = [torch.from_numpy(a).cuda() for a in (q, kp, vp, tables, lens)]
-    before = da_ops.paged_decode_attention.launches
-    out = da_ops.paged_decode_attention(*args)
-    assert da_ops.paged_decode_attention.launches == before + 1
-    _close(out.cpu(), da_ref.paged_decode_attention_ref(*args).cpu())
-    for b, sq, sk, h, hk, d, qo, kl in OFFSET_CASES:
-        q, k, v = (torch.from_numpy(a).cuda()
-                   for a in _qkv(rng, b, sq, sk, h, hk, d))
-        kw = dict(q_offset=torch.tensor(qo, dtype=torch.int32).cuda(),
-                  kv_len=torch.tensor(kl, dtype=torch.int32).cuda())
-        _close(fa_ops.flash_attention(q, k, v, **kw).cpu(),
-               fa_ref.attention_ref(q, k, v, **kw).cpu())
-
-
 @pytest.mark.parametrize("b,s,h,hk,d,window,chunk", FA_BWD_CASES)
 def test_flash_lse_plain_vs_jax(b, s, h, hk, d, window, chunk):
     """The wrapper's output and log-sum-exp (B, H, S) against the
@@ -422,64 +379,3 @@ def test_flash_bf16_rounding_stays_within_the_chip_limits(
     unrounded = (got - want).abs().max().item()
     assert unrounded > 0.0                # the rounding shows
     assert ((got - want).abs() <= tol + tol * want.abs()).all(), unrounded
-
-
-@pytest.mark.cuda
-def test_bf16_kernel_edges_match_plain_on_card():
-    """The bf16 bodies at their edges against the plain versions on the
-    card, at chip_smoke.py's bf16 limits: flash at head dims 12 to 256,
-    ragged tiles, g = 1, 16 and 128, a window and kv_len ending mid-tile,
-    and a batch whose rows equal their B=1 runs bit for bit; slotted and
-    paged decode at lengths 0, 1, 31, 33, 80 and the full cache, block
-    sizes 8 and 16, and 24-byte rows."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; run: python3 chip_smoke.py")
-    rng = np.random.RandomState(0)
-    bf = torch.bfloat16
-
-    def dev(*arrays):
-        return [torch.from_numpy(a).cuda().to(bf) for a in arrays]
-
-    def close(got, want, tol):
-        got, want = got.float().cpu(), want.float().cpu()
-        assert torch.isfinite(got).all()
-        assert ((got - want).abs() <= tol + tol * want.abs()).all(), \
-            (got - want).abs().max().item()
-
-    for b, sq, sk, h, hk, d, causal, window in [
-            (2, 100, 100, 4, 2, 16, True, 0), (1, 130, 130, 8, 2, 64, True, 0),
-            (2, 77, 77, 6, 3, 96, True, 40), (1, 150, 150, 4, 1, 192, True, 0),
-            (2, 37, 37, 4, 2, 12, True, 0), (1, 70, 133, 4, 2, 128, False, 0),
-            (2, 90, 90, 4, 4, 128, True, 0), (1, 200, 200, 16, 1, 128, True, 0),
-            (1, 40, 40, 128, 1, 64, True, 0), (1, 300, 300, 16, 1, 256, True, 50)]:
-        q, k, v = dev(*_qkv(rng, b, sq, sk, h, hk, d))
-        before = fa_ops.flash_attention.launches
-        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
-        assert fa_ops.flash_attention.launches == before + 1
-        close(out, fa_ref.attention_ref(q, k, v, causal=causal,
-                                        window=window), 2e-2)
-    q, k, v = dev(*_qkv(rng, 3, 70, 200, 8, 2, 128))
-    kw = dict(q_offset=torch.tensor([0, 30, 100], dtype=torch.int32).cuda(),
-              kv_len=torch.tensor([70, 100, 170], dtype=torch.int32).cuda())
-    out = fa_ops.flash_attention(q, k, v, **kw)
-    close(out, fa_ref.attention_ref(q, k, v, **kw), 5e-3)
-    for i in range(3):
-        one = fa_ops.flash_attention(
-            q[i:i + 1], k[i:i + 1], v[i:i + 1],
-            **{n: t[i:i + 1] for n, t in kw.items()})
-        assert torch.equal(out[i:i + 1], one)
-    lens = np.asarray([0, 1, 31, 33, 80, 300, 551, 552], np.int32)
-    for d in (128, 12):
-        qd, kc, vc, _ = _dec(rng, 12, 2, d, 552, lens)
-        qd, kc, vc = dev(qd, kc, vc)
-        lt = torch.from_numpy(lens).cuda()
-        out = da_ops.decode_attention(qd, kc, vc, lt)
-        close(out, da_ref.decode_attention_ref(qd, kc, vc, lt), 3e-2)
-        assert out[0].abs().max().item() == 0.0
-    for n, bs, nb in ((100, 8, 69), (60, 16, 35)):
-        q, kp, vp, tables, _ = _paged(rng, 8, 12, 2, 128, n, bs, nb, "float32")
-        args = dev(q, kp, vp) + [torch.from_numpy(tables).cuda(),
-                                 torch.from_numpy(lens).cuda()]
-        out = da_ops.paged_decode_attention(*args)
-        close(out, da_ref.paged_decode_attention_ref(*args), 2e-3)
-        assert out[0].abs().max().item() == 0.0

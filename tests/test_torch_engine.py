@@ -4,12 +4,14 @@ The conformance workload (tests/test_conformance_matrix.py ``_workload``)
 runs through ``repro_torch``'s ``Engine(device="cpu")`` on the reference's
 ``cm-scan`` and ``cm-rem`` weights under fifo, priority, edf and batch
 admission, and over the conformance matrix's layouts (slotted, chunked
-prefill, the paged pool, prefix sharing, and their combinations) on a
-diagonal of policies. Tokens and finish reasons must equal the
+prefill, the paged pool, prefix sharing, the victim cache, prefill/decode
+disaggregation, pipelined decode, and their combinations) on a diagonal
+of policies. Tokens and finish reasons must equal the
 reference's static-bucket oracle, which the golden fixture holds and
 tests/test_torch_golden.py holds against JAX; the paged pool must come
-home whole; the paged fifo cells, and a tight pool without and with an
-admission watermark, must count what JAX's engine counts. Also: the
+home whole (less the victim cache's parked chains); the paged fifo cells,
+and a tight pool without and with an admission watermark, must count
+what JAX's engine counts. Also: the
 watermark's refusals word for word, the lifecycle hooks (streaming,
 cancellation, failure re-queue, growth preemption) and temperature
 sampling by its distribution.
@@ -92,15 +94,29 @@ DIAGONAL = [
     ("cm-rem", "paged-tight", "fifo", "evict-latest"),
     ("cm-scan", "paged-tight-watermark", "fifo", "evict-latest"),
     ("cm-rem", "paged-tight-watermark", "fifo", "evict-latest"),
+    ("cm-scan", "paged-prefix-victim", "fifo", "evict-latest"),
+    ("cm-rem", "paged-prefix-victim", "priority", "lowest-priority"),
+    ("cm-rem", "paged-prefix-victim", "fifo", "evict-latest"),
+    ("cm-scan", "disagg", "fifo", "evict-latest"),
+    ("cm-rem", "disagg", "priority", "lowest-priority"),
+    ("cm-rem", "disagg", "fifo", "evict-latest"),
+    ("cm-scan", "pipelined-decode", "fifo", "evict-latest"),
+    ("cm-rem", "pipelined-decode", "edf", "evict-latest"),
+    ("cm-rem", "pipelined-decode", "fifo", "evict-latest"),
 ]
 
 
 def _check_pool_home(eng, kw):
+    """At drain every block is back, except the victim cache's parked
+    chains, whose books balance against the parked population."""
     sched = eng.scheduler
     if kw.get("kv_layout") == "paged":
-        assert sched.alloc.in_use == 0
-        assert sched.alloc.available == sched.alloc.capacity
+        parked = len(sched.layout.victim or ())
+        assert parked == 0 or kw.get("victim_cache")
+        assert sched.alloc.in_use == parked
+        assert sched.alloc.available == sched.alloc.capacity - parked
         assert not sched.block_tables.any()
+        sched.layout.check(set(), sched.sched.max_slots)
     assert not sched.cache_len.any() and not sched.tokens.any()
 
 
@@ -119,9 +135,17 @@ def test_layout_cell_matches_jax_batch_oracle(zoo, name, layout, admission,
     if kw.get("prefix_cache"):
         assert st["prefix_hits"] > 0, "shared-prefix workload never shared"
         assert st["prefill_tokens_saved"] > 0
-        assert eng.scheduler.layout.prefix_cache_stats() == {
-            "enabled": True, "victim_cache": False,
-            "prefix_hits": st["prefix_hits"]}
+        pc = eng.scheduler.layout.prefix_cache_stats()
+        assert {k: pc[k] for k in ("enabled", "victim_cache", "prefix_hits",
+                                   "victim_hits", "victim_evictions")} == {
+            "enabled": True, "victim_cache": bool(kw.get("victim_cache")),
+            "prefix_hits": st["prefix_hits"],
+            "victim_hits": st["victim_hits"],
+            "victim_evictions": st["victim_evictions"]}
+    if kw.get("units", 1) > 1:
+        units = eng.snapshot()["units"]
+        assert units["kv_handoffs"] == st["admissions"]
+        assert units["decode_stages"] == kw["decode_stages"]
     if layout in counters and admission == "fifo" \
             and preemption == "evict-latest":   # JAX counted this cell
         assert {k: st[k] for k in COUNTERS} == counters[layout]
@@ -148,7 +172,8 @@ def test_structural_errors(zoo):
     """tests/test_conformance_matrix.py ``test_invalid_cells_are_rejected``
     in the port: batch admission refuses paged layouts and chunked
     prefill, prefix sharing refuses the slotted layout, and the victim
-    cache, a later slice, is refused by ``EngineConfig``."""
+    cache refuses to run without prefix sharing, as the reference's
+    ``Engine`` refuses them."""
     cfg, model, *_ = zoo["cm-scan"]
     with pytest.raises(ValueError, match="batch admission"):
         Engine(cfg, model, EngineConfig(admission="batch",

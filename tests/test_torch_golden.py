@@ -9,9 +9,16 @@ tokens and finish reasons on it, the prefill + 4 decode-step logits of
 a small batch, the per-position logits of the same prompt prefilled 5
 tokens and then extended by 4 (``prefill_extend``), and the counters
 (prefix hits, prompt tokens saved, preemptions) of the reference's
-engine on the paged fifo cells of the conformance matrix and on a tight
-pool without and with an admission watermark. The card has no JAX; this
-file is its only view of JAX's own numbers. Regenerate with::
+engine on the paged fifo cells of the conformance matrix (the victim
+cache, prefill/decode disaggregation and pipelined decode among them)
+and on a tight pool without and with an admission watermark; and, for
+``cm-scan``, the tokens and counters of the reference's prefix-cache
+service scenarios (``SERVICE``: a parked chain re-hit, eviction under
+pressure, a tenant quota breach, one prompt under two tenants) and of a
+JAX engine restored from ``golden_prefix.npz``, a ``prefix-victim-v1``
+file a JAX engine saved (``SERVICE_RESTORE``). The card has no JAX;
+these files are its only view of JAX's own numbers. Regenerate both
+with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_golden.py
 """
@@ -31,16 +38,18 @@ from repro.runtime.scheduler import Request
 
 GOLDEN = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
           / "testdata" / "golden_cm.npz")
+# the prefix-victim-v1 file a JAX engine saved (with its .meta.json)
+GOLDEN_PREFIX = GOLDEN.with_name("golden_prefix.npz")
 KEY = jax.random.PRNGKey(0)
 ENGINE_MAX_LEN = 48
 LOGITS_MAX_LEN = 16
 DECODE_STEPS = 4
 EXTEND_SPLIT = 5            # prompt tokens prefilled before the extend
-# tests/test_conformance_matrix.py LAYOUTS, less the victim-cache and
-# multi-unit columns (later slices), plus a pool of 7 usable blocks
-# without and with an admission watermark (tests/test_engine_lifecycle.py's
-# watermark cases on this workload): growth preempts in the first; the
-# watermark delays admissions, and the second preempts less
+# tests/test_conformance_matrix.py LAYOUTS, plus a pool of 7 usable
+# blocks without and with an admission watermark
+# (tests/test_engine_lifecycle.py's watermark cases on this workload):
+# growth preempts in the first; the watermark delays admissions, and the
+# second preempts less
 LAYOUTS = {
     "slotted": dict(kv_layout="slotted"),
     "slotted-chunked": dict(kv_layout="slotted", prefill_chunk=4),
@@ -55,14 +64,24 @@ LAYOUTS = {
     "paged-tight": dict(kv_layout="paged", block_size=8, num_blocks=8),
     "paged-tight-watermark": dict(kv_layout="paged", block_size=8,
                                   num_blocks=8, watermark=2),
+    "paged-prefix-victim": dict(kv_layout="paged", block_size=8,
+                                num_blocks=18, prefix_cache=True,
+                                victim_cache=True),
+    "disagg": dict(kv_layout="paged", block_size=8, num_blocks=18,
+                   prefill_chunk=4, units=3, prefill_units=1,
+                   decode_stages=2, placement="least-loaded"),
+    "pipelined-decode": dict(kv_layout="slotted", units=2,
+                             prefill_units=0, decode_stages=2),
 }
 # the cells whose counters the fixture holds (fifo, evict-latest), and
 # the one the golden test recomputes through a JAX engine run
 COUNTER_CELLS = ("paged", "paged-chunked", "paged-prefix",
                  "paged-chunked-prefix", "paged-tight",
-                 "paged-tight-watermark")
+                 "paged-tight-watermark", "paged-prefix-victim", "disagg",
+                 "pipelined-decode")
 COUNTER_CELL = "paged-chunked-prefix"
-COUNTERS = ("prefix_hits", "prefill_tokens_saved", "preemptions")
+COUNTERS = ("prefix_hits", "prefill_tokens_saved", "preemptions",
+            "victim_hits", "victim_evictions")
 
 # tests/test_conformance_matrix.py CONFIGS, as constructor kwargs
 CONFIG_KW = {
@@ -76,6 +95,81 @@ CONFIG_KW = {
         param_dtype="float32", attn_chunk=16, remat=False,
         layer_pattern=("attn", "attn"), tie_embeddings=True),
 }
+
+
+# tests/test_prefix_cache_service.py's engine and scenarios on cm-scan
+# (the same shapes as its tiny-pc config): each scenario is an engine
+# override and waves of (prompt seed, prompt length, tenant, max_new),
+# each wave drained before the next
+SERVICE_CONFIG = "cm-scan"
+SERVICE_BLOCK = 8
+SERVICE_ENGINE = dict(max_slots=4, max_len=64, kv_layout="paged",
+                      block_size=SERVICE_BLOCK, num_blocks=24,
+                      prefix_cache=True, victim_cache=True, debug=True)
+
+
+def _service_scenarios():
+    cfg = ModelConfig(**CONFIG_KW[SERVICE_CONFIG])
+    block_bytes = SERVICE_BLOCK * T.kv_row_bytes(cfg)
+    return {
+        "rehit": ({}, [[(1, 20, "", 8)], [(1, 20, "", 8)]]),
+        "pressure": ({"num_blocks": 10},
+                     [[(4, 20, "", 8)], [(5, 40, "", 16)]]),
+        "quota": ({"prefix_cache_tenants": {"a": block_bytes,
+                                            "b": 10 * block_bytes}},
+                  [[(11, 24, "b", 8)], [(12, 24, "a", 8)]]),
+        "tenants": ({}, [[(13, 20, "a", 8)], [(13, 20, "b", 8)]]),
+    }
+
+
+SERVICE = _service_scenarios()
+# warm one engine with this wave, save its prefix cache, restore it into
+# a fresh engine and replay the wave
+SERVICE_RESTORE = [(6, 20, "a", 8), (7, 24, "b", 8)]
+
+
+def service_prompt(seed: int, n: int, vocab_size: int) -> np.ndarray:
+    """tests/test_prefix_cache_service.py ``_prompt``."""
+    return ((np.arange(n, dtype=np.int32) * (seed + 3) + seed)
+            % vocab_size).astype(np.int32)
+
+
+def service_wave(wave, vocab_size: int, request_cls):
+    return [request_cls(i, service_prompt(seed, n, vocab_size),
+                        max_new_tokens=m, tenant=t)
+            for i, (seed, n, t, m) in enumerate(wave)]
+
+
+def service_record(eng) -> dict:
+    """The counters and victim-pool occupancy a scenario is held to."""
+    st = eng.stats()
+    pc = eng.snapshot()["prefix_cache"]
+    return {**{k: int(st[k]) for k in COUNTERS},
+            "victim_blocks": int(pc["victim_blocks"]),
+            "per_tenant_bytes": {k: int(v) for k, v in
+                                 sorted(pc["per_tenant_bytes"].items())}}
+
+
+def run_service(make_engine, request_cls, vocab_size: int, name: str):
+    """One ``SERVICE`` scenario through ``make_engine(overrides)``:
+    tokens per wave, then ``service_record``."""
+    override, waves = SERVICE[name]
+    eng = make_engine(override)
+    tokens = [[[int(t) for t in c.tokens] for c in eng.generate(
+        service_wave(w, vocab_size, request_cls))] for w in waves]
+    return {"tokens": tokens, **service_record(eng)}
+
+
+def run_restore(make_engine, request_cls, vocab_size: int, path: str):
+    """Restore ``path`` into a fresh engine and replay
+    ``SERVICE_RESTORE``: blocks restored, replay tokens and record."""
+    eng = make_engine({})
+    blocks = eng.restore_prefix_cache(path)
+    outs = eng.generate(service_wave(SERVICE_RESTORE, vocab_size,
+                                     request_cls))
+    return {"blocks": int(blocks),
+            "tokens": [[int(t) for t in c.tokens] for c in outs],
+            **service_record(eng)}
 
 
 def workload_specs(vocab_size: int):
@@ -161,6 +255,27 @@ def cell_counters(params, cfg, layout=COUNTER_CELL):
     return {k: int(st[k]) for k in COUNTERS}
 
 
+def jax_service_engine(params, cfg):
+    def make(override):
+        return Engine(cfg, params, EngineConfig(**{**SERVICE_ENGINE,
+                                                   **override}))
+    return make
+
+
+def build_service(params, cfg, prefix_path: Path):
+    """JAX's service scenarios, and its save-then-restore replay: writes
+    the saved file to ``prefix_path``."""
+    make = jax_service_engine(params, cfg)
+    out = {name: run_service(make, Request, cfg.vocab_size, name)
+           for name in SERVICE}
+    warm = make({})
+    warm.generate(service_wave(SERVICE_RESTORE, cfg.vocab_size, Request))
+    warm.save_prefix_cache(str(prefix_path))
+    out["restore"] = run_restore(make, Request, cfg.vocab_size,
+                                 str(prefix_path))
+    return out
+
+
 def unflatten(flat):
     """Inverse of ``flat_params`` for dict/list pytrees: numeric path
     components are list indices."""
@@ -181,9 +296,10 @@ def unflatten(flat):
     return fix(tree)
 
 
-def build_golden(params_of=None):
-    """Everything the fixture holds. ``params_of(name, cfg)`` supplies
-    each config's params (default: ``init_params`` under ``KEY``)."""
+def build_golden(params_of=None, prefix_path: Path = GOLDEN_PREFIX):
+    """Everything the fixture holds; writes the JAX-saved prefix-cache
+    file to ``prefix_path``. ``params_of(name, cfg)`` supplies each
+    config's params (default: ``init_params`` under ``KEY``)."""
     arrays = {}
     meta = {"configs": {}, "workload": {}, "engine_max_len": ENGINE_MAX_LEN,
             "logits_max_len": LOGITS_MAX_LEN, "extend_split": EXTEND_SPLIT,
@@ -209,9 +325,14 @@ def build_golden(params_of=None):
             json.dumps([c.tokens for c in oracle]))
         arrays[f"{name}|oracle_reasons"] = np.asarray(
             json.dumps([c.finish_reason for c in oracle]))
+        if name == SERVICE_CONFIG:
+            arrays[f"{name}|service"] = np.asarray(json.dumps(
+                build_service(params, cfg, prefix_path)))
         meta["configs"][name] = {**kw, "layer_pattern": list(
             kw.get("layer_pattern", ("attn",)))}
         meta["workload"][name] = specs
+    meta["service"] = {"config": SERVICE_CONFIG, "engine": SERVICE_ENGINE,
+                       "scenarios": SERVICE, "restore_wave": SERVICE_RESTORE}
     arrays["meta"] = np.asarray(json.dumps(meta))
     return arrays
 
@@ -261,6 +382,9 @@ def test_golden_fixture_matches_jax():
     params_of = params_from(got)
     meta = json.loads(str(got["meta"]))
     assert meta["extend_split"] == EXTEND_SPLIT
+    assert meta["service"] == json.loads(json.dumps(
+        {"config": SERVICE_CONFIG, "engine": SERVICE_ENGINE,
+         "scenarios": SERVICE, "restore_wave": SERVICE_RESTORE}))
     assert meta["counter_cells"] == {lay: LAYOUTS[lay]
                                      for lay in COUNTER_CELLS}
     for name, kw in CONFIG_KW.items():
@@ -301,9 +425,31 @@ def test_golden_counters_match_one_jax_engine_run():
         # the tight pool preempts on growth; its watermark damps that
         assert 0 < cfg_counters["paged-tight-watermark"]["preemptions"] \
             < cfg_counters["paged-tight"]["preemptions"]
+        assert cfg_counters["paged-prefix-victim"]["prefix_hits"] > 0
+
+
+def test_golden_service_matches_jax():
+    """The fixture's service numbers are JAX's: the committed
+    ``golden_prefix.npz`` restored into a fresh JAX engine replays the
+    recorded tokens and counters (one engine run; the scenarios' numbers
+    come from the same code)."""
+    got = load_golden()
+    name = SERVICE_CONFIG
+    cfg = ModelConfig(**CONFIG_KW[name])
+    want = json.loads(str(got[f"{name}|service"]))
+    make = jax_service_engine(params_from(got)(name, cfg), cfg)
+    assert run_restore(make, Request, cfg.vocab_size,
+                       str(GOLDEN_PREFIX)) == want["restore"]
+    assert sorted(want) == sorted([*SERVICE, "restore"])
+    assert want["restore"]["victim_hits"] > 0
+    assert want["rehit"]["victim_hits"] > 0
+    assert want["pressure"]["victim_evictions"] > 0
+    assert want["pressure"]["preemptions"] == 0
+    assert GOLDEN_PREFIX.stat().st_size < 1 << 19
 
 
 if __name__ == "__main__":
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(GOLDEN, **build_golden())
-    print(f"wrote {GOLDEN} ({GOLDEN.stat().st_size} bytes)")
+    print(f"wrote {GOLDEN} ({GOLDEN.stat().st_size} bytes) and "
+          f"{GOLDEN_PREFIX} ({GOLDEN_PREFIX.stat().st_size} bytes)")

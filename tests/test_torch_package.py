@@ -2,12 +2,14 @@
 
 * every ``repro_torch`` module imports without loading ``jax`` or any
   module of ``repro``;
-* entry points default to ``"cuda"`` and raise without a card unless the
-  caller passes ``device="cpu"``;
-* the ``EngineConfig`` fields of later slices, and the model families of
-  later slices, are refused with a ``ValueError`` that says so (the
-  hybrid's ``rglru`` and ``attn_local`` blocks build and train, and
-  serving refuses them); the fields this slice runs are accepted;
+* entry points (the serve and train CLIs, the HTTP server's CLI, the
+  model and the ``Engine``) default to ``"cuda"`` and raise without a
+  card unless the caller passes ``device="cpu"``;
+* the ``EngineConfig`` fields run by the slices so far are accepted and
+  build an engine; the knob of a later slice (``step_delay_s``) is not a
+  field, and the model families of later slices are refused with a
+  ``ValueError`` that says so (the hybrid's ``rglru`` and ``attn_local``
+  blocks build and train, and serving refuses them);
 * ``chip_smoke.py`` fails, printing no result, without a card or outside
   a checkout.
 """
@@ -28,6 +30,7 @@ import repro_torch
 from repro_torch.launch import serve, train
 from repro_torch.models import transformer as PT
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import server
 from repro_torch.runtime.engine import Engine, EngineConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,6 +47,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert len(mods) >= 20
+    assert {"repro_torch.runtime.observability", "repro_torch.runtime.server",
+            "repro_torch.runtime.scheduler.prefix_pool",
+            "repro_torch.serving"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -75,32 +81,43 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         Engine(cfg, model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "qwen2_1_5b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.main(["--arch", "qwen2_1_5b", "--probe"])
     Engine(cfg, model, device="cpu")        # the explicit opt-in works
 
 
+def test_later_slice_fields_are_refused():
+    """``step_delay_s`` (the edge tier's handicap) comes with the
+    hierarchical tiers (ROADMAP queue 1, item 9): no field takes it."""
+    with pytest.raises(TypeError, match="step_delay_s"):
+        EngineConfig(step_delay_s=0.05)
+
+
+# each field with what it needs beside it (prefix sharing and the victim
+# cache the paged pool, two decode stages two decode units)
+NEEDS = {"prefix_cache": dict(kv_layout="paged"),
+         "victim_cache": dict(kv_layout="paged", prefix_cache=True),
+         "prefix_cache_tenants": dict(kv_layout="paged", prefix_cache=True),
+         "decode_stages": dict(units=2)}
+
+
 @pytest.mark.parametrize("field,value", [
+    ("kv_layout", "paged"), ("prefill_chunk", 4), ("prefix_cache", True),
     ("victim_cache", True), ("prefix_cache_tenants", {"a": 1 << 20}),
     ("enforce_deadlines", True), ("decode_stages", 2),
     ("observability", True)])
-def test_later_slice_fields_are_refused(field, value):
-    with pytest.raises(ValueError, match="later slice"):
-        EngineConfig(**{field: value})
-
-
-@pytest.mark.parametrize("field,value", [
-    ("kv_layout", "paged"), ("prefill_chunk", 4), ("prefix_cache", True)])
 def test_this_slice_fields_are_accepted(field, value):
-    """The paged layout, chunked prefill and prefix sharing run in this
-    slice: ``EngineConfig`` takes them, and an engine builds on them
-    (prefix sharing with the paged layout it needs)."""
-    kw = {field: value}
-    if field == "prefix_cache":
-        kw["kv_layout"] = "paged"
-    c = EngineConfig(max_len=32, **kw)
+    """The paged layout, chunked prefill, prefix sharing with its victim
+    cache and tenant quotas, deadline shedding, the stage-partitioned
+    decode and observability run: ``EngineConfig`` takes each, and an
+    engine builds on it."""
+    c = EngineConfig(max_len=32, **{field: value}, **NEEDS.get(field, {}))
     assert getattr(c, field) == value
     cfg = ModelConfig(**TINY)
     eng = Engine(cfg, PT.init_params(cfg, device="cpu"), c, device="cpu")
     assert eng.scheduler.layout.paged == (c.kv_layout == "paged")
+    assert eng.scheduler.sched.decode_stages == c.decode_stages
+    assert (eng.scheduler.obs is not None) == c.observability
 
 
 def test_train_entry_points_default_to_cuda_and_raise_without_it():

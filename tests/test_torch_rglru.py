@@ -21,7 +21,7 @@ with the reference.
 
 On CPU tensors the wrappers reach their plain versions and leave their
 launch counters alone; the card runs the CUDA kernel
-(``test_scan_kernel_matches_plain_on_card``, marked ``cuda``).
+(tests/test_torch_cuda.py, marked ``cuda``).
 """
 from __future__ import annotations
 
@@ -280,44 +280,3 @@ def test_conv_and_gates_match_jax():
                     JR._gates(jp, jnp.asarray(xc))):
         np.testing.assert_allclose(g.detach().numpy(), w, rtol=1e-6,
                                    atol=1e-6)
-
-
-@pytest.mark.cuda
-def test_scan_kernel_matches_plain_on_card():
-    """The CUDA scan, forward and reverse, against the plain versions on
-    the card, on ``SCAN_CASES`` and the chunked body's edges
-    (``CARD_CASES``); two calls at the training shape bitwise equal; and
-    calls back to back on rotated inputs, each against its plain
-    version (no flag of one call is read by the next)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; run: python3 chip_smoke.py")
-
-    def inputs(B, S, D, seed=0):
-        return tuple(torch.from_numpy(x).cuda()
-                     for x in _scan_inputs(B, S, D, seed))
-
-    def both(a, b, h0, dy):
-        y = ops.rglru_scan_fwd(a, b, h0)
-        return (y,) + ops.rglru_scan_bwd(a, dy, y, h0)
-
-    def check(a, b, h0, dy, got):
-        torch.testing.assert_close(got[0], ref.rglru_scan_seq_ref(a, b, h0),
-                                   rtol=TOL, atol=TOL)
-        for g, w in zip(got[1:], ref.rglru_scan_reverse_ref(a, dy, got[0],
-                                                           h0)):
-            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
-
-    for B, S, D in SCAN_CASES + CARD_CASES:
-        args = inputs(B, S, D)
-        f0, r0 = ops.rglru_scan_fwd.launches, ops.rglru_scan_bwd.launches
-        got = both(*args)
-        assert (ops.rglru_scan_fwd.launches, ops.rglru_scan_bwd.launches) \
-            == (f0 + 1, r0 + 1)
-        check(*args, got)
-    train = inputs(1, 4096, 4096)
-    for x, z in zip(both(*train), both(*train)):
-        assert torch.equal(x, z)
-    rotated = [inputs(2, 1000, 512, seed) for seed in range(3)]
-    outs = [both(*args) for args in rotated * 2]
-    for args, got in zip(rotated * 2, outs):
-        check(*args, got)
