@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6,7]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -94,6 +94,28 @@ Phases, one status line each; any failure exits non-zero:
    28 times per decode step (slotted decode none; the slotted run the
    other way round); (h) wall time, output tok/s and TTFT p50 over HTTP
    against the in-process run, beside the card's name and power limit.
+7. Edge-PRUNE on the card: (a) the paper's CNNs at the paper's sizes
+   (the vehicle classifier at 96 x 96 x 3, the dual-input graph at its
+   default, SSD-Mobilenet at 300 x 300 x 3), each built on the card and
+   on the CPU from one seed and fed the same two frames, held actor by
+   actor in fp32 with TF32 off (atol 1e-5 + rtol 1e-4; NMS's picks equal
+   but for near ties); on the card the Simulator's firings equal, bit
+   for bit, those of the Simulator at every partition point of
+   ``Explorer.evaluate_simulated`` and of each point's ``run_local`` and
+   ``run_pipelined`` (the paper's cut after DWCL9 among them), and each
+   actor's device time from CUDA events (a synchronized fire alone, and
+   fires back to back with the device held); (b) the modeled Fig 4-6
+   rows of ``benchmarks/torch_paper.py`` equal to the reference's,
+   written here as constants; (c) qwen2-1.5b's actor graph at full width
+   (bf16, B = 1, a 512-token prompt, one actor a layer) cut after 1, 15
+   and 30 of its 31 actors: ``PartitionedServeEngine.infer`` logits equal
+   to ``forward``'s bit for bit, boundary bytes 2,048 / 1,572,864 /
+   1,572,864, 28 flash launches a frame, and 28 a frame over a pipelined
+   stream, each frame equal to ``forward``; a partitioned and a
+   monolithic frame timed (wall, device span, traced busy time); (d)
+   recurrentgemma-9b at full width cut to 5 layers at S = 4096: the cut's
+   logits equal ``forward``'s bit for bit, 1 flash and 4 scan forward
+   launches a frame.
    Phase 2 adds the scan on the reference's test shapes,
    the chunked body's edges (a partial last chunk with B > 1, D = 37,
    S = 1) and at B=1 S=4096 D=4096 (tol 1e-5, forward and reverse; two
@@ -188,7 +210,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/6] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/7] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -846,7 +868,7 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/6] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/7] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode, paged decode, flash "
         f"at head_dim 256 with its lse, the RG-LRU scan forward and "
         f"reverse)")
@@ -929,7 +951,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/6] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/7] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1334,7 +1356,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/6] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/7] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -1598,7 +1620,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/6] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/7] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -1967,10 +1989,514 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/6] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/7] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+# the paper's CNNs at the paper's sizes (the dual-input graph at its
+# default 96 x 96): graph builder and its keyword arguments
+CNN_GRAPHS = {"vehicle": ("vehicle_graph", {}),
+              "dual_input": ("dual_input_vehicle_graph", {}),
+              "ssd": ("ssd_mobilenet_graph", {})}
+CNN_FRAMES = 2
+# a CNN actor on the card (cuDNN, TF32 off) against the same graph on the
+# CPU, fp32: the CPU tests' limit against JAX, |a - b| <= atol + rtol|b|
+CNN_TOL = {"atol": 1e-5, "rtol": 1e-4}
+# per-actor times: a synchronized fire timed alone, and fires back to back
+# with the device held (``cuda_ms``)
+ACTOR_REPS = 10
+# the modeled rows of the paper benches (name, value), taken on the CPU
+# from the reference (``benchmarks/fig4_vehicle_n2.py``,
+# ``fig5_vehicle_n270.py``, ``fig6_ssd_n2.py``, run with JAX): the paper's
+# N2 / N270 / i7 devices, not this card
+PAPER_ROWS = {
+    "fig4": [
+        ('n2_ethernet_pp1', 10.124285714285714), ('n2_ethernet_pp2',
+        29.099982417582417), ('n2_ethernet_pp3', 15.65088791208791),
+        ('n2_ethernet_pp4', 18.92932947052947), ('n2_ethernet_pp5',
+        19.198181418581417), ('n2_ethernet_best_pp', 3), ('n2_ethernet_best_ms',
+        15.65088791208791), ('n2_wifi_pp1', 25.65939675174014), ('n2_wifi_pp2',
+        68.42505800464036), ('n2_wifi_pp3', 17.10626450116009), ('n2_wifi_pp4',
+        18.893615184815186), ('n2_wifi_pp5', 19.198181418581417),
+        ('n2_wifi_best_pp', 3), ('n2_wifi_best_ms', 17.10626450116009),
+        ('n2_full_endpoint_ms', 19.198181418581417),
+        ('n2_raw_offload_ethernet_ms', 10.124285714285714)
+    ],
+    "fig5": [
+        ('n270_ethernet_pp1', 9.974285714285713), ('n270_ethernet_pp2',
+        142.33456993268513), ('n270_ethernet_pp3', 431.4943754674645),
+        ('n270_ethernet_pp4', 449.62456594365494), ('n270_ethernet_pp5',
+        449.828904991274), ('n270_ethernet_best_pp', 2), ('n270_ethernet_best_ms',
+        142.33456993268513), ('n270_wifi_pp1', 23.63021276595745),
+        ('n270_wifi_pp2', 178.75037540380976), ('n270_wifi_pp3',
+        440.59832683524564), ('n270_wifi_pp4', 449.6739580409194),
+        ('n270_wifi_pp5', 449.828904991274), ('n270_wifi_best_pp', 2),
+        ('n270_wifi_best_ms', 178.75037540380976), ('n270_full_endpoint_ms',
+        449.828904991274)
+    ],
+    "fig6": [
+        ('ssd_ethernet_pp1', 157.15857142857143), ('ssd_ethernet_pp2',
+        434.16691868131863), ('ssd_ethernet_pp3', 908.2603296703295),
+        ('ssd_ethernet_pp4', 534.5300571428571), ('ssd_ethernet_pp5',
+        579.357534065934), ('ssd_ethernet_pp6', 398.9853162197802),
+        ('ssd_ethernet_pp7', 423.0275623736264), ('ssd_ethernet_pp8',
+        329.28998118681324), ('ssd_ethernet_pp9', 349.4629251868132),
+        ('ssd_ethernet_pp10', 369.6358691868132), ('ssd_ethernet_pp11',
+        389.8088131868132), ('ssd_ethernet_pp12', 409.98175718681324),
+        ('ssd_ethernet_pp13', 644.9822943296704), ('ssd_ethernet_pp14',
+        573.0985337582418), ('ssd_ethernet_pp15', 539.5749657582418),
+        ('ssd_ethernet_pp16', 681.4182844395605), ('ssd_ethernet_pp17',
+        653.9283084997109), ('ssd_ethernet_pp18', 641.7265810271833),
+        ('ssd_ethernet_pp19', 645.5463678403702), ('ssd_ethernet_pp20',
+        648.2507833128976), ('ssd_ethernet_pp21', 652.3399538623481),
+        ('ssd_ethernet_pp22', 658.1641484997108), ('ssd_ethernet_pp23',
+        662.6016772909197), ('ssd_ethernet_pp24', 663.8172980381723),
+        ('ssd_ethernet_pp25', 666.3031511370735), ('ssd_ethernet_pp26',
+        666.5531511370734), ('ssd_ethernet_pp27', 566.1093614227876),
+        ('ssd_ethernet_pp28', 513.2602141700405), ('ssd_ethernet_pp29',
+        508.32784054366687), ('ssd_ethernet_pp30', 508.2538911810295),
+        ('ssd_ethernet_pp31', 508.8325290711394), ('ssd_ethernet_pp32',
+        509.4497825216888), ('ssd_ethernet_pp33', 509.6997825216889),
+        ('ssd_ethernet_pp34', 741.8775682359746), ('ssd_ethernet_pp35',
+        2361.8485110931174), ('ssd_wifi_pp1', 311.31004640371225),
+        ('ssd_wifi_pp2', 845.2375186150276), ('ssd_wifi_pp3', 1730.4015295377476),
+        ('ssd_wifi_pp4', 945.600657076566), ('ssd_wifi_pp5', 990.428133999643),
+        ('ssd_wifi_pp6', 610.0380971279671), ('ssd_wifi_pp7', 634.0803432818134),
+        ('ssd_wifi_pp8', 434.8163716409067), ('ssd_wifi_pp9', 454.9893156409067),
+        ('ssd_wifi_pp10', 475.1622596409067), ('ssd_wifi_pp11',
+        495.33520364090674), ('ssd_wifi_pp12', 515.5081476409067),
+        ('ssd_wifi_pp13', 961.5614656919507), ('ssd_wifi_pp14',
+        797.1360072418347), ('ssd_wifi_pp15', 716.5494230005355),
+        ('ssd_wifi_pp16', 975.3194901074424), ('ssd_wifi_pp17',
+        896.5598754536386), ('ssd_wifi_pp18', 847.8185390981148),
+        ('ssd_wifi_pp19', 846.1288380094122), ('ssd_wifi_pp20',
+        845.4716094647041), ('ssd_wifi_pp21', 848.8927902892624),
+        ('ssd_wifi_pp22', 855.155460233221), ('ssd_wifi_pp23', 859.2961047022554),
+        ('ssd_wifi_pp24', 860.0732501429121), ('ssd_wifi_pp25',
+        862.5579613790356), ('ssd_wifi_pp26', 862.8079613790358),
+        ('ssd_wifi_pp27', 659.3110559869243), ('ssd_wifi_pp28',
+        549.3687698544952), ('ssd_wifi_pp29', 537.4710332848005),
+        ('ssd_wifi_pp30', 536.2049791823554), ('ssd_wifi_pp31',
+        536.2537927436618), ('ssd_wifi_pp32', 536.8116693297765),
+        ('ssd_wifi_pp33', 537.0616693297762), ('ssd_wifi_pp34',
+        741.9061148054145), ('ssd_wifi_pp35', 2361.8485110931174),
+        ('ssd_full_endpoint_ms', 2361.8485110931174), ('ssd_at_paper_cut_ms',
+        389.8088131868132), ('ssd_speedup_at_paper_cut', 6.058992078152983),
+        ('ssd_model_best_ms', 329.28998118681324),
+        ('ssd_model_best_boundary_bytes', 739328), ('ssd_wifi_at_paper_region_ms',
+        495.33520364090674)
+    ],
+}
+# the LLM actor graph: qwen2-1.5b at full width and depth, bf16, B = 1 and
+# a 512-token prompt, one actor a layer; cuts after 1, 15 and 30 of its
+# 31 actors, with the bytes that cross each (the int32 prompt, then the
+# (1, 512, 1536) bf16 activation)
+LLM_S = 512
+LLM_CUTS = {1: 2048, 15: 1572864, 30: 1572864}
+PIPE_CUT = 15           # the cut a pipelined stream and a timed frame take
+LLM_PIPE_FRAMES = 3
+# recurrentgemma-9b at full width cut to 5 layers (rglru, rglru,
+# attn_local, rglru, rglru) at S = 4096, cut after 4 of its 8 actors
+HYBRID_S = 4096
+HYBRID_CUT = 4
+EDGE_KERNELS = ("flash_attention", "rglru_scan_fwd", "rglru_scan_bwd",
+                "decode_attention", "paged_decode_attention")
+
+
+class ActorLog:
+    """Every actor's fire function of a graph, wrapped. ``keep()`` then
+    keeps each firing's outputs (and each actor's first inputs); after
+    ``check(stateless)`` each firing's outputs are compared bit for bit
+    with the kept firing of the same index (modulo the kept frames, so
+    runs of the same frames may follow each other). A staged run
+    (``run_local``, ``run_pipelined``) fires every actor with no state,
+    so there an actor with state is compared at its first frame only."""
+
+    def __init__(self, torch, g):
+        self.torch, self.g = torch, g
+        self.fire = {}
+        self.kept, self.first_inputs = {}, {}
+        self.mode, self.stateless, self.n = "keep", False, {}
+        self.compared, self.differ = 0, []
+        for a in g.actors.values():
+            self.fire[a.name] = a.fire_fn
+            a.fire_fn = self._wrap(a)
+
+    def _wrap(self, actor):
+        def fire(inputs, st, atr):
+            i = self.n.get(actor.name, 0)
+            self.n[actor.name] = i + 1
+            out, st = self.fire[actor.name](inputs, st, atr)
+            if self.mode == "keep":
+                self.kept.setdefault(actor.name, []).append(out)
+                if i == 0:
+                    self.first_inputs[actor.name] = inputs
+            else:
+                kept = self.kept[actor.name]
+                j = i % len(kept)
+                if not (self.stateless and actor.init_fn and j > 0):
+                    self._compare(actor.name, j, out, kept[j])
+            return out, st
+        return fire
+
+    def _compare(self, name, j, out, want):
+        same = sorted(out) == sorted(want) and all(
+            len(out[p]) == len(want[p]) and all(
+                self.torch.equal(a, b) for a, b in zip(out[p], want[p]))
+            for p in want)
+        self.compared += 1
+        if not same:
+            self.differ.append(f"{name}#{j}")
+
+    def keep(self):
+        self.mode, self.n = "keep", {}
+
+    def check(self, stateless: bool):
+        self.mode, self.stateless, self.n = "check", stateless, {}
+
+
+def cnn_frames(torch, np, g, dev, seed: int = 7):
+    """``CNN_FRAMES`` images per source actor from a numpy generator, as
+    float32 tensors on ``dev``: ``Simulator`` source inputs."""
+    rng = np.random.RandomState(seed)
+    return {a.name: [torch.from_numpy(rng.rand(*a.out_ports[0].token_shape)
+                                      .astype(np.float32)).to(dev)
+                     for _ in range(CNN_FRAMES)]
+            for a in g.actors.values() if a.is_source}
+
+
+def nms_picks(torch, conf):
+    """NMS's picks from its conf input, as the actor makes them."""
+    score = 1.0 - torch.softmax(conf, dim=-1)[:, 0]
+    return torch.argsort(-score, stable=True)[:10], score
+
+
+def cnn_vs_cpu(torch, card: ActorLog, host: ActorLog) -> dict:
+    """Every actor's every output on the card against the CPU's, within
+    ``CNN_TOL``. NMS's picks must be equal, except where two picks'
+    scores lie within the limit of each other; a frame where they differ
+    leaves NMS's and the Tracker's outputs uncompared."""
+    atol, rtol = CNN_TOL["atol"], CNN_TOL["rtol"]
+    skip, worst, worst_at, bad = set(), 0.0, "", []
+    for f, (fc, fh) in enumerate(zip(card.kept.get("ConcatConf", []),
+                                     host.kept.get("ConcatConf", []))):
+        pc, _ = nms_picks(torch, fc["out"][0].cpu())
+        ph, score = nms_picks(torch, fh["out"][0])
+        if not torch.equal(pc, ph):
+            skip.add(f)
+            for i in (pc != ph).nonzero().flatten().tolist():
+                a, b = score[ph[i]].item(), score[pc[i]].item()
+                if abs(a - b) > atol + rtol * abs(a):
+                    bad.append(f"NMS pick {i} of frame {f}: {a} vs {b}")
+    for name, frames in host.kept.items():
+        for f, (oh, oc) in enumerate(zip(frames, card.kept[name])):
+            if name in ("NMS", "Tracker") and f in skip:
+                continue
+            for p in oh:
+                for h, c in zip(oh[p], oc[p]):
+                    c = c.cpu()
+                    err = (c - h).abs()
+                    if c.shape != h.shape or not bool(
+                            (err <= atol + rtol * h.abs()).all()):
+                        bad.append(f"{name}.{p} frame {f}")
+                    e = err.max().item() if err.numel() else 0.0
+                    if e > worst:
+                        worst, worst_at = e, f"{name}.{p}"
+    return {"max_abs_err": worst, "at": worst_at, "nms_frames_skipped":
+            sorted(skip), "outside": bad}
+
+
+def actor_times(torch, log: ActorLog) -> dict:
+    """Each actor fired alone on its first frame's inputs: the device
+    span of one synchronized fire between two CUDA events (the median of
+    ``ACTOR_REPS``; host launch gaps included), and ``cuda_ms`` of fires
+    back to back with the device held (the kernels' own time)."""
+    out = {}
+    for a in log.g.topo_order():
+        inputs = log.first_inputs[a.name]
+        rates = {p.name: 1 for p in a.in_ports + a.out_ports}
+        state = a.init_fn() if a.init_fn else None
+
+        def fire(fn=log.fire[a.name], inputs=inputs, rates=rates,
+                 state=state):
+            return fn(inputs, state, rates)
+        spans = []
+        for _ in range(ACTOR_REPS + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fire()
+            end.record()
+            torch.cuda.synchronize()
+            spans.append(start.elapsed_time(end))
+        spans = sorted(spans[2:])
+        out[a.name] = {"span_ms": spans[len(spans) // 2],
+                       "busy_ms": cuda_ms(torch, fire, iters=ACTOR_REPS)}
+    return out
+
+
+def cnn_graph(torch, np, label: str, smi: str) -> dict:
+    """One CNN at the paper's size: built on the card and on the CPU from
+    the same seed and fed the same frames, held actor by actor; then on
+    the card the Simulator's run against the Simulator at every partition
+    point of ``Explorer.evaluate_simulated`` and against ``run_local``
+    and ``run_pipelined`` of each point's staged program, bit for bit;
+    then each actor's device time."""
+    from repro_torch.core import (Explorer, Simulator, paper_platform,
+                                  synthesize)
+    from repro_torch.models import cnn
+    name, kw = CNN_GRAPHS[label]
+    g = getattr(cnn, name)(**kw, device="cuda")
+    host = getattr(cnn, name)(**kw, device="cpu")
+    feeds = cnn_frames(torch, np, g, "cuda")
+    card_log, host_log = ActorLog(torch, g), ActorLog(torch, host)
+    Simulator(host).run(CNN_FRAMES, source_inputs={
+        k: [t.cpu() for t in v] for k, v in feeds.items()})
+    Simulator(g).run(CNN_FRAMES, source_inputs=feeds)
+    torch.cuda.synchronize()
+    vs_cpu = cnn_vs_cpu(torch, card_log, host_log)
+    del host, host_log
+
+    plat = paper_platform("N2", "ethernet",
+                          **({"workload": "ssd"} if label == "ssd" else {}))
+    explorer = Explorer(g, plat)
+    card_log.check(stateless=False)
+    explorer.evaluate_simulated(CNN_FRAMES, source_inputs=feeds)
+    points = len(explorer.mappings())
+    card_log.check(stateless=True)
+    frames = [{k: v[f] for k, v in feeds.items()} for f in range(CNN_FRAMES)]
+    for m in explorer.mappings():
+        prog = synthesize(g, m)
+        for frame in frames:
+            prog.run_local(frame)
+        prog.run_pipelined(frames)
+    torch.cuda.synchronize()
+    rec = {"actors": len(g.actors), "partition_points": points,
+           "vs_cpu": vs_cpu, "compared": card_log.compared,
+           "differ": card_log.differ[:10]}
+    if label == "ssd":
+        rec["paper_cut"] = cnn.partition_point_after(g, "DWCL9")
+    rec["times"] = actor_times(torch, card_log)
+    span = sum(t["span_ms"] for t in rec["times"].values())
+    busy = sum(t["busy_ms"] for t in rec["times"].values())
+    rec["frame_span_ms"], rec["frame_busy_ms"] = span, busy
+    say(f"  {label}: {len(g.actors)} actors, {CNN_FRAMES} frames; card vs "
+        f"CPU max |err| {vs_cpu['max_abs_err']:.3g} at {vs_cpu['at']} "
+        f"(limit {CNN_TOL['atol']:g} + {CNN_TOL['rtol']:g}|ref|), "
+        f"{len(vs_cpu['outside'])} outside; Simulator vs the Simulator at "
+        f"{points} partition points and run_local / run_pipelined at each: "
+        f"{card_log.compared} firings compared, {len(card_log.differ)} "
+        f"differ; actors summed {span:.4f} ms a frame fired alone "
+        f"({busy:.4f} ms busy) ({smi})")
+    for a, t in rec["times"].items():
+        say(f"    {a:12s} {t['span_ms']:9.4f} ms alone, "
+            f"{t['busy_ms']:9.4f} ms busy")
+    if vs_cpu["outside"]:
+        raise PhaseFailed(f"{label}: card vs CPU outside the limit at "
+                          f"{vs_cpu['outside'][:5]}")
+    if card_log.differ or not card_log.compared:
+        raise PhaseFailed(f"{label}: partitioned runs differ from the "
+                          f"Simulator's at {card_log.differ[:5]}")
+    return rec
+
+
+def paper_rows(torch) -> dict:
+    """The modeled Fig 4-6 rows of ``benchmarks/torch_paper.py`` with the
+    graphs on the card: equal to the reference's, row for row."""
+    from benchmarks import torch_paper
+    out = {}
+    for key, want in PAPER_ROWS.items():
+        got = [(r.name, r.value) for r in torch_paper.BENCHES[key]("cuda")]
+        out[key] = len(got)
+        if got != want:
+            diff = [(a, b) for a, b in zip(got, want) if a != b][:3]
+            raise PhaseFailed(f"{key}: modeled rows differ from the "
+                              f"reference's: {diff} ({len(got)} rows, want "
+                              f"{len(want)})")
+    say(f"  modeled paper rows equal the reference's: {out} (the paper's "
+        f"N2 / N270 / i7 devices, modeled)")
+    return out
+
+
+def edge_counts(ops) -> dict:
+    return {k: ops[k].launches for k in EDGE_KERNELS}
+
+
+def edge_reset(ops) -> None:
+    from repro_torch.kernels import _build
+    _build.reset_launches(*(ops[k] for k in EDGE_KERNELS))
+
+
+def timed_frame(torch, fn, label: str) -> tuple:
+    """``fn()`` once, synchronized: its wall time on the host clock, its
+    device span between two CUDA events, and a second call under
+    ``torch.profiler`` for the device's busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t1
+    rec = {"wall_s": wall_s, "span_ms": start.elapsed_time(end),
+           "trace": trace_summary(torch, prof, traced_s, label, top=6)}
+    return out, rec
+
+
+def llm_partitioned(torch, np, ops, smi: str) -> dict:
+    """qwen2-1.5b's actor graph at full width: each cut's logits equal the
+    monolithic ``forward``'s bit for bit, its boundary bytes the
+    reference graph's, 28 flash launches a frame; a pipelined stream of
+    ``LLM_PIPE_FRAMES`` frames launches 28 a frame and equals ``forward``
+    frame by frame; one partitioned frame and one monolithic frame
+    timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Mapping
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serving import PartitionedServeEngine
+    cfg = get_config("qwen2_1_5b")
+    model = T.init_params(cfg, 0, device="cuda")
+    rng = np.random.RandomState(0)
+    prompt = rng.randint(0, cfg.vocab_size, (1, LLM_S)).astype(np.int32)
+    names = list(T.to_actor_graph(cfg, batch=1, seq=LLM_S).actors)
+    want = {k: 0 for k in EDGE_KERNELS}
+
+    def mono(tokens):
+        with torch.no_grad():
+            return T.forward(model, cfg, {"tokens": torch.as_tensor(
+                tokens, device="cuda")}, train=False)[0]
+    edge_reset(ops)
+    ref = mono(prompt)
+    torch.cuda.synchronize()
+    rec = {"actors": len(names), "forward_launches": edge_counts(ops),
+           "cuts": {}}
+    want["flash_attention"] = cfg.n_layers
+    if rec["forward_launches"] != want:
+        raise PhaseFailed(f"qwen2 forward: launches "
+                          f"{rec['forward_launches']}, want {want}")
+    engines = {}
+    for pp, bytes_want in LLM_CUTS.items():
+        mapping = Mapping(f"pp{pp}", {n: ("endpoint" if i < pp else "server")
+                                      for i, n in enumerate(names)})
+        pse = engines[pp] = PartitionedServeEngine(cfg, model, mapping,
+                                                   batch=1, seq=LLM_S)
+        edge_reset(ops)
+        logits = pse.infer(prompt)
+        torch.cuda.synchronize()
+        cut = {"boundary_bytes": pse.comm_bytes(),
+               "equal": torch.equal(logits, ref),
+               "launches": edge_counts(ops)}
+        rec["cuts"][pp] = cut
+        say(f"  qwen2-1.5b actor graph cut after {names[pp - 1]} (pp={pp} "
+            f"of {len(names)}): boundary {cut['boundary_bytes']} B, logits "
+            f"equal forward bit for bit: {cut['equal']}, launches "
+            f"{cut['launches']}")
+        if not cut["equal"] or cut["boundary_bytes"] != bytes_want \
+                or cut["launches"] != want:
+            raise PhaseFailed(f"qwen2 cut pp={pp}: {cut}, want "
+                              f"{bytes_want} B and launches {want}")
+    pse = engines[PIPE_CUT]
+    frames = [rng.randint(0, cfg.vocab_size, (1, LLM_S)).astype(np.int32)
+              for _ in range(LLM_PIPE_FRAMES)]
+    edge_reset(ops)
+    outs, _ = pse.infer_pipelined(frames)
+    torch.cuda.synchronize()
+    piped = edge_counts(ops)
+    same = [torch.equal(o, mono(f)) for o, f in zip(outs, frames)]
+    rec["pipelined"] = {"frames": len(frames), "launches": piped,
+                        "equal": same}
+    want_n = dict(want, flash_attention=cfg.n_layers * len(frames))
+    say(f"  infer_pipelined over {len(frames)} frames at pp={PIPE_CUT}: launches "
+        f"{piped}, each frame equal to forward: {same}")
+    if piped != want_n or not all(same):
+        raise PhaseFailed(f"qwen2 pipelined: launches {piped} (want "
+                          f"{want_n}), equal {same}")
+    _, rec["frame_partitioned"] = timed_frame(
+        torch, lambda: pse.infer(prompt), f"partitioned frame (pp={PIPE_CUT})")
+    _, rec["frame_forward"] = timed_frame(
+        torch, lambda: mono(prompt), "monolithic forward")
+    for k in ("frame_partitioned", "frame_forward"):
+        t = rec[k]
+        say(f"  {k}: wall {t['wall_s'] * 1e3:.3f} ms, device span "
+            f"{t['span_ms']:.3f} ms, busy {t['trace']['device_busy_s'] * 1e3:.3f}"
+            f" ms, idle share {t['trace']['idle_share']:.4f} ({smi})")
+    del model, engines, pse, ref, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hybrid_partitioned(torch, np, ops) -> dict:
+    """recurrentgemma-9b at full width cut to 5 layers, fp32 masters cast
+    once at export: the cut's logits equal ``forward``'s (which casts at
+    every call) bit for bit, with 1 flash and 4 scan forward launches a
+    frame on both."""
+    from repro_torch.core import Mapping
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serving import PartitionedServeEngine
+    cfg = full_width_config()
+    model = T.init_params(cfg, 0, device="cuda", dtype=torch.float32)
+    tokens = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, HYBRID_S)).astype(np.int32)
+    kinds = cfg.layer_kinds
+    want = {k: 0 for k in EDGE_KERNELS}
+    want["flash_attention"] = sum(k != "rglru" for k in kinds)
+    want["rglru_scan_fwd"] = kinds.count("rglru")
+    edge_reset(ops)
+    with torch.no_grad():
+        ref = T.forward(model, cfg, {"tokens": torch.as_tensor(
+            tokens, device="cuda")}, train=False)[0]
+    torch.cuda.synchronize()
+    mono_n = edge_counts(ops)
+    names = list(T.to_actor_graph(cfg, batch=1, seq=HYBRID_S).actors)
+    mapping = Mapping("cut", {n: ("endpoint" if i < HYBRID_CUT else "server")
+                              for i, n in enumerate(names)})
+    pse = PartitionedServeEngine(cfg, model, mapping, batch=1, seq=HYBRID_S)
+    edge_reset(ops)
+    logits = pse.infer(tokens)
+    torch.cuda.synchronize()
+    rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} "
+                     f"({'/'.join(kinds)}) S={HYBRID_S}",
+           "forward_launches": mono_n, "launches": edge_counts(ops),
+           "boundary_bytes": pse.comm_bytes(),
+           "equal": torch.equal(logits, ref)}
+    say(f"  {rec['config']} cut after {names[HYBRID_CUT - 1]}: boundary "
+        f"{rec['boundary_bytes']} B, logits equal forward bit for bit: "
+        f"{rec['equal']}, launches {rec['launches']} (forward "
+        f"{mono_n})")
+    del model, pse, ref, logits
+    torch.cuda.empty_cache()
+    if not rec["equal"] or rec["launches"] != want or mono_n != want:
+        raise PhaseFailed(f"hybrid cut: {rec}, want launches {want}")
+    return rec
+
+
+def phase_edge(torch, np, ops, smi: str) -> dict:
+    torch.cuda.empty_cache()
+    out = {"cnn": {k: cnn_graph(torch, np, k, smi) for k in CNN_GRAPHS},
+           "paper_rows": paper_rows(torch),
+           "llm": llm_partitioned(torch, np, ops, smi),
+           "hybrid": hybrid_partitioned(torch, np, ops)}
+    say("[7/7] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+        "within the CPU limit, every partition point equal to the "
+        "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
+        "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
+        "to forward bit for bit, launches exact")
     return out
 
 
@@ -2004,14 +2530,14 @@ KERNEL_LINE = {
                        "src/repro/kernels/rglru_scan/kernel.py:41", "train",
                        ("train", "full_width")),
 }
-ALL_PHASES = {1, 2, 3, 4, 5, 6}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -2055,6 +2581,9 @@ def main() -> int:
             record["train"] = phase_train(torch, np, ops)
         if 6 in phases:
             record["http"] = phase_http(torch, np, ops,
+                                        record["device"]["nvidia_smi"])
+        if 7 in phases:
+            record["edge"] = phase_edge(torch, np, ops,
                                         record["device"]["nvidia_smi"])
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")

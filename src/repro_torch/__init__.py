@@ -7,7 +7,10 @@ layout module by module (``repro_torch.models.layers`` beside
 never ``jax`` and nothing from ``repro``.
 
 Entry points (``runtime.engine.Engine``, ``models.transformer.Transformer``,
-``launch.serve``) run on ``"cuda"`` unless the caller passes
-``device="cpu"``; on the card, prefill and decode attention run the
-hand-written kernels under ``csrc/``.
+``launch.serve``, the CNN graph builders of ``models.cnn``) run on
+``"cuda"`` unless the caller passes ``device="cpu"``; on the card,
+prefill and decode attention and the RG-LRU scan run the hand-written
+kernels under ``csrc/``. ``core`` is the port's copy of the reference's
+VR-PRUNE toolchain (Edge-PRUNE's graph, analyzer, synthesis, simulator
+and explorer).
 """

@@ -36,14 +36,22 @@
 //      `_fa_kernel`; only on tiles the mask can reach), then the online
 //      softmax in fp32 with the row max shared over the 4 lanes of a
 //      quad.
-//   3. O = O * exp(m_prev - m_new) + P V: P is rounded to bf16 in
+//   3. O = O * exp(m_prev - m_new) + P V at the TPU kernel's precision,
+//      which multiplies an fp32 P by V: each P fragment is split into
+//      two bf16 fragments, hi = bf16(P) and lo = bf16(P - hi), in
 //      registers (the S accumulator's layout is the A operand's, as in
-//      FlashAttention-2) and V's fragments come from ldmatrix.trans. m,
-//      l and O stay fp32; l sums P before rounding. O is rescaled only
-//      when a row max of the warp moved (a factor of exactly 1 skipped).
+//      FlashAttention-2), and P V is issued twice into the same fp32
+//      accumulator, hi V then lo V. P then carries about 16 bits of
+//      mantissa into O (bf16 alone carried 8, while l summed the
+//      unrounded P: numerator and denominator disagreed by P's rounding,
+//      a one-ulp miss of the output on rows over one to three keys). V's
+//      fragments come from ldmatrix.trans. m, l and O stay fp32; l sums
+//      the unrounded P. O is rescaled only when a row max of the warp
+//      moved (a factor of exactly 1 skipped). P V's share of the mma
+//      work doubles: a third of the tile's mma instead of a half.
 // The next k-step's (or 16 columns') fragments are loaded while the
 // current ones multiply, so an mma seldom waits on its ldmatrix; exp is
-// ex2.approx (relative error ~2^-22, far below P's bf16 rounding).
+// ex2.approx (relative error ~2^-22, below what hi + lo carries).
 // Loads: K/V tiles (BK = 64 rows at head_dim <= 128; 32 at 256, where O
 // takes 128 registers a thread) move with 16-byte cp.async into a ring
 // of 2 stages, the next tile in flight while this one computes; Q comes
@@ -348,16 +356,22 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], 
 }
 
 // 2^x: ex2.approx (relative error ~2^-22; 0 and 1 exact), flushing
-// results below 2^-126 to 0 -- P is rounded to bf16 in any case
+// results below 2^-126 to 0 -- against a row max of exactly 1, such P
+// add nothing that the fp32 sums could hold
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
+// two fp32 values as a bf16 pair `hi` (x rounded) and a bf16 pair `lo`
+// (the remainder x - hi, rounded): hi + lo holds x to about 16 bits
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
 }
 
 // rows [row0, row0 + R) of one head of one sequence into dst (stride SD);
@@ -560,14 +574,16 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // 3. O += P V, P rounded to bf16 in registers; V's fragments for the
-    // next 16 columns load while these multiply
+    // 3. O += P V with P as hi + lo, two bf16 fragments in registers,
+    // each multiplied by V into the same fp32 accumulator; V's fragments
+    // for the next 16 columns load while these multiply
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      unsigned pa[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], pa[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], pa[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pl[3]);
       const bf16* vrow = sV + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * SD + (lane / 16) * 8;
       unsigned vb[2][4];
       ldsm_x4_t(vb[0], vrow);
@@ -576,7 +592,9 @@ fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (dp >= nks) break;
         if (dp + 1 < nks) ldsm_x4_t(vb[(dp + 1) % 2], vrow + (dp + 1) * 16);
         mma16816(acc[2 * dp], pa, vb[dp % 2][0], vb[dp % 2][1]);
+        mma16816(acc[2 * dp], pl, vb[dp % 2][0], vb[dp % 2][1]);
         mma16816(acc[2 * dp + 1], pa, vb[dp % 2][2], vb[dp % 2][3]);
+        mma16816(acc[2 * dp + 1], pl, vb[dp % 2][2], vb[dp % 2][3]);
       }
     }
   }

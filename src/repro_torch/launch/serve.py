@@ -23,11 +23,18 @@ Runs on ``--device`` (default ``cuda``). The engine flags are
 ``--trace PATH`` writes the engine's Chrome trace (``trace_json()``,
 empty without ``--observability``) there after the run.
 
+``--partition N`` then also runs the first prompt through the
+Edge-PRUNE partitioned actor graph (``PartitionedServeEngine``, exported
+at batch 1 and ``--prompt-len`` positions) with its first N actors on
+the "endpoint" unit and the rest on the "server", and prints the
+boundary bytes and the argmax of the last position, as the reference
+CLI does.
+
 ``main(argv)`` returns a summary dict (completions, throughput, TTFT,
-decode time per step) so that scripts can drive it. The HTTP front end
-is ``repro_torch.runtime.server``; the reference CLI's replayed request
-traces, ``--serve``, ``--partition`` and ``--mode`` come with later
-slices (ROADMAP queue 1, item 13).
+decode time per step, and the partitioned run's) so that scripts can
+drive it. The HTTP front end is ``repro_torch.runtime.server``; the
+reference CLI's replayed request traces, ``--serve`` and ``--mode`` come
+with later slices (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -40,9 +47,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.mapping import Mapping
 from repro_torch.models import transformer as T
 from repro_torch.runtime.engine import Engine, EngineConfig
 from repro_torch.runtime.scheduler import Request
+from repro_torch.runtime.serving import PartitionedServeEngine
 
 
 def synthetic_requests(cfg, n: int, prompt_len: int, max_new: int,
@@ -75,6 +84,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--partition", type=int, default=None,
+                    help="also run Edge-PRUNE partitioned inference with "
+                         "this many actors on the 'endpoint' unit")
     # the engine flags, registered as the reference registers them;
     # --policy defaults to batch here
     EngineConfig.add_cli_args(ap)
@@ -165,11 +177,33 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
               f"({ks['paged_kv_hwm_blocks']:.0f} blocks, watermark "
               f"{args.watermark}) vs slotted "
               f"reservation {ks['slotted_kv_reserved_bytes'] / 1e6:.2f} MB")
+    if args.partition is not None:
+        summary["partition"] = partitioned(cfg, model, reqs[0].prompt,
+                                           args.partition)
     if args.trace:
         with open(args.trace, "w") as fh:
             json.dump(eng.trace_json(), fh)
         print(f"# trace -> {args.trace}")
     return summary
+
+
+def partitioned(cfg, model: T.Transformer, prompt: np.ndarray,
+                n_endpoint: int) -> Dict[str, Any]:
+    """One prompt through the actor graph with its first ``n_endpoint``
+    actors (clamped to 1..all) on the "endpoint" and the rest on the
+    "server": the boundary bytes a frame and the last position's argmax."""
+    names = list(T.to_actor_graph(cfg, batch=1, seq=len(prompt)).actors)
+    pp = max(1, min(n_endpoint, len(names)))
+    mapping = Mapping("cli", {n: ("endpoint" if i < pp else "server")
+                              for i, n in enumerate(names)})
+    pse = PartitionedServeEngine(cfg, model, mapping, batch=1,
+                                 seq=len(prompt))
+    logits = pse.infer(prompt[None])
+    out = {"pp": pp, "boundary_bytes": pse.comm_bytes(),
+           "argmax": int(logits[0, -1].argmax())}
+    print(f"# partitioned inference @pp={pp}: boundary "
+          f"{out['boundary_bytes']} B, argmax {out['argmax']}")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""Model code of the port: config, layers and the decoder stack."""
+"""Model code of the port: config, layers, the decoder stack and the
+paper's CNN actor graphs."""

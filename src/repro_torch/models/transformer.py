@@ -19,6 +19,11 @@ When ``cfg.remat`` is set each scanned period runs under
 ``prefill_extend``) runs all-``attn`` decoders (``check_servable``) on
 parameters held in the compute dtype (``to_compute_dtype_``, once).
 
+``to_actor_graph`` exports the decoder as a VR-PRUNE actor graph
+(Input, Embed, one actor per group of layers, Head) whose fire functions
+run ``forward``'s layers on a compute copy cast once, for Edge-PRUNE's
+partitioned prefill (``runtime.serving.PartitionedServeEngine``).
+
 The decode cache is a list with one ``{"k", "v"}`` dict per layer, each
 (B, S_cache, Hk, hd), or with the paged layout (``init_paged_cache``)
 each a shared (N, bs, Hk, hd) pool addressed through block tables.
@@ -253,14 +258,19 @@ def _embed_inputs(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens.long()] * math.sqrt(model.cfg.d_model)
 
 
+def _lm_head(x: torch.Tensor, model: Transformer) -> torch.Tensor:
+    """LM head in x.dtype, the padded vocabulary left unmasked.
+    x: (..., D) -> (..., padded_vocab)."""
+    if model.cfg.tie_embeddings:
+        return x @ model.embed.to(x.dtype).t()
+    return x @ model.lm_head.to(x.dtype)
+
+
 def _head_logits(x: torch.Tensor, model: Transformer) -> torch.Tensor:
     """LM head in x.dtype with the padded vocabulary masked to -1e30.
     x: (..., D) -> (..., padded_vocab)."""
     cfg = model.cfg
-    if cfg.tie_embeddings:
-        logits = x @ model.embed.to(x.dtype).t()
-    else:
-        logits = x @ model.lm_head.to(x.dtype)
+    logits = _lm_head(x, model)
     if cfg.padded_vocab_size != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab_size,
                            device=x.device) >= cfg.vocab_size
@@ -598,10 +608,145 @@ def paged_copy_block(cfg: ModelConfig, cache: Cache, src: int,
     return cache
 
 
+# ---------------------------------------------------------------------------
+# VR-PRUNE actor-graph export (the Edge-PRUNE integration)
+# ---------------------------------------------------------------------------
+
+# the block kinds that carry an MLP, as the reference lists them
+_HAS_MLP = ("attn", "attn_local", "rglru")
+
+
+def to_actor_graph(cfg: ModelConfig, model: Optional[Transformer] = None,
+                   *, batch: int = 1, seq: int = 8, group_size: int = 1):
+    """Export the model as a VR-PRUNE dataflow graph: one actor per group
+    of ``group_size`` layers (plus Input / Embed / Head actors), each edge
+    annotated with its real token size, as the reference's
+    ``to_actor_graph`` does: the same actor names, token shapes, dtypes
+    and ``cost_flops``. With ``model`` the actors carry fire functions
+    that run the layers of ``forward`` (``_layer_apply``: the flash
+    kernel for every attention layer, the scan's forward kernel for every
+    ``rglru`` layer) on the compute copy of the weights, cast once here;
+    without it the graph carries costs only.
+
+    The Head applies the final norm and the head without masking a
+    padded vocabulary, and its sink result is the logits tensor itself,
+    as in the reference."""
+    from repro_torch.core.graph import Actor, ActorType, Graph, Port, PortDir
+
+    g = Graph(cfg.name)
+    d = cfg.d_model
+    tok_shape = (batch, seq, d)
+    hd = cfg.resolved_head_dim
+    qkv_out = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+
+    def block_flops(kind):
+        f = 0.0
+        if kind in ("attn", "attn_local"):
+            ctx = min(seq, cfg.window) if kind == "attn_local" else seq
+            f = 2.0 * seq * d * (qkv_out + cfg.n_heads * hd) \
+                + 4.0 * seq * ctx * cfg.n_heads * hd
+        elif kind == "rglru":
+            f = 2.0 * seq * d * (2 * d + 2 * d + d) + 10.0 * seq * d
+        elif kind == "mlstm":
+            dm = int(cfg.mlstm_proj_factor * d)
+            f = 2.0 * seq * d * 2 * dm + 2.0 * seq * dm * d \
+                + 4.0 * seq * min(seq, 256) * dm
+        elif kind == "slstm":
+            ds = int(cfg.slstm_proj_factor * d)
+            f = 2.0 * seq * d * (4 * d + 2 * ds) + 2.0 * seq * 4 * d * (d // max(cfg.n_heads, 1))
+        if kind in _HAS_MLP:
+            if cfg.moe:
+                f += 2.0 * seq * d * 3 * cfg.moe.d_ff_expert \
+                    * (cfg.moe.top_k + cfg.moe.n_shared_experts)
+            else:
+                f += 2.0 * seq * d * 3 * cfg.d_ff
+        return batch * f
+
+    kinds = cfg.layer_kinds
+    groups = [list(range(i, min(i + group_size, len(kinds))))
+              for i in range(0, len(kinds), group_size)]
+    if model is not None:
+        with torch.no_grad():
+            params = cast_params_for_compute(model, cfg)
+        # the ports fix the token shape, so every Layers actor takes the
+        # same positions: made once here, as ``forward`` makes them a call
+        positions = torch.arange(seq, dtype=torch.int32,
+                                 device=model.device).expand(batch, seq)
+
+    def fires(fn):
+        """``fn`` without autograd, or no fire function without weights."""
+        if model is None:
+            return None
+
+        def fire(inputs, st, atr):
+            with torch.no_grad():
+                return fn(inputs, st, atr)
+        return fire
+
+    # Input -> Embed -> LayerGroup_i ... -> Head
+    inp = Actor("Input", ActorType.SPA,
+                [], [Port("out", PortDir.OUT, token_shape=(batch, seq),
+                          token_dtype="int32")],
+                fire_fn=lambda inputs, st, atr: (
+                    {"out": [inputs["__feed__"][0]]}, st))
+    g.add_actor(inp)
+
+    def embed_fire(inputs, st, atr):
+        (tok,) = inputs["in"]
+        return {"out": [_embed_inputs(params, tok)]}, st
+
+    emb = Actor("Embed", ActorType.SPA,
+                [Port("in", PortDir.IN, token_shape=(batch, seq),
+                      token_dtype="int32")],
+                [Port("out", PortDir.OUT, token_shape=tok_shape,
+                      token_dtype=cfg.dtype)],
+                fire_fn=fires(embed_fire),
+                cost_flops=2.0 * batch * seq * d)
+    g.add_actor(emb)
+    g.connect(inp.port("out"), emb.port("in"))
+
+    prev = emb
+    for idxs in groups:
+        def make_fire(idxs):
+            def fire(inputs, st, atr):
+                (x,) = inputs["in"]
+                for li in idxs:
+                    x = _layer_apply(params.layers[li], x, cfg,
+                                     positions=positions)
+                return {"out": [x]}, st
+            return fire
+
+        a = Actor(f"Layers{idxs[0]}-{idxs[-1]}", ActorType.SPA,
+                  [Port("in", PortDir.IN, token_shape=tok_shape,
+                        token_dtype=cfg.dtype)],
+                  [Port("out", PortDir.OUT, token_shape=tok_shape,
+                        token_dtype=cfg.dtype)],
+                  fire_fn=fires(make_fire(idxs)),
+                  cost_flops=sum(block_flops(kinds[li]) for li in idxs),
+                  meta={"layers": idxs})
+        g.add_actor(a)
+        g.connect(prev.port("out"), a.port("in"))
+        prev = a
+
+    def head_fire(inputs, st, atr):
+        (x,) = inputs["in"]
+        x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+        return {"result": _lm_head(x, params)}, st
+
+    head = Actor("Head", ActorType.SPA,
+                 [Port("in", PortDir.IN, token_shape=tok_shape,
+                       token_dtype=cfg.dtype)], [],
+                 fire_fn=fires(head_fire),
+                 cost_flops=2.0 * batch * seq * d * cfg.vocab_size)
+    g.add_actor(head)
+    g.connect(prev.port("out"), head.port("in"))
+    return g
+
+
 __all__ = ["Transformer", "init_params", "cast_params_for_compute",
            "to_compute_dtype_", "check_trainable", "check_servable",
            "forward", "loss_fn", "init_cache", "init_paged_cache", "kv_row_bytes", "prefill",
            "decode_step", "decode_step_staged", "decode_stage_bounds",
            "prefill_extend", "supports_chunked_prefill",
            "paged_insert", "paged_seed", "paged_copy_block",
-           "resolve_device", "Cache"]
+           "resolve_device", "to_actor_graph", "Cache"]

@@ -13,8 +13,12 @@ values::
     for tok in handle.stream():
         ...
 
-The hierarchical-serving names (``TieredEngine`` and the escalation
-journal and transports) come with ROADMAP queue 1, item 9.
+The Edge-PRUNE partitioned engine (``PartitionedServeEngine``: prefill
+through the model's actor graph split by a mapping) is re-exported here
+from ``repro_torch.runtime.serving``, where the deprecated
+``ServeEngine`` shim stays, as in the reference. The hierarchical-serving
+names (``TieredEngine`` and the escalation journal and transports) come
+with ROADMAP queue 1, item 9.
 """
 from repro_torch.runtime.engine import Engine, EngineConfig, RequestHandle
 from repro_torch.runtime.observability import (MetricsRegistry, Observability,
@@ -23,6 +27,7 @@ from repro_torch.runtime.observability import (MetricsRegistry, Observability,
 from repro_torch.runtime.scheduler import (FINISH_REASONS, Completion,
                                            Request, SlotFailure)
 from repro_torch.runtime.server import EngineServer, ServerConfig
+from repro_torch.runtime.serving import PartitionedServeEngine
 
 __all__ = [
     "Engine",
@@ -34,6 +39,7 @@ __all__ = [
     "FINISH_REASONS",
     "EngineServer",
     "ServerConfig",
+    "PartitionedServeEngine",
     "Observability",
     "MetricsRegistry",
     "Tracer",

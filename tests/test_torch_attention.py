@@ -326,8 +326,9 @@ TC_CASES = [
 def _flash_tc_emulation(q, k, v, window, q_offset, kv_len, bk, bq=64):
     """The bf16 tensor-core body's arithmetic in torch: fp32 scores of
     bf16 inputs, masked with -1e30, an online softmax over KV tiles of
-    ``bk`` rows with m, l and O in fp32, l summing P before rounding, and
-    P rounded to bf16 before P V; the output rounded to bf16."""
+    ``bk`` rows with m, l and O in fp32, l summing the unrounded P, and
+    P V taken as hi V + lo V with hi = bf16(P) and lo = bf16(P - hi),
+    as the kernel issues it; the output rounded to bf16."""
     b, sq, h, d = q.shape
     _, sk, hk, _ = k.shape
     g, scale = h // hk, 1.0 / np.sqrt(d)
@@ -355,7 +356,10 @@ def _flash_tc_emulation(q, k, v, window, q_offset, kv_len, bk, bq=64):
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            vt = vf[:, :, k0:k0 + bk]
+            acc = acc * corr + hi @ vt + lo @ vt
             m = m_new
         out[:, :, q0:q0 + bq] = acc / l.clamp_min(1e-30)
     return out.permute(0, 2, 1, 3).to(torch.bfloat16)
@@ -365,9 +369,10 @@ def _flash_tc_emulation(q, k, v, window, q_offset, kv_len, bk, bq=64):
                          TC_CASES)
 def test_flash_bf16_rounding_stays_within_the_chip_limits(
         b, sq, sk, h, hk, d, window, q_offset, kv_len, bk, tol):
-    """Rounding P to bf16 before P V (the tensor-core body; m, l and O in
-    fp32) keeps the output within the limits chip_smoke.py holds the
-    kernel to, against the plain version on the same bf16 inputs."""
+    """P V with P split into two bf16 halves (the tensor-core body; m, l
+    and O in fp32) keeps the output within the limits chip_smoke.py
+    holds the kernel to, against the plain version on the same bf16
+    inputs."""
     rng = np.random.RandomState(sq + sk + d)
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _qkv(rng, b, sq, sk, h, hk, d))

@@ -49,7 +49,11 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(mods) >= 20
     assert {"repro_torch.runtime.observability", "repro_torch.runtime.server",
             "repro_torch.runtime.scheduler.prefix_pool",
-            "repro_torch.serving"} <= set(mods)
+            "repro_torch.serving", "repro_torch.runtime.serving",
+            "repro_torch.models.cnn"} | {
+        f"repro_torch.core.{m}" for m in (
+            "graph", "analyzer", "mapping", "calibration", "synthesis",
+            "simulator", "explorer", "clocks")} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
