@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6,7]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6,7,8]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -116,6 +116,47 @@ Phases, one status line each; any failure exits non-zero:
    recurrentgemma-9b at full width cut to 5 layers at S = 4096: the cut's
    logits equal ``forward``'s bit for bit, 1 flash and 4 scan forward
    launches a frame.
+8. hierarchical serving on the card: qwen2-1.5b at full width and depth
+   in bf16, one model object shared by both tiers: (a) ``step_delay_s``
+   leaves a 1-slot engine's tokens as they are and lengthens its run by
+   at least decode steps x delay (less the spread of two undelayed
+   runs); (b) a ``TieredEngine`` over an endpoint ``Engine`` of 1 slot
+   with a ``step_delay_s`` handicap and a background-drained server
+   ``Engine`` of 8 slots behind ``InProcessTransport`` (the reference
+   bench's wiring: replay window 8, 16 sends a pump round), both slotted
+   at ``max_len`` 552, fed one open-loop Poisson trace of 16 requests
+   (prompts of 128/256/384/512 tokens, 16 new tokens, one deadline)
+   under ``never``, ``always`` and ``confidence`` + ``overload`` (the
+   threshold the median of the port's probe over the trace); the
+   handicap, rate and deadline follow from the step time measured in
+   (a) (``ESC_HANDICAP``, ``ESC_LOAD``, ``ESC_DEADLINE``), and the gated
+   mode must beat ``never`` on answered-within-deadline while escalating
+   strictly between 0 and 16. Every request ends by length with the
+   tokens of the tier that answered it run alone, bit for bit (the two
+   tiers' agreement is reported: M = 1 and M = 8 products may round
+   apart in bf16); ``repro_escalated_total`` equals the handles' count;
+   flash launches 28 times per prefill call of either engine and per
+   confidence probe, slotted decode 28 times per decode step of either;
+   (c) ``FlakyTransport`` cuts the link for 2 s after warm-up while 8
+   deadline-free ``always`` requests are in flight: none lost, each
+   surfaced once in journal order with the server's tokens alone, one
+   fail-back, recovery within 10 s; a deadline-tight request ends
+   ``local_fallback`` with the endpoint's tokens, an expired one
+   ``timeout``; (d) the server tier behind ``EngineServer`` on
+   127.0.0.1 (ephemeral port) on phase 6's paged pool, reached by a
+   ``TieredEngine`` with ``HttpTransport`` and ``always``: (b)'s server
+   tokens, ``/status`` of a server fronting the tiered engine reports
+   ``tier: "endpoint"``, paged decode launches exact; (e) qwen2-1.5b's
+   actor graph (B = 1, S = 512, two layers an actor) on the N270
+   platform with Ethernet under ``FailoverController`` over
+   ``Explorer.rank_fallbacks``: 8 frames, 4 checkpointed, the server
+   killed mid-stream; every frame's logits equal the failure-free run's
+   and ``forward``'s bit for bit, frames replayed, 28 flash launches a
+   frame fired, recovery as modeled detection + wall re-synthesis, a
+   fallback frame traced, peak memory of both runs; the Simulator's kill
+   and revival on the same graph re-fires frames bit-exact; a
+   ``SlotFailure`` mid-decode in the server engine keeps the failure-free
+   tokens.
    Phase 2 adds the scan on the reference's test shapes,
    the chunked body's edges (a partial last chunk with B > 1, D = 37,
    S = 1) and at B=1 S=4096 D=4096 (tol 1e-5, forward and reverse; two
@@ -124,10 +165,11 @@ Phases, one status line each; any failure exits non-zero:
    head_dim 256 with its lse (16 query heads over 1, window 2048 at
    S=4096, bf16 and fp32), and times both at the training shapes.
 
-``--phases`` runs a subset and prints no result line. With all phases,
-the line before the last holds the kernels' summary as JSON; the last
-line is ``{"ok": true, "device": {...}}``. Needs one card; imports
-nothing of JAX.
+``--phases`` runs a subset and prints no result line (``--phases 8``
+runs phase 8 after the build). With all phases, the line before the
+last holds the kernels' summary as JSON, after a line with phase 8's
+launches by path; the last line is ``{"ok": true, "device": {...}}``.
+Needs one card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -210,7 +252,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/7] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/8] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -868,7 +910,7 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/7] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/8] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode, paged decode, flash "
         f"at head_dim 256 with its lse, the RG-LRU scan forward and "
         f"reverse)")
@@ -951,7 +993,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/7] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/8] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1356,7 +1398,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/7] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/8] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -1620,7 +1662,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/7] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/8] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -1989,7 +2031,7 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/7] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/8] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
@@ -2492,11 +2534,691 @@ def phase_edge(torch, np, ops, smi: str) -> dict:
            "paper_rows": paper_rows(torch),
            "llm": llm_partitioned(torch, np, ops, smi),
            "hybrid": hybrid_partitioned(torch, np, ops)}
-    say("[7/7] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+    say("[7/8] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
         "within the CPU limit, every partition point equal to the "
         "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
         "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
         "to forward bit for bit, launches exact")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+# hierarchical serving: qwen2-1.5b on both tiers (one model object), an
+# endpoint of 1 slot with a step_delay_s handicap and a server of 8 slots,
+# both slotted at phase 4's max_len, fed one open-loop Poisson trace
+ESC_N = 16
+ESC_LENS = (128, 256, 384, 512)
+ESC_NEW = 16
+ESC_DELAY_A = 0.05      # (a): steps x this stands well clear of the noise
+# the endpoint's handicap, the arrival rate and the deadline, from the
+# step measured in (a): an endpoint a quarter slower a step than the
+# server (the tiers' capacity gap is mostly 1 slot against 8), arrivals
+# at the rate the endpoint alone can serve (so its queue grows without
+# bound in ``never``), and a deadline of 3 endpoint service times, which
+# falls between the modes as this phase measures them on an H100
+# (``never`` 5, gated 12 and ``always`` 16 of 16 within it; PERF.md)
+ESC_HANDICAP = 0.25     # the endpoint's delay: this share of its step
+ESC_LOAD = 1.0          # arrivals per endpoint service time
+ESC_DEADLINE = 3.0      # the deadline, in endpoint service times
+ESC_TIMEOUT_S = 300
+LINK_N = 8              # (c): requests in flight across the link cut
+LINK_DOWN_S = 2.0
+LINK_WINDOW_S = 10.0    # the journal must drain this soon after revival
+FO_S = 512              # (e): the failover's actor graph, as phase 7's
+FO_FRAMES = 8
+FO_CHECKPOINT = 4
+FO_FAIL_FRAC = 0.4      # the server dies at this share of the nominal run
+SIM_FRAMES = 4
+SLOT_FAIL_STEP = 4
+
+
+def esc_prompts(cfg, np) -> list:
+    """ESC_N prompts of 128, 256, 384 and 512 tokens in turn (seed 7)."""
+    rng = np.random.RandomState(7)
+    return [rng.randint(0, cfg.vocab_size, ESC_LENS[i % len(ESC_LENS)])
+            .astype(np.int32) for i in range(ESC_N)]
+
+
+def esc_arrivals(np, rate: float) -> list:
+    """Poisson arrival instants at ``rate`` per second (seed 8)."""
+    return list(np.cumsum(np.random.RandomState(8).exponential(
+        1.0, ESC_N) / rate))
+
+
+def esc_engine(cfg, model, slots: int, delay_s: float = 0.0, *,
+               failures=None, **kw):
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    return Engine(cfg, model, EngineConfig(
+        max_slots=slots, max_len=SERVE_S, step_delay_s=delay_s, **kw),
+        failures=failures, device="cuda")
+
+
+def solo_tokens(cfg, model, prompts, slots: int) -> list:
+    """Each prompt alone through a caller-pumped engine of ``slots``
+    slots: the tokens the tier answers it with when nothing else runs."""
+    from repro_torch.runtime.scheduler import Request
+    eng = esc_engine(cfg, model, slots)
+    return [eng.submit(Request(i, p, max_new_tokens=ESC_NEW)).result().tokens
+            for i, p in enumerate(prompts)]
+
+
+def timed_steps(torch, eng, req) -> tuple:
+    """Pump ``req`` alone through a caller-pumped engine one step at a
+    time; returns its completion, the wall time of each (non-idle) step
+    and the engine's decode steps."""
+    handle = eng.submit(req)
+    times = []
+    while not handle.done:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return handle.completion, times, eng.stats()["steps"]
+
+
+def step_delay_check(torch, cfg, model, prompt) -> dict:
+    """(a) One request through a 1-slot engine, after a warm-up: twice
+    without a delay and once with ``ESC_DELAY_A``. The tokens are the
+    same, every step of the delayed run takes at least the delay, and
+    the delayed run is longer by at least steps x delay, less the spread
+    of the two undelayed runs."""
+    from repro_torch.runtime.scheduler import Request
+    runs = []
+    for delay in (0.0, 0.0, 0.0, ESC_DELAY_A):
+        eng = esc_engine(cfg, model, 1, delay)
+        runs.append(timed_steps(torch, eng, Request(
+            0, prompt, max_new_tokens=ESC_NEW)))
+    (c0, t0, steps), (c1, t1, _), (cd, td, steps_d) = runs[1:]
+    w0, w1, wd = sum(t0), sum(t1), sum(td)
+    spread = abs(w1 - w0)
+    growth = wd - (w0 + w1) / 2
+    rec = {"steps": steps, "engine_steps": len(t0), "wall_s": [w0, w1],
+           "delayed_wall_s": wd, "delay_s": ESC_DELAY_A, "growth_s": growth,
+           "spread_s": spread, "step_s": (w0 + w1) / 2 / len(t0),
+           "warmup_wall_s": sum(runs[0][1]),
+           "shortest_delayed_step_s": min(td)}
+    say(f"  (a) step_delay_s={ESC_DELAY_A}: {len(t0)} engine steps "
+        f"({steps} decode), wall {w0:.4f} / {w1:.4f} s undelayed (warm-up "
+        f"{rec['warmup_wall_s']:.4f} s), {wd:.4f} s delayed: growth "
+        f"{growth:.4f} s against steps x delay "
+        f"{len(td) * ESC_DELAY_A:.4f} s, shortest delayed step "
+        f"{min(td) * 1e3:.2f} ms; tokens equal "
+        f"{c0.tokens == c1.tokens == cd.tokens}")
+    if not c0.tokens == c1.tokens == cd.tokens or steps_d != steps \
+            or len(td) != len(t0) or len(c0.tokens) != ESC_NEW:
+        raise PhaseFailed(f"step_delay_s changed the tokens or the steps: "
+                          f"{steps} vs {steps_d}")
+    if min(td) < ESC_DELAY_A \
+            or growth < len(td) * ESC_DELAY_A - spread:
+        raise PhaseFailed(f"step_delay_s: the delayed run grew "
+                          f"{growth:.4f} s (spread {spread:.4f} s), its "
+                          f"shortest step {min(td):.4f} s, for {len(td)} "
+                          f"steps of {ESC_DELAY_A} s")
+    return rec
+
+
+class EscLaunches:
+    """The kernels' launches, the model's prefill/extend calls and both
+    tiers' admissions and decode steps over one run: set to 0 (or read)
+    just before it and read just after it, once both engines are idle.
+    Flash must launch 28 times per prefill call (both engines' and the
+    confidence probes'), the layout's decode kernel 28 times per decode
+    step of either engine, the other decode kernel not at all."""
+
+    def __init__(self, torch, ops, calls, engines, label: str):
+        from repro_torch.kernels import _build
+        self.torch, self.ops, self.calls = torch, ops, calls
+        self.engines, self.label = engines, label
+        _build.reset_launches(*(ops[k] for k in KERNELS))
+        calls.take()
+        self.base = [e.stats() for e in engines]
+
+    def check(self, probes: int = 0) -> dict:
+        for e in self.engines:
+            e.snapshot()                # under each engine's lock: idle
+        self.torch.cuda.synchronize()
+        launches = {k: self.ops[k].launches for k in KERNELS}
+        n_calls = self.calls.take()
+        delta = [{k: e.stats()[k] - b[k] for k in ("admissions", "steps")}
+                 for e, b in zip(self.engines, self.base)]
+        n = self.engines[0].cfg.n_layers
+        steps = {"slotted": 0, "paged": 0}
+        for e, d in zip(self.engines, delta):
+            steps[e.config.kv_layout] += d["steps"]
+        want = {"flash_attention": n * sum(n_calls.values()),
+                "decode_attention": n * steps["slotted"],
+                "paged_decode_attention": n * steps["paged"]}
+        prefills = sum(d["admissions"] for d in delta) + probes
+        if launches != want or n_calls["prefill"] != prefills \
+                or n_calls["prefill_extend"]:
+            raise PhaseFailed(f"{self.label}: launches {launches}, want "
+                              f"{want}; calls {n_calls}, want {prefills} "
+                              f"prefills ({delta} admissions and steps, "
+                              f"{probes} probes)")
+        return {"launches": launches, "calls": n_calls, "engines": delta,
+                "probes": probes}
+
+
+def make_tiered(cfg, model, policies, root: str, delay_s: float, *,
+                wrap=None, server=None):
+    """The reference bench's wiring: an endpoint of 1 slot with the
+    handicap and observability, a background-drained server of 8 slots
+    behind ``InProcessTransport`` (or ``server``, a transport), replay
+    window = the server's slots, twice that sends per pump round."""
+    from repro_torch.runtime.escalation import (InProcessTransport,
+                                                TieredConfig, TieredEngine)
+    endpoint = esc_engine(cfg, model, 1, delay_s, observability=True)
+    engine = None
+    if server is None:
+        engine = esc_engine(cfg, model, 8).start()
+        server = InProcessTransport(engine, timeout_s=ESC_TIMEOUT_S)
+    transport = wrap(server) if wrap is not None else server
+    tiered = TieredEngine(endpoint, transport, TieredConfig(
+        policies=policies, journal_dir=root, replay_window=8,
+        max_sends_per_pump=16))
+    return tiered, engine
+
+
+def timed_probes(tiered) -> list:
+    """Wrap the tiered engine's confidence probe: each call's wall time
+    on the caller's thread lands in the returned list."""
+    fn, times = tiered._confidence, []
+
+    def probe(req):
+        t0 = time.perf_counter()
+        v = fn(req)
+        times.append(time.perf_counter() - t0)
+        return v
+    tiered._confidence = probe
+    return times
+
+
+def drive_trace(tiered, prompts, arrivals, deadline_s) -> list:
+    """Submit the trace open-loop on its arrival schedule, each handle
+    waited on by a thread of its own from its submission on, so each
+    latency ends when its request completes. Returns (handle, latency_s,
+    submit_s) triples."""
+    from repro_torch.runtime.scheduler import Request
+    n = len(prompts)
+    sent, done, threads = [None] * n, [None] * n, []
+
+    def wait(i):
+        sent[i][0].result(ESC_TIMEOUT_S)
+        done[i] = time.perf_counter()
+    t0 = time.perf_counter()
+    for i, (prompt, at) in enumerate(zip(prompts, arrivals)):
+        delay = t0 + at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        ts = time.perf_counter()
+        h = tiered.submit(Request(i, prompt, max_new_tokens=ESC_NEW,
+                                  deadline_s=deadline_s))
+        sent[i] = (h, ts, time.perf_counter() - ts)
+        threads.append(threading.Thread(target=wait, args=(i,), daemon=True))
+        threads[-1].start()
+    for t in threads:
+        t.join(timeout=ESC_TIMEOUT_S)
+    if None in done:
+        raise PhaseFailed("tiered serving: a request did not complete")
+    return [(h, d - ts, sub) for (h, ts, sub), d in zip(sent, done)]
+
+
+def tiered_mode(torch, np, ops, calls, cfg, model, name, policies, prompts,
+                arrivals, deadline_s, delay_s, solo, root) -> dict:
+    """(b) One mode over the trace: warm both tiers directly, count over
+    the drive, then hold every request to the solo run of the tier that
+    answered it and the counters to the handles."""
+    from repro_torch.runtime.observability import parse_prometheus
+    from repro_torch.runtime.policies import ConfidenceEscalation
+    from repro_torch.runtime.scheduler import Request
+    tiered, server = make_tiered(cfg, model, policies, f"{root}/{name}",
+                                 delay_s)
+    tiered.start()
+    try:
+        warm = np.ones(8, np.int32)
+        tiered.local.submit(Request(-1, warm, max_new_tokens=2)).result(
+            ESC_TIMEOUT_S)
+        server.submit(Request(-2, warm, max_new_tokens=2)).result(
+            ESC_TIMEOUT_S)
+        rec = {"policies": [p.name for p in tiered.policies]}
+        gate = [p for p in tiered.policies
+                if isinstance(p, ConfidenceEscalation)]
+        if gate:
+            # the threshold: the median of the port's probe over the
+            # trace, as the reference bench calibrates it
+            t0 = time.perf_counter()
+            confs = sorted(tiered._confidence(Request(-3, p))
+                           for p in prompts)
+            rec["calibration_s"] = time.perf_counter() - t0
+            gate[0].threshold = confs[len(confs) // 2]
+            rec["threshold"] = gate[0].threshold
+            rec["confidence_range"] = [confs[0], confs[-1]]
+        probe_s = timed_probes(tiered)
+        tiered.local.obs.registry.reset_histograms()
+        run = EscLaunches(torch, ops, calls, [tiered.local, server], name)
+        t0 = time.perf_counter()
+        got = drive_trace(tiered, prompts, arrivals, deadline_s)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec.update(run.check(probes=len(probe_s)))
+        metrics = parse_prometheus(tiered.metrics_text())
+    finally:
+        tiered.shutdown()
+        server.shutdown()
+    tiers, lat, in_deadline, rows = [], [], 0, []
+    for i, (h, latency, submit_s) in enumerate(got):
+        c = h.completion
+        tier = "endpoint" if h.tier == tiered.config.tier else "server"
+        tiers.append(tier)
+        lat.append(latency)
+        if c.finish_reason != "length" or len(c.tokens) != ESC_NEW:
+            raise PhaseFailed(f"{name}: request {i} ended "
+                              f"{c.finish_reason} with {len(c.tokens)} "
+                              f"tokens")
+        if c.tokens != solo[tier][i]:
+            raise PhaseFailed(f"{name}: request {i}'s tokens differ from "
+                              f"the {tier} tier's alone")
+        in_deadline += latency <= deadline_s
+        rows.append({"arrival_s": arrivals[i], "tier": tier,
+                     "reason": h.reason, "latency_s": latency,
+                     "submit_ms": submit_s * 1e3})
+    escalated = tiers.count("server")
+    if metrics["counters"]["repro_escalated_total"] != escalated \
+            or sum(h.escalated for h, _, _ in got) != escalated:
+        raise PhaseFailed(f"{name}: repro_escalated_total "
+                          f"{metrics['counters']['repro_escalated_total']}, "
+                          f"{escalated} answered by the server")
+    lat_sorted = sorted(lat)
+    rec.update({
+        "answered_within_deadline": in_deadline,
+        "escalated": escalated, "escalated_fraction": escalated / len(got),
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "latency_max_s": lat_sorted[-1],
+        "submit_p50_ms": float(np.percentile([s for _, _, s in got], 50))
+        * 1e3,
+        "probe_ms": [t * 1e3 for t in probe_s], "requests": rows})
+    say(f"  (b) {name:16s}: in deadline {in_deadline}/{len(got)}, escalated "
+        f"{escalated}/{len(got)}, latency p50 {rec['latency_p50_s']:.3f} s "
+        f"p99 {rec['latency_p99_s']:.3f} s, wall {rec['wall_s']:.2f} s; "
+        f"calls {rec['calls']}, launches {rec['launches']}"
+        + (f"; probe p50 {float(np.percentile(probe_s, 50)) * 1e3:.2f} ms "
+           f"on the caller's thread ({rec['calibration_s'] / ESC_N * 1e3:.2f}"
+           f" ms with the engines idle), threshold {rec['threshold']:.6g}"
+           if probe_s else ""))
+    say(f"      by request (tier, latency s): " + " ".join(
+        f"{r['tier'][0].upper()}{r['latency_s']:.2f}"
+        + ("" if r["latency_s"] <= deadline_s else "*") for r in rows)
+        + " (* past the deadline)")
+    return rec
+
+
+def link_cut(torch, np, cfg, model, prompts, solo, root, delay_s) -> dict:
+    """(c) Deadline-free ``always`` requests journaled across a link cut
+    (``FlakyTransport`` over a ``FailureTrace`` scheduled after warm-up),
+    plus a deadline-tight request answered locally and an expired one
+    shed, then the revival: nothing lost, each completion surfaced once
+    in journal order with the server's tokens alone."""
+    from repro_torch.runtime.escalation import FlakyTransport
+    from repro_torch.runtime.observability import parse_prometheus
+    from repro_torch.runtime.resilience import FailureTrace
+    from repro_torch.runtime.scheduler import Request
+    cut = FailureTrace()
+    tiered, server = make_tiered(cfg, model, ("always",), f"{root}/linkcut",
+                                 delay_s,
+                                 wrap=lambda t: FlakyTransport(t, cut))
+    surfaced = []
+    deliver = tiered.replayer.on_complete
+
+    def on_complete(entry, c):
+        surfaced.append(entry.seq)
+        deliver(entry, c)
+    tiered.replayer.on_complete = on_complete
+    tiered.start()
+    try:
+        warm = tiered.submit(Request(-1, np.ones(8, np.int32),
+                                     max_new_tokens=2))
+        warm.result(ESC_TIMEOUT_S)
+        kill_at = tiered.now() + 0.2
+        revive_at = kill_at + LINK_DOWN_S
+        cut.kill_link("endpoint", "server", at=kill_at) \
+           .revive_link("endpoint", "server", at=revive_at)
+        while tiered.now() < kill_at:
+            time.sleep(0.005)
+        hs = [tiered.submit(Request(i, prompts[i], max_new_tokens=ESC_NEW))
+              for i in range(LINK_N)]
+        stranded = tiered.journal.depth
+        slack = tiered.config.fallback_slack_s
+        tight = tiered.submit(Request(100, prompts[0], max_new_tokens=ESC_NEW,
+                                      deadline_s=0.8 * slack))
+        expired = tiered.submit(
+            Request(101, prompts[1], max_new_tokens=ESC_NEW,
+                    deadline_s=0.5), arrival_s=tiered.now() - 1.0)
+        c_exp = expired.result(ESC_TIMEOUT_S)
+        c_tight = tight.result(ESC_TIMEOUT_S)
+        during = tiered.now() < revive_at
+        results = [h.result(ESC_TIMEOUT_S + LINK_WINDOW_S) for h in hs]
+        drained_at = tiered.now()
+        stats = tiered.escalation_stats()
+        metrics = parse_prometheus(tiered.metrics_text())
+    finally:
+        tiered.shutdown()
+        server.shutdown()
+    rec = {"requests": LINK_N, "stranded": stranded,
+           "recovery_s": max(drained_at - revive_at, 0.0),
+           "window_s": LINK_WINDOW_S, "down_s": LINK_DOWN_S,
+           "failback_total": metrics["counters"]["repro_failback_total"],
+           "stats": stats, "surfaced": surfaced,
+           "tight": c_tight.finish_reason, "expired": c_exp.finish_reason}
+    lost = [i for i, c in enumerate(results) if c.finish_reason != "length"]
+    want_order = [warm.seq] + [h.seq for h in hs]
+    say(f"  (c) link cut for {LINK_DOWN_S} s: {stranded} journaled, "
+        f"{len(lost)} lost, surfaced in journal order "
+        f"{surfaced == want_order}, recovery {rec['recovery_s']:.3f} s "
+        f"(window {LINK_WINDOW_S} s), failbacks {rec['failback_total']:g}; "
+        f"tight deadline -> {c_tight.finish_reason} (before the revival: "
+        f"{during}), expired -> {c_exp.finish_reason}")
+    if lost or stranded != LINK_N or surfaced != want_order:
+        raise PhaseFailed(f"link cut: lost {lost}, {stranded} journaled, "
+                          f"surfaced {surfaced}, want {want_order}")
+    if any(c.tokens != solo["server"][i] for i, c in enumerate(results)) \
+            or any(h.tier != "server" for h in hs):
+        raise PhaseFailed("link cut: a replayed request's tokens differ "
+                          "from the server's alone")
+    if rec["failback_total"] != 1 or rec["recovery_s"] > LINK_WINDOW_S \
+            or stats["queue_depth"] or not stats["link_up"]:
+        raise PhaseFailed(f"link cut: {rec}")
+    if c_tight.finish_reason != "local_fallback" or not during \
+            or c_tight.tokens != solo["endpoint"][0] \
+            or c_exp.finish_reason != "timeout" or c_exp.tokens:
+        raise PhaseFailed(f"link cut: the tight request ended "
+                          f"{c_tight.finish_reason}, the expired one "
+                          f"{c_exp.finish_reason}")
+    return rec
+
+
+def over_http(torch, np, ops, calls, cfg, model, prompts, solo, root,
+              delay_s) -> dict:
+    """(d) The server tier behind ``EngineServer`` on 127.0.0.1
+    (ephemeral port) on phase 6's paged pool, a ``TieredEngine`` with
+    ``HttpTransport`` and ``always`` sending the trace, and a second
+    ``EngineServer`` fronting the tiered engine for ``/status``."""
+    from repro_torch.runtime.escalation import HttpTransport
+    from repro_torch.runtime.scheduler import Request
+    from repro_torch.runtime.server import EngineServer, ServerConfig
+    srv_eng = esc_engine(cfg, model, 8, kv_layout="paged", block_size=BS,
+                         num_blocks=PARITY_BLOCKS)
+    srv = EngineServer(srv_eng, ServerConfig(port=0, max_inflight=32)).start()
+    front = None
+    try:
+        tiered, _ = make_tiered(
+            cfg, model, ("always",), f"{root}/http", delay_s,
+            server=HttpTransport(srv.url, timeout_s=ESC_TIMEOUT_S))
+        front = EngineServer(tiered, ServerConfig(port=0)).start()
+        run = EscLaunches(torch, ops, calls, [tiered.local, srv_eng],
+                          "over HTTP")
+        t0 = time.perf_counter()
+        hs = [tiered.submit(Request(i, p, max_new_tokens=ESC_NEW))
+              for i, p in enumerate(prompts)]
+        results = [h.result(ESC_TIMEOUT_S) for h in hs]
+        wall = time.perf_counter() - t0
+        rec = run.check()
+        st = json.loads(get(front.port, "/status"))
+        st_srv = json.loads(get(srv.port, "/status"))
+    finally:
+        if front is not None:
+            front.close()
+        srv.close()
+    rec.update({"wall_s": wall, "tier": st["tier"],
+                "escalation": st["escalation"],
+                "escalations_received": st_srv["escalations_received"]})
+    agree_b = sum(c.tokens == solo["server"][i]
+                  for i, c in enumerate(results)) / len(results)
+    say(f"  (d) over HTTP (paged pool behind EngineServer): {len(hs)} "
+        f"requests in {wall:.3f} s, tokens equal (b)'s server answers on "
+        f"{agree_b:.3f}; /status tier {st['tier']!r}, escalated "
+        f"{st['escalation']['escalated']}, received "
+        f"{st_srv['escalations_received']}; launches {rec['launches']}")
+    if any(c.finish_reason != "length" for c in results) or agree_b != 1.0 \
+            or any(h.tier != "server" for h in hs):
+        raise PhaseFailed(f"over HTTP: tokens equal (b)'s server answers "
+                          f"on {agree_b:.3f}")
+    if st["tier"] != "endpoint" \
+            or st["escalation"]["escalated"] < len(hs) \
+            or st["escalation"]["queue_depth"] \
+            or st_srv["escalations_received"] < len(hs):
+        raise PhaseFailed(f"over HTTP: /status {st['tier']} "
+                          f"{st['escalation']}, server received "
+                          f"{st_srv['escalations_received']}")
+    if not rec["launches"]["paged_decode_attention"]:
+        raise PhaseFailed("over HTTP: no paged decode launch")
+    return rec
+
+
+def failover(torch, np, ops, cfg, model, prompts, smi: str) -> dict:
+    """(e) qwen2-1.5b's actor graph at full width (B = 1, S = 512, two
+    layers an actor) on the N270 platform with Ethernet, served by
+    ``FailoverController`` over ``Explorer.rank_fallbacks``: 8 frames, 4
+    checkpointed, the server killed mid-stream; then the Simulator's kill
+    and revival on the same graph, and a ``SlotFailure`` mid-decode in
+    the server engine."""
+    from repro_torch.core import (Explorer, Mapping, PlatformModel,
+                                  Simulator, paper_platform)
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.resilience import (FailoverController,
+                                                FailureTrace,
+                                                HeartbeatConfig)
+    from repro_torch.runtime.scheduler import Request, SlotFailure
+    rng = np.random.RandomState(9)
+    tokens = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, FO_S))
+                              .astype(np.int32), device="cuda")
+              for _ in range(FO_FRAMES)]
+    frames = [{"Input": t} for t in tokens]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    g = T.to_actor_graph(cfg, model, batch=1, seq=FO_S, group_size=2)
+    pg = paper_platform("N270", "ethernet")
+    pm = PlatformModel(pg)
+    ranked = Explorer(g, pg).rank_fallbacks()
+    primary = next(m for m in ranked if len(m.units_used()) == 2)
+
+    def controller(hb=None):
+        return FailoverController(g, primary, ranked, platform=pm,
+                                  heartbeat=hb,
+                                  checkpoint_frames=FO_CHECKPOINT)
+    with torch.no_grad():
+        ref = [T.forward(model, cfg, {"tokens": t}, train=False)[0]
+               for t in tokens]
+    edge_reset(ops)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nominal, nom = controller().serve(frames)
+    torch.cuda.synchronize()
+    nom_wall = time.perf_counter() - t0
+    nom_launches = edge_counts(ops)
+    peak_nominal = torch.cuda.max_memory_allocated()
+    gap = nom.makespan_s / FO_FRAMES
+    hb = HeartbeatConfig(interval_s=gap / 2, timeout_s=gap)
+    trace = FailureTrace().kill_unit("server",
+                                     at=FO_FAIL_FRAC * nom.makespan_s)
+    ctl = controller(hb)
+    edge_reset(ops)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs, rep = ctl.serve(frames, failures=trace)
+    torch.cuda.synchronize()
+    fail_wall = time.perf_counter() - t0
+    fail_launches = edge_counts(ops)
+    peak_failover = torch.cuda.max_memory_allocated()
+    fired = FO_FRAMES + len(rep.frames_replayed)
+    equal = [o is not None and torch.equal(o["Head"], n["Head"])
+             and torch.equal(o["Head"], r)
+             for o, n, r in zip(outs, nominal, ref)]
+    ev = rep.events[0] if rep.events else None
+    n = cfg.n_layers
+    rec = {"actors": len(g.actors), "primary": primary.name,
+           "mapping_history": rep.mapping_history,
+           "frames_replayed": rep.frames_replayed,
+           "frames_unserved": rep.frames_unserved, "equal": equal,
+           "launches": {"nominal": nom_launches, "failover": fail_launches},
+           "fired": fired, "nominal_wall_s": nom_wall,
+           "failover_wall_s": fail_wall,
+           "frame_wall_ms": fail_wall / fired * 1e3,
+           "detection_ms": (ev.t_detect_s - ev.t_fail_s) * 1e3 if ev else None,
+           "resynthesis_ms": ev.resynth_s * 1e3 if ev else None,
+           "recovery_ms": rep.recovery_latency_s * 1e3,
+           "modeled_makespan_s": {"nominal": nom.makespan_s,
+                                  "failover": rep.makespan_s},
+           "memory_gb": {"before_graph": mem0 / 1e9,
+                         "peak_nominal": peak_nominal / 1e9,
+                         "peak_failover": peak_failover / 1e9}}
+    _, rec["frame"] = timed_frame(
+        torch, lambda: ctl.program.run_local(frames[0]),
+        f"a frame on the fallback mapping {ctl.mapping.name}")
+    say(f"  (e) failover: {len(g.actors)} actors, {primary.name} -> "
+        f"{' -> '.join(rep.mapping_history[1:])}; {fired} frames fired "
+        f"({len(rep.frames_replayed)} replayed: {rep.frames_replayed}), "
+        f"every frame equal to the failure-free run's and forward's: "
+        f"{all(equal)}; recovery {rec['recovery_ms']:.3f} ms = detection "
+        f"{rec['detection_ms']:.3f} ms (modeled) + re-synthesis "
+        f"{rec['resynthesis_ms']:.3f} ms (wall); {rec['frame_wall_ms']:.2f} "
+        f"ms a frame fired (wall), fallback frame busy "
+        f"{rec['frame']['trace']['device_busy_s'] * 1e3:.3f} ms, idle share "
+        f"{rec['frame']['trace']['idle_share']:.4f}; launches {fail_launches};"
+        f" peak memory {peak_nominal / 1e9:.3f} / {peak_failover / 1e9:.3f}"
+        f" GB (nominal / failover; {mem0 / 1e9:.3f} GB before the graph) "
+        f"({smi})")
+    want = {k: 0 for k in EDGE_KERNELS}
+    if rep.num_failovers < 1 or rep.exhausted or rep.frames_unserved \
+            or not rep.frames_replayed or "server" in ctl.mapping.units_used() \
+            or not all(equal):
+        raise PhaseFailed(f"failover: {rec}")
+    if nom_launches != dict(want, flash_attention=n * FO_FRAMES) \
+            or fail_launches != dict(want, flash_attention=n * fired):
+        raise PhaseFailed(f"failover launches {nom_launches} / "
+                          f"{fail_launches}, want 28 x {FO_FRAMES} / "
+                          f"28 x {fired}")
+    # the Simulator kills and revives the server on the same graph
+    names = list(g.actors)
+    half = Mapping("half", {a: ("endpoint" if i < len(names) // 2
+                                else "server")
+                            for i, a in enumerate(names)}, pg)
+    feed = {"Input": tokens[:SIM_FRAMES]}
+    sim_nom = Simulator(g, mapping=half, platform=pm).run(
+        SIM_FRAMES, source_inputs=feed)
+    sv = [f for f in sim_nom.firings if f.unit == "server"]
+    sim_trace = FailureTrace().kill_unit(
+        "server", at=(sv[0].start_s + sv[-1].finish_s) / 2) \
+        .revive_unit("server", at=sv[-1].finish_s)
+    sim = Simulator(g, mapping=half, platform=pm).run(
+        SIM_FRAMES, source_inputs=feed, failures=sim_trace)
+    sim_equal = len(sim.outputs["Head"]) == SIM_FRAMES and all(
+        torch.equal(a, b) for a, b in zip(sim_nom.outputs["Head"],
+                                          sim.outputs["Head"]))
+    rec["simulator"] = {"frames_replayed": sim.frames_replayed,
+                        "frames_lost": sim.frames_lost, "equal": sim_equal,
+                        "downtime_overhead": sim.modeled_makespan_s
+                        / sim_nom.modeled_makespan_s}
+    # one SlotFailure mid-decode: the server engine re-queues and decodes
+    # the failure-free run's tokens
+    reqs = [Request(i, p, max_new_tokens=ESC_NEW)
+            for i, p in enumerate(prompts[:8])]
+    clean = esc_engine(cfg, model, 8).generate(reqs)
+    failing = esc_engine(cfg, model, 8, failures=[
+        SlotFailure(step=SLOT_FAIL_STEP, slots=None)])
+    hit = failing.generate(reqs)
+    fails = [e for e in failing.scheduler.events if e.kind == "fail"]
+    rec["slot_failure"] = {"requeued": len(fails),
+                           "equal": [a.tokens == b.tokens
+                                     for a, b in zip(clean, hit)]}
+    say(f"  (e) Simulator kill + revival: {len(sim.frames_replayed)} frames "
+        f"re-fired, {len(sim.frames_lost)} lost, outputs equal bit for bit "
+        f"{sim_equal}, modeled downtime x"
+        f"{rec['simulator']['downtime_overhead']:.4f}; SlotFailure at step "
+        f"{SLOT_FAIL_STEP}: {len(fails)} requests re-queued, tokens equal "
+        f"the failure-free run's {all(rec['slot_failure']['equal'])}")
+    if not sim.frames_replayed or sim.frames_lost or not sim_equal:
+        raise PhaseFailed(f"simulator kill + revival: {rec['simulator']}")
+    if not fails or not all(rec["slot_failure"]["equal"]):
+        raise PhaseFailed(f"SlotFailure: {rec['slot_failure']}")
+    return rec
+
+
+def phase_tiered(torch, np, ops, smi: str) -> dict:
+    """qwen2-1.5b at full width and depth in bf16 on both tiers of
+    hierarchical serving (one model object), then the failover; see the
+    module docstring for (a)-(e)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.policies import (ConfidenceEscalation,
+                                              LocalOverloadEscalation)
+    torch.cuda.empty_cache()
+    model = T.init_params(get_config("qwen2_1_5b"), 0, device="cuda")
+    cfg = model.cfg
+    prompts = esc_prompts(cfg, np)
+    out = {}
+    calls = Calls(T)
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            out["step_delay"] = a = step_delay_check(torch, cfg, model,
+                                                     prompts[0])
+            t0 = time.perf_counter()
+            solo = {"endpoint": solo_tokens(cfg, model, prompts, 1),
+                    "server": solo_tokens(cfg, model, prompts, 8)}
+            out["solo_s"] = time.perf_counter() - t0
+            out["cross_tier_agreement"] = sum(
+                a_ == b_ for a_, b_ in zip(solo["endpoint"], solo["server"])
+            ) / ESC_N
+            # the handicap, rate and deadline from the measured step
+            delay = round(ESC_HANDICAP * a["step_s"], 4)
+            service = sum(a["wall_s"]) / 2 + a["engine_steps"] * delay
+            rate, deadline = ESC_LOAD / service, ESC_DEADLINE * service
+            arrivals = esc_arrivals(np, rate)
+            out["choice"] = {"step_s": a["step_s"], "delay_s": delay,
+                             "service_s": service, "rate_per_s": rate,
+                             "deadline_s": deadline}
+            say(f"  (b) measured step {a['step_s'] * 1e3:.2f} ms -> endpoint "
+                f"handicap {delay * 1e3:.1f} ms a step, service "
+                f"{service:.3f} s a request, Poisson rate {rate:.3f}/s, "
+                f"deadline {deadline:.3f} s; cross-tier agreement (1 vs 8 "
+                f"slots, each alone) {out['cross_tier_agreement']:.3f}")
+            modes = {"never": ("never",), "always": ("always",),
+                     "gated": (ConfidenceEscalation(1.0),
+                               LocalOverloadEscalation(max_queue_depth=1))}
+            out["modes"] = {
+                name: tiered_mode(torch, np, ops, calls, cfg, model, name,
+                                  pol, prompts, arrivals, deadline, delay,
+                                  solo, root)
+                for name, pol in modes.items()}
+            never, gated = out["modes"]["never"], out["modes"]["gated"]
+            if never["escalated"] or out["modes"]["always"]["escalated"] \
+                    != ESC_N or not 0 < gated["escalated"] < ESC_N \
+                    or (gated["answered_within_deadline"]
+                        <= never["answered_within_deadline"]
+                        and gated["answered_within_deadline"] < ESC_N):
+                raise PhaseFailed(
+                    f"tiered serving: gated {gated['answered_within_deadline']}"
+                    f" in deadline with {gated['escalated']} escalated, never "
+                    f"{never['answered_within_deadline']}")
+            out["link_cut"] = link_cut(torch, np, cfg, model, prompts, solo,
+                                       root, delay)
+            out["http"] = over_http(torch, np, ops, calls, cfg, model,
+                                    prompts, solo, root, delay)
+        out["failover"] = failover(torch, np, ops, cfg, model, prompts, smi)
+    finally:
+        calls.restore()
+    out["phase_s"] = time.perf_counter() - t_phase
+    del model
+    torch.cuda.empty_cache()
+    say(f"  {smi}; phase 8 took {out['phase_s']:.1f} s")
+    say("[8/8] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
+        "content-neutral, the gated tier beats the endpoint alone, every "
+        "request equal to its tier alone, nothing lost across a link cut, "
+        "the server over HTTP, failover frames equal to forward; launches "
+        "exact")
     return out
 
 
@@ -2530,14 +3252,23 @@ KERNEL_LINE = {
                        "src/repro/kernels/rglru_scan/kernel.py:41", "train",
                        ("train", "full_width")),
 }
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+
+
+def tiered_launches(rec: dict) -> dict:
+    """Phase 8's launches by path: the three modes, over HTTP and the
+    failover's failure run."""
+    out = {name: m["launches"] for name, m in rec["modes"].items()}
+    out["http"] = rec["http"]["launches"]
+    out["failover"] = rec["failover"]["launches"]["failover"]
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -2585,6 +3316,9 @@ def main() -> int:
         if 7 in phases:
             record["edge"] = phase_edge(torch, np, ops,
                                         record["device"]["nvidia_smi"])
+        if 8 in phases:
+            record["tiered"] = phase_tiered(torch, np, ops,
+                                            record["device"]["nvidia_smi"])
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
@@ -2595,6 +3329,9 @@ def main() -> int:
                                              indent=1, default=str,
                                              sort_keys=True))
     say(f"# total {record['total_s']:.1f} s")
+    if 8 in phases:
+        say(f"# phase 8 launches by path: "
+            f"{json.dumps(tiered_launches(record['tiered']))}")
     if phases != ALL_PHASES:
         say(f"# partial run (phases {sorted(phases)}): no result line")
         return 0

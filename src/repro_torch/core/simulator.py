@@ -212,8 +212,8 @@ class Simulator:
         payloads (one per firing); otherwise the source fire_fn is invoked
         with no input tokens.
 
-        ``failures`` (a ``repro.runtime.resilience.FailureTrace``, duck-
-        typed so core stays import-free of runtime) injects unit/link
+        ``failures`` (a ``repro_torch.runtime.resilience.FailureTrace``,
+        duck-typed so core stays import-free of runtime) injects unit/link
         kills and revivals on the modeled clocks:
 
         * a firing whose start falls inside a dead interval of its unit is

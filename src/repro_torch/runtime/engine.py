@@ -1,9 +1,8 @@
 """Unified serving facade of the port: one ``Engine``, policy-configured.
 
-Counterpart of ``repro.runtime.engine`` with its ``EngineConfig`` (less
-``step_delay_s``, which comes with the hierarchical tiers, ROADMAP queue
-1, item 9). ``admission`` picks the policy: ``"fifo"`` | ``"priority"``
-| ``"edf"`` stream through the continuous scheduler; ``"batch"`` runs
+Counterpart of ``repro.runtime.engine`` with its ``EngineConfig``.
+``admission`` picks the policy: ``"fifo"`` | ``"priority"`` | ``"edf"``
+stream through the continuous scheduler; ``"batch"`` runs
 the static-bucket executor (closed batches grouped by prompt length),
 the oracle every other policy's greedy tokens must equal. Under a
 continuous policy:
@@ -74,8 +73,7 @@ KV_LAYOUTS = ("slotted", "paged")
 
 @dataclass
 class EngineConfig:
-    """Structured engine configuration: the reference's fields, less
-    ``step_delay_s``."""
+    """Structured engine configuration: the reference's fields."""
 
     max_slots: int = 8          # decode batch width (continuous policies)
     max_len: int = 512          # KV rows per slot
@@ -121,6 +119,11 @@ class EngineConfig:
     greedy: bool = True
     temperature: float = 1.0
     seed: int = 0
+    # wall-clock device-speed handicap: sleep this long after every
+    # non-idle scheduler step, emulating a slower device (the edge
+    # endpoint tier of a TieredEngine when both tiers share one host).
+    # Content-neutral: tokens are bit-identical at any value.
+    step_delay_s: float = 0.0
     debug: bool = False         # step-boundary invariant checks
     # metrics + lifecycle tracing (runtime.observability): histograms,
     # per-request spans, per-step phase breakdown, /trace export. Off by
@@ -497,7 +500,7 @@ class Engine:
                     enforce_deadlines=c.enforce_deadlines,
                     units=c.units, prefill_units=c.prefill_units,
                     decode_stages=c.decode_stages, placement=c.placement,
-                    debug=c.debug),
+                    step_delay_s=c.step_delay_s, debug=c.debug),
                 failures=failures, admission=self.admission,
                 preemption=self.preemption,
                 obs=self.obs if c.observability else None)

@@ -1,19 +1,18 @@
 """Serving policies of the port: admission order, preemption victims,
-unit placement, victim-cache eviction, sampling.
+unit placement, victim-cache eviction, escalation, sampling.
 
 Counterpart of ``repro.runtime.policies``. The admission, preemption,
-placement and victim-eviction classes are framework-neutral and copied
-as they are; the
-sampler draws from a ``torch.Generator`` instead of a JAX key. Greedy
-sampling never touches the generator, so greedy tokens agree with the
-reference; temperature sampling cannot replay JAX's PRNG stream and is
-held to the reference by its distribution. The escalation policies come
-with the slice that uses them (ROADMAP queue 1, item 9).
+placement, victim-eviction and escalation classes are framework-neutral
+and copied as they are; the sampler draws from a ``torch.Generator``
+instead of a JAX key. Greedy sampling never touches the generator, so
+greedy tokens agree with the reference; temperature sampling cannot
+replay JAX's PRNG stream and is held to the reference by its
+distribution.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -180,6 +179,107 @@ class WeightedLruEviction:
 
 
 # ---------------------------------------------------------------------------
+# escalation policies
+# ---------------------------------------------------------------------------
+# Whether a request submitted to a TieredEngine (runtime.escalation) is
+# answered by the local engine or escalated to the server tier. Policies
+# receive an EscalationContext-shaped record exposing:
+#   .req            the Request (priority / deadline_s / max_new_tokens)
+#   .snapshot       lazy local-load view: queue_depth, active_slots and
+#                   best-effort kv occupancy, read lock-free
+#   .now_s          seconds on the tiered engine's clock
+#   .confidence()   lazy local-model confidence in [0, 1]: the max
+#                   softmax probability of the local model's next-token
+#                   prediction, computed at most once per request and
+#                   only if some policy asks.
+# ``decide(ctx)`` returns a short reason string to escalate, or None to
+# answer locally. The TieredEngine ORs its policy list: the first
+# non-None reason wins and is recorded on the handle and in the trace.
+
+
+class NeverEscalate:
+    """Local-only: the endpoint answers everything itself (the paper's
+    endpoint-alone baseline; no request ever leaves the device)."""
+
+    name = "never"
+
+    def decide(self, ctx) -> Optional[str]:
+        return None
+
+
+class AlwaysEscalate:
+    """Server-only: every request escalates (the always-offload
+    baseline)."""
+
+    name = "always"
+
+    def decide(self, ctx) -> Optional[str]:
+        return "always"
+
+
+class ConfidenceEscalation:
+    """Escalate the requests the local model is unsure about (next-token
+    max softmax probability below ``threshold``); confident requests are
+    answered on the device."""
+
+    name = "confidence"
+
+    def __init__(self, threshold: float = 0.35):
+        self.threshold = threshold
+
+    def decide(self, ctx) -> Optional[str]:
+        if ctx.confidence() < self.threshold:
+            return "low_confidence"
+        return None
+
+
+class DeadlineRiskEscalation:
+    """Escalate when the local tier probably cannot meet the request's
+    deadline: estimated local completion time (queue ahead + own decode,
+    at ``sec_per_token`` a token) times ``safety`` exceeds the deadline.
+    Deadline-free requests never trip this policy."""
+
+    name = "deadline-risk"
+
+    def __init__(self, sec_per_token: float = 5e-3, safety: float = 1.5):
+        self.sec_per_token = sec_per_token
+        self.safety = safety
+
+    def estimate_local_s(self, ctx) -> float:
+        """Every queued request is assumed as long as this one."""
+        waiting = ctx.snapshot.get("queue_depth", 0) + 1
+        return waiting * ctx.req.max_new_tokens * self.sec_per_token
+
+    def decide(self, ctx) -> Optional[str]:
+        if ctx.req.deadline_s is None:
+            return None
+        if self.estimate_local_s(ctx) * self.safety > ctx.req.deadline_s:
+            return "deadline_risk"
+        return None
+
+
+class LocalOverloadEscalation:
+    """Escalate on local pressure: the endpoint's admission queue is
+    deeper than ``max_queue_depth``, or (paged KV) the pool high-water
+    mark has reached ``kv_frac`` of capacity."""
+
+    name = "overload"
+
+    def __init__(self, max_queue_depth: int = 2, kv_frac: float = 1.0):
+        self.max_queue_depth = max_queue_depth
+        self.kv_frac = kv_frac
+
+    def decide(self, ctx) -> Optional[str]:
+        if ctx.snapshot.get("queue_depth", 0) > self.max_queue_depth:
+            return "local_overload"
+        kv = ctx.snapshot.get("kv", {})
+        pool = kv.get("paged_kv_pool_bytes", 0.0)
+        if pool and kv.get("paged_kv_hwm_bytes", 0.0) >= self.kv_frac * pool:
+            return "local_overload"
+        return None
+
+
+# ---------------------------------------------------------------------------
 # factories (EngineConfig carries policy names or instances)
 # ---------------------------------------------------------------------------
 
@@ -205,6 +305,14 @@ PLACEMENT_POLICIES = {
 VICTIM_EVICTION_POLICIES = {
     "lru": LruEviction,
     "weighted-lru": WeightedLruEviction,
+}
+
+ESCALATION_POLICIES = {
+    "never": NeverEscalate,
+    "always": AlwaysEscalate,
+    "confidence": ConfidenceEscalation,
+    "deadline-risk": DeadlineRiskEscalation,
+    "overload": LocalOverloadEscalation,
 }
 
 
@@ -237,3 +345,12 @@ def make_victim_eviction(spec) -> Any:
     """Resolve a victim-eviction policy name or pass an instance
     through."""
     return _make("victim-eviction", VICTIM_EVICTION_POLICIES, spec)
+
+
+def make_escalation(spec) -> List[Any]:
+    """Resolve an escalation policy specification into a policy list
+    (the TieredEngine ORs them): a name, an instance, or a sequence of
+    either."""
+    if isinstance(spec, str) or not isinstance(spec, (list, tuple)):
+        spec = [spec]
+    return [_make("escalation", ESCALATION_POLICIES, s) for s in spec]

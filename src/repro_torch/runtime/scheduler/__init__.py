@@ -15,7 +15,8 @@ Counterpart of ``repro.runtime.scheduler``, split the same way:
 """
 from repro_torch.runtime.policies import sample_tokens
 from repro_torch.runtime.scheduler.allocator import BlockAllocator
-from repro_torch.runtime.scheduler.core import ContinuousScheduler
+from repro_torch.runtime.scheduler.core import (ContinuousScheduler,
+                                                device_step_lock)
 from repro_torch.runtime.scheduler.layouts import PagedLayout, SlottedLayout
 from repro_torch.runtime.scheduler.prefix_pool import (VictimCache,
                                                        restore_victim_cache,
@@ -33,6 +34,7 @@ from repro_torch.runtime.scheduler.units import (DecodeExecutor,
 __all__ = [
     "Request", "Completion", "SchedulerConfig", "SchedEvent", "SlotFailure",
     "SlottedLayout", "PagedLayout", "BlockAllocator", "ContinuousScheduler",
+    "device_step_lock",
     "sample_tokens",
     "validate_request_fits", "FINISH_REASONS", "COUNTER_KEYS",
     "UnitSpec", "UnitExecutor", "PrefillExecutor", "DecodeExecutor",

@@ -84,6 +84,11 @@ class BlockAllocator:
                 raise ValueError(f"block {b} shared but not held")
             self._refs[b] += 1
 
+    def reset_hwm(self) -> None:
+        """Restart high-water tracking from the current occupancy (e.g.
+        between a warmup drain and a measured run)."""
+        self.hwm = len(self._refs)
+
     def release(self, blocks: List[int]) -> List[int]:
         """Drop one reference per block; blocks whose count reaches zero
         return to the free pool. Returns the blocks actually freed (the

@@ -28,9 +28,10 @@ the model's device once per decode step.
 from __future__ import annotations
 
 import heapq
+import threading
 import time
 from collections import Counter
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +57,28 @@ from repro_torch.runtime.scheduler.units import ExecutionCore
 __all__ = ["ContinuousScheduler"]
 
 
+# one step lock per device, shared by every engine of the process on it
+_STEP_LOCKS: Dict[str, threading.RLock] = {}
+_STEP_LOCKS_GUARD = threading.Lock()
+
+
+def device_step_lock(device) -> threading.RLock:
+    """The lock that model steps on ``device`` take in this process. A
+    step dispatches thousands of small operations from Python, and two
+    threads dispatching at once (two engines' drain threads, or a drain
+    thread and a tiered engine's confidence probe) hand the interpreter
+    lock back and forth at every operation, which on the card made both
+    several times slower than taking turns. So the schedulers on one
+    device take turns a step's model work at a time; tokens are
+    unchanged. It is the innermost lock of a step (taken under the
+    engine's own, released before the step's sleep and its completion
+    callbacks), so a token callback, which runs under it, must not wait
+    on another engine."""
+    key = str(torch.device(device))
+    with _STEP_LOCKS_GUARD:
+        return _STEP_LOCKS.setdefault(key, threading.RLock())
+
+
 class ContinuousScheduler:
     """Admission queue + shared decode batch over a slotted or paged KV
     cache.
@@ -74,6 +97,9 @@ class ContinuousScheduler:
         self.cfg = cfg
         self.model = model
         self.device = model.device
+        # held over each step's model work, never over its sleep or its
+        # delivery (see device_step_lock)
+        self.step_lock = device_step_lock(self.device)
         self.sched = s = sched or SchedulerConfig()
         self.admission = make_admission(admission) if admission is not None \
             else FifoAdmission()
@@ -269,6 +295,17 @@ class ContinuousScheduler:
 
     def _step_impl(self, on_completion: Optional[
             Callable[[Completion], None]] = None) -> List[Completion]:
+        with self.step_lock:
+            done, pause_s = self._step_work()
+        if pause_s:
+            # an idle step's wait for the next arrival, or the
+            # step_delay_s device-speed handicap after a non-idle step
+            time.sleep(pause_s)
+        return self._deliver(done, on_completion)
+
+    def _step_work(self) -> Tuple[List[Completion], float]:
+        """The step's model work: returns its completions and how long
+        to sleep before delivering them."""
         if self._t0 is None:
             self._t0 = time.perf_counter()
         if self._backlog_dirty:
@@ -291,9 +328,9 @@ class ContinuousScheduler:
             if self._backlog_pos < len(self.backlog):
                 # idle until the next arrival; failures due now still apply
                 done.extend(self._apply_failures(t0))
-                time.sleep(max(
-                    0.0, self.backlog[self._backlog_pos].arrival_s - now))
-            return self._deliver(done, on_completion)
+                return done, max(
+                    0.0, self.backlog[self._backlog_pos].arrival_s - now)
+            return done, 0.0
         wa = time.perf_counter()
         done.extend(self._apply_failures(t0))
         _prefill.advance_chunked(self, t0)
@@ -307,7 +344,7 @@ class ContinuousScheduler:
             done.extend(self._decode_step(t0))
         if self.sched.debug:
             self._check_invariants()
-        return self._deliver(done, on_completion)
+        return done, self.sched.step_delay_s
 
     # -- observability hooks (self.obs is not None on every call) -----------
 

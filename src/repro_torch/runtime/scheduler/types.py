@@ -176,6 +176,12 @@ class SchedulerConfig:
     # unit topologies, so costs must not depend on wall-clock noise)
     prefill_sec_per_token: float = 1e-4
     decode_sec_per_token: float = 1e-4
+    # wall-clock device-speed handicap: sleep this long after every
+    # non-idle step. Emulates serving on a slower device (an edge
+    # endpoint tier vs a server tier sharing one host, as in the
+    # hierarchical-serving bench); token content is untouched, only
+    # real elapsed time stretches.
+    step_delay_s: float = 0.0
     # assert slot/block accounting invariants at every step boundary
     debug: bool = False
 

@@ -16,11 +16,17 @@ values::
 The Edge-PRUNE partitioned engine (``PartitionedServeEngine``: prefill
 through the model's actor graph split by a mapping) is re-exported here
 from ``repro_torch.runtime.serving``, where the deprecated
-``ServeEngine`` shim stays, as in the reference. The hierarchical-serving
-names (``TieredEngine`` and the escalation journal and transports) come
-with ROADMAP queue 1, item 9.
+``ServeEngine`` shim stays, as in the reference. Hierarchical serving
+(``runtime.escalation``) is re-exported too: ``TieredEngine`` fronts a
+local ``Engine`` plus a remote tier behind a transport, with a durable
+on-disk escalation journal.
 """
 from repro_torch.runtime.engine import Engine, EngineConfig, RequestHandle
+from repro_torch.runtime.escalation import (EscalationJournal, FlakyTransport,
+                                            HttpTransport, InProcessTransport,
+                                            JournalReplayer, LinkDown,
+                                            TieredConfig, TieredEngine,
+                                            TieredHandle)
 from repro_torch.runtime.observability import (MetricsRegistry, Observability,
                                                Tracer, parse_prometheus,
                                                validate_chrome_trace)
@@ -40,6 +46,15 @@ __all__ = [
     "EngineServer",
     "ServerConfig",
     "PartitionedServeEngine",
+    "TieredEngine",
+    "TieredConfig",
+    "TieredHandle",
+    "EscalationJournal",
+    "JournalReplayer",
+    "InProcessTransport",
+    "HttpTransport",
+    "FlakyTransport",
+    "LinkDown",
     "Observability",
     "MetricsRegistry",
     "Tracer",

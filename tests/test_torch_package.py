@@ -6,9 +6,9 @@
   model and the ``Engine``) default to ``"cuda"`` and raise without a
   card unless the caller passes ``device="cpu"``;
 * the ``EngineConfig`` fields run by the slices so far are accepted and
-  build an engine; the knob of a later slice (``step_delay_s``) is not a
-  field, and the model families of later slices are refused with a
-  ``ValueError`` that says so (the hybrid's ``rglru`` and ``attn_local``
+  build an engine (``step_delay_s``, the endpoint tier's handicap,
+  leaves the tokens as they are), and the model families of later
+  slices are refused with a ``ValueError`` that says so (the hybrid's ``rglru`` and ``attn_local``
   blocks build and train, and serving refuses them);
 * ``chip_smoke.py`` fails, printing no result, without a card or outside
   a checkout.
@@ -21,8 +21,10 @@ import pkgutil
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,7 +52,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.runtime.observability", "repro_torch.runtime.server",
             "repro_torch.runtime.scheduler.prefix_pool",
             "repro_torch.serving", "repro_torch.runtime.serving",
-            "repro_torch.models.cnn"} | {
+            "repro_torch.models.cnn", "repro_torch.runtime.resilience",
+            "repro_torch.runtime.escalation_queue",
+            "repro_torch.runtime.escalation"} | {
         f"repro_torch.core.{m}" for m in (
             "graph", "analyzer", "mapping", "calibration", "synthesis",
             "simulator", "explorer", "clocks")} <= set(mods)
@@ -90,11 +94,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     Engine(cfg, model, device="cpu")        # the explicit opt-in works
 
 
-def test_later_slice_fields_are_refused():
-    """``step_delay_s`` (the edge tier's handicap) comes with the
-    hierarchical tiers (ROADMAP queue 1, item 9): no field takes it."""
-    with pytest.raises(TypeError, match="step_delay_s"):
-        EngineConfig(step_delay_s=0.05)
+def test_step_delay_is_accepted_and_leaves_tokens_unchanged():
+    """``step_delay_s`` (the endpoint tier's handicap) sleeps after every
+    non-idle scheduler step: the same requests give the same tokens, and
+    the run takes at least steps x delay longer on the wall clock."""
+    from repro_torch.runtime.scheduler import Request
+    cfg = ModelConfig(**TINY)
+    model = PT.init_params(cfg, device="cpu")
+    prompts = np.random.RandomState(0).randint(0, 64, (3, 5)).astype(np.int32)
+    runs = {}
+    for delay in (0.0, 0.01):
+        c = EngineConfig(max_len=32, max_slots=2, step_delay_s=delay)
+        assert c.step_delay_s == delay
+        eng = Engine(cfg, model, c, device="cpu")
+        assert eng.scheduler.sched.step_delay_s == delay
+        t0 = time.perf_counter()
+        comps = eng.generate([Request(i, p, max_new_tokens=4)
+                              for i, p in enumerate(prompts)])
+        runs[delay] = ([c.tokens for c in comps], eng.stats()["steps"],
+                       time.perf_counter() - t0)
+    (toks0, steps, wall0), (toks1, steps1, wall1) = runs[0.0], runs[0.01]
+    assert toks1 == toks0 and steps1 == steps > 0
+    assert wall1 >= steps * 0.01
 
 
 # each field with what it needs beside it (prefix sharing and the victim
