@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6,7,8]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6,7,8,9]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -158,18 +158,59 @@ Phases, one status line each; any failure exits non-zero:
    and revival on the same graph re-fires frames bit-exact; a
    ``SlotFailure`` mid-decode in the server engine keeps the failure-free
    tokens.
+9. the local-attention and hybrid families served on the card: (a) the
+   JAX hybrid fixture (``src/repro_torch/testdata/golden_hybrid.npz``,
+   gemma3-1b's and recurrentgemma-9b's smoke configs) replayed in fp32
+   through the kernels: prefill + 4 decode-step logits within 1e-4 of
+   JAX's, and the Engine's tokens, finish reasons, counters and
+   ``kv_stats`` equal to JAX's engine's in every cell (batch, slotted
+   fifo, chunked prefill and prefix sharing served one-shot, 2 decode
+   stages, a ``SlotFailure``, and for gemma3 the paged pool, a pool that
+   preempts); (b) gemma3-1b at full width and depth in bf16 (26 layers,
+   4/1 heads of 256, window 512): its prefill and 8 decode steps through
+   the kernels against the plain versions (phase 4's limits, every
+   cache leaf), then the serve CLI with 16 requests of 1,024-token
+   prompts (the rings wrap inside the prefill) and 32 new tokens over 8
+   slots: slotted fifo, batch, paged fifo (blocks of 16), ``--prefix-
+   cache`` and ``--prefill-chunk 128``; every request ends by length,
+   fifo equals batch, the paged runs equal slotted fifo (the prefix run a
+   slotted run of its shared-preamble workload), the last two are served
+   one-shot (no extend call, no prefix hit), and the launches are exact:
+   flash 26 a prefill call, per decode step slotted decode 26 (slotted)
+   or 22 slotted + 4 paged (paged); (c) recurrentgemma-9b at full width
+   and depth (38 layers: 26 RG-LRU, 12 local attention of 16/1 heads of
+   256, window 2,048): against its plain versions (4 prompts of 2,080
+   tokens, 8 decode steps, ``h`` and ``conv`` among the leaves), then 14
+   requests of 512 tokens and 2 of 2,080 (whose rings wrap), 32 new, 8
+   slots: fifo replayed from a JSONL trace through the CLI's ``--trace``,
+   batch on the same requests, equal; the paged layout refused in the
+   reference's words; launches exact: 12 flash and 26 scan-forward a
+   prefill call, 12 slotted decode and no scan a decode step; (d)
+   llama3.2-3b and chatglm3-6b at full width and depth: one slotted fifo
+   run each (8 requests of 256 tokens, 16 new), launches exact, and their
+   prefill and 2 decode steps against the plain versions; (e) each
+   model's fifo run's wall, output tok/s, TTFT p50 and decode ms a step
+   beside the card's name and power limit, and the run replayed under
+   ``torch.profiler`` for the device's busy time and idle share.
    Phase 2 adds the scan on the reference's test shapes,
    the chunked body's edges (a partial last chunk with B > 1, D = 37,
    S = 1) and at B=1 S=4096 D=4096 (tol 1e-5, forward and reverse; two
    calls there bitwise equal; back-to-back calls on rotated inputs each
    within 1e-5) and flash at
    head_dim 256 with its lse (16 query heads over 1, window 2048 at
-   S=4096, bf16 and fp32), and times both at the training shapes.
+   S=4096, bf16 and fp32), and times both at the training shapes; and
+   slotted and paged decode at head_dim 256 (bf16 and fp32, g = 1, 4 and
+   16, lengths 0, 1, 31, 33, 511, 512 and 2,048 over rings of 512 and
+   2,048 rows and 128 pages of 16), timed with flash and the scan at
+   phase 9's shapes (gemma3-1b's rings, global layers and paged pool;
+   RecurrentGemma's rings and a 512-token prefill).
 
 ``--phases`` runs a subset and prints no result line (``--phases 8``
 runs phase 8 after the build). With all phases, the line before the
-last holds the kernels' summary as JSON, after a line with phase 8's
-launches by path; the last line is ``{"ok": true, "device": {...}}``.
+last holds the kernels' summary as JSON (an entry per kernel and main
+path, with its timed shape and path: qwen2-1.5b's, the training run's
+and phase 9's at head_dim 256), after a line with phase 8's launches by
+path; the last line is ``{"ok": true, "device": {...}}``.
 Needs one card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -253,7 +294,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/8] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/9] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -317,14 +358,53 @@ DEC_CASES = [
     (8, 12, 2, 128, SERVE_S, "float32", EDGE_LENS),
     (5, 4, 2, 12, 45, "bfloat16", [0, 1, 45, 17, 33]),
 ]
-# the shapes the serving runs give the kernels, timed below; "fifo" (the
-# main path) goes into the kernels line, "batch" into the --out record
-SERVE_FA = {"fifo": 1, "batch": 16}                    # prefill batch
-SERVE_DEC = {"fifo": FIFO_LENS, "batch": [528] * 16}   # slot lengths
+# head_dim 256 (the kernel's second head-dim class), bf16 and fp32: g = 4
+# over gemma3-1b's rings of 512 rows, g = 16 (RecurrentGemma) and g = 1
+# over rings of 2,048, at lengths 0, 1, 31, 33 (a tile's edges), 511,
+# 512 and 2,048 (a full ring)
+RING_LENS = [0, 1, 31, 33, 511, 512, 2048]
+# chatglm3-6b's decode: 32 query heads over 2 KV heads (g = 16, the
+# largest group) at head_dim 128, and llama3.2-3b's g = 3
+DEC_CASES += [(8, 32, 2, 128, 280, dtn, [0, 1, 31, 33, 200, 257, 271, 280])
+              for dtn in ("bfloat16", "float32")]
+DEC_CASES += [(8, 24, 8, 128, 280, "bfloat16",
+               [0, 1, 31, 33, 200, 257, 271, 280])]
+DEC_CASES += [case for dtn in ("bfloat16", "float32") for case in (
+    (6, 4, 1, 256, 512, dtn, RING_LENS[:-1]),
+    (7, 16, 1, 256, 2048, dtn, RING_LENS),
+    (7, 1, 1, 256, 2048, dtn, RING_LENS))]
 # the paged runs: max_len 552 rounds up to 35 pages of 16 rows, and a
 # pool at slotted parity holds 8 * 35 blocks + the null block
 BS, PAGES = 16, 35
 PARITY_BLOCKS = 8 * PAGES + 1
+# phase 9's serving shapes at head_dim 256, 8 slots: gemma3-1b's rows a
+# slot (1,024-token prompts + 32 new + 8), 67 pages of 16 when paged;
+# RecurrentGemma's local window
+G3_S = 1024 + 32 + 8
+G3_PAGES = -(-G3_S // BS)
+RG_WINDOW = 2048
+# the shapes the serving runs give the kernels, timed below; "fifo" (the
+# main path) and phase 9's shapes go into the kernels line, "batch" into
+# the --out record. Flash: (B, S, H, Hk, D, window), causal;
+SERVE_FA = {"fifo": (1, 512, 12, 2, 128, 0), "batch": (16, 512, 12, 2, 128, 0),
+            # gemma3-1b's local layers on a 1,024-token prompt
+            "gemma3-local": (1, 1024, 4, 1, 256, 512),
+            # RecurrentGemma's local layers on a 512-token prompt
+            "recurrentgemma-local": (1, 512, 16, 1, 256, RG_WINDOW)}
+# slotted decode: (H, Hk, D, S, slot lengths)
+SERVE_DEC = {"fifo": (12, 2, 128, SERVE_S, FIFO_LENS),
+             "batch": (12, 2, 128, SERVE_S, [528] * 16),
+             # gemma3-1b's full rings of 512, and its global layers
+             "gemma3-local": (4, 1, 256, 512, [512] * 8),
+             "gemma3-global": (4, 1, 256, G3_S, [1040] * 8),
+             # RecurrentGemma's rings: 6 slots near 528 rows, 2 wrapped
+             "recurrentgemma-local": (16, 1, 256, RG_WINDOW,
+                                      [528] * 6 + [RG_WINDOW] * 2)}
+# paged decode: (H, Hk, D, pool blocks, block size, pages, slot lengths)
+SERVE_PAGED = {"fifo": (12, 2, 128, PARITY_BLOCKS, BS, PAGES, FIFO_LENS),
+               # gemma3-1b's 4 global layers at slotted parity
+               "gemma3-global": (4, 1, 256, 8 * G3_PAGES + 1, BS, G3_PAGES,
+                                 [1040] * 8)}
 PAGED_CASES = [
     # (b, h, hk, d, num_blocks, block_size, pages, dtype, lengths or None
     # = random in [1, pages * bs]); tables random over [0, N), so they
@@ -343,6 +423,11 @@ PAGED_CASES = [
     (8, 12, 2, 128, 60, 16, 35, "bfloat16", EDGE_LENS),
     (5, 4, 2, 12, 11, 8, 3, "bfloat16", [1, 0, 24, 9, 17]),
 ]
+# head_dim 256 over random tables of 128 pages of 16 rows (2,048 rows)
+PAGED_CASES += [(7, g, 1, 256, 300, 16, 128, dtn, RING_LENS)
+                for dtn in ("bfloat16", "float32") for g in (1, 4, 16)]
+PAGED_CASES += [(8, 32, 2, 128, 200, 16, 18, "bfloat16",
+                 [0, 1, 31, 33, 200, 257, 271, 280])]
 OFFSET_CASES = [
     # (b, sq, sk, h, hk, d, q_offset, kv_len, dtype): flash with the
     # ragged mask of chunked prefill and prefix resume; small fp32 cases
@@ -468,28 +553,38 @@ def err_vs(torch, out, ref, tol):
     return (a - b).abs().max().item(), bool(finite and not bad)
 
 
-def time_flash(torch, fa_ops, fa_ref, rnd, b: int) -> dict:
-    sq, h, hk, d, dtn = 512, 12, 2, 128, "bfloat16"
+def time_flash(torch, fa_ops, fa_ref, rnd, shape) -> dict:
+    b, sq, h, hk, d, w = shape
+    dtn = "bfloat16"
     dt = getattr(torch, dtn)
-    flops = 4 * d * (sq * (sq + 1) // 2) * h * b
+    flops = 4 * d * window_pairs(sq, w) * h * b
     nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * hk * d)
     copies = [(rnd((b, sq, h, d), dt), rnd((b, sq, hk, d), dt),
                rnd((b, sq, hk, d), dt)) for _ in range(n_copies(nbytes))]
     bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
     nxt, nxt_l = cycle(copies), cycle(bhsd)
+    pos = torch.arange(sq, device="cuda")
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w) \
+        if w else None
     q, k, v = copies[0]
-    err, _ = err_vs(torch, fa_ops.flash_attention(q, k, v),
-                    fa_ref.attention_ref(q, k, v), TOL[("prefill", dtn)])
-    return {"shape": f"B={b} Sq=Sk={sq} H={h}/{hk} D={d} {dtn} causal",
+    err, _ = err_vs(torch, fa_ops.flash_attention(q, k, v, window=w),
+                    fa_ref.attention_ref(q, k, v, window=w),
+                    TOL[("prefill", dtn)])
+    return {"shape": f"B={b} Sq=Sk={sq} H={h}/{hk} D={d} {dtn} causal"
+                     f"{f' window {w}' if w else ''}",
             "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(*nxt())),
-            "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(*nxt())),
-            "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), causal=True)),
+            "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
+                *nxt(), window=w)),
+            "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(
+                *nxt(), window=w)),
+            "library_ms": cuda_ms(torch, lambda: sdpa(
+                *nxt_l(), causal=mask is None, mask=mask)),
             "copies": len(copies), **bound(flops, nbytes, dtn)}
 
 
-def time_decode(torch, da_ops, da_ref, rnd, lens) -> dict:
-    b, h, hk, d, s, dtn = len(lens), 12, 2, 128, SERVE_S, "bfloat16"
+def time_decode(torch, da_ops, da_ref, rnd, shape) -> dict:
+    h, hk, d, s, lens = shape
+    b, dtn = len(lens), "bfloat16"
     dt = getattr(torch, dtn)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     live = sum(lens)
@@ -568,15 +663,15 @@ def fifo_tables(torch, np, lens, n_blocks, pages, bs, seed=0):
     return torch.as_tensor(tables, device="cuda")
 
 
-def time_paged(torch, np, da_ops, da_ref, rnd, lens) -> dict:
-    b, h, hk, d, dtn = len(lens), 12, 2, 128, "bfloat16"
-    n, bs, nb = PARITY_BLOCKS, BS, PAGES
+def time_paged(torch, np, da_ops, da_ref, rnd, shape) -> dict:
+    h, hk, d, n, bs, nb, lens = shape
+    b, dtn = len(lens), "bfloat16"
     dt = getattr(torch, dtn)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     tables = fifo_tables(torch, np, lens, n, nb, bs)
     live = sum(lens)
-    # live K/V rows (1,024 B a row at Hk=2, D=128, bf16), q, o, lengths
-    # and the tables, each once
+    # live K/V rows (Hk * D * 2 bytes each, bf16), q, o, lengths and the
+    # tables, each once
     nbytes = 2 * (2 * live * hk * d + 2 * b * h * d) + 4 * b + 4 * b * nb
     flops = 4 * d * live * h
     copies = [(rnd((b, h, d), dt), rnd((n, bs, hk, d), dt),
@@ -649,11 +744,13 @@ def time_flash_train(torch, fa_ops, fa_ref, rnd) -> dict:
             "copies": len(copies), **bound(flops, nbytes, dtn)}
 
 
-def time_scan(torch, scan_ops, scan_ref, rnd, reverse: bool) -> dict:
-    """The RG-LRU scan at the training shape (B=1, S=4096, D=4096, fp32):
-    forward (a, b read, y written) or reverse (a, dy, y read, db, da
-    written, dh0 too). No single PyTorch call computes the scan."""
-    b, s, d = 1, TRAIN_S, TRAIN_D
+def time_scan(torch, scan_ops, scan_ref, rnd, reverse: bool,
+              shape=(1, TRAIN_S, TRAIN_D)) -> dict:
+    """The RG-LRU scan at ``shape`` (B, S, D), fp32, by default the
+    training shape: forward (a, b read, y written) or reverse (a, dy, y
+    read, db, da written, dh0 too). No single PyTorch call computes the
+    scan."""
+    b, s, d = shape
     n = b * s * d
     nbytes = (20 if reverse else 12) * n + (12 if reverse else 8) * b * d
     flops = (3 if reverse else 2) * n
@@ -886,20 +983,27 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
     if failures:
         raise PhaseFailed(f"kernels disagree with the plain version: "
                           f"{failures}")
-    main = {"flash_attention": {p: time_flash(torch, fa_ops, fa_ref, rnd, b)
-                                for p, b in SERVE_FA.items()},
+    main = {"flash_attention": {p: time_flash(torch, fa_ops, fa_ref, rnd,
+                                              shape)
+                                for p, shape in SERVE_FA.items()},
             "decode_attention": {p: time_decode(torch, da_ops, da_ref, rnd,
-                                                lens)
-                                 for p, lens in SERVE_DEC.items()},
-            "paged_decode_attention": {"fifo": time_paged(
-                torch, np, da_ops, da_ref, rnd, FIFO_LENS)},
+                                                shape)
+                                 for p, shape in SERVE_DEC.items()},
+            "paged_decode_attention": {p: time_paged(
+                torch, np, da_ops, da_ref, rnd, shape)
+                for p, shape in SERVE_PAGED.items()},
             "flash_attention_extend": {
                 p: time_flash_extend(torch, fa_ops, fa_ref, rnd, case)
                 for p, case in SERVE_EXT.items()},
             "flash_attention_train": {"train": time_flash_train(
                 torch, fa_ops, fa_ref, rnd)},
-            "rglru_scan_fwd": {"train": time_scan(torch, scan_ops, scan_ref,
-                                                  rnd, reverse=False)},
+            "rglru_scan_fwd": {
+                "train": time_scan(torch, scan_ops, scan_ref, rnd,
+                                   reverse=False),
+                # a recurrentgemma-9b prefill of 512 tokens (phase 9)
+                "recurrentgemma": time_scan(torch, scan_ops, scan_ref, rnd,
+                                            reverse=False,
+                                            shape=(1, 512, TRAIN_D))},
             "rglru_scan_bwd": {"train": time_scan(torch, scan_ops, scan_ref,
                                                   rnd, reverse=True)}}
     for name, per in main.items():
@@ -911,10 +1015,10 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/8] kernels: {len(rows)} cases agree with the plain versions "
-        f"(flash, flash with q_offset/kv_len, decode, paged decode, flash "
-        f"at head_dim 256 with its lse, the RG-LRU scan forward and "
-        f"reverse)")
+    say(f"[2/9] kernels: {len(rows)} cases agree with the plain versions "
+        f"(flash, flash with q_offset/kv_len, decode and paged decode at "
+        f"head_dims to 256, flash at head_dim 256 with its lse, the RG-LRU "
+        f"scan forward and reverse)")
     return main
 
 
@@ -994,7 +1098,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/8] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/9] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1127,39 +1231,63 @@ class Calls:
 KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention")
 
 
-def serve_run(torch, serve, cfg, ops, calls, label: str, argv) -> dict:
-    """One serving run through the CLI's ``main``, with the launch
-    counts and the prefill/extend call counts set to 0 just before and
-    read just after. Every request must finish by length with 32 tokens;
-    flash must have launched 28 times per prefill or extend call, the
-    layout's decode kernel 28 times per decode step, and the other decode
-    kernel not at all."""
+# the kernels a serving run launches (KERNELS) and the scan's forward,
+# which every RG-LRU layer's prefill launches
+RUN_KERNELS = KERNELS + ("rglru_scan_fwd",)
+
+
+def kind_counts(cfg) -> dict:
+    kinds = cfg.layer_kinds
+    return {k: kinds.count(k) for k in ("attn", "attn_local", "rglru")}
+
+
+def want_launches(cfg, n_calls: dict, steps: int, paged: bool) -> dict:
+    """A serving run's launches, from the code: flash once a prefill or
+    extend call per attention layer, the scan's forward once a prefill
+    call per rglru layer; per decode step the slotted kernel once per
+    ring layer (and per global layer when slotted), the paged kernel
+    once per global layer when paged, and the scan never."""
+    n = kind_counts(cfg)
+    att = n["attn"] + n["attn_local"]
+    return {"flash_attention": att * sum(n_calls.values()),
+            "decode_attention": (n["attn_local"] if paged else att) * steps,
+            "paged_decode_attention": n["attn"] * steps if paged else 0,
+            "rglru_scan_fwd": n["rglru"] * n_calls["prefill"]}
+
+
+def checked_run(torch, ops, calls, cfg, label: str, drive, n_new: int,
+                n_requests: int) -> dict:
+    """One serving run (``drive()`` returns the serve CLI's summary),
+    with the launch counts and the prefill/extend calls set to 0 just
+    before it and read just after: every request ends by length with
+    ``n_new`` tokens inside the vocabulary, and the launches are exactly
+    ``want_launches`` (at qwen2-1.5b 28 flash launches a prefill or
+    extend call and 28 of the layout's decode kernel a step)."""
     from repro_torch.kernels import _build
-    n_layers = cfg.n_layers
-    _build.reset_launches(*(ops[k] for k in KERNELS))
+    _build.reset_launches(*(ops[k] for k in RUN_KERNELS))
     calls.take()
-    summary = serve.main(SERVE_ARGS + argv)
+    summary = drive()
     torch.cuda.synchronize()
-    launches = {k: ops[k].launches for k in KERNELS}
+    launches = {k: ops[k].launches for k in RUN_KERNELS}
     n_calls = calls.take()
     comps = summary["completions"]
-    if len(comps) != 16 or any(c.finish_reason != "length"
-                               or len(c.tokens) != 32 for c in comps):
-        raise PhaseFailed(f"{label}: not every request finished by "
-                          f"length with 32 tokens")
+    if len(comps) != n_requests or any(
+            c.finish_reason != "length" or len(c.tokens) != n_new
+            for c in comps):
+        raise PhaseFailed(f"{label}: not every request finished by length "
+                          f"with {n_new} tokens")
     if any(not 0 <= t < cfg.vocab_size for c in comps for t in c.tokens):
         raise PhaseFailed(f"{label}: token outside the vocabulary")
     paged = summary["kv_layout"] == "paged"
     steps = summary["decode_steps"]
-    want = {"flash_attention": n_layers * sum(n_calls.values()),
-            "decode_attention": 0 if paged else n_layers * steps,
-            "paged_decode_attention": n_layers * steps if paged else 0}
+    want = want_launches(cfg, n_calls, steps, paged)
     if launches != want or not launches["flash_attention"]:
         raise PhaseFailed(f"{label}: launches {launches}, want {want} "
-                          f"({n_calls} prefill/extend calls, {steps} "
-                          f"decode steps)")
+                          f"({n_calls} prefill/extend calls, {steps} decode "
+                          f"steps)")
     st = summary["stats"]
-    line = (f"  {label}: {summary['tok_per_s']:.1f} tok/s, TTFT p50 "
+    line = (f"  {label}: {summary['wall_s']:.3f} s wall, "
+            f"{summary['tok_per_s']:.1f} tok/s, TTFT p50 "
             f"{summary['ttft_p50_ms']:.1f} ms, decode "
             f"{summary['decode_ms_per_step']:.2f} ms/step over {steps} "
             f"steps; calls {n_calls}; launches {launches}")
@@ -1267,20 +1395,19 @@ def extend_vs_one_shot(torch, model) -> dict:
     return out
 
 
-def traced(torch, serve, model, want_tokens, label: str, top: int = 8,
-           **engine_kw) -> dict:
-    """A fifo run once more, on the same weights and requests, under
-    ``torch.profiler`` (device activity only): the device's busy time
-    (the union of the kernels' intervals) and the wall time of the same
-    run, and the kernels that take the most device time."""
+def traced_engine(torch, model, reqs, want_tokens, label: str,
+                  max_len: int, top: int = 8, **engine_kw) -> dict:
+    """A fifo run over 8 slots once more, on the same weights and
+    requests, under ``torch.profiler`` (device activity only): its
+    tokens those of the untraced run, the device's busy time (the union
+    of the kernels' intervals), the wall time of the same run, and the
+    kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.engine import Engine, EngineConfig
-    cfg = model.cfg
-    eng = Engine(cfg, model, EngineConfig(max_slots=8, max_len=SERVE_S,
-                                          admission="fifo", **engine_kw),
-                 device="cuda")
-    reqs = serve.synthetic_requests(cfg, 16, 512, 32, 0)
+    eng = Engine(model.cfg, model, EngineConfig(
+        max_slots=8, max_len=max_len, admission="fifo", **engine_kw),
+        device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1369,8 +1496,9 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     calls = Calls(T)
     try:
         for label, argv in SERVE_RUNS.items():
-            out[label] = serve_run(torch, serve, model.cfg, ops, calls,
-                                   label, argv)
+            out[label] = checked_run(
+                torch, ops, calls, model.cfg, label,
+                lambda: serve.main(SERVE_ARGS + argv), 32, 16)
     finally:
         calls.restore()
     tokens = {label: [c.tokens for c in out[label]["summary"]["completions"]]
@@ -1390,16 +1518,18 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
         if st["prefix_hits"] <= 0 or st["prefill_tokens_saved"] <= 0:
             raise PhaseFailed(f"{label}: no prefix hits on a shared-"
                               f"preamble workload")
-    out["trace"] = traced(torch, serve, model, tokens["fifo"], "fifo")
+    reqs = serve.synthetic_requests(model.cfg, 16, 512, 32, 0)
+    out["trace"] = traced_engine(torch, model, reqs, tokens["fifo"], "fifo",
+                                 SERVE_S)
     out["trace"]["untraced_wall_s"] = out["fifo"]["summary"]["wall_s"]
-    out["trace_paged"] = traced(torch, serve, model, tokens["paged"],
-                                "paged fifo", kv_layout="paged",
-                                block_size=BS)
+    out["trace_paged"] = traced_engine(torch, model, reqs, tokens["paged"],
+                                       "paged fifo", SERVE_S,
+                                       kv_layout="paged", block_size=BS)
     out["trace_paged"]["untraced_wall_s"] = out["paged"]["summary"]["wall_s"]
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/8] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/9] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -1663,7 +1793,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/8] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/9] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -2032,7 +2162,7 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/8] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/9] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
@@ -2535,7 +2665,7 @@ def phase_edge(torch, np, ops, smi: str) -> dict:
            "paper_rows": paper_rows(torch),
            "llm": llm_partitioned(torch, np, ops, smi),
            "hybrid": hybrid_partitioned(torch, np, ops)}
-    say("[7/8] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+    say("[7/9] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
         "within the CPU limit, every partition point equal to the "
         "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
         "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
@@ -3263,11 +3393,439 @@ def phase_tiered(torch, np, ops, smi: str) -> dict:
     del model
     torch.cuda.empty_cache()
     say(f"  {smi}; phase 8 took {out['phase_s']:.1f} s")
-    say("[8/8] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
+    say("[8/9] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
         "content-neutral, the gated tier beats the endpoint alone, every "
         "request equal to its tier alone, nothing lost across a link cut, "
         "the server over HTTP, failover frames equal to forward; launches "
         "exact")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+GOLDEN_HYBRID = SRC / "repro_torch" / "testdata" / "golden_hybrid.npz"
+# gemma3-1b: 16 requests of 1,024-token prompts, past the window of 512,
+# so every local ring wraps inside the prefill; 32 new tokens, 8 slots
+G3_ARGS = ["--arch", "gemma3_1b", "--no-smoke", "--slots", "8",
+           "--requests", "16", "--prompt-len", "1024", "--max-new", "32",
+           "--device", "cuda"]
+G3_RUNS = {
+    "fifo": ["--policy", "fifo"],
+    "batch": ["--policy", "batch"],
+    "paged": ["--policy", "fifo", "--paged", "--block-size", "16"],
+    # outside supports_chunked_prefill: served one-shot, no sharing
+    "paged-prefix": ["--policy", "fifo", "--prefix-cache", "--block-size",
+                     "16"],
+    "paged-chunked": ["--policy", "fifo", "--paged", "--block-size", "16",
+                      "--prefill-chunk", "128"],
+}
+# recurrentgemma-9b: 14 prompts of 512 tokens and 2 of 2,080, whose
+# rings of 2,048 wrap; 32 new tokens, 8 slots; fifo replays this trace
+# through the CLI's --trace, batch serves the same requests
+RG_LENS = [512] * 14 + [2080] * 2
+RG_NEW = 32
+RG_ARGS = ["--arch", "recurrentgemma_9b", "--no-smoke", "--slots", "8",
+           "--device", "cuda"]
+# llama3.2-3b and chatglm3-6b: one slotted fifo run each
+DENSE_ARGS = ["--no-smoke", "--slots", "8", "--requests", "8",
+              "--prompt-len", "256", "--max-new", "16", "--policy", "fifo",
+              "--device", "cuda"]
+DENSE_ARCHS = ("llama3_2_3b", "chatglm3_6b")
+# each model against itself with the plain versions in place of the
+# kernels: (batch, prompt length, decode steps)
+HYBRID_VS_PLAIN = {"gemma3_1b": (8, 1024, 8),
+                   "recurrentgemma_9b": (4, 2080, 8),
+                   "llama3_2_3b": (8, 256, 2), "chatglm3_6b": (8, 256, 2)}
+GOLDEN_HYBRID_TOL = 1e-4
+
+
+class PlainVersions:
+    """Inside ``with``: the plain PyTorch versions in the kernels' places
+    (flash, slotted and paged decode where the layers look them up, the
+    scan's forward where its autograd function does)."""
+
+    def __init__(self, fa_ref, da_ref, scan_ref):
+        from repro_torch.kernels.rglru_scan import ops as scan_ops
+        from repro_torch.models import layers as L
+        self.slots = [(L, "flash_attention", fa_ref.attention_ref),
+                      (L, "decode_attention", da_ref.decode_attention_ref),
+                      (L, "paged_decode_attention",
+                       da_ref.paged_decode_attention_ref),
+                      (scan_ops, "rglru_scan_fwd",
+                       scan_ref.rglru_scan_seq_ref)]
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name, _ in self.slots]
+        for mod, name, plain in self.slots:
+            setattr(mod, name, plain)
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.slots, self.saved):
+            setattr(mod, name, fn)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+def layer_local(torch, model, tokens, fed, max_len: int, plain) -> tuple:
+    """Each layer through the kernels against the plain versions given
+    the same input and cache: the prefill layer by layer, then the decode
+    steps, each layer's plain step run on a copy of its cache. The run
+    goes on with the kernels' output, so each figure is one layer's own
+    kernels, not what the depth makes of their rounding. Returns
+    ({cache leaf: the largest relative error over layers and steps},
+    the largest relative error of a layer's output)."""
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    worst, worst_x = {}, 0.0
+
+    def note(got, want):
+        for k in got:
+            worst[k] = max(worst.get(k, 0.0), rel_err(got[k], want[k]))
+    x = T._embed_inputs(model, tokens)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(
+        b, s)
+    cache = []
+    with torch.no_grad():
+        for layer in model.layers:
+            with plain:
+                xp, want = T._prefill_layer(layer, x, cfg,
+                                            positions=positions,
+                                            max_len=max_len)
+            x, c = T._prefill_layer(layer, x, cfg, positions=positions,
+                                    max_len=max_len)
+            note(c, want)
+            worst_x = max(worst_x, rel_err(x, xp))
+            cache.append(c)
+        clen = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        for tok in fed:
+            x = T._embed_inputs(model, tok)[:, None]
+            for li in range(len(model.layers)):
+                copy = list(cache)
+                copy[li] = {k: v.clone() for k, v in cache[li].items()}
+                with plain:
+                    xp = T._decode_layers(model, x, copy, clen, None, li,
+                                          li + 1)
+                x = T._decode_layers(model, x, cache, clen, None, li, li + 1)
+                note(cache[li], copy[li])
+                worst_x = max(worst_x, rel_err(x, xp))
+            clen = clen + 1
+    return worst, worst_x
+
+
+STATE_TOL = 1e-5    # the scan's fp32 state, layer by layer (phase 2's)
+
+
+def model_vs_plain(torch, model, batch: int, prompt_len: int, steps: int,
+                   fa_ref, da_ref, scan_ref, seed: int = 1) -> dict:
+    """Phase 4's ``vs_plain`` for any served config: the model run on the
+    same inputs through the kernels, then with the plain versions in
+    their place (flash, slotted and paged decode, the scan's forward).
+    A batch of ``prompt_len``-token prompts is prefilled and decoded
+    ``steps`` steps. Gates: the logits of every step within 5e-2 of
+    their largest magnitude; every row's argmax equal unless the plain
+    run's top-2 gap there is within twice that error (a tie at this
+    precision); the ring leaves (K/V, the conv's tail) within 5e-2 of
+    their largest magnitude at the end of the runs; the recurrent state
+    ``h``, the scan kernel's own output, within ``STATE_TOL`` layer by
+    layer (``layer_local``). Reported: the share of rows whose argmax
+    agrees, ``h`` at the end of the runs and each layer's output from
+    the same input. Why ``h`` and the argmax are not held end to end:
+    over recurrentgemma-9b's 38 bf16 layers ``h`` parts from the plain
+    run by 3.6-5.9% of its largest magnitude, and by 4.2% when the only
+    kernel in place is the fp32 scan, whose own output agrees to ~1e-7
+    (``tools/vs_plain_depth.py``); chatglm3-6b's random-weight logits
+    are so flat (median top-2 gap 2-5% of the largest) that its 2%
+    rounding moves 0-3 of 24 greedy choices a draw, each within a tie
+    (``tools/vs_plain_seeds.py``; PERF.md has the runs)."""
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device="cuda")
+    fed = torch.randint(0, cfg.vocab_size, (steps, batch), generator=gen,
+                        device="cuda")
+    max_len = prompt_len + steps + 8
+    plain = PlainVersions(fa_ref, da_ref, scan_ref)
+
+    def drive():
+        logits, cache, clen = T.prefill(model, tokens, max_len=max_len)
+        out = [logits.float()]
+        for tok in fed:
+            logits, cache, clen = T.decode_step(model, tok, cache, clen)
+            out.append(logits.float())
+        return torch.cat(out), cache
+
+    got, got_cache = drive()
+    with plain:
+        want, want_cache = drive()
+    local, layer_out = layer_local(torch, model, tokens, fed, max_len, plain)
+    end = {}
+    for g, w in zip(got_cache, want_cache):
+        for n in g:
+            end[n] = max(end.get(n, 0.0), rel_err(g[n], w[n]))
+    del got_cache, want_cache
+    err = rel_err(got, want)
+    # the plain run's gap between its first and second logit, over the
+    # largest logit; a row whose greedy choice moved must be a tie
+    top2 = want.topk(2, dim=-1).values
+    gaps = ((top2[:, 0] - top2[:, 1]) / want.abs().max()).tolist()
+    moved = (got.argmax(-1) != want.argmax(-1)).nonzero()[:, 0].tolist()
+    out = {"logits_rel_err": err,
+           "argmax_agree": 1.0 - len(moved) / got.shape[0],
+           "moved_rows_gap": [gaps[r] for r in moved],
+           "moved_outside_ties": sum(gaps[r] > 2 * err for r in moved),
+           "median_gap": sorted(gaps)[len(gaps) // 2],
+           "ring_rel_err": max(v for k, v in end.items() if k != "h"),
+           "state_rel_err_layer_by_layer": local.get("h"),
+           "leaves_end_to_end": end, "leaves_layer_by_layer": local,
+           "layer_output_rel_err": layer_out,
+           "rows": got.shape[0], "finite": bool(torch.isfinite(got).all())}
+    say(f"  {cfg.name} through the kernels vs plain ({batch} x "
+        f"{prompt_len} prompts, {steps} decode steps): logits max |err| "
+        f"{err:.3g} of max |logit| (tol 5e-2); argmax agrees on "
+        f"{out['argmax_agree']:.3f} of {out['rows']} rows, the rest ties "
+        f"(top-2 gaps {[float(f'{g:.3g}') for g in out['moved_rows_gap']]}"
+        f" <= {2 * err:.3g}; median gap {out['median_gap']:.3g}); leaves at "
+        f"the end of the runs {_fmt(end)} (ring leaves tol 5e-2, h "
+        f"reported); layer by layer h {_fmt(local).get('h', '-')} (tol "
+        f"{STATE_TOL:g}), layer outputs {layer_out:.3g} (reported)")
+    if not (out["finite"] and err <= 5e-2 and not out["moved_outside_ties"]
+            and out["ring_rel_err"] <= 5e-2
+            and (local.get("h") or 0.0) <= STATE_TOL):
+        raise PhaseFailed(f"{cfg.name} through the kernels disagrees with "
+                          f"its plain-version run")
+    return out
+
+
+def _fmt(d: dict) -> dict:
+    return {k: float(f"{v:.3g}") for k, v in d.items()}
+
+
+def golden_hybrid(torch, np) -> dict:
+    """The JAX fixture of the hybrid smoke configs on the card in fp32:
+    prefill + 4 decode-step logits within 1e-4 of JAX's, and the Engine's
+    tokens, finish reasons, counters and ``kv_stats`` in every cell equal
+    to what JAX's engine recorded (batch: its tokens)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.scheduler import Request, SlotFailure
+    from repro_torch.weights import from_jax_params
+    data = np.load(GOLDEN_HYBRID)
+    meta = json.loads(str(data["meta"]))
+    out = {}
+    for name, kw in meta["configs"].items():
+        cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in kw.items()})
+        prefix = f"{name}|params|"
+        flat = {k[len(prefix):]: (data[k].astype(np.uint32) << 16)
+                .view(np.float32) for k in data.files if k.startswith(prefix)}
+        model = from_jax_params(flat, cfg, device="cuda")
+        tokens = torch.as_tensor(data[f"{name}|logits_prompt"], device="cuda")
+        logits, cache, clen = T.prefill(model, tokens,
+                                        max_len=meta["max_len"])
+        steps = [logits]
+        for tok in data[f"{name}|logits_fed"]:
+            logits, cache, clen = T.decode_step(
+                model, torch.as_tensor(tok, device="cuda"), cache, clen)
+            steps.append(logits)
+        got = torch.stack(steps).cpu().numpy()
+        err = float(np.abs(got - data[f"{name}|logits"]).max())
+        if not np.isfinite(got).all() or err > GOLDEN_HYBRID_TOL:
+            raise PhaseFailed(f"{name}: logits differ from JAX by {err:.3g}")
+        cells = json.loads(str(data[f"{name}|cells"]))
+        for cell, want in cells.items():
+            cell_kw = meta["cells"][name].get(cell, {})
+            reqs = [Request(i, np.asarray(r["prompt"], np.int32),
+                            max_new_tokens=r["max_new"],
+                            priority=r["priority"],
+                            deadline_s=r["deadline_s"])
+                    for i, r in enumerate(meta["workload"][name])]
+            batch = cell == "batch"
+            eng = Engine(cfg, model, EngineConfig(
+                max_len=meta["engine_max_len"], max_slots=3,
+                admission="batch" if batch else "fifo", debug=not batch,
+                **cell_kw), failures=[SlotFailure(**meta["failure"])]
+                if cell == "slot-failure" else None, device="cuda")
+            outs = eng.generate(reqs)
+            rec = {"tokens": [[int(t) for t in c.tokens] for c in outs],
+                   "reasons": [c.finish_reason for c in outs]}
+            if not batch:
+                rec["stats"] = {k: int(v) for k, v in eng.stats().items()}
+                rec["kv_stats"] = {k: float(v)
+                                   for k, v in eng.kv_stats().items()}
+            if rec != want:
+                raise PhaseFailed(f"{name}/{cell}: the engine's record "
+                                  f"differs from JAX's")
+        out[name] = {"logits_max_abs_err": err, "cells": sorted(cells)}
+        del model, cache
+    say(f"  JAX hybrid golden (fp32): logits max |err| "
+        f"{max(v['logits_max_abs_err'] for v in out.values()):.3g} (tol "
+        f"{GOLDEN_HYBRID_TOL:g}); tokens, counters and kv_stats equal to "
+        f"JAX's in {', '.join(f'{k}: {v}' for k, v in out.items())}")
+    return out
+
+
+def same_tokens(label: str, a: list, b: list, gate: bool = True) -> float:
+    share = sum(x == y for x, y in zip(a, b)) / len(a)
+    if gate and a != b:
+        raise PhaseFailed(f"{label}: tokens differ (agreement {share:.3f})")
+    return share
+
+
+def gemma3_runs(torch, np, ops, calls, fa_ref, da_ref, scan_ref) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = get_config("gemma3_1b")
+    model = T.init_params(cfg, 0, device="cuda")    # the CLI's weights
+    out = {"vs_plain": model_vs_plain(torch, model, *HYBRID_VS_PLAIN[
+        "gemma3_1b"], fa_ref, da_ref, scan_ref)}
+    for label, argv in G3_RUNS.items():
+        out[label] = checked_run(torch, ops, calls, cfg, f"gemma3-1b {label}",
+                                lambda: serve.main(G3_ARGS + argv), 32, 16)
+    tokens = {k: [c.tokens for c in out[k]["summary"]["completions"]]
+              for k in G3_RUNS}
+    same_tokens("gemma3-1b fifo vs batch", tokens["fifo"], tokens["batch"])
+    same_tokens("gemma3-1b paged vs slotted fifo", tokens["paged"],
+                tokens["fifo"])
+    # the prefix run serves the shared-preamble workload: held to a
+    # slotted fifo run of it
+    shared = serve.synthetic_requests(cfg, 16, 1024, 32, 0,
+                                      shared_prefix=True)
+    ref = [c.tokens for c in Engine(cfg, model, EngineConfig(
+        max_slots=8, max_len=G3_S, admission="fifo"),
+        device="cuda").generate(shared)]
+    same_tokens("gemma3-1b paged prefix-cache vs slotted fifo",
+                tokens["paged-prefix"], ref)
+    same_tokens("gemma3-1b paged prefill-chunk vs slotted fifo",
+                tokens["paged-chunked"], tokens["fifo"])
+    for label in ("paged-prefix", "paged-chunked"):
+        st, n = out[label]["summary"]["stats"], out[label]["calls"]
+        if st["prefix_hits"] or st["prefill_tokens_saved"] \
+                or n["prefill_extend"]:
+            raise PhaseFailed(f"gemma3-1b {label}: not served one-shot "
+                              f"({st['prefix_hits']} prefix hits, "
+                              f"{n['prefill_extend']} extend calls)")
+    reqs = serve.synthetic_requests(cfg, 16, 1024, 32, 0)
+    out["trace"] = traced_engine(torch, model, reqs, tokens["fifo"],
+                                 "gemma3-1b fifo", G3_S)
+    out["trace"]["untraced_wall_s"] = out["fifo"]["summary"]["wall_s"]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrentgemma_runs(torch, np, ops, calls, fa_ref, da_ref,
+                        scan_ref) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = get_config("recurrentgemma_9b")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.jsonl")
+        Path(path).write_text("".join(
+            json.dumps({"arrival_s": 0.0, "prompt_len": n,
+                        "max_new": RG_NEW}) + "\n" for n in RG_LENS))
+        fifo = checked_run(torch, ops, calls, cfg, "recurrentgemma-9b fifo",
+                          lambda: serve.main(RG_ARGS + ["--trace", path]),
+                          RG_NEW, len(RG_LENS))
+        reqs, _ = serve.load_trace(path, cfg, np.random.RandomState(0))
+    max_len = max(RG_LENS) + RG_NEW + 8
+    model = T.init_params(cfg, 0, device="cuda")    # the CLI's weights
+    out = {"fifo": fifo, "vs_plain": model_vs_plain(
+        torch, model, *HYBRID_VS_PLAIN["recurrentgemma_9b"], fa_ref, da_ref,
+        scan_ref)}
+    out["batch"] = checked_run(
+        torch, ops, calls, cfg, "recurrentgemma-9b batch",
+        lambda: serve.run(Engine(cfg, model, EngineConfig(
+            max_slots=8, max_len=max_len, admission="batch"),
+            device="cuda"), reqs), RG_NEW, len(RG_LENS))
+    tokens = {k: [c.tokens for c in out[k]["summary"]["completions"]]
+              for k in ("fifo", "batch")}
+    out["fifo_batch_agreement"] = same_tokens(
+        "recurrentgemma-9b fifo vs batch", tokens["fifo"], tokens["batch"])
+    try:
+        Engine(cfg, model, EngineConfig(max_slots=8, max_len=max_len,
+                                        kv_layout="paged"), device="cuda")
+    except ValueError as exc:
+        if "use the slotted layout" not in str(exc):
+            raise
+        out["paged_refused"] = str(exc)
+    else:
+        raise PhaseFailed("recurrentgemma-9b: the paged layout took a "
+                          "config with no global-attention layer")
+    out["trace"] = traced_engine(torch, model, reqs, tokens["fifo"],
+                                 "recurrentgemma-9b fifo", max_len)
+    out["trace"]["untraced_wall_s"] = out["fifo"]["summary"]["wall_s"]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_runs(torch, np, ops, calls, arch, fa_ref, da_ref,
+               scan_ref) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    out = {"fifo": checked_run(torch, ops, calls, cfg, f"{cfg.name} fifo",
+                              lambda: serve.main(["--arch", arch]
+                                                 + DENSE_ARGS), 16, 8)}
+    model = T.init_params(cfg, 0, device="cuda")
+    out["vs_plain"] = model_vs_plain(torch, model, *HYBRID_VS_PLAIN[arch],
+                                     fa_ref, da_ref, scan_ref)
+    reqs = serve.synthetic_requests(cfg, 8, 256, 16, 0)
+    out["trace"] = traced_engine(
+        torch, model, reqs, [c.tokens for c in
+                             out["fifo"]["summary"]["completions"]],
+        f"{cfg.name} fifo", 256 + 16 + 8)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid(torch, np, ops, fa_ref, da_ref, scan_ref, smi: str) -> dict:
+    """The local-attention and hybrid families served on the card: the
+    JAX hybrid fixture in fp32, then gemma3-1b and recurrentgemma-9b at
+    full width and depth in bf16, then llama3.2-3b and chatglm3-6b; see
+    the module docstring."""
+    from repro_torch.models import transformer as T
+    torch.cuda.empty_cache()
+    out = {"golden": golden_hybrid(torch, np)}
+    calls = Calls(T)
+    try:
+        out["gemma3-1b"] = gemma3_runs(torch, np, ops, calls, fa_ref, da_ref,
+                                       scan_ref)
+        out["recurrentgemma-9b"] = recurrentgemma_runs(
+            torch, np, ops, calls, fa_ref, da_ref, scan_ref)
+        for arch in DENSE_ARCHS:
+            out[arch] = dense_runs(torch, np, ops, calls, arch, fa_ref,
+                                   da_ref, scan_ref)
+    finally:
+        calls.restore()
+    for name in ("gemma3-1b", "recurrentgemma-9b", *DENSE_ARCHS):
+        s, t = out[name]["fifo"]["summary"], out[name]["trace"]
+        say(f"  {name} fifo on {smi}: wall {s['wall_s']:.4f} s, "
+            f"{s['tok_per_s']:.2f} tok/s, TTFT p50 {s['ttft_p50_ms']:.2f} "
+            f"ms, decode {s['decode_ms_per_step']:.3f} ms/step; traced "
+            f"busy {t['device_busy_s']:.4f} s of {t['wall_s']:.4f} s, idle "
+            f"share {t['idle_share']:.4f}")
+    say("[9/9] serving gemma3-1b and recurrentgemma-9b full width/depth "
+        "bf16 (rings wrapped in prefill, RG-LRU state): every request "
+        "'length', fifo == batch, paged == slotted, prefix-cache and "
+        "prefill-chunk served one-shot, launches exact; llama3.2-3b and "
+        "chatglm3-6b served; every model within its limits of its "
+        "plain-version run; the JAX hybrid fixture within 1e-4")
     return out
 
 
@@ -3280,28 +3838,39 @@ def without_completions(node):
     return node
 
 
-# the kernels line: each kernel's source, the TPU kernel it replaces,
-# its timed shape, and the run whose launches it reports (the path that
-# kernel serves): (phase record, run)
-KERNEL_LINE = {
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:88",
-                        "fifo", ("serve", "fifo")),
-    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                         "src/repro/kernels/decode_attention/kernel.py:173",
-                         "fifo", ("serve", "fifo")),
-    "paged_decode_attention": (
-        "src/repro_torch/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention/kernel.py:117", "fifo",
-        ("serve", "paged")),
-    "rglru_scan_fwd": ("src/repro_torch/csrc/rglru_scan.cu",
-                       "src/repro/kernels/rglru_scan/kernel.py:41", "train",
-                       ("train", "full_width")),
-    "rglru_scan_bwd": ("src/repro_torch/csrc/rglru_scan.cu",
-                       "src/repro/kernels/rglru_scan/kernel.py:41", "train",
-                       ("train", "full_width")),
-}
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+# the kernels line: one entry per kernel and main path: the kernel's
+# source, the TPU kernel it replaces, its timed shape (phase 2's record)
+# and the run whose launches it reports (keys into the phase records)
+FA_SRC = "src/repro_torch/csrc/flash_attention.cu"
+DA_SRC = "src/repro_torch/csrc/decode_attention.cu"
+SCAN_SRC = "src/repro_torch/csrc/rglru_scan.cu"
+FA_TPU = "src/repro/kernels/flash_attention/kernel.py:88"
+DA_TPU = "src/repro/kernels/decode_attention/kernel.py:173"
+PAGED_TPU = "src/repro/kernels/decode_attention/kernel.py:117"
+SCAN_TPU = "src/repro/kernels/rglru_scan/kernel.py:41"
+KERNEL_LINE = [
+    # (name, source, replaces, timed shape, launches from)
+    ("flash_attention", FA_SRC, FA_TPU, "fifo", ("serve", "fifo")),
+    ("decode_attention", DA_SRC, DA_TPU, "fifo", ("serve", "fifo")),
+    ("paged_decode_attention", DA_SRC, PAGED_TPU, "fifo",
+     ("serve", "paged")),
+    ("rglru_scan_fwd", SCAN_SRC, SCAN_TPU, "train", ("train", "full_width")),
+    ("rglru_scan_bwd", SCAN_SRC, SCAN_TPU, "train", ("train", "full_width")),
+    # phase 9: head_dim 256
+    ("flash_attention", FA_SRC, FA_TPU, "gemma3-local",
+     ("hybrid", "gemma3-1b", "fifo")),
+    ("decode_attention", DA_SRC, DA_TPU, "gemma3-local",
+     ("hybrid", "gemma3-1b", "fifo")),
+    ("paged_decode_attention", DA_SRC, PAGED_TPU, "gemma3-global",
+     ("hybrid", "gemma3-1b", "paged")),
+    ("flash_attention", FA_SRC, FA_TPU, "recurrentgemma-local",
+     ("hybrid", "recurrentgemma-9b", "fifo")),
+    ("decode_attention", DA_SRC, DA_TPU, "recurrentgemma-local",
+     ("hybrid", "recurrentgemma-9b", "fifo")),
+    ("rglru_scan_fwd", SCAN_SRC, SCAN_TPU, "recurrentgemma",
+     ("hybrid", "recurrentgemma-9b", "fifo")),
+]
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
 
 
 def tiered_launches(rec: dict) -> dict:
@@ -3317,7 +3886,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -3368,6 +3937,10 @@ def main() -> int:
         if 8 in phases:
             record["tiered"] = phase_tiered(torch, np, ops,
                                             record["device"]["nvidia_smi"])
+        if 9 in phases:
+            record["hybrid"] = phase_hybrid(torch, np, ops, fa_ref, da_ref,
+                                            scan_ref,
+                                            record["device"]["nvidia_smi"])
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
@@ -3385,15 +3958,18 @@ def main() -> int:
         say(f"# partial run (phases {sorted(phases)}): no result line")
         return 0
     kernels = []
-    for name, (source, replaces, shape, (where, run)) in KERNEL_LINE.items():
+    for name, source, replaces, shape, path in KERNEL_LINE:
         m = record["kernels"][name][shape]      # the main path's shapes
+        run = record
+        for key in path:
+            run = run[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": record[where][run]["launches"][name],
+            "replaces": replaces, "launches": run["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "shape": m["shape"], "path": " ".join(path[1:])})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` lookup.
 
-The port carries the configs its slices can run: the dense all-global-
-attention decoders (served and trained) and RecurrentGemma's hybrid of
-RG-LRU and local attention (trained; its serving path is a later
-slice). The other architectures of ``repro.configs`` come with the
-slices that port their block kinds.
+The port carries the configs its slices can run, each served and
+trained: the dense all-global-attention decoders (qwen2-1.5b,
+llama3.2-3b, chatglm3-6b), gemma3-1b's 5:1 local:global attention, and
+RecurrentGemma's hybrid of RG-LRU and local attention. The other
+architectures of ``repro.configs`` (MoE, xLSTM, the encoder-decoder and
+the frontends) come with the slices that port their block kinds.
 """
 from __future__ import annotations
 
@@ -13,10 +14,14 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["qwen2_1_5b", "recurrentgemma_9b"]
+ARCH_IDS: List[str] = ["recurrentgemma_9b", "gemma3_1b", "llama3_2_3b",
+                       "qwen2_1_5b", "chatglm3_6b"]
 
-_ALIASES = {"qwen2-1.5b": "qwen2_1_5b",
-            "recurrentgemma-9b": "recurrentgemma_9b"}
+_ALIASES = {"recurrentgemma-9b": "recurrentgemma_9b",
+            "gemma3-1b": "gemma3_1b",
+            "llama3.2-3b": "llama3_2_3b",
+            "qwen2-1.5b": "qwen2_1_5b",
+            "chatglm3-6b": "chatglm3_6b"}
 
 
 def canonical(name: str) -> str:

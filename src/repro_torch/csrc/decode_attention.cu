@@ -31,9 +31,9 @@
 // NEG_INF = -1e30 as in `_decode_kernel`; no fast-math exp.
 //   - Loads: tiles stay in the storage type in shared memory and move
 //     with 16-byte cp.async (8 bf16 or 4 fp32 a thread, 16 threads a
-//     256-byte row) into a ring of NSTAGE = 4 tiles; the first three are
-//     issued before the first is consumed, and each consumed tile issues
-//     the next. At the serving shape a split holds 2 tiles, so all of a
+//     256-byte row) into a ring of NSTAGE = 4 tiles (3 for fp32 rows of
+//     256, below); all but the last are issued before the first is
+//     consumed, and each consumed tile issues the next. At the serving shape a split holds 2 tiles, so all of a
 //     CTA's bytes are in flight at once. Rows past the split's end are
 //     zero-filled, never read. A row that is not a multiple of 16 bytes
 //     (or a base that is not 16-byte aligned) loads element by element
@@ -45,6 +45,19 @@
 //     chunks of each head. A thread scores its 4 (bf16) or 8 (fp32)
 //     rows of a tile together, 4 heads at a time, so the shuffle chains
 //     of 16 or 32 sums interleave instead of waiting on one another.
+//   - Head dims. The body is instantiated for two classes, DM = 128
+//     (head_dim <= 128) and DM = 256 (head_dim 129 .. 256: gemma3 and
+//     RecurrentGemma). A row of DM elements is LPR = min(32, DM / EPC)
+//     lanes wide, and a lane takes CPL = DM / EPC / LPR chunks of it:
+//     at DM = 128 16 lanes (bf16) or 32 (fp32) of one chunk, as above;
+//     at DM = 256 32 lanes of one chunk (bf16) or of two (fp32). At
+//     DM = 256 the query chunks stay in shared memory and are read as
+//     each head's scores are summed: g = 16 rows of two chunks a lane
+//     would take 128 registers in fp32. An fp32 tile of 32 rows of 256
+//     is 32 KB a stage for K and V, so that instantiation keeps a ring
+//     of 3 stages (about 210 KB of shared memory; 4 would pass the
+//     227 KB a CTA may take). The score sums of a lane's chunks are
+//     taken chunk by chunk, in the order of the columns.
 //   - Online softmax: one warp per head, one lane per row of the tile.
 //   - P V: each thread owns one 16-byte chunk of d-columns (8 or 4 fp32
 //     accumulators) for up to 4 heads and walks the tile's rows.
@@ -70,11 +83,16 @@ namespace {
 
 constexpr int TR = 32;      // KV rows per shared-memory tile (one warp wide)
 constexpr int SP = TR + 1;  // stride of a head's scores: heads on other banks
-constexpr int NSTAGE = 4;   // tiles of the ring
 constexpr int NT = 128;     // threads per CTA
 constexpr int GMAX = 16;    // largest g = H / Hk taken
-constexpr int DMAX = 128;   // largest head_dim taken
+constexpr int DMAX = 256;   // largest head_dim taken
 constexpr float NEG_INF = -1e30f;
+
+// tiles of the ring: 4, or 3 where a row of DM elements passes 512 bytes
+// (fp32 at DM = 256), so that the ring fits a CTA's shared memory
+template <typename T, int DM> __host__ __device__ constexpr int nstage() {
+  return DM * (int)sizeof(T) > 512 ? 3 : 4;
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -82,12 +100,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// a 16-byte chunk of the storage type, widened to fp32
+// a 16-byte chunk of the storage type, widened to fp32; N elements a chunk
 template <typename T> struct Chunk;
-// N elements a chunk; L lanes score one row (DMAX / N chunks, so a row
-// of the largest head_dim is one chunk a lane)
 template <> struct Chunk<float> {
-  static constexpr int N = 4, L = 32;
+  static constexpr int N = 4;
   __device__ __forceinline__ static void widen(const uint4& c, float* f) {
     f[0] = __uint_as_float(c.x);
     f[1] = __uint_as_float(c.y);
@@ -96,7 +112,7 @@ template <> struct Chunk<float> {
   }
 };
 template <> struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8, L = 16;
+  static constexpr int N = 8;
   __device__ __forceinline__ static void widen(const uint4& c, float* f) {
     const unsigned w[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
@@ -147,26 +163,30 @@ struct PagedRows {
   }
 };
 
-size_t smem_bytes(int D, int elem, int pages) {
+size_t smem_bytes(int D, int elem, int nst, int pages) {
   const int ds = (D * elem + 15) / 16 * 16;   // a padded row, bytes
-  return (size_t)(NSTAGE * 2 * TR + GMAX) * ds + sizeof(float) * (GMAX * SP + 3 * GMAX) +
+  return (size_t)(nst * 2 * TR + GMAX) * ds + sizeof(float) * (GMAX * SP + 3 * GMAX) +
          sizeof(int) * pages;
 }
 
 // partials: pm/pl (B, Hk, nsplit, g), pacc (B, Hk, nsplit, g, D), fp32;
-// S is the rows a sequence can address (the cache length, or nb * bs)
-template <typename T, typename Rows>
+// S is the rows a sequence can address (the cache length, or nb * bs);
+// DM is the head-dim class (128 or 256), D <= DM
+template <typename T, typename Rows, int DM>
 __global__ void __launch_bounds__(NT)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, const int* __restrict__ lengths,
                       float* __restrict__ pm, float* __restrict__ pl,
                       float* __restrict__ pacc, Rows rows, int S, int H, int Hk, int D,
                       int chunk, float scale, int vec) {
+  constexpr int NSTAGE = nstage<T, DM>();
   constexpr int EPC = Chunk<T>::N;                 // elements a 16-byte chunk
-  constexpr int LPR = Chunk<T>::L;                 // lanes scoring one row
+  constexpr int LPR = DM / EPC < 32 ? DM / EPC : 32;   // lanes scoring one row
+  constexpr int CPL = DM / EPC / LPR;              // chunks a lane scores
   constexpr int RI = TR * LPR / NT;                // rows a thread scores a tile
-  static_assert(DMAX / EPC == LPR && RI * NT == TR * LPR, "score mapping");
-  constexpr int HPT = GMAX * DMAX / EPC / NT > 0 ? GMAX * DMAX / EPC / NT : 1;
+  constexpr bool QREG = DM <= 128;                 // query chunks in registers
+  static_assert(CPL * LPR * EPC == DM && RI * NT == TR * LPR, "score mapping");
+  constexpr int HPT = GMAX * DM / EPC / NT > 0 ? GMAX * DM / EPC / NT : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int DS = (D + EPC - 1) / EPC * EPC;        // padded row, elements
   const int CPR = DS / EPC;                        // 16-byte chunks a row
@@ -254,10 +274,10 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     cp_commit();
   }
 
-  // score mapping: lane cs of a row's LPR holds chunk cs; this thread
-  // scores rows r0, r0 + NT / LPR, ...
+  // score mapping: lane cs of a row's LPR holds chunks cs, cs + LPR, ...;
+  // this thread scores rows r0, r0 + NT / LPR, ...
   const int cs = lane % LPR, r0 = tid / LPR;
-  uint4 qr[GMAX];                         // this lane's chunk of every head
+  uint4 qr[QREG ? GMAX : 1];              // this lane's chunk of every head
   float acc[HPT][EPC];
 #pragma unroll
   for (int i = 0; i < HPT; ++i)
@@ -270,43 +290,62 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     cp_commit();
     cp_wait<NSTAGE - 1>();                // tile t (and q) have landed
     __syncthreads();
-    if (t == 0)
+    if (QREG && t == 0)
 #pragma unroll
       for (int gi = 0; gi < GMAX; ++gi)
-        qr[gi] = (gi < g && cs < CPR)
-                     ? *reinterpret_cast<const uint4*>(sQ + gi * DS + cs * EPC)
-                     : make_uint4(0, 0, 0, 0);
+        qr[QREG ? gi : 0] = (gi < g && cs < CPR)
+                                ? *reinterpret_cast<const uint4*>(sQ + gi * DS + cs * EPC)
+                                : make_uint4(0, 0, 0, 0);
     const T* sK = sKV + (t % NSTAGE) * 2 * TR * DS;
     const T* sV = sK + TR * DS;
     const int t0 = s_lo + t * TR;
     const int live = min(TR, s_hi - t0);
 
-    // scores: LPR lanes a row, each lane one chunk; for 4 heads at a time
-    // every row's shuffle sums run interleaved
-    float kf[RI][EPC];
+    // scores: LPR lanes a row, each lane CPL chunks; for 4 heads at a
+    // time every row's shuffle sums run interleaved
+    float kf[CPL][RI][EPC];
 #pragma unroll
-    for (int k = 0; k < RI; ++k) {
-      if (cs < CPR)
-        Chunk<T>::widen(
-            *reinterpret_cast<const uint4*>(sK + (r0 + k * (NT / LPR)) * DS + cs * EPC), kf[k]);
-      else
+    for (int c = 0; c < CPL; ++c)
 #pragma unroll
-        for (int e = 0; e < EPC; ++e) kf[k][e] = 0.f;
-    }
+      for (int k = 0; k < RI; ++k) {
+        const int ch = cs + c * LPR;
+        if (ch < CPR)
+          Chunk<T>::widen(
+              *reinterpret_cast<const uint4*>(sK + (r0 + k * (NT / LPR)) * DS + ch * EPC),
+              kf[c][k]);
+        else
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) kf[c][k][e] = 0.f;
+      }
 #pragma unroll
     for (int g0 = 0; g0 < GMAX; g0 += 4) {
       if (g0 >= g) break;
-      float qf[4][EPC], sc[RI][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Chunk<T>::widen(qr[g0 + j], qf[j]);
+      float sc[RI][4];
 #pragma unroll
       for (int k = 0; k < RI; ++k)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[k][j] = 0.f;
+        for (int j = 0; j < 4; ++j) sc[k][j] = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPC; ++e) sc[k][j] = fmaf(qf[j][e], kf[k][e], sc[k][j]);
+      for (int c = 0; c < CPL; ++c) {
+        const int ch = cs + c * LPR;
+        float qf[4][EPC];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint4 qc = make_uint4(0, 0, 0, 0);
+          if (QREG)
+            qc = qr[QREG ? g0 + j : 0];
+          else if (g0 + j < g && ch < CPR)
+            qc = *reinterpret_cast<const uint4*>(sQ + (g0 + j) * DS + ch * EPC);
+          Chunk<T>::widen(qc, qf[j]);
         }
+#pragma unroll
+        for (int k = 0; k < RI; ++k)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < EPC; ++e)
+              sc[k][j] = fmaf(qf[j][e], kf[c][k][e], sc[k][j]);
+      }
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1)
 #pragma unroll
@@ -420,15 +459,16 @@ __global__ void decode_combine_kernel(const float* __restrict__ pm, const float*
   if (d < D) o[((size_t)b * H + h) * D + d] = from_f<T>(acc / fmaxf(l, 1e-30f));
 }
 
-template <typename T, typename Rows>
+template <typename T, typename Rows, int DM>
 int launch(const void* q, const void* kc, const void* vc, const int* lengths, float* pm,
            float* pl, float* pacc, void* o, Rows rows, int B, int S, int H, int Hk, int D,
            int chunk, float scale, cudaStream_t stream) {
   const int nsplit = (S + chunk - 1) / chunk;
-  const size_t smem = smem_bytes(D, (int)sizeof(T), rows.pages(chunk));
-  static size_t smem_set = 48 * 1024;     // the default limit, raised once as needed
+  const size_t smem = smem_bytes(D, (int)sizeof(T), nstage<T, DM>(), rows.pages(chunk));
+  // the default limit, raised once as needed: one value per instantiation
+  static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(decode_partial_kernel<T, Rows>,
+    cudaError_t err = cudaFuncSetAttribute(decode_partial_kernel<T, Rows, DM>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -438,7 +478,7 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths, fl
                          reinterpret_cast<size_t>(vc)) % 16) == 0;
   const int vec = (D * (int)sizeof(T)) % 16 == 0 && aligned;
   dim3 grid(nsplit, Hk, B);
-  decode_partial_kernel<T, Rows><<<grid, NT, smem, stream>>>(
+  decode_partial_kernel<T, Rows, DM><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), lengths,
       pm, pl, pacc, rows, S, H, Hk, D, chunk, scale, vec);
   cudaError_t err = cudaGetLastError();
@@ -459,12 +499,13 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* lengths,
   float* fm = static_cast<float*>(pm);
   float* fl = static_cast<float*>(pl);
   float* fa = static_cast<float*>(pacc);
+  const bool wide = D > 128;
   if (dtype == 0)
-    return launch<float>(q, kc, vc, lens, fm, fl, fa, o, rows, B, S, H, Hk, D, chunk, scale,
-                         st);
+    return (wide ? launch<float, Rows, 256> : launch<float, Rows, 128>)(
+        q, kc, vc, lens, fm, fl, fa, o, rows, B, S, H, Hk, D, chunk, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kc, vc, lens, fm, fl, fa, o, rows, B, S, H, Hk, D, chunk,
-                                 scale, st);
+    return (wide ? launch<__nv_bfloat16, Rows, 256> : launch<__nv_bfloat16, Rows, 128>)(
+        q, kc, vc, lens, fm, fl, fa, o, rows, B, S, H, Hk, D, chunk, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,7 +19,7 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256     # the kernel's classes: head_dim <= 128, and 129 .. 256
 MAX_GROUP = 16          # query heads per KV head held by one CTA
 TILE = 32               # KV rows per shared-memory tile
 

@@ -13,11 +13,21 @@ b_x), a_t = exp(-c softplus(Lambda) r_t) (c = 8) and
 
 The recurrence runs through ``kernels.rglru_scan``: on the card the
 hand-written scan kernel, forward and reverse; on the CPU its plain
-versions. The leaves keep the reference's names and shapes. The decode
-state (``rglru_prefill_cache``, ``rglru_decode``) comes with the hybrid
-serving slice.
+versions. The leaves keep the reference's names and shapes.
+
+Serving keeps a decode state per sequence: the recurrence's last output
+``h`` (B, D), fp32 whatever the compute dtype, and the conv's tail, the
+last ``W - 1`` inputs of the rec branch (B, W - 1, D) in the model's
+dtype. ``rglru_prefill_cache`` runs the prompt through the scan kernel
+and returns that state; ``rglru_decode`` advances it by one token in
+place. A prompt shorter than ``W - 1`` leaves a tail padded with leading
+zeros, the zero history ``_causal_conv`` assumes before a sequence (the
+reference keeps only the rows it has there, and its decode then fails
+on such a prompt).
 """
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,14 +79,16 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over zeros before the sequence. x: (B, S,
-    D); w: (W, D). Summed over the taps i = 0 .. W-1 in the reference's
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, D); w: (W, D); ``tail`` (B, W-1,
+    D) the inputs before the sequence (streaming decode), zeros when
+    absent. Summed over the taps i = 0 .. W-1 in the reference's
     order."""
     width, s = w.shape[0], x.shape[1]
-    xp = torch.cat([x.new_zeros((x.shape[0], width - 1, x.shape[2])), x],
-                   dim=1)
+    if tail is None:
+        tail = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    xp = torch.cat([tail, x], dim=1)
     out = sum(xp[:, i:i + s] * w[i] for i in range(width))
     return out + b
 
@@ -92,8 +104,9 @@ def _gates(p, xc: torch.Tensor):
     return a, beta * (i * xc.float())
 
 
-def rglru_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence recurrent block with residual. x: (B, S, D)."""
+def _block(p, x: torch.Tensor, cfg):
+    """The full-sequence block: (x + its output, the rec branch's inputs
+    to the conv, the recurrence's outputs y in fp32)."""
     h = rms_norm(x, p.ln, cfg.norm_eps)
     gate, rec = (h @ p.w_in).chunk(2, dim=-1)
     gate = F.gelu(gate, approximate="tanh")
@@ -101,7 +114,47 @@ def rglru_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     a, b = _gates(p, xc)
     y = rglru_scan(a, b, torch.zeros_like(a[:, 0]))
     out = (y.to(x.dtype) * gate) @ p.w_out
+    return x + out, rec, y
+
+
+def rglru_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence recurrent block with residual. x: (B, S, D)."""
+    return _block(p, x, cfg)[0]
+
+
+def rglru_prefill_cache(p, x: torch.Tensor, cfg
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``rglru_apply`` that also returns the decode state: {"h": the
+    last output (B, D) fp32, "conv": the rec branch's last W - 1 inputs
+    (B, W - 1, D) in x's dtype, leading zeros where the prompt is
+    shorter}."""
+    out, rec, y = _block(p, x, cfg)
+    keep = cfg.rglru_conv_width - 1
+    tail = rec[:, -keep:]
+    if tail.shape[1] < keep:
+        tail = torch.cat([tail.new_zeros((tail.shape[0], keep - tail.shape[1],
+                                          tail.shape[2])), tail], dim=1)
+    return out, {"h": y[:, -1].contiguous(),
+                 "conv": tail.to(x.dtype).contiguous()}
+
+
+def rglru_decode(p, x: torch.Tensor, cfg, *,
+                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One-token decode, the O(1) state update. x: (B, 1, D); ``cache``
+    {"h", "conv"} is advanced IN PLACE (h <- y, the tail shifted by the
+    new input). Returns the residual output."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    gate, rec = (h @ p.w_in).chunk(2, dim=-1)
+    gate = F.gelu(gate, approximate="tanh")
+    xc = _causal_conv(rec, p.conv_w, p.conv_b, tail=cache["conv"])
+    a, b = _gates(p, xc)
+    y = a[:, 0] * cache["h"] + b[:, 0]
+    out = (y[:, None].to(x.dtype) * gate) @ p.w_out
+    tail = torch.cat([cache["conv"], rec.to(cache["conv"].dtype)], dim=1)
+    cache["conv"].copy_(tail[:, 1:])
+    cache["h"].copy_(y)
     return x + out
 
 
-__all__ = ["RGLRUBlock", "rglru_init", "rglru_apply"]
+__all__ = ["RGLRUBlock", "rglru_init", "rglru_apply", "rglru_prefill_cache",
+           "rglru_decode"]

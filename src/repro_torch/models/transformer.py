@@ -16,17 +16,23 @@ at every step, and autograd carries the gradients back to the masters.
 When ``cfg.remat`` is set each scanned period runs under
 ``torch.utils.checkpoint``, as the reference wraps its scan body in
 ``jax.checkpoint``. Serving (``prefill``, ``decode_step``,
-``prefill_extend``) runs all-``attn`` decoders (``check_servable``) on
-parameters held in the compute dtype (``to_compute_dtype_``, once).
+``prefill_extend``) runs the same three block kinds (``check_servable``)
+on parameters held in the compute dtype (``to_compute_dtype_``, once);
+``prefill_extend`` only all-``attn`` decoders
+(``supports_chunked_prefill``).
 
 ``to_actor_graph`` exports the decoder as a VR-PRUNE actor graph
 (Input, Embed, one actor per group of layers, Head) whose fire functions
 run ``forward``'s layers on a compute copy cast once, for Edge-PRUNE's
 partitioned prefill (``runtime.serving.PartitionedServeEngine``).
 
-The decode cache is a list with one ``{"k", "v"}`` dict per layer, each
-(B, S_cache, Hk, hd), or with the paged layout (``init_paged_cache``)
-each a shared (N, bs, Hk, hd) pool addressed through block tables.
+The decode cache is a list with one dict per layer, by kind: ``{"k",
+"v"}`` (B, S_cache, Hk, hd) for attention (a ring of ``min(window,
+max_len)`` rows for ``attn_local``, slot = position % rows), ``{"h",
+"conv"}`` for ``rglru`` (``models.rglru``). With the paged layout
+(``init_paged_cache``) each ``attn`` layer's K/V is a shared (N, bs,
+Hk, hd) pool addressed through block tables, and every other leaf stays
+slot-indexed.
 ``decode_step``, ``decode_step_staged``, ``prefill_extend`` and the
 paged helpers (``paged_insert``, ``paged_seed``, ``paged_copy_block``)
 update caches in place where the reference returns new ones.
@@ -87,13 +93,9 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 def check_servable(cfg: ModelConfig) -> None:
     """The configs the port serves (prefill, decode, the ``Engine``):
-    all-``attn`` decoders. The hybrid's ring cache and recurrent state
-    come with later slices."""
+    the ones it trains, decoders of ``attn``, ``attn_local`` (a ring
+    cache) and ``rglru`` (a recurrent state) blocks."""
     check_trainable(cfg)
-    if any(k != "attn" for k in cfg.layer_kinds):
-        raise ValueError(f"{cfg.name}: the port serves all-'attn' decoders; "
-                         f"serving {sorted(set(cfg.layer_kinds))} comes with "
-                         f"later slices (queue 1, item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -362,45 +364,57 @@ def _cache_size_for(kind: str, cfg: ModelConfig, max_len: int) -> int:
     return 0
 
 
+def _layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                 device) -> Dict[str, torch.Tensor]:
+    """One layer's zeroed decode cache: {"k", "v"} (batch, S_cache, Hk,
+    hd) for attention (S_cache ``min(window, max_len)`` for
+    ``attn_local``), {"h": (batch, d) fp32, "conv": (batch, W - 1, d)}
+    for ``rglru``."""
+    dtype = _dtype(cfg.dtype)
+    if kind == "rglru":
+        d = cfg.d_model
+        return {"h": torch.zeros((batch, d), device=device),
+                "conv": torch.zeros((batch, cfg.rglru_conv_width - 1, d),
+                                    dtype=dtype, device=device)}
+    shape = (batch, _cache_size_for(kind, cfg, max_len), cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device) -> Cache:
-    """Zeroed decode cache: one {"k", "v"} (batch, S_cache, Hk, hd) dict
-    per layer, in ``cfg.layer_kinds`` order."""
-    dtype = _dtype(cfg.dtype)
-    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    out = []
-    for kind in cfg.layer_kinds:
-        s = _cache_size_for(kind, cfg, max_len)
-        out.append({"k": torch.zeros((batch, s, hk, hd), dtype=dtype,
-                                     device=device),
-                    "v": torch.zeros((batch, s, hk, hd), dtype=dtype,
-                                     device=device)})
-    return out
+    """Zeroed decode cache, one ``_layer_cache`` per layer in
+    ``cfg.layer_kinds`` order, as the reference's ``init_cache``."""
+    return [_layer_cache(kind, cfg, batch, max_len, device)
+            for kind in cfg.layer_kinds]
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     """Chunked prefill (and prefix resume) extends a position-indexed
-    global-attention cache chunk by chunk, so it needs no
-    ``max_cache_len`` ring cap. (The reference also needs every layer
-    ``attn`` and no encoder; ``check_supported`` already refuses the
-    rest here.)"""
-    return not cfg.max_cache_len
+    global-attention cache chunk by chunk. Ring caches (``attn_local``
+    windows, ``max_cache_len`` caps), recurrent state (whose prefill
+    starts from the zero state, not a carried one) and encoders are
+    served by the one-shot path instead, as in the reference."""
+    return (all(k == "attn" for k in cfg.layer_kinds)
+            and cfg.n_encoder_layers == 0 and not cfg.max_cache_len)
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      max_slots: int, *, max_len: int, device) -> Cache:
-    """Paged counterpart of ``init_cache``: each layer's global-attention
-    K/V live in one shared pool of ``num_blocks`` blocks of
-    ``block_size`` rows, {"k", "v"} (N, bs, Hk, hd), addressed through
-    per-slot block tables. Physical block 0 is the null block. The
-    port's configs are all-``attn``, so there are no slot-indexed leaves
-    (``max_slots`` and ``max_len`` size those in the reference)."""
+    """Paged counterpart of ``init_cache``: each ``attn`` layer's K/V
+    live in one shared pool of ``num_blocks`` blocks of ``block_size``
+    rows, {"k", "v"} (N, bs, Hk, hd), addressed through per-slot block
+    tables; physical block 0 is the null block. Every other layer (a
+    local window's ring, a recurrent state) keeps ``init_cache``'s
+    leaves at ``max_slots`` rows, slot-indexed, as in the reference."""
     dtype = _dtype(cfg.dtype)
-    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    shape = (num_blocks, block_size, hk, hd)
+    shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in cfg.layer_kinds]
+            if kind == "attn" else
+            _layer_cache(kind, cfg, max_slots, max_len, device)
+            for kind in cfg.layer_kinds]
 
 
 def kv_row_bytes(cfg: ModelConfig) -> int:
@@ -413,6 +427,22 @@ def kv_row_bytes(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 # prefill / decode
 # ---------------------------------------------------------------------------
+
+def _prefill_layer(layer, x: torch.Tensor, cfg: ModelConfig, *,
+                   positions: torch.Tensor, max_len: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decoder layer of a prefill, by kind: (its output, its decode
+    cache), as the reference's ``_layer_prefill``."""
+    if layer.kind == "rglru":
+        x, c = R.rglru_prefill_cache(layer.block, x, cfg)
+    else:
+        x, c = L.attn_prefill_cache(
+            layer.block, x, cfg, kind=layer.kind, positions=positions,
+            cache_size=_cache_size_for(layer.kind, cfg, max_len))
+    if layer.mlp is not None:
+        x = L.mlp_apply(layer.mlp, x, cfg)
+    return x, c
+
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int
@@ -428,11 +458,8 @@ def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int
                              device=x.device).expand(b, s)
     cache: Cache = []
     for layer in model.layers:
-        x, c = L.attn_prefill_cache(
-            layer.block, x, cfg, kind=layer.kind, positions=positions,
-            cache_size=_cache_size_for(layer.kind, cfg, max_len))
-        if layer.mlp is not None:
-            x = L.mlp_apply(layer.mlp, x, cfg)
+        x, c = _prefill_layer(layer, x, cfg, positions=positions,
+                              max_len=max_len)
         cache.append(c)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = _head_logits(x[:, -1], model)
@@ -443,16 +470,21 @@ def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int
 def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
                    cache_len: torch.Tensor, block_tables, lo: int, hi: int
                    ) -> torch.Tensor:
-    """Decoder layers ``lo .. hi - 1`` of one decode step."""
+    """Decoder layers ``lo .. hi - 1`` of one decode step. With
+    ``block_tables`` the ``attn`` layers read their pool through the
+    tables; ring and recurrent layers decode their slot-indexed leaves
+    either way."""
     cfg = model.cfg
     for layer, c in zip(model.layers[lo:hi], cache[lo:hi]):
-        if block_tables is None:
-            x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
-                              cache_len=cache_len)
-        else:
+        if layer.kind == "rglru":
+            x = R.rglru_decode(layer.block, x, cfg, cache=c)
+        elif layer.kind == "attn" and block_tables is not None:
             x = L.attn_decode_paged(layer.block, x, cfg, k_pool=c["k"],
                                     v_pool=c["v"], tables=block_tables,
                                     cache_len=cache_len)
+        else:
+            x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
+                              cache_len=cache_len)
         if layer.mlp is not None:
             x = L.mlp_apply(layer.mlp, x, cfg)
     return x
@@ -561,15 +593,19 @@ def _ids(block_ids, device) -> torch.Tensor:
 @torch.no_grad()
 def paged_insert(cfg: ModelConfig, cache: Cache, req_cache: Cache,
                  block_ids, slot: int, *, block_size: int) -> Cache:
-    """Write a batch=1 prefill (or scratch) cache into the paged pools:
-    each layer's K/V rows go page-wise into the physical blocks named by
-    ``block_ids`` (one per logical page; 0 = the null block, for pages
-    past the allocation or pages shared with another request). Rows of
-    ``req_cache`` past the slot's page span (a chunk-rounded scratch
-    cache is longer) are dropped: they lie beyond ``max_len``. ``slot``
-    indexes slot-held leaves in the reference; an all-``attn`` config
-    has none."""
-    for big, small in zip(cache, req_cache):
+    """Write a batch=1 prefill (or scratch) cache into the paged cache:
+    each ``attn`` layer's K/V rows go page-wise into the physical blocks
+    named by ``block_ids`` (one per logical page; 0 = the null block, for
+    pages past the allocation or pages shared with another request), and
+    every other leaf (a ring, a recurrent state) is written at ``slot``,
+    as the reference's ``ins_slot`` does. Rows of ``req_cache`` past the
+    slot's page span (a chunk-rounded scratch cache is longer) are
+    dropped: they lie beyond ``max_len``."""
+    for kind, big, small in zip(cfg.layer_kinds, cache, req_cache):
+        if kind != "attn":
+            for key, leaf in big.items():
+                leaf[slot] = small[key][0]
+            continue
         ids = _ids(block_ids, big["k"].device)
         sg = ids.shape[0] * block_size
         for key in ("k", "v"):
@@ -583,11 +619,15 @@ def paged_insert(cfg: ModelConfig, cache: Cache, req_cache: Cache,
 def paged_seed(cfg: ModelConfig, scratch: Cache, cache: Cache,
                block_ids) -> Cache:
     """Inverse of ``paged_insert`` for a shared prompt prefix: copy the
-    K/V rows of the pool blocks ``block_ids`` (in page order) into the
-    head of a batch=1 scratch cache, so ``prefill_extend`` can resume
-    mid-prompt. Whole pages are copied; rows past the match are either
-    recomputed by the extend or lie beyond the prompt."""
-    for sc, c in zip(scratch, cache):
+    ``attn`` layers' K/V rows of the pool blocks ``block_ids`` (in page
+    order) into the head of a batch=1 scratch cache, so
+    ``prefill_extend`` can resume mid-prompt. Whole pages are copied;
+    rows past the match are either recomputed by the extend or lie
+    beyond the prompt. Only ``supports_chunked_prefill`` configs get
+    here, whose every layer is ``attn``."""
+    for kind, sc, c in zip(cfg.layer_kinds, scratch, cache):
+        if kind != "attn":
+            continue
         ids = _ids(block_ids, c["k"].device)
         for key in ("k", "v"):
             pool = c[key]
@@ -600,11 +640,12 @@ def paged_seed(cfg: ModelConfig, scratch: Cache, cache: Cache,
 @torch.no_grad()
 def paged_copy_block(cfg: ModelConfig, cache: Cache, src: int,
                      dst: int) -> Cache:
-    """Copy one physical block's K/V rows to another: the device half of
-    copy-on-write."""
-    for c in cache:
-        for key in ("k", "v"):
-            c[key][dst] = c[key][src]
+    """Copy one physical block's rows to another in every ``attn``
+    layer's pool: the device half of copy-on-write."""
+    for kind, c in zip(cfg.layer_kinds, cache):
+        if kind == "attn":
+            for key in ("k", "v"):
+                c[key][dst] = c[key][src]
     return cache
 
 

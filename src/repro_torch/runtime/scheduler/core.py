@@ -120,12 +120,11 @@ class ContinuousScheduler:
         # paged mode wants a whole number of blocks per slot
         self.max_len = s.max_len if not s.paged else \
             -(-s.max_len // s.block_size) * s.block_size
-        if s.prefill_chunk > 0 and not T.supports_chunked_prefill(cfg):
-            raise ValueError(
-                f"{cfg.name}: chunked prefill extends a position-indexed "
-                "cache; a max_cache_len ring cap needs one-shot prefill "
-                "(prefill_chunk=0)")
-        self._chunk = s.prefill_chunk
+        # chunked prefill extends a position-indexed cache: a config
+        # outside supports_chunked_prefill (a ring, a recurrent state) is
+        # served one-shot, as in the reference
+        self._chunk = s.prefill_chunk \
+            if T.supports_chunked_prefill(cfg) else 0
         self._scratch_len = -(-self.max_len // self._chunk) * self._chunk \
             if self._chunk else self.max_len
         self._chunking: Optional[_ChunkedPrefill] = None

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.runtime.scheduler.layouts``: ``SlottedLayout``
 gives every slot dense ``max_len`` rows; ``PagedLayout`` pools
-global-attention K/V behind per-slot block tables (allocator-backed,
+global-attention K/V behind per-slot block tables, while local windows'
+rings and recurrent state stay slot-indexed (allocator-backed,
 prefix-sharing, copy-on-write, with the victim cache and its tenant
 quotas). Caches are updated in place. The paged layout keeps its block
 tables in numpy on the host, as the reference does, and uploads them to
@@ -78,12 +79,13 @@ class SlottedLayout:
 
     def insert(self, req_cache: T.Cache, slot: int) -> None:
         """Copy a batch=1 prefill cache into slot ``slot`` of the shared
-        cache, in place. A chunk-rounded scratch cache is longer than a
-        slot: only its first ``max_len`` rows are kept."""
-        ml = self.max_len
+        cache, in place: every leaf of every layer, so a reused slot's
+        ring rows and recurrent state are overwritten. A chunk-rounded
+        scratch cache is longer than a slot: only the first rows that a
+        slot holds are kept."""
         for big, small in zip(self.cache, req_cache):
-            big["k"][slot].copy_(small["k"][0, :ml])
-            big["v"][slot].copy_(small["v"][0, :ml])
+            for key, leaf in big.items():
+                leaf[slot].copy_(small[key][0, :leaf.shape[1]])
 
     insert_scratch = insert
 
@@ -149,7 +151,9 @@ class PagedLayout:
         if all(k != "attn" for k in cfg.layer_kinds):
             raise ValueError(
                 f"{cfg.name}: paged KV cache pages global-attention K/V, "
-                "but this config has none — use the slotted layout")
+                "but this config has none (local windows and recurrent "
+                "state are fixed-size per slot) — use the slotted layout; "
+                "its memory is already bounded")
         self.cfg = cfg
         self.model = model
         self.sched = s
@@ -170,9 +174,10 @@ class PagedLayout:
         self.cache = T.init_paged_cache(cfg, num_blocks, s.block_size,
                                         s.max_slots, max_len=max_len,
                                         device=model.device)
-        # the mid-prompt resume runs through prefill_extend, which the
-        # max_cache_len refusal above leaves supported
-        self.prefix_cache = s.prefix_cache
+        # the mid-prompt resume runs through prefill_extend, so sharing
+        # is gated on the same predicate as chunked prefill: a config
+        # outside it is served paged without sharing, as in the reference
+        self.prefix_cache = s.prefix_cache and T.supports_chunked_prefill(cfg)
         # tenant -> chained hash of a block-aligned prefix -> (resident
         # block holding its last page, that page's tokens, parent key).
         # A request probes only its own tenant's namespace, and a match

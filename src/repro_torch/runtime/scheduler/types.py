@@ -122,14 +122,14 @@ class SchedulerConfig:
     # running requests doesn't immediately preempt the newcomer back out
     watermark: int = 0
     # chunked prefill: admit prompts prefill_chunk tokens at a time,
-    # interleaved with decode steps (0 = one-shot prefill). Refused for
-    # configs outside supports_chunked_prefill (a max_cache_len cap).
+    # interleaved with decode steps (0 = one-shot prefill). Configs
+    # outside supports_chunked_prefill are served one-shot.
     prefill_chunk: int = 0
     # prefix sharing (paged only): admission matches new prompts against
     # resident block chains, maps fully-matched blocks into the request's
     # table (refcounted, copy-on-write on any write into a shared block)
-    # and skips prefill for the matched region. The paged layout refuses
-    # a max_cache_len cap, the one config outside supports_chunked_prefill.
+    # and skips prefill for the matched region. Configs outside
+    # supports_chunked_prefill are served paged without sharing.
     prefix_cache: bool = False
     # victim cache (requires prefix_cache): when a request completes,
     # its refcount-1 indexed blocks move to a reclaimable victim pool

@@ -5,7 +5,8 @@ interpret mode. fp32, tolerance 2e-5 as in tests/test_kernels.py; bf16
 3e-2 (the frameworks round bf16 at other places). Covered: prefill
 flash attention (also with a per-sequence ``q_offset`` / ``kv_len``, the
 ragged path chunked prefill and prefix resume take), slotted decode,
-and paged decode over a block pool. For training: the flash wrapper's
+and paged decode over a block pool, the decodes also at head_dim 256
+with 4 and 16 query heads a KV head. For training: the flash wrapper's
 log-sum-exp at head_dim 64 and 256 against the reference's
 ``_fa_forward``, and the port of the flash backward ``_fa_bwd``
 (through the ``FlashAttention`` autograd function) against ``jax.grad``
@@ -56,6 +57,9 @@ PAGED_CASES = [
     (3, 8, 1, 64, 5, 16, 2, "float32"),
     (1, 4, 4, 128, 17, 8, 8, "bfloat16"),
     (4, 8, 2, 64, 13, 16, 3, "float32"),
+    # head_dim 256: gemma3's 4 query heads a KV head, RecurrentGemma's 16
+    (2, 4, 1, 256, 9, 16, 3, "float32"),
+    (2, 16, 1, 256, 7, 16, 2, "bfloat16"),
 ]
 PAGED_TOL = {"float32": TOL, "bfloat16": 3e-2}
 # (b, sq, sk, h, hk, d, q_offset, kv_len): Sq != Sk with kv_len < Sk, a
@@ -78,6 +82,9 @@ DEC_SHAPES = [
     (4, 2, 16, 40, [1, 17, 40]),
     (8, 2, 12, 33, [1, 33]),
     (6, 1, 32, 64, [64, 1, 2, 50]),
+    # head_dim 256 over rings: g = 4 (gemma3) and 16 (RecurrentGemma)
+    (4, 1, 256, 48, [1, 31, 33, 48]),
+    (16, 1, 256, 40, [40, 2, 17]),
 ]
 
 

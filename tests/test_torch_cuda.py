@@ -10,7 +10,7 @@ Without a card they skip; ``python3 chip_smoke.py`` holds the same
 kernels at the serving and training shapes. Covered: flash attention
 (fp32 ragged, with ``q_offset`` / ``kv_len``, and the bf16 tensor-core
 body's edges), slotted and paged decode (lengths 0 and 1, null and
-repeated blocks, the bf16 edges), and the RG-LRU scan forward and
+repeated blocks, the bf16 edges, head_dim 256 at g = 1, 4 and 16), and the RG-LRU scan forward and
 reverse (the chunked body's edges, a bitwise repeat at the training
 shape, back-to-back calls on rotated inputs).
 """
@@ -180,6 +180,43 @@ def test_bf16_kernel_edges_match_plain_on_card():
         out = da_ops.paged_decode_attention(*args)
         close(out, da_ref.paged_decode_attention_ref(*args), 2e-3)
         assert out[0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_head_dim_256_decode_matches_plain_on_card():
+    """Slotted and paged decode at head_dim 256 (the kernel's second
+    head-dim class) against the plain versions on the card, bf16 and
+    fp32, g = 1, 4 and 16, over ring-sized caches of 512 and 2,048 rows
+    and lengths 0, 1, 31, 33, 511, 512 and 2,048, blocks of 16: fp32
+    within 2e-5, bf16 within chip_smoke.py's limits (3e-2 slotted, 2e-3
+    paged)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run: python3 chip_smoke.py")
+    rng = np.random.RandomState(0)
+    tol = {("slotted", torch.float32): TOL, ("paged", torch.float32): TOL,
+           ("slotted", torch.bfloat16): 3e-2,
+           ("paged", torch.bfloat16): 2e-3}
+    for dt in (torch.float32, torch.bfloat16):
+        for h, s, lens in ((1, 2048, [0, 1, 31, 33, 511, 512, 2048]),
+                           (4, 512, [0, 1, 31, 33, 511, 512]),
+                           (16, 2048, [0, 1, 31, 33, 511, 512, 2048])):
+            q, kc, vc, ln = _dec(rng, h, 1, 256, s, lens)
+            args = [torch.from_numpy(a).cuda().to(dt) for a in (q, kc, vc)]
+            ln = torch.from_numpy(ln).cuda()
+            got = da_ops.decode_attention(*args, ln).float().cpu()
+            want = da_ref.decode_attention_ref(*args, ln).float().cpu()
+            t = tol[("slotted", dt)]
+            np.testing.assert_allclose(got, want, rtol=t, atol=t)
+            assert not got[0].any()
+            q, kp, vp, tables, _ = _paged(rng, len(lens), h, 1, 256, 300,
+                                          16, s // 16)
+            args = [torch.from_numpy(a).cuda().to(dt) for a in (q, kp, vp)]
+            tables = torch.from_numpy(tables).cuda()
+            got = da_ops.paged_decode_attention(*args, tables, ln)
+            want = da_ref.paged_decode_attention_ref(*args, tables, ln)
+            t = tol[("paged", dt)]
+            np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                                       rtol=t, atol=t)
 
 
 @pytest.mark.cuda

@@ -32,7 +32,7 @@ from repro_torch.runtime.scheduler import Request, SlotFailure
 from repro_torch.weights import from_jax_params
 from test_torch_golden import (CONFIG_KW, COUNTERS, ENGINE_MAX_LEN,
                                LAYOUTS, load_golden, params_from, requests,
-                               workload_specs)
+                               unflatten, workload_specs)
 
 
 @pytest.fixture(scope="module")
@@ -197,14 +197,61 @@ def test_structural_errors(zoo):
 
 @pytest.mark.parametrize("kw", [dict(prefill_chunk=4),
                                 dict(kv_layout="paged", prefix_cache=True)])
-def test_ring_capped_cache_refuses_extend_paths(zoo, kw):
-    """A ``max_cache_len`` ring cap has no position-indexed cache to
-    extend: chunked prefill and prefix sharing are refused, not quietly
-    served one-shot (the reference falls back silently)."""
-    cfg, model, *_ = zoo["cm-scan"]
-    capped = dataclasses.replace(cfg, max_cache_len=16)
-    with pytest.raises(ValueError, match="max_cache_len"):
-        _engine(capped, model, "fifo", **kw)
+def test_ring_capped_cache_refuses_extend_paths(kw):
+    """A ring cache has no position-indexed cache to extend, so chunked
+    prefill and prefix sharing are not refused: they serve one-shot, as
+    the reference serves them, with its engine's tokens, no extend call
+    and no prefix hit. Chunked prefill on a ``max_cache_len`` ring cap
+    (slotted); prefix sharing on a local-attention ring (the paged
+    layout refuses a cap in both packages). Four requests share a
+    12-token preamble; the cap wraps during decode."""
+    from repro.models.config import ModelConfig as JConfig
+    from repro.runtime.engine import Engine as JEngine
+    from repro.runtime.engine import EngineConfig as JEngineConfig
+    from repro.runtime.scheduler import Request as JRequest
+    from repro_torch.models import transformer as PT
+    golden = load_golden()
+    ring = dict(layer_pattern=("attn", "attn_local"), window=8) \
+        if "prefix_cache" in kw else dict(max_cache_len=16)
+    jcfg = JConfig(**{**CONFIG_KW["cm-scan"], **ring})
+    cfg = ModelConfig(**{**CONFIG_KW["cm-scan"], **ring})
+    assert not PT.supports_chunked_prefill(cfg)
+    flat = {k[len("cm-scan|params|"):]: v for k, v in golden.items()
+            if k.startswith("cm-scan|params|")}
+    if "prefix_cache" in kw:
+        # cm-scan's two stacked layers as one period of (attn, attn_local)
+        flat = {k.replace("scan/0/", f"scan/{i}/"): v[i:i + 1]
+                for k, v in flat.items() if k.startswith("scan/0/")
+                for i in range(2)} | {k: v for k, v in flat.items()
+                                      if not k.startswith("scan/")}
+    params = unflatten(flat)
+    model = from_jax_params(flat, cfg, device="cpu")
+    rng = np.random.RandomState(3)
+    head = rng.randint(0, cfg.vocab_size, 12)
+    prompts = [np.concatenate([head, rng.randint(0, cfg.vocab_size, 2)])
+               .astype(np.int32) for _ in range(3)]
+    prompts.append(prompts[0].copy())
+    want = JEngine(jcfg, params, JEngineConfig(
+        max_len=ENGINE_MAX_LEN, max_slots=3, admission="fifo", **kw)
+    ).generate([JRequest(i, p, max_new_tokens=6)
+                for i, p in enumerate(prompts)])
+    calls = {"extend": 0}
+    extend = PT.prefill_extend
+
+    def counted(*a, **k):
+        calls["extend"] += 1
+        return extend(*a, **k)
+    eng = _engine(cfg, model, "fifo", **kw)
+    PT.prefill_extend = counted
+    try:
+        got = eng.generate([Request(i, p, max_new_tokens=6)
+                            for i, p in enumerate(prompts)])
+    finally:
+        PT.prefill_extend = extend
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert calls["extend"] == 0
+    assert eng.stats()["prefix_hits"] == 0
+    assert eng.scheduler._chunk == 0 and not eng.scheduler._prefix
 
 
 def test_watermark_admission_and_refusals_match_jax(zoo):

@@ -8,8 +8,9 @@
 * the ``EngineConfig`` fields run by the slices so far are accepted and
   build an engine (``step_delay_s``, the endpoint tier's handicap,
   leaves the tokens as they are), and the model families of later
-  slices are refused with a ``ValueError`` that says so (the hybrid's ``rglru`` and ``attn_local``
-  blocks build and train, and serving refuses them);
+  slices (MoE, xLSTM, frontends) are refused with a ``ValueError`` that
+  says so (the hybrid's ``rglru`` and ``attn_local`` blocks build, train
+  and serve);
 * ``chip_smoke.py`` fails, printing no result, without a card or outside
   a checkout.
 """
@@ -31,7 +32,7 @@ import torch
 import repro_torch
 from repro_torch.launch import serve, train
 from repro_torch.models import transformer as PT
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.runtime import server
 from repro_torch.runtime.engine import Engine, EngineConfig
 
@@ -154,27 +155,23 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("change", [
-    dict(layer_pattern=("attn_local",), window=4),
-    dict(layer_pattern=("attn", "rglru")), dict(frontend="vision",
-                                                frontend_dim=8)])
+    dict(moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=16)),
+    dict(layer_pattern=("mlstm", "slstm"), d_ff=0),
+    dict(frontend="vision", frontend_dim=8)])
 def test_later_model_families_are_refused(change):
-    """Frontends (and MoE, encoders) are refused when the model is
-    built. The hybrid's block kinds build and train in this slice, and
-    the serving entry points (``Engine``, ``prefill``, ``decode_step``)
-    refuse them: their ring cache and recurrent state come later."""
+    """MoE, xLSTM's blocks and frontends (and encoders) come with later
+    slices: the model is refused when it is built, and the serving
+    entry points refuse the config. The hybrid's block kinds, ``attn``,
+    ``attn_local`` and ``rglru``, are trained and served
+    (tests/test_torch_hybrid.py)."""
     cfg = ModelConfig(**{**TINY, **change})
-    if cfg.frontend:
-        with pytest.raises(ValueError, match="later slices"):
-            PT.Transformer(cfg, device="cpu")
-        return
-    model = PT.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="later slices"):
+        PT.Transformer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="later slices"):
+        PT.check_servable(cfg)
+    model = PT.init_params(ModelConfig(**TINY), device="cpu")
     with pytest.raises(ValueError, match="later slices"):
         Engine(cfg, model, device="cpu")
-    with pytest.raises(ValueError, match="later slices"):
-        PT.prefill(model, torch.zeros((1, 4), dtype=torch.int32), max_len=8)
-    with pytest.raises(ValueError, match="later slices"):
-        PT.decode_step(model, torch.zeros((1,), dtype=torch.int32), [],
-                       torch.zeros((1,), dtype=torch.int32))
 
 
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path):

@@ -15,8 +15,9 @@ checkout's kernels, and times them with that checkout's
 ``chip_smoke.py``: flash (``time_flash`` at the fifo and batch
 prefills, ``time_flash_extend`` at the prefix-resume, chunk and ragged
 extends, and ``time_flash_train`` at the training shape where the
-checkout has it), slotted decode (``time_decode`` at the fifo and batch
-steps), paged decode (``time_paged`` at the fifo step) and the RG-LRU
+checkout has it; its ``SERVE_FA`` shapes), slotted decode
+(``time_decode`` at its ``SERVE_DEC`` shapes), paged decode
+(``time_paged`` at its ``SERVE_PAGED`` shapes, or the fifo step) and the RG-LRU
 scan forward and reverse (``time_scan`` at the training shape, where
 the checkout has it), so that the two versions meet the same card in
 one call. Prints one JSON line per turn, times in ms.
@@ -49,8 +50,13 @@ if hasattr(cs, "time_flash_train"):
     out["flash train"] = cs.time_flash_train(torch, ops, ref, rnd)["ms"]
 out.update({"decode " + p: cs.time_decode(torch, da_ops, da_ref, rnd, lens)["ms"]
             for p, lens in cs.SERVE_DEC.items()})
-out["paged fifo"] = cs.time_paged(torch, np, da_ops, da_ref, rnd,
-                                  cs.FIFO_LENS)["ms"]
+if hasattr(cs, "SERVE_PAGED"):      # shapes, head_dim 256 among them
+    out.update({"paged " + p: cs.time_paged(torch, np, da_ops, da_ref, rnd,
+                                            shape)["ms"]
+                for p, shape in cs.SERVE_PAGED.items()})
+else:
+    out["paged fifo"] = cs.time_paged(torch, np, da_ops, da_ref, rnd,
+                                      cs.FIFO_LENS)["ms"]
 if hasattr(cs, "time_scan"):
     for part in ("forward", "reverse"):
         out["scan " + part] = cs.time_scan(torch, scan_ops, scan_ref, rnd,
