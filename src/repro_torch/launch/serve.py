@@ -207,12 +207,9 @@ def serve_http(eng: Engine, port: int, *,
             pass
 
 
-def main(argv: Optional[List[str]] = None, *,
-         stop: Optional[threading.Event] = None,
-         listening: Optional[Callable[[Any], None]] = None
-         ) -> Optional[Dict[str, Any]]:
+def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     """Run the CLI. With ``--serve`` it returns None once the server has
-    stopped (``stop`` and ``listening`` as in ``serve_http``)."""
+    been interrupted."""
     args = parse_args(argv)
     prefix = args.prefix_cache or args.victim_cache
     paged = args.paged or prefix
@@ -238,7 +235,7 @@ def main(argv: Optional[List[str]] = None, *,
         torch.cuda.synchronize()
     init_s = time.perf_counter() - t_init
     if args.serve:
-        serve_http(eng, args.port, stop=stop, listening=listening)
+        serve_http(eng, args.port)
         return None
 
     summary = run(eng, reqs, arrivals)

@@ -94,7 +94,9 @@ def check_trainable(cfg: ModelConfig) -> None:
 def check_servable(cfg: ModelConfig) -> None:
     """The configs the port serves (prefill, decode, the ``Engine``):
     the ones it trains, decoders of ``attn``, ``attn_local`` (a ring
-    cache) and ``rglru`` (a recurrent state) blocks."""
+    cache) and ``rglru`` (a recurrent state) blocks. An alias of
+    ``check_trainable`` on purpose: the serving entry points name the
+    rule they apply, and it may part from training's in a later slice."""
     check_trainable(cfg)
 
 

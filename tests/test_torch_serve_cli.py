@@ -6,8 +6,9 @@ JSONL file (explicit prompts, ``prompt_len`` lines drawn from the seed,
 out-of-order arrivals, ``eos`` / ``priority`` / ``deadline_s``);
 ``--mode`` maps onto ``--policy`` as the reference maps it; ``--trace``
 replays the file through the continuous scheduler with the tokens of an
-engine run on the same requests; ``--serve --port 0`` answers a
-``POST /generate`` on an ephemeral port and shuts down when told; and
+engine run on the same requests; ``--serve --port 0`` parses, and its
+``serve_http`` over the CLI's engine answers a ``POST /generate`` on an
+ephemeral port and shuts down when told; and
 ``--trace-out`` writes a Chrome trace that parses. Every wait has a
 timeout.
 """
@@ -89,11 +90,16 @@ def test_trace_replays_through_the_continuous_scheduler(trace_file):
 
 
 def test_serve_answers_a_generate_on_an_ephemeral_port():
+    args = serve.parse_args(ARGV + ["--serve", "--port", "0"])
+    assert args.serve and args.port == 0
+    cfg = get_config("gemma3_1b").smoke()
+    eng = Engine(cfg, T.init_params(cfg, 0, device="cpu"),
+                 EngineConfig.from_args(args, max_len=32, admission="fifo"),
+                 device="cpu")
     stop, servers = threading.Event(), queue.Queue()
-    t = threading.Thread(target=serve.main, args=(ARGV + [
-        "--serve", "--port", "0"],), kwargs=dict(stop=stop,
-                                                 listening=servers.put),
-        daemon=True)
+    t = threading.Thread(target=serve.serve_http, args=(eng, args.port),
+                         kwargs=dict(stop=stop, listening=servers.put),
+                         daemon=True)
     t.start()
     try:
         srv = servers.get(timeout=TIMEOUT_S)
