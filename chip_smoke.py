@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6,7,8,9]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6,7,8,9,10]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -211,12 +211,70 @@ Phases, one status line each; any failure exits non-zero:
    layers and paged pool; RecurrentGemma's rings and its 512- and
    2,080-token prefills), each of which is also a gated case; a timed
    shape whose kernel disagrees with its plain version fails the phase.
+10. the MoE and xLSTM families on the card: (a) the JAX fixture
+   (``src/repro_torch/testdata/golden_moe_xlstm.npz``: qwen2-moe's smoke
+   config, a tight-capacity variant whose 128-token prefills drop
+   choices, xlstm-350m's smoke config; weights regenerated from the
+   fixture's numpy seeds and checked against its checksums) in fp32
+   through the kernels: ``forward`` logits and aux and prefill + 4
+   decode-step logits within 1e-4 of JAX's, the Engine's tokens, finish
+   reasons, counters and ``kv_stats`` equal to JAX's engine's (batch,
+   fifo, paged, paged + prefix cache, chunked prefill; xLSTM's paged
+   layout refused in the reference's words), and one training step of
+   the tight variant: loss, ce, aux and every gradient leaf within 1e-4;
+   (b) qwen2-moe-a2.7b at full width and depth in bf16 (24 layers, 16
+   heads of 128, 60 routed experts top-4 + 4 shared, the einsum
+   dispatch): 16 requests of 512 tokens, 32 new, 8 slots, fifo through
+   the serve CLI, then batch, paged, a slotted fifo run of the
+   shared-preamble workload, paged + prefix cache on it, prefill chunks
+   of 128 and a fifo run on the gather dispatch; every request ends by
+   length, launches exact (24 flash a prefill or extend call, 24 of the
+   layout's decode kernel a step), paged == slotted token for token, fifo
+   == batch or, where they part, the cause shown (a prompt's first layer
+   alone and in the 16-row batch: the router's input bitwise equal, its
+   bf16 logits at most 2 ulps apart, every moved routing decision at a
+   top-5 logit gap of at most 2 ulps; fifo == batch then held in fp32 in
+   (c)), the prefix run hits and the chunk run extends (their
+   tokens, and the gather run's, reported against their slotted fifo
+   runs: a resumed or chunked prefill routes other capacity groups, and
+   the gather combine sums in another order); the fifo run traced; the
+   model through the kernels against the plain versions (routing
+   decisions, logits, greedy choices) reported; (c) the same width cut
+   to 4 layers in fp32 on 8 prompts of 512 and 8 decode steps: every
+   layer's routing decisions (top-k experts and kept choices) equal,
+   logits within 1e-4 of the largest logit and greedy choices equal
+   between the kernels' and the plain versions' runs, the gather and
+   the einsum dispatch, and a batch prefill and the same prompts
+   prefilled one at a time; a control (the plain run's router logits
+   rounded to bf16) must move a routing decision; (b)'s workload through
+   the Engine under fifo and batch admission with equal tokens; (d)
+   qwen3-moe-235b-a22b at full width (d 4,096, 64/4 heads of 128, 128 experts top-8)
+   cut to 4 layers, bf16: 8 prompts of 256 tokens, 16 new, fifo,
+   launches exact, traced; (e) xlstm-350m at full width and depth (21
+   mLSTM, 3 sLSTM) in bf16: phase 4's workload fifo through the CLI and
+   batch, no kernel launched, fifo == batch or, where they part, the
+   cause shown (the first mLSTM layer's gate product, fp32 with 8
+   columns, rounding apart alone and in the batch on bitwise-equal
+   input), the paged layout refused, one sLSTM layer's prefill kernels
+   counted; then in fp32 the same workload fifo == batch, and 8 greedy
+   decode steps' logits within 1e-4 of the largest logit of ``forward``
+   over the prompts and those tokens; (f) training through
+   ``repro_torch.launch.train.run`` on the copy task, 3 steps:
+   qwen2-moe-a2.7b at full width cut to 2 layers (2 x 2,048 tokens) and
+   xlstm-350m whole (2 x 512); loss, ce and aux finite, peak memory under
+   80 GB, launches exact; each fifo run's wall, tok/s, TTFT p50, decode
+   ms a step and idle share beside the card's name and power limit.
+   Phase 2 adds the MoE configs' shapes as gated and timed cases:
+   qwen2-moe's prefill (16/16 heads of 128), fifo decode, paged decode
+   and training flash with its lse (S = 2,048), qwen3-moe's prefill and
+   decode (64/4 heads).
 
 ``--phases`` runs a subset and prints no result line (``--phases 8``
 runs phase 8 after the build). With all phases, the line before the
 last holds the kernels' summary as JSON (an entry per kernel and main
-path, with its timed shape and path: qwen2-1.5b's, the training run's
-and phase 9's at head_dim 256), after a line with phase 8's launches by
+path, with its timed shape and path: qwen2-1.5b's, the training run's,
+phase 9's at head_dim 256 and phase 10's MoE shapes), after a line
+with phase 8's launches by
 path; the last line is ``{"ok": true, "device": {...}}``.
 Needs one card; imports nothing of JAX.
 """
@@ -301,7 +359,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/9] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/10] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -384,6 +442,8 @@ DEC_CASES += [case for dtn in ("bfloat16", "float32") for case in (
 # pool at slotted parity holds 8 * 35 blocks + the null block
 BS, PAGES = 16, 35
 PARITY_BLOCKS = 8 * PAGES + 1
+# phase 10's qwen3-moe prompts
+Q3_PROMPT = 256
 # phase 9's serving shapes at head_dim 256, 8 slots: gemma3-1b's rows a
 # slot (1,024-token prompts + 32 new + 8), 67 pages of 16 when paged;
 # RecurrentGemma's local window
@@ -395,6 +455,10 @@ RG_WINDOW = 2048
 # the --out record; phase 9's (head_dim 256) are gated cases as well.
 # Flash: (B, S, H, Hk, D, window), causal;
 SERVE_FA = {"fifo": (1, 512, 12, 2, 128, 0), "batch": (16, 512, 12, 2, 128, 0),
+            # phase 10: qwen2-moe-a2.7b's MHA (g = 1) and qwen3-moe's 64
+            # query heads over 4 (g = 16) on their prompts
+            "qwen2-moe": (1, 512, 16, 16, 128, 0),
+            "qwen3-moe": (1, Q3_PROMPT, 64, 4, 128, 0),
             # gemma3-1b's local and global layers on a 1,024-token prompt
             "gemma3-local": (1, 1024, 4, 1, 256, 512),
             "gemma3-global": (1, 1024, 4, 1, 256, 0),
@@ -405,6 +469,11 @@ SERVE_FA = {"fifo": (1, 512, 12, 2, 128, 0), "batch": (16, 512, 12, 2, 128, 0),
 # slotted decode: (H, Hk, D, S, slot lengths)
 SERVE_DEC = {"fifo": (12, 2, 128, SERVE_S, FIFO_LENS),
              "batch": (12, 2, 128, SERVE_S, [528] * 16),
+             # phase 10: qwen2-moe-a2.7b's fifo step, and qwen3-moe's 8
+             # slots 1 to 15 tokens past their prompts
+             "qwen2-moe": (16, 16, 128, SERVE_S, FIFO_LENS),
+             "qwen3-moe": (64, 4, 128, Q3_PROMPT + 24,
+                           [Q3_PROMPT + 1 + 2 * i for i in range(8)]),
              # gemma3-1b's full rings of 512, and its global layers
              "gemma3-local": (4, 1, 256, 512, [512] * 8),
              "gemma3-global": (4, 1, 256, G3_S, [1040] * 8),
@@ -413,13 +482,20 @@ SERVE_DEC = {"fifo": (12, 2, 128, SERVE_S, FIFO_LENS),
                                       [528] * 6 + [RG_WINDOW] * 2)}
 # paged decode: (H, Hk, D, pool blocks, block size, pages, slot lengths)
 SERVE_PAGED = {"fifo": (12, 2, 128, PARITY_BLOCKS, BS, PAGES, FIFO_LENS),
+               "qwen2-moe": (16, 16, 128, PARITY_BLOCKS, BS, PAGES,
+                             FIFO_LENS),
                # gemma3-1b's 4 global layers at slotted parity
                "gemma3-global": (4, 1, 256, 8 * G3_PAGES + 1, BS, G3_PAGES,
                                  [1040] * 8)}
+# phase 9's (head_dim 256) and phase 10's (the MoE configs) serving
+# shapes are gated cases as well
+MOE_SHAPES = ("qwen2-moe", "qwen3-moe")
 FA_CASES += [(b, s, s, h, hk, d, True, w, "bfloat16")
-             for b, s, h, hk, d, w in SERVE_FA.values() if d == 256]
+             for p, (b, s, h, hk, d, w) in SERVE_FA.items()
+             if d == 256 or p in MOE_SHAPES]
 DEC_CASES += [(len(lens), h, hk, d, s, "bfloat16", lens)
-              for h, hk, d, s, lens in SERVE_DEC.values() if d == 256]
+              for p, (h, hk, d, s, lens) in SERVE_DEC.items()
+              if d == 256 or p in MOE_SHAPES]
 PAGED_CASES = [
     # (b, h, hk, d, num_blocks, block_size, pages, dtype, lengths or None
     # = random in [1, pages * bs]); tables random over [0, N), so they
@@ -444,8 +520,8 @@ PAGED_CASES += [(7, g, 1, 256, 300, 16, 128, dtn, RING_LENS)
 PAGED_CASES += [(8, 32, 2, 128, 200, 16, 18, "bfloat16",
                  [0, 1, 31, 33, 200, 257, 271, 280])]
 PAGED_CASES += [(len(lens), h, hk, d, n, bs, nb, "bfloat16", lens)
-                for h, hk, d, n, bs, nb, lens in SERVE_PAGED.values()
-                if d == 256]
+                for p, (h, hk, d, n, bs, nb, lens) in SERVE_PAGED.items()
+                if d == 256 or p in MOE_SHAPES]
 # the serving pools get the serving runs' tables (fifo_tables)
 SERVE_POOLS = {shape[3] for shape in SERVE_PAGED.values()}
 OFFSET_CASES = [
@@ -498,7 +574,14 @@ FA256_CASES = [
     (1, 300, 16, 1, 256, 50, "bfloat16"),
     (1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW, "bfloat16"),
     (1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW, "float32"),
+    # phase 10's training shape: qwen2-moe-a2.7b's 16 heads of 128 (MHA)
+    # over 2,048 positions, no window
+    (1, 2048, 16, 16, 128, 0, "bfloat16"),
 ]
+# flash with its lse at the training shapes, timed: (B, S, H, Hk, D,
+# window), causal
+TRAIN_FA = {"train": (1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW),
+            "qwen2-moe-train": (1, 2048, 16, 16, 128, 0)}
 # lse tolerance: fp32 as the output; bf16 inputs meet the same fp32
 # arithmetic on both sides, so the rows' lse agree far closer than o
 LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
@@ -741,11 +824,13 @@ def window_pairs(s: int, window: int) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def time_flash_train(torch, fa_ops, fa_ref, rnd) -> dict:
-    """Flash at the training shape (recurrentgemma-9b's attn_local: B=1,
-    S=4096, 16 query heads over 1 KV head, head_dim 256, window 2048,
-    bf16), with the log-sum-exp the backward reads."""
-    b, s, h, hk, d, w, dtn = 1, TRAIN_S, 16, 1, 256, TRAIN_WINDOW, "bfloat16"
+def time_flash_train(torch, fa_ops, fa_ref, rnd,
+                     shape=TRAIN_FA["train"]) -> dict:
+    """Flash at a training shape (by default recurrentgemma-9b's
+    attn_local: B=1, S=4096, 16 query heads over 1 KV head, head_dim
+    256, window 2048), bf16, with the log-sum-exp the backward reads."""
+    b, s, h, hk, d, w = shape
+    dtn = "bfloat16"
     dt = getattr(torch, dtn)
     flops = 4 * d * h * window_pairs(s, w) * b
     # q read, o written, k and v read, lse (fp32) written
@@ -755,21 +840,23 @@ def time_flash_train(torch, fa_ops, fa_ref, rnd) -> dict:
     bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
     nxt, nxt_l = cycle(copies), cycle(bhsd)
     pos = torch.arange(s, device="cuda")
-    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w)
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w) \
+        if w else None
     kw = dict(window=w, return_lse=True)
     q, k, v = copies[0]
     (o, lse), (ro, rlse) = (fa_ops.flash_attention(q, k, v, **kw),
                             fa_ref.attention_ref(q, k, v, **kw))
     err = held(torch, "flash train", o, ro, TOL[("prefill", dtn)])
-    return {"shape": f"B={b} S={s} H={h}/{hk} D={d} {dtn} causal window "
-                     f"{w}, with lse",
+    return {"shape": f"B={b} S={s} H={h}/{hk} D={d} {dtn} causal"
+                     f"{f' window {w}' if w else ''}, with lse",
             "max_abs_err": err,
             "lse_max_abs_err": (lse - rlse).abs().max().item(),
             "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(*nxt(), **kw)),
             "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(
                 *nxt(), **kw), iters=5, warmup=1),
-            "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), mask=mask)),
-            "library": "SDPA + window mask",
+            "library_ms": cuda_ms(torch, lambda: sdpa(
+                *nxt_l(), causal=mask is None, mask=mask)),
+            "library": "SDPA + window mask" if w else "SDPA",
             "copies": len(copies), **bound(flops, nbytes, dtn)}
 
 
@@ -1024,8 +1111,9 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
             "flash_attention_extend": {
                 p: time_flash_extend(torch, fa_ops, fa_ref, rnd, case)
                 for p, case in SERVE_EXT.items()},
-            "flash_attention_train": {"train": time_flash_train(
-                torch, fa_ops, fa_ref, rnd)},
+            "flash_attention_train": {
+                p: time_flash_train(torch, fa_ops, fa_ref, rnd, shape)
+                for p, shape in TRAIN_FA.items()},
             "rglru_scan_fwd": {
                 "train": time_scan(torch, scan_ops, scan_ref, rnd,
                                    reverse=False),
@@ -1048,7 +1136,7 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/9] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/10] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode and paged decode at "
         f"head_dims to 256, flash at head_dim 256 with its lse, the RG-LRU "
         f"scan forward and reverse)")
@@ -1131,7 +1219,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/9] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/10] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1289,13 +1377,15 @@ def want_launches(cfg, n_calls: dict, steps: int, paged: bool) -> dict:
 
 
 def checked_run(torch, ops, calls, cfg, label: str, drive, n_new: int,
-                n_requests: int) -> dict:
+                n_requests: int, expect_flash: bool = True) -> dict:
     """One serving run (``drive()`` returns the serve CLI's summary),
     with the launch counts and the prefill/extend calls set to 0 just
     before it and read just after: every request ends by length with
     ``n_new`` tokens inside the vocabulary, and the launches are exactly
     ``want_launches`` (at qwen2-1.5b 28 flash launches a prefill or
-    extend call and 28 of the layout's decode kernel a step)."""
+    extend call and 28 of the layout's decode kernel a step), at least
+    one flash launch among them unless ``expect_flash`` is False (a
+    config without attention layers launches none)."""
     from repro_torch.kernels import _build
     _build.reset_launches(*(ops[k] for k in RUN_KERNELS))
     calls.take()
@@ -1314,7 +1404,8 @@ def checked_run(torch, ops, calls, cfg, label: str, drive, n_new: int,
     paged = summary["kv_layout"] == "paged"
     steps = summary["decode_steps"]
     want = want_launches(cfg, n_calls, steps, paged)
-    if launches != want or not launches["flash_attention"]:
+    if launches != want or (expect_flash
+                            and not launches["flash_attention"]):
         raise PhaseFailed(f"{label}: launches {launches}, want {want} "
                           f"({n_calls} prefill/extend calls, {steps} decode "
                           f"steps)")
@@ -1562,7 +1653,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/9] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/10] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -1826,7 +1917,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/9] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/10] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -2195,7 +2286,7 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/9] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/10] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
@@ -2698,7 +2789,7 @@ def phase_edge(torch, np, ops, smi: str) -> dict:
            "paper_rows": paper_rows(torch),
            "llm": llm_partitioned(torch, np, ops, smi),
            "hybrid": hybrid_partitioned(torch, np, ops)}
-    say("[7/9] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+    say("[7/10] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
         "within the CPU limit, every partition point equal to the "
         "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
         "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
@@ -3426,7 +3517,7 @@ def phase_tiered(torch, np, ops, smi: str) -> dict:
     del model
     torch.cuda.empty_cache()
     say(f"  {smi}; phase 8 took {out['phase_s']:.1f} s")
-    say("[8/9] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
+    say("[8/10] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
         "content-neutral, the gated tier beats the endpoint alone, every "
         "request equal to its tier alone, nothing lost across a link cut, "
         "the server over HTTP, failover frames equal to forward; launches "
@@ -3878,12 +3969,847 @@ def phase_hybrid(torch, np, ops, fa_ref, da_ref, scan_ref, smi: str) -> dict:
             f"ms, decode {s['decode_ms_per_step']:.3f} ms/step; traced "
             f"busy {t['device_busy_s']:.4f} s of {t['wall_s']:.4f} s, idle "
             f"share {t['idle_share']:.4f}")
-    say("[9/9] serving gemma3-1b and recurrentgemma-9b full width/depth "
+    say("[9/10] serving gemma3-1b and recurrentgemma-9b full width/depth "
         "bf16 (rings wrapped in prefill, RG-LRU state): every request "
         "'length', fifo == batch, paged == slotted, prefix-cache and "
         "prefill-chunk served one-shot, launches exact; llama3.2-3b and "
         "chatglm3-6b served; every model within its limits of its "
         "plain-version run; the JAX hybrid fixture within 1e-4")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+GOLDEN_MOE_XLSTM = SRC / "repro_torch" / "testdata" / "golden_moe_xlstm.npz"
+GOLDEN_MOE_XLSTM_TOL = 1e-4
+# (b) qwen2-moe-a2.7b at full width and depth (24 layers, 60 routed
+# experts top-4 + 4 shared) on phase 4's workload: 16 requests of 512
+# tokens, 32 new, 8 slots. fifo through the serve CLI; the other runs
+# through ``serve.run`` on the CLI's weights, each an EngineConfig of 8
+# slots at max_len 552 (fifo unless it says batch), all on the einsum
+# dispatch (the config's) but "gather"; "prefix" serves the shared-
+# preamble workload (the first 256 tokens of every prompt alike), and
+# "prefix-ref" is a slotted fifo run of that workload to hold it to
+MOE_N, MOE_LEN, MOE_NEW = 16, 512, 32
+MOE_S = MOE_LEN + MOE_NEW + 8
+MOE_ARGS = ["--arch", "qwen2_moe_a2_7b", "--no-smoke", "--slots", "8",
+            "--requests", str(MOE_N), "--prompt-len", str(MOE_LEN),
+            "--max-new", str(MOE_NEW), "--policy", "fifo", "--device", "cuda"]
+MOE_RUNS = {"batch": dict(admission="batch"),
+            "paged": dict(kv_layout="paged", block_size=BS),
+            "prefix-ref": {},
+            "prefix": dict(kv_layout="paged", block_size=BS,
+                           prefix_cache=True),
+            "chunk": dict(prefill_chunk=128),
+            "gather": {}}
+MOE_VS_PLAIN = (8, 512, 4)      # the bf16 readings: prompts, length, steps
+# (c) qwen2-moe-a2.7b at full width cut to 4 layers, fp32: 8 prompts of
+# 512 tokens and 8 decode steps
+MOE_FP32_LAYERS = 4
+MOE_FP32 = (8, 512, 8)
+MOE_FP32_TOL = 1e-4
+# (d) qwen3-moe-235b-a22b at full width (d 4,096, 64/4 heads of 128, 128
+# experts top-8) cut from 94 to 4 layers, bf16: 8 prompts of 256, 16 new
+Q3_LAYERS = 4
+Q3_N, Q3_LEN, Q3_NEW = 8, Q3_PROMPT, 16
+Q3_S = Q3_LEN + Q3_NEW + 8
+# (e) xlstm-350m at full width and depth (21 mLSTM, 3 sLSTM): phase 4's
+# workload; then in fp32 4 prompts of 512 and 8 greedy tokens, decode
+# against forward
+XL_ARGS = ["--arch", "xlstm_350m", "--no-smoke", "--slots", "8",
+           "--requests", str(MOE_N), "--prompt-len", str(MOE_LEN),
+           "--max-new", str(MOE_NEW), "--policy", "fifo", "--device", "cuda"]
+XL_FP32 = (4, 512, 8)
+# of the largest logit, as (c) holds its logits: the chunkwise prompt and
+# the step-by-step decode are the same function in other orders of fp32
+# operations (each held to JAX's within 1e-5 on the smoke config)
+XL_FP32_TOL = 1e-4
+# like qwen2-moe's router, xlstm-350m's bf16 fifo and batch runs may part
+# at a product whose cuBLAS kernel depends on the rows it is given: the
+# mLSTM gates (fp32, 8 columns) of one row must then differ by no more
+# than fp32 rounding (of a sum over 2,048 terms) between a 1-row and a
+# 16-row prefill
+XL_GATE_ROUNDING = 1e-5
+# (f) training on the copy task, one batch repeated: qwen2-moe-a2.7b at
+# full width cut to 2 layers (2 x 2,048 tokens), xlstm-350m whole (2 x
+# 512); 3 steps each
+FAMILY_TRAIN = {
+    "qwen2-moe-a2.7b": ("qwen2_moe_a2_7b", 2, dict(batch=2, seq=2048)),
+    "xlstm-350m": ("xlstm_350m", None, dict(batch=2, seq=512))}
+FAMILY_TRAIN_RUN = dict(steps=3, lr=1e-3, data_name="copy", repeat=True)
+PEAK_MEM_GB = 80.0
+
+
+def free(torch) -> None:
+    """Drop unreachable models (an engine holds reference cycles) and
+    hand their memory back to the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class RoutingTap:
+    """Inside ``with``: every routing decision of the MoE layers, in call
+    order, as (top_idx, keep) on the host (``moe._assign``, which both
+    dispatches call, wrapped); with ``round_bf16`` the router logits are
+    first rounded to bf16, the control's change."""
+
+    def __init__(self, round_bf16: bool = False):
+        self.round_bf16 = round_bf16
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe as M
+        self.M, self.orig = M, M._assign
+
+        def tapped(logits, cfg, capacity):
+            if self.round_bf16:
+                logits = logits.to(torch.bfloat16).float()
+            out = self.orig(logits, cfg, capacity)
+            self.calls.append((out[0].cpu(), out[2].cpu()))
+            return out
+        M._assign = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.M._assign = self.orig
+
+
+def routing_readings(torch, got: list, want: list) -> dict:
+    """Two runs' routing decisions: how many (layer call, token, choice)
+    entries of ``top_idx`` or ``keep`` differ, of how many."""
+    if len(got) != len(want):
+        raise PhaseFailed(f"routing: {len(got)} MoE calls against "
+                          f"{len(want)}")
+    diff = total = 0
+    for (gi, gk), (wi, wk) in zip(got, want):
+        diff += int(((gi != wi) | (gk != wk)).sum())
+        total += gi.numel()
+    return {"decisions": total, "differ": diff}
+
+
+def readings(torch, got, want) -> dict:
+    """Two runs' (logits of every step (rows, V), routing calls): the
+    routing, the logits' max |err| over the largest |logit| and the
+    greedy choices."""
+    (logits, calls), (wlogits, wcalls) = got, want
+    return {**routing_readings(torch, calls, wcalls),
+            "logits_rel_err": rel_err(logits, wlogits),
+            "argmax_differ": int((logits.argmax(-1)
+                                  != wlogits.argmax(-1)).sum()),
+            "rows": logits.shape[0],
+            "finite": bool(torch.isfinite(logits).all())}
+
+
+def tapped_drive(torch, model, inputs, plain=None, round_bf16=False,
+                 impl=None) -> tuple:
+    """``drive_model`` under a ``RoutingTap``: through the kernels, or
+    with ``plain`` (fa_ref, da_ref, scan_ref) in their places; ``impl``
+    names the MoE dispatch for this run."""
+    import contextlib
+    import dataclasses
+    cfg = model.cfg
+    if impl is not None:
+        model.cfg = dataclasses.replace(cfg, moe_impl=impl)
+    try:
+        with RoutingTap(round_bf16) as tap, (
+                PlainVersions(*plain) if plain else contextlib.nullcontext()):
+            logits, _ = drive_model(torch, model, *inputs)
+    finally:
+        model.cfg = cfg
+    return logits, tap.calls
+
+
+def golden_moe_xlstm(torch, np) -> dict:
+    """(a) The JAX fixture of the MoE and xLSTM smoke configs on the card
+    in fp32: the weights regenerated from the fixture's seeds (their
+    checksums the fixture's), ``forward``'s logits and aux and the
+    prefill + decode logits within 1e-4 of JAX's, the Engine's records
+    in every cell equal to JAX's, and the training part (one step of the
+    tight variant): loss, ce, aux and every gradient leaf within 1e-4 of
+    JAX's (less the fixture's rounding of the gradients)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.scheduler import Request
+    from repro_torch.weights import from_jax_params, seeded_flat, to_flat
+    data = np.load(GOLDEN_MOE_XLSTM)
+    meta = json.loads(str(data["meta"]))
+    tol = GOLDEN_MOE_XLSTM_TOL
+    cfgs, out = {}, {}
+    for name, kw in meta["configs"].items():
+        kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+        kw["moe"] = MoEConfig(**kw["moe"]) if kw["moe"] else None
+        cfg = cfgs[name] = ModelConfig(**kw)
+        flat = seeded_flat(cfg, meta["seeds"][name])
+        if {k: float(np.asarray(v, np.float64).sum())
+                for k, v in flat.items()} != meta["checksums"][name]:
+            raise PhaseFailed(f"{name}: the seeded weights are not the "
+                              f"fixture's")
+        model = from_jax_params(flat, cfg, device="cuda")
+        prompt = torch.as_tensor(data[f"{name}|logits_prompt"], device="cuda")
+        fwd, aux = T.forward(model, cfg, {"tokens": prompt}, train=False)
+        logits, cache, clen = T.prefill(
+            model, prompt, max_len=prompt.shape[1] + meta["decode_steps"] + 3)
+        steps = [logits]
+        for tok in data[f"{name}|logits_fed"]:
+            logits, cache, clen = T.decode_step(
+                model, torch.as_tensor(tok, device="cuda"), cache, clen)
+            steps.append(logits)
+        errs = {"forward": np.abs(fwd.float().cpu().numpy()
+                                  - data[f"{name}|forward_logits"]).max(),
+                "aux": abs(float(aux) - float(data[f"{name}|forward_aux"])),
+                "steps": np.abs(torch.stack(steps).cpu().numpy()
+                                - data[f"{name}|logits"]).max()}
+        errs = {k: float(v) for k, v in errs.items()}
+        if not all(np.isfinite(v) and v <= tol for v in errs.values()):
+            raise PhaseFailed(f"{name}: logits differ from JAX's: {errs}")
+        cells = json.loads(str(data[f"{name}|cells"]))
+        specs = meta["workload"][name]
+        max_len = meta["engine_max_len"][name]
+
+        def reqs():
+            return [Request(i, np.asarray(r["prompt"], np.int32),
+                            max_new_tokens=r["max_new"],
+                            priority=r["priority"],
+                            deadline_s=r["deadline_s"])
+                    for i, r in enumerate(specs)]
+        got = {}
+        outs = Engine(cfg, model, EngineConfig(
+            max_len=max_len, admission="batch"), device="cuda").generate(
+                reqs())
+        got["batch"] = {"tokens": [[int(t) for t in c.tokens] for c in outs],
+                        "reasons": [c.finish_reason for c in outs]}
+        for cell, cell_kw in meta["cells"][name].items():
+            eng = Engine(cfg, model, EngineConfig(
+                max_len=max_len, max_slots=3, admission="fifo", debug=True,
+                **cell_kw), device="cuda")
+            outs = eng.generate(reqs())
+            got[cell] = {
+                "tokens": [[int(t) for t in c.tokens] for c in outs],
+                "reasons": [c.finish_reason for c in outs],
+                "stats": {k: int(v) for k, v in eng.stats().items()},
+                "kv_stats": {k: float(v) for k, v in eng.kv_stats().items()}}
+        if "paged" in cells and "refused" in cells["paged"]:
+            try:
+                Engine(cfg, model, EngineConfig(
+                    max_len=max_len, max_slots=3, kv_layout="paged"),
+                    device="cuda")
+            except ValueError as exc:
+                got["paged"] = {"refused": str(exc)}
+        for cell in cells:
+            if got.get(cell) != cells[cell]:
+                raise PhaseFailed(f"{name}/{cell}: the engine's record "
+                                  f"differs from JAX's")
+        out[name] = {**errs, "cells": sorted(cells)}
+        del model, cache
+    tr = meta["train"]
+    cfg = cfgs[tr["config"]]
+    model = from_jax_params(seeded_flat(cfg, meta["seeds"][tr["config"]]),
+                            cfg, device="cuda", dtype=torch.float32)
+    model.requires_grad_(True)
+    b, s = tr["batch"]
+    tokens = np.random.RandomState(tr["seed"]).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels = tokens.copy()
+    labels[0, :3] = -1
+    loss, m = T.loss_fn(model, cfg, {
+        "tokens": torch.as_tensor(tokens, device="cuda"),
+        "labels": torch.as_tensor(labels, device="cuda")})
+    loss.backward()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = to_flat(model, grad=True)
+    want = {k[len("train|grads|"):]: data[k] for k in data.files
+            if k.startswith("train|grads|")}
+    if sorted(grads) != sorted(want):
+        raise PhaseFailed("the training part's gradient leaves differ from "
+                          "the fixture's")
+    train = {k: abs(float(v) - float(data[f"train|{k}"]))
+             for k, v in (("loss", loss.detach()), ("ce", m["ce"]),
+                          ("aux", m["aux"]))}
+    # each leaf's limit: 1e-4 less the fixture's rounding of it
+    margin = {k: tol - np.abs(w).max() * 2.0 ** -meta["grad_bits"]
+              - float(np.abs(grads[k] - w).max()) for k, w in want.items()}
+    train["grad_max_abs_err"] = max(float(np.abs(grads[k] - w).max())
+                                    for k, w in want.items())
+    out["train"] = train
+    del model
+    free(torch)
+    shown = "; ".join(f"{k}: forward {v['forward']:.3g}, steps "
+                      f"{v['steps']:.3g}, aux {v['aux']:.3g}, cells "
+                      f"{v['cells']}" for k, v in out.items() if k != "train")
+    say(f"  (a) JAX MoE/xLSTM golden (fp32), logits max |err| (tol {tol:g}) "
+        f"and engine records equal to JAX's: {shown}; training part "
+        f"({tr['config']}): loss {train['loss']:.3g}, ce "
+        f"{train['ce']:.3g}, aux {train['aux']:.3g}, gradients "
+        f"{train['grad_max_abs_err']:.3g} (tol {tol:g} less rounding)")
+    if not (all(v <= tol for k, v in train.items() if k != "grad_max_abs_err")
+            and min(margin.values()) >= 0):
+        raise PhaseFailed(f"the training part differs from JAX's: {train}")
+    return out
+
+
+def moe_vs_plain_bf16(torch, model, fa_ref, da_ref, scan_ref) -> dict:
+    """qwen2-moe-a2.7b in bf16 at full depth through the kernels and
+    through the plain versions, on ``MOE_VS_PLAIN``'s inputs: the
+    routing decisions that differ, the logits and the greedy choices,
+    reported (no limit: in bf16 over 24 layers a routing decision turns
+    on one rounding, and the fp32 run (c) is held instead)."""
+    inputs = vs_plain_inputs(torch, model.cfg, *MOE_VS_PLAIN, seed=1)
+    out = readings(torch, tapped_drive(torch, model, inputs),
+                   tapped_drive(torch, model, inputs,
+                                plain=(fa_ref, da_ref, scan_ref)))
+    say(f"  qwen2-moe bf16 ({model.cfg.n_layers} layers) through the kernels "
+        f"vs plain "
+        f"({MOE_VS_PLAIN[0]} x {MOE_VS_PLAIN[1]} prompts, {MOE_VS_PLAIN[2]} "
+        f"steps), reported: {out['differ']} of {out['decisions']} routing "
+        f"decisions differ, logits {out['logits_rel_err']:.3g} of max "
+        f"|logit|, {out['argmax_differ']} of {out['rows']} greedy choices "
+        f"moved")
+    return out
+
+
+# qwen2-moe's bf16 fifo and batch runs may part: the router product h @
+# router (bf16, as the reference computes it) of one row rounds apart in
+# a 1-row and a 16-row prefill, cuBLAS taking another kernel for other
+# row counts, and a tie between two router logits then breaks the other
+# way. fifo_batch_cause must find that cause (each moved decision at a
+# gap of at most BF16_TIE_ULPS bf16 ulps); (c) holds fifo = batch in fp32
+BF16_TIE_ULPS = 2
+
+
+def bf16_ulps(torch, gap, value):
+    """``gap`` in units of the bf16 spacing of ``value`` (8 bits)."""
+    exp = torch.floor(torch.log2(value.abs().clamp(min=1e-30)))
+    return gap / torch.pow(2.0, exp - 7)
+
+
+def fifo_batch_cause(torch, np, model, reqs, fifo, batch) -> dict:
+    """Why qwen2-moe's bf16 fifo and batch runs part. Reported: each
+    request's first differing token. Shown: the first prompt whose first
+    layer routes apart alone (as fifo prefills it) and as its row of the
+    16-row batch (as batch prefills it): the router's input ``h`` must
+    be bitwise equal, the router logits may then differ only by bf16
+    rounding (at most ``BF16_TIE_ULPS`` ulps of the position's largest
+    logit), and every routing decision that differs must sit at a
+    top-(k+1) logit gap of at most ``BF16_TIE_ULPS`` ulps in the alone
+    run. That prompt's whole prefill, routed under a
+    ``RoutingTap`` both ways, is reported layer by layer beside it."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    first = [next((i for i, (a, b) in enumerate(zip(f, g)) if a != b),
+                  min(len(f), len(g))) for f, g in zip(fifo, batch)]
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                             device="cuda").long()
+    layer = model.layers[0]
+    cap = M._capacity(tokens.shape[1], cfg)
+
+    def first_layer(toks):
+        x = T._embed_inputs(model, toks)
+        pos = torch.arange(toks.shape[1], dtype=torch.int32,
+                           device="cuda").expand(*toks.shape)
+        a, _ = L.attn_prefill_cache(layer.block, x, cfg, kind="attn",
+                                    positions=pos, cache_size=toks.shape[1])
+        h = L.rms_norm(a, layer.moe.ln, cfg.norm_eps)
+        return h, M._router_logits(layer.moe, h)
+    with torch.no_grad():
+        h_all, lg_all = first_layer(tokens)
+        top_all = M._assign(lg_all, cfg, cap)[0]
+        for r in range(tokens.shape[0]):
+            h_one, lg_one = first_layer(tokens[r:r + 1])
+            top_one = M._assign(lg_one, cfg, cap)[0]
+            moved = (top_all[r:r + 1] != top_one).any(-1)[0].nonzero()[
+                :, 0].tolist()
+            if moved:
+                break
+        h_all, lg_all = h_all[r:r + 1], lg_all[r:r + 1]
+        with RoutingTap() as tb:
+            T.prefill(model, tokens, max_len=tokens.shape[1])
+        with RoutingTap() as to:
+            T.prefill(model, tokens[r:r + 1], max_len=tokens.shape[1])
+    k = cfg.moe.top_k
+    gaps = []
+    for t in moved:
+        top = torch.sort(lg_one[0, t], descending=True).values[:k + 1]
+        gaps.append(float(bf16_ulps(torch, top[:-1] - top[1:],
+                                    top[:-1]).min()))
+    # in ulps of each position's largest logit: the rounding scale of
+    # the product (a split-K kernel rounds partial sums at that scale)
+    logit_ulps = float(bf16_ulps(torch, (lg_all - lg_one).abs(),
+                                 torch.maximum(lg_all.abs(), lg_one.abs())
+                                 .amax(-1, keepdim=True)).max())
+    per_layer = [int(((bi[r:r + 1] != oi) | (bk[r:r + 1] != ok)).any(-1)
+                     .sum()) for (bi, bk), (oi, ok) in zip(tb.calls,
+                                                           to.calls)]
+    out = {"first_differing_token": first, "request": r,
+           "h_equal": bool(torch.equal(h_all, h_one)),
+           "router_logits_equal": bool(torch.equal(lg_all, lg_one)),
+           "router_logits_max_ulps": logit_ulps,
+           "layer0_moved_positions": len(moved),
+           "layer0_moved_gap_ulps": gaps,
+           "prefill_positions_routed_apart_by_layer": per_layer}
+    say(f"  qwen2-moe bf16 fifo vs batch part: first differing token of "
+        f"each request {first}; request {r}'s first layer alone vs in the "
+        f"16-row batch: h equal {out['h_equal']}, router logits equal "
+        f"{out['router_logits_equal']} (at most {logit_ulps:.3g} bf16 ulps "
+        f"of the position's largest logit apart), {len(moved)} of "
+        f"{tokens.shape[1]} positions routed apart, at top-{k + 1} logit "
+        f"gaps of {sorted(set(round(g, 3) for g in gaps))} ulps (must be "
+        f"<= {BF16_TIE_ULPS}); positions routed apart in the whole prefill, "
+        f"by layer: {per_layer}")
+    if not (out["h_equal"] and logit_ulps <= BF16_TIE_ULPS and moved
+            and max(gaps) <= BF16_TIE_ULPS):
+        raise PhaseFailed("qwen2-moe fifo vs batch: the split is not bf16 "
+                          "rounding of the router product at a tie")
+    return out
+
+
+def qwen2_moe_runs(torch, np, ops, calls, fa_ref, da_ref, scan_ref) -> dict:
+    """(b) qwen2-moe-a2.7b at full width and depth in bf16: the serve
+    CLI's fifo run, then ``MOE_RUNS`` on the CLI's weights; every
+    request ends by length, launches exact (24 flash a prefill or extend
+    call, 24 of the layout's decode kernel a step); fifo = batch, paged
+    = slotted fifo; the prefix run hits and the chunk run extends, their
+    tokens (and the gather run's) reported against fifo's; the fifo run
+    traced; the bf16 readings against the plain versions."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = get_config("qwen2_moe_a2_7b")
+    out = {"fifo": checked_run(torch, ops, calls, cfg, "qwen2-moe fifo",
+                               lambda: serve.main(MOE_ARGS), MOE_NEW, MOE_N)}
+    free(torch)
+    model = T.init_params(cfg, 0, device="cuda")    # the CLI's weights
+    reqs = serve.synthetic_requests(cfg, MOE_N, MOE_LEN, MOE_NEW, 0)
+    shared = serve.synthetic_requests(cfg, MOE_N, MOE_LEN, MOE_NEW, 0,
+                                      shared_prefix=True)
+    for label, kw in MOE_RUNS.items():
+        run_cfg = dataclasses.replace(cfg, moe_impl="gather") \
+            if label == "gather" else cfg
+
+        def drive(kw=kw, run_cfg=run_cfg, label=label):
+            model.cfg = run_cfg
+            try:
+                return serve.run(Engine(run_cfg, model, EngineConfig(
+                    max_slots=8, max_len=MOE_S, **{"admission": "fifo",
+                                                   **kw}), device="cuda"),
+                    shared if label.startswith("prefix") else reqs)
+            finally:
+                model.cfg = cfg
+        out[label] = checked_run(torch, ops, calls, cfg, f"qwen2-moe {label}",
+                                 drive, MOE_NEW, MOE_N)
+    tokens = {k: [c.tokens for c in out[k]["summary"]["completions"]]
+              for k in out}
+    out["fifo_batch_agreement"] = same_tokens(
+        "qwen2-moe fifo vs batch", tokens["fifo"], tokens["batch"],
+        gate=False)
+    if tokens["fifo"] != tokens["batch"]:
+        # held in fp32 by (c); here the split must be shown to be bf16
+        # rounding of the router product, or the phase fails
+        out["fifo_batch_split"] = fifo_batch_cause(
+            torch, np, model, reqs, tokens["fifo"], tokens["batch"])
+    same_tokens("qwen2-moe paged vs slotted fifo", tokens["paged"],
+                tokens["fifo"])
+    st, n = out["prefix"]["summary"]["stats"], out["prefix"]["calls"]
+    if st["prefix_hits"] <= 0 or n["prefill_extend"] <= 0:
+        raise PhaseFailed(f"qwen2-moe prefix: {st['prefix_hits']} hits, "
+                          f"{n['prefill_extend']} extend calls")
+    if out["chunk"]["calls"]["prefill_extend"] <= 0:
+        raise PhaseFailed("qwen2-moe chunk: no extend call")
+    # reported: the capacity groups of a resumed or chunked prefill are
+    # its extend calls' rows, and the gather combine sums in another order
+    out["agreement"] = {
+        "prefix vs prefix-ref": same_tokens("", tokens["prefix"],
+                                            tokens["prefix-ref"], gate=False),
+        "chunk vs fifo": same_tokens("", tokens["chunk"], tokens["fifo"],
+                                     gate=False),
+        "gather vs fifo": same_tokens("", tokens["gather"], tokens["fifo"],
+                                      gate=False)}
+    say(f"  qwen2-moe agreement (reported): {out['agreement']}")
+    out["trace"] = traced_engine(torch, model, reqs, tokens["fifo"],
+                                 "qwen2-moe fifo", MOE_S)
+    out["trace"]["untraced_wall_s"] = out["fifo"]["summary"]["wall_s"]
+    out["vs_plain_bf16"] = moe_vs_plain_bf16(torch, model, fa_ref, da_ref,
+                                             scan_ref)
+    del model
+    free(torch)
+    return out
+
+
+def moe_fp32(torch, fa_ref, da_ref, scan_ref) -> dict:
+    """(c) qwen2-moe-a2.7b at full width cut to 4 layers in fp32 on
+    ``MOE_FP32``'s inputs (the serve CLI's init, seed 0): the kernels'
+    run against the plain versions', the gather dispatch against the
+    einsum one (both through the kernels), and a batch prefill against
+    the same prompts prefilled one at a time. Each pair: every routing
+    decision equal, logits within ``MOE_FP32_TOL`` of the largest
+    logit, greedy choices equal. The control, the plain run with its
+    router logits rounded to bf16, must move a routing decision. Then
+    (b)'s workload through the Engine under fifo and batch admission:
+    tokens equal (fifo = batch, held in fp32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = dataclasses.replace(get_config("qwen2_moe_a2_7b"),
+                              n_layers=MOE_FP32_LAYERS, dtype="float32")
+    model = T.init_params(cfg, 0, device="cuda")
+    inputs = vs_plain_inputs(torch, cfg, *MOE_FP32, seed=1)
+    plain = (fa_ref, da_ref, scan_ref)
+    kern = tapped_drive(torch, model, inputs)
+    ref = tapped_drive(torch, model, inputs, plain=plain)
+    out = {"kernels vs plain": readings(torch, kern, ref),
+           "gather vs einsum": readings(
+               torch, tapped_drive(torch, model, inputs, impl="gather"), kern),
+           "control (bf16 router logits) vs plain": readings(
+               torch, tapped_drive(torch, model, inputs, plain=plain,
+                                   round_bf16=True), ref)}
+    tokens, _, max_len = inputs
+    with RoutingTap() as tb:
+        batch = T.prefill(model, tokens, max_len=max_len)[0].float()
+    with RoutingTap() as tf:
+        fifo = torch.cat([T.prefill(model, tokens[i:i + 1],
+                                    max_len=max_len)[0].float()
+                          for i in range(tokens.shape[0])])
+    layers = cfg.n_layers       # fifo's calls: prompt-major, then layer
+    rows = [(torch.cat([tf.calls[r * layers + li][0]
+                        for r in range(tokens.shape[0])]),
+             torch.cat([tf.calls[r * layers + li][1]
+                        for r in range(tokens.shape[0])]))
+            for li in range(layers)]
+    out["batch vs fifo prefill"] = readings(torch, (batch, tb.calls),
+                                            (fifo, rows))
+    # (b)'s fifo = batch, held here in fp32: its workload through the
+    # Engine under both admissions
+    reqs = serve.synthetic_requests(cfg, MOE_N, MOE_LEN, MOE_NEW, 0)
+    served = {adm: [c.tokens for c in Engine(cfg, model, EngineConfig(
+        max_slots=8, max_len=MOE_S, admission=adm), device="cuda").generate(
+            reqs)] for adm in ("fifo", "batch")}
+    engine_share = same_tokens("", served["fifo"], served["batch"],
+                               gate=False)
+    del model
+    free(torch)
+    for label, r in list(out.items()):
+        say(f"  (c) qwen2-moe fp32 ({MOE_FP32_LAYERS} layers, "
+            f"{MOE_FP32[0]} x {MOE_FP32[1]} prompts, {MOE_FP32[2]} steps) "
+            f"{label}: {r['differ']} of {r['decisions']} routing decisions "
+            f"differ, logits {r['logits_rel_err']:.3g} of max |logit| (tol "
+            f"{MOE_FP32_TOL:g}), {r['argmax_differ']} of {r['rows']} greedy "
+            f"choices moved")
+    say(f"  (c) qwen2-moe fp32 Engine fifo vs batch ({MOE_N} x {MOE_LEN}, "
+        f"{MOE_NEW} new, 8 slots): tokens agree on {engine_share:.3f} of "
+        f"the requests (must be 1)")
+    for label, r in out.items():
+        held_ok = (r["finite"] and not r["differ"] and not r["argmax_differ"]
+                   and r["logits_rel_err"] <= MOE_FP32_TOL)
+        if label.startswith("control"):
+            if not r["differ"]:
+                raise PhaseFailed("qwen2-moe fp32: the bf16-router control "
+                                  "moved no routing decision; the gate "
+                                  "cannot tell it from the kernels' run")
+        elif not held_ok:
+            raise PhaseFailed(f"qwen2-moe fp32 {label}: outside the limits")
+    if engine_share != 1.0:
+        raise PhaseFailed("qwen2-moe fp32: fifo and batch tokens differ")
+    out["engine fifo vs batch"] = engine_share
+    return out
+
+
+def qwen3_moe_run(torch, ops, calls) -> dict:
+    """(d) qwen3-moe-235b-a22b at full width cut to ``Q3_LAYERS`` layers
+    in bf16: a fifo run through ``serve.run`` (seed 0), every request by
+    length, launches exact, traced."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = dataclasses.replace(get_config("qwen3_moe_235b_a22b"),
+                              n_layers=Q3_LAYERS)
+    model = T.init_params(cfg, 0, device="cuda")
+    reqs = serve.synthetic_requests(cfg, Q3_N, Q3_LEN, Q3_NEW, 0)
+    out = {"fifo": checked_run(
+        torch, ops, calls, cfg, f"qwen3-moe ({Q3_LAYERS} layers) fifo",
+        lambda: serve.run(Engine(cfg, model, EngineConfig(
+            max_slots=8, max_len=Q3_S, admission="fifo"), device="cuda"),
+            reqs), Q3_NEW, Q3_N)}
+    out["trace"] = traced_engine(
+        torch, model, reqs, [c.tokens for c in
+                             out["fifo"]["summary"]["completions"]],
+        "qwen3-moe fifo", Q3_S)
+    out["trace"]["untraced_wall_s"] = out["fifo"]["summary"]["wall_s"]
+    del model
+    free(torch)
+    return out
+
+
+def slstm_prefill_launches(torch, model, tokens) -> int:
+    """The device kernels one sLSTM layer's prefill of ``tokens`` runs
+    (its time loop and the projections around it), counted in a
+    ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    layer = next(lay for lay in model.layers if lay.kind == "slstm")
+    with torch.no_grad():
+        x = T._embed_inputs(model, tokens)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            S.slstm_prefill_cache(layer.block, x, model.cfg)
+            torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def xlstm_fifo_batch_cause(torch, np, model, reqs, fifo, batch) -> dict:
+    """Why xlstm-350m's bf16 fifo and batch runs part. Reported: each
+    request's first differing token. Shown: the first prompt through the
+    first mLSTM layer alone (as fifo prefills it) and as row 0 of the
+    16-row batch (as batch prefills it): the input of the gate product,
+    the conv's output ``xc``, must be bitwise equal, and the gates (xc @
+    w_if in fp32, 2H = 8 columns) must differ by fp32 rounding only
+    (within ``XL_GATE_ROUNDING`` of their largest magnitude): a product
+    whose cuBLAS kernel depends on the rows it is given, whose rounding
+    the bf16 layers then carry to the logits."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.rglru import _causal_conv
+    first = [next((i for i, (a, b) in enumerate(zip(f, g)) if a != b),
+                  min(len(f), len(g))) for f, g in zip(fifo, batch)]
+    p = model.layers[0].block
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                             device="cuda").long()
+
+    def gates(toks):
+        x = T._embed_inputs(model, toks)
+        h = L.rms_norm(x, p.ln, model.cfg.norm_eps)
+        xm = (h @ p.w_up).chunk(2, dim=-1)[0]
+        xc = F.silu(_causal_conv(xm, p.conv_w, p.conv_b))
+        return xc, torch.cat(S._gates(p, xc), dim=-1)
+    with torch.no_grad():
+        xc_all, g_all = gates(tokens)
+        xc_one, g_one = gates(tokens[:1])
+    g_all = g_all[:1]
+    out = {"first_differing_token": first,
+           "xc_equal": bool(torch.equal(xc_all[:1], xc_one)),
+           "gates_equal": bool(torch.equal(g_all, g_one)),
+           "gates_rel_diff": rel_err(g_all, g_one)}
+    say(f"  xlstm-350m bf16 fifo vs batch part: first differing token of "
+        f"each request {first}; prompt 0's first mLSTM layer alone vs in "
+        f"the 16-row batch: gate input xc equal {out['xc_equal']}, gates "
+        f"(fp32) equal {out['gates_equal']}, apart by "
+        f"{out['gates_rel_diff']:.3g} of their largest magnitude (fp32 "
+        f"rounding: <= {XL_GATE_ROUNDING:g})")
+    if not (out["xc_equal"] and not out["gates_equal"]
+            and out["gates_rel_diff"] <= XL_GATE_ROUNDING):
+        raise PhaseFailed("xlstm-350m fifo vs batch: the split is not the "
+                          "gate product's rounding")
+    return out
+
+
+def xlstm_runs(torch, np, ops, calls) -> dict:
+    """(e) xlstm-350m at full width and depth in bf16: the serve CLI's
+    fifo run and a batch run on its weights, every request by length,
+    no kernel launched, fifo = batch or their split shown to start at a
+    batch-dependent rounding (``xlstm_fifo_batch_cause``), the paged
+    layout refused in the reference's words, one sLSTM layer's prefill
+    counted; then in fp32 the same workload fifo = batch, and the decode
+    steps' logits of 8 greedy tokens against ``forward`` over the
+    prompts and those tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = get_config("xlstm_350m")
+    out = {"fifo": checked_run(torch, ops, calls, cfg, "xlstm-350m fifo",
+                               lambda: serve.main(XL_ARGS), MOE_NEW, MOE_N,
+                               expect_flash=False)}
+    free(torch)
+    model = T.init_params(cfg, 0, device="cuda")    # the CLI's weights
+    reqs = serve.synthetic_requests(cfg, MOE_N, MOE_LEN, MOE_NEW, 0)
+    out["batch"] = checked_run(
+        torch, ops, calls, cfg, "xlstm-350m batch",
+        lambda: serve.run(Engine(cfg, model, EngineConfig(
+            max_slots=8, max_len=MOE_S, admission="batch"),
+            device="cuda"), reqs), MOE_NEW, MOE_N, expect_flash=False)
+    tokens = {k: [c.tokens for c in out[k]["summary"]["completions"]]
+              for k in ("fifo", "batch")}
+    out["fifo_batch_agreement"] = same_tokens(
+        "xlstm-350m fifo vs batch", tokens["fifo"], tokens["batch"],
+        gate=False)
+    if tokens["fifo"] != tokens["batch"]:
+        # held in fp32 below; here the split must start at a rounding
+        out["fifo_batch_split"] = xlstm_fifo_batch_cause(
+            torch, np, model, reqs, tokens["fifo"], tokens["batch"])
+    try:
+        Engine(cfg, model, EngineConfig(max_slots=8, max_len=MOE_S,
+                                        kv_layout="paged"), device="cuda")
+    except ValueError as exc:
+        if "use the slotted layout" not in str(exc):
+            raise
+        out["paged_refused"] = str(exc)
+    else:
+        raise PhaseFailed("xlstm-350m: the paged layout took a config with "
+                          "no global-attention layer")
+    one = torch.as_tensor(reqs[0].prompt[None], device="cuda")
+    out["slstm_layer_prefill_kernels"] = slstm_prefill_launches(
+        torch, model, one)
+    n_slstm = cfg.layer_kinds.count("slstm")
+    say(f"  xlstm-350m: one sLSTM layer's prefill of {one.shape[1]} tokens "
+        f"runs {out['slstm_layer_prefill_kernels']} device kernels "
+        f"(x {n_slstm} layers a prefill)")
+    del model
+    free(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = T.init_params(cfg32, 0, device="cuda")
+    served = {adm: [c.tokens for c in Engine(cfg32, model, EngineConfig(
+        max_slots=8, max_len=MOE_S, admission=adm), device="cuda").generate(
+            reqs)] for adm in ("fifo", "batch")}
+    out["fp32_fifo_batch_agreement"] = share = same_tokens(
+        "", served["fifo"], served["batch"], gate=False)
+    say(f"  (e) xlstm-350m fp32 Engine fifo vs batch ({MOE_N} x {MOE_LEN}, "
+        f"{MOE_NEW} new, 8 slots): tokens agree on {share:.3f} of the "
+        f"requests (must be 1)")
+    if share != 1.0:
+        raise PhaseFailed("xlstm-350m fp32: fifo and batch tokens differ")
+    b, s, n = XL_FP32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    logits, cache, clen = T.prefill(model, prompt, max_len=s + n + 8)
+    seq, steps = [prompt], []
+    for _ in range(n):
+        tok = logits.float().argmax(-1)
+        seq.append(tok[:, None])
+        logits, cache, clen = T.decode_step(model, tok, cache, clen)
+        steps.append(logits.float())
+    with torch.no_grad():
+        full = T.forward(model, cfg32, {"tokens": torch.cat(seq, 1)},
+                         train=False)[0][:, s:].float()
+    got = torch.stack(steps, 1)
+    err = (got - full).abs().max().item()
+    out["fp32_decode_vs_forward"] = {"max_abs_err": err,
+                                     "rel_err": rel_err(got, full)}
+    del model, cache
+    free(torch)
+    rel = out["fp32_decode_vs_forward"]["rel_err"]
+    say(f"  (e) xlstm-350m fp32: {n} decode steps' logits against forward "
+        f"over {b} x ({s} + {n}) tokens: max |err| {rel:.3g} of max |logit| "
+        f"(tol {XL_FP32_TOL:g}; {err:.3g} absolute)")
+    if not (math.isfinite(err) and rel <= XL_FP32_TOL):
+        raise PhaseFailed("xlstm-350m fp32: decode parts from forward")
+    return out
+
+
+def family_training(torch, ops) -> dict:
+    """(f) ``repro_torch.launch.train.run`` on the copy task, bf16 over
+    fp32 masters: ``FAMILY_TRAIN``'s models, ``FAMILY_TRAIN_RUN``'s
+    steps. Gates: loss, ce and aux finite at every step, peak memory
+    under ``PEAK_MEM_GB``, launches exact (flash per attention layer
+    and remat period, none for xLSTM)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    out = {}
+    for label, (arch, layers, shape) in FAMILY_TRAIN.items():
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        for k in TRAIN_KERNELS:
+            ops[k].launches = 0
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        run = train.run(cfg, device="cuda", log_every=1, **shape,
+                        **FAMILY_TRAIN_RUN)
+        torch.cuda.synchronize()
+        steps = FAMILY_TRAIN_RUN["steps"]
+        want = {k: v * steps for k, v in train_launches(cfg, 1).items()} \
+            if cfg.moe is not None else dict.fromkeys(TRAIN_KERNELS, 0)
+        rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} "
+                         f"{shape['batch']} x {shape['seq']}",
+               "params": sum(p.numel() for p in run["model"].parameters()),
+               "metrics": [{k: m[k] for k in ("loss", "ce", "aux")}
+                           for m in run["metrics"]],
+               "step_s": run["step_s"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts(ops), "want_launches": want}
+        del run
+        free(torch)
+        out[label] = rec
+        say(f"  (f) training {rec['config']} ({rec['params'] / 1e9:.3f} B "
+            f"params): {rec['metrics']}; step times "
+            f"{[round(x, 4) for x in rec['step_s']]} s; peak memory "
+            f"{rec['peak_mem_gb']:.2f} GB; launches {rec['launches']}")
+        if not all(math.isfinite(v) for m in rec["metrics"]
+                   for v in m.values()):
+            raise PhaseFailed(f"training {label}: a non-finite loss")
+        if rec["peak_mem_gb"] >= PEAK_MEM_GB:
+            raise PhaseFailed(f"training {label}: peak memory "
+                              f"{rec['peak_mem_gb']:.2f} GB")
+        if rec["launches"] != want:
+            raise PhaseFailed(f"training {label}: launches "
+                              f"{rec['launches']}, want {want}")
+    return out
+
+
+def phase_families(torch, np, ops, fa_ref, da_ref, scan_ref,
+                   smi: str) -> dict:
+    """The MoE and xLSTM families on the card; see the module docstring."""
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    free(torch)
+    out = {"golden": golden_moe_xlstm(torch, np)}
+    calls = Calls(T)
+    try:
+        out["qwen2-moe"] = qwen2_moe_runs(torch, np, ops, calls, fa_ref,
+                                          da_ref, scan_ref)
+        out["fp32"] = moe_fp32(torch, fa_ref, da_ref, scan_ref)
+        out["qwen3-moe"] = qwen3_moe_run(torch, ops, calls)
+        out["xlstm-350m"] = xlstm_runs(torch, np, ops, calls)
+    finally:
+        calls.restore()
+    out["train"] = family_training(torch, ops)
+    for name in ("qwen2-moe", "qwen3-moe", "xlstm-350m"):
+        s, t = out[name]["fifo"]["summary"], out[name].get("trace")
+        say(f"  {name} fifo on {smi}: wall {s['wall_s']:.4f} s, "
+            f"{s['tok_per_s']:.2f} tok/s, TTFT p50 {s['ttft_p50_ms']:.2f} "
+            f"ms, decode {s['decode_ms_per_step']:.3f} ms/step"
+            + (f"; traced busy {t['device_busy_s']:.4f} s of "
+               f"{t['wall_s']:.4f} s, idle share {t['idle_share']:.4f}"
+               if t else ""))
+    out["phase_s"] = time.perf_counter() - t0
+    say(f"  phase 10 took {out['phase_s']:.1f} s")
+    say("[10/10] the MoE and xLSTM families on the card: the JAX fixture "
+        "within 1e-4 with JAX's engine records; qwen2-moe-a2.7b full "
+        "width/depth bf16 served fifo, batch, paged, prefix-cache, chunked "
+        "and on the gather dispatch, launches exact, paged == slotted, "
+        "fifo == batch (in bf16 equal or parted at router-logit ties, held "
+        "in fp32); routing equal in fp32 (kernels vs plain, gather "
+        "vs einsum, batch vs fifo) with the bf16-router control outside; "
+        "qwen3-moe-235b-a22b's width at 4 layers and xlstm-350m served "
+        "(its fifo == batch held the same way); "
+        "both families trained, losses finite, under 80 GB")
     return out
 
 
@@ -3935,8 +4861,29 @@ KERNEL_LINE = [
      ("hybrid", "recurrentgemma-9b", "fifo"), "the launches count 14 "
      "prefills of 512 tokens (this shape) and 2 of 2,080 (timed as "
      "recurrentgemma-long)"),
+    # phase 10: qwen2-moe-a2.7b (g = 1) and qwen3-moe-235b-a22b (g = 16)
+    ("flash_attention", FA_SRC, FA_TPU, "qwen2-moe",
+     ("moe", "qwen2-moe", "fifo"), "the launches count 24 layers x 16 "
+     "prefills of 512 tokens"),
+    ("decode_attention", DA_SRC, DA_TPU, "qwen2-moe",
+     ("moe", "qwen2-moe", "fifo"), "the launches count 24 layers x the "
+     "fifo run's decode steps"),
+    ("paged_decode_attention", DA_SRC, PAGED_TPU, "qwen2-moe",
+     ("moe", "qwen2-moe", "paged"), "the launches count 24 layers x the "
+     "paged run's decode steps"),
+    ("flash_attention", FA_SRC, FA_TPU, "qwen2-moe-train",
+     ("moe", "train", "qwen2-moe-a2.7b"), "the launches count 2 layers x "
+     "(forward + the remat recompute) x 3 steps"),
+    ("flash_attention", FA_SRC, FA_TPU, "qwen3-moe",
+     ("moe", "qwen3-moe", "fifo"), "the launches count 4 layers x 8 "
+     "prefills of 256 tokens"),
+    ("decode_attention", DA_SRC, DA_TPU, "qwen3-moe",
+     ("moe", "qwen3-moe", "fifo"), "the launches count 4 layers x the "
+     "fifo run's decode steps"),
 ]
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
+# a KERNEL_LINE shape timed under another phase-2 record than its name's
+TIMED_AS = {"qwen2-moe-train": "flash_attention_train"}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
 
 
 def tiered_launches(rec: dict) -> dict:
@@ -3952,7 +4899,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -4007,6 +4954,10 @@ def main() -> int:
             record["hybrid"] = phase_hybrid(torch, np, ops, fa_ref, da_ref,
                                             scan_ref,
                                             record["device"]["nvidia_smi"])
+        if 10 in phases:
+            record["moe"] = phase_families(torch, np, ops, fa_ref, da_ref,
+                                           scan_ref,
+                                           record["device"]["nvidia_smi"])
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
@@ -4025,7 +4976,7 @@ def main() -> int:
         return 0
     kernels = []
     for name, source, replaces, shape, path, *also in KERNEL_LINE:
-        m = record["kernels"][name][shape]      # the main path's shapes
+        m = record["kernels"][TIMED_AS.get(shape, name)][shape]
         run = record
         for key in path:
             run = run[key]

@@ -2,10 +2,12 @@
 
 The port carries the configs its slices can run, each served and
 trained: the dense all-global-attention decoders (qwen2-1.5b,
-llama3.2-3b, chatglm3-6b), gemma3-1b's 5:1 local:global attention, and
-RecurrentGemma's hybrid of RG-LRU and local attention. The other
-architectures of ``repro.configs`` (MoE, xLSTM, the encoder-decoder and
-the frontends) come with the slices that port their block kinds.
+llama3.2-3b, chatglm3-6b), gemma3-1b's 5:1 local:global attention,
+RecurrentGemma's hybrid of RG-LRU and local attention, the MoE decoders
+(qwen2-moe-a2.7b, qwen3-moe-235b-a22b) and xLSTM's mLSTM/sLSTM stack
+(xlstm-350m), in the reference registry's order. The other architectures
+of ``repro.configs`` (the encoder-decoder and the frontends) come with
+the slice that ports them.
 """
 from __future__ import annotations
 
@@ -14,13 +16,17 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["recurrentgemma_9b", "gemma3_1b", "llama3_2_3b",
-                       "qwen2_1_5b", "chatglm3_6b"]
+ARCH_IDS: List[str] = ["qwen2_moe_a2_7b", "recurrentgemma_9b", "gemma3_1b",
+                       "llama3_2_3b", "qwen3_moe_235b_a22b", "qwen2_1_5b",
+                       "xlstm_350m", "chatglm3_6b"]
 
-_ALIASES = {"recurrentgemma-9b": "recurrentgemma_9b",
+_ALIASES = {"qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+            "recurrentgemma-9b": "recurrentgemma_9b",
             "gemma3-1b": "gemma3_1b",
             "llama3.2-3b": "llama3_2_3b",
+            "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
             "qwen2-1.5b": "qwen2_1_5b",
+            "xlstm-350m": "xlstm_350m",
             "chatglm3-6b": "chatglm3_6b"}
 
 

@@ -1,0 +1,394 @@
+"""xLSTM blocks of the port (arXiv:2405.04517): mLSTM (matrix memory)
+and sLSTM (scalar memory with exponential gating), the counterpart of
+``repro.models.ssm``.
+
+mLSTM, per head, with state C (dh, dh), n (dh) and the stabilizer m::
+
+    m_t = max(log f_t + m_{t-1}, log i_t)
+    C_t = exp(log f_t + m_{t-1} - m_t) C_{t-1} + exp(log i_t - m_t) v_t k_t^T
+    n_t = exp(log f_t + m_{t-1} - m_t) n_{t-1} + exp(log i_t - m_t) k_t
+    h_t = (C_t q_t) / max(|n_t . q_t|, exp(-m_t))
+
+A prompt runs chunkwise (``mlstm_chunkwise``): a masked quadratic decay
+attention inside each chunk of ``min(attn_chunk, 256)`` positions and
+the (C, n, m) state carried across chunks, in fp32, by a Python loop
+where the reference scans. A decode step (``mlstm_decode``) applies the
+recurrence once. sLSTM is a true recurrence (h_{t-1} feeds the gates
+through block-diagonal R) and runs as a Python loop over time
+(``slstm_scan``), one cell a position; each position is a handful of
+small kernels, so a prompt's sLSTM layers cost the host S x that many
+launches.
+
+None of this is a Pallas kernel in the reference (its recurrences are
+``lax`` code), so the plain PyTorch here is the port. The fp32 casts and
+the order of operations are the reference's: q is scaled before the
+chunk products and divided after the decode product, as there.
+
+Serving keeps, per sequence, mLSTM's {C (H, dh, dh), n (H, dh), m (H,)}
+in fp32 and its conv tail, the last 3 inputs of the conv (its width is
+a fixed 4), in the compute dtype; sLSTM's {c, n, m, h} (H, dh) in fp32.
+A prompt shorter than 3 tokens leaves a conv tail padded with leading
+zeros, the zero history the conv assumes before a sequence (the
+reference keeps only the rows it has, and its decode then fails on such
+a prompt). Decode updates the state in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.rglru import _causal_conv, _softplus
+
+CONV_WIDTH = 4          # mLSTM's conv width (fixed in the reference)
+_NEG = -1e30            # the stabilizer's start and the padding's log_i
+
+
+def _mlstm_dims(cfg) -> Tuple[int, int, int]:
+    """(dm, heads, head dim) of an mLSTM block."""
+    dm = int(cfg.mlstm_proj_factor * cfg.d_model)
+    return dm, cfg.n_heads, dm // cfg.n_heads
+
+
+def _slstm_dims(cfg) -> Tuple[int, int, int]:
+    """(heads, head dim, up-projection width) of an sLSTM block."""
+    d, nh = cfg.d_model, cfg.n_heads
+    return nh, d // nh, int(cfg.slstm_proj_factor * d)
+
+
+class MLSTMBlock(nn.Module):
+    """``mlstm`` block params: ln (d,), w_up (d, 2 dm) as [x | z-gate],
+    conv_w (4, dm), conv_b (dm,), wq / wk / wv (dm, H, dh), w_if (dm,
+    2H) and b_if (2H,) kept fp32, gn (H, dh), w_down (dm, d)."""
+
+    def __init__(self, cfg, dtype, device, param):
+        super().__init__()
+        d = cfg.d_model
+        dm, nh, dh = _mlstm_dims(cfg)
+        self.ln = param((d,), dtype, device)
+        self.w_up = param((d, 2 * dm), dtype, device)
+        self.conv_w = param((CONV_WIDTH, dm), dtype, device)
+        self.conv_b = param((dm,), dtype, device)
+        self.wq = param((dm, nh, dh), dtype, device)
+        self.wk = param((dm, nh, dh), dtype, device)
+        self.wv = param((dm, nh, dh), dtype, device)
+        self.w_if = param((dm, 2 * nh), torch.float32, device)
+        self.b_if = param((2 * nh,), torch.float32, device)
+        self.gn = param((nh, dh), dtype, device)
+        self.w_down = param((dm, d), dtype, device)
+
+
+class SLSTMBlock(nn.Module):
+    """``slstm`` block params: ln (d,), w (d, 4, H, dh) for the z, i, f,
+    o gates, r (4, H, dh, dh), b (4, H, dh) kept fp32, gn (H, dh), w_up
+    (d, 2 ds), w_down (ds, d)."""
+
+    def __init__(self, cfg, dtype, device, param):
+        super().__init__()
+        d = cfg.d_model
+        nh, dh, ds = _slstm_dims(cfg)
+        self.ln = param((d,), dtype, device)
+        self.w = param((d, 4, nh, dh), dtype, device)
+        self.r = param((4, nh, dh, dh), dtype, device)
+        self.b = param((4, nh, dh), torch.float32, device)
+        self.gn = param((nh, dh), dtype, device)
+        self.w_up = param((d, 2 * ds), dtype, device)
+        self.w_down = param((ds, d), dtype, device)
+
+
+@torch.no_grad()
+def mlstm_init(p: MLSTMBlock, cfg, gen: torch.Generator) -> None:
+    """The reference ``mlstm_init``'s scales: dense leaves N(0, 1) /
+    sqrt(in_dim), norms and the conv bias zero, b_if [0] * H then [3] *
+    H (a positive forget bias: long memory at init)."""
+    d = cfg.d_model
+    dm, nh, dh = _mlstm_dims(cfg)
+    dev, dt = p.w_up.device, p.w_up.dtype
+    p.w_up.copy_(dense_init(gen, d, (2 * dm,), dt, dev))
+    p.conv_w.copy_(dense_init(gen, CONV_WIDTH, (dm,), dt, dev))
+    for w in (p.wq, p.wk, p.wv):
+        w.copy_(dense_init(gen, dm, (nh, dh), dt, dev))
+    p.w_if.copy_(dense_init(gen, dm, (2 * nh,), torch.float32, dev))
+    p.b_if[nh:] = 3.0
+    p.w_down.copy_(dense_init(gen, dm, (d,), dt, dev))
+
+
+@torch.no_grad()
+def slstm_init(p: SLSTMBlock, cfg, gen: torch.Generator) -> None:
+    """The reference ``slstm_init``'s scales: w, w_up and w_down N(0, 1)
+    / sqrt(in_dim), r N(0, 1) / sqrt(dh), the forget gate's bias 3."""
+    d = cfg.d_model
+    nh, dh, ds = _slstm_dims(cfg)
+    dev, dt = p.w.device, p.w.dtype
+    p.w.copy_(dense_init(gen, d, (4, nh, dh), dt, dev))
+    p.r.copy_(torch.randn((4, nh, dh, dh), generator=gen, device=dev)
+              / math.sqrt(dh))
+    p.b[2] = 3.0
+    p.w_up.copy_(dense_init(gen, d, (2 * ds,), dt, dev))
+    p.w_down.copy_(dense_init(gen, ds, (d,), dt, dev))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("...d,dhk->...hk") as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _gates(p, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log i, log f) of the conv's output, fp32: log f = log sigmoid."""
+    log_i, f_raw = (xc.float() @ p.w_if + p.b_if).chunk(2, dim=-1)
+    return log_i, -_softplus(-f_raw)
+
+
+def _mlstm_qkvg(p, x: torch.Tensor, cfg):
+    """The block's projections: (q, k, v (B,S,H,dh), z (B,S,dm), log_i,
+    log_f (B,S,H) fp32, xm (B,S,dm) the conv's input)."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    xm, z = (h @ p.w_up).chunk(2, dim=-1)
+    xc = F.silu(_causal_conv(xm, p.conv_w, p.conv_b))
+    log_i, log_f = _gates(p, xc)
+    return (_heads(xc, p.wq), _heads(xc, p.wk), _heads(xm, p.wv), z,
+            log_i, log_f, xm)
+
+
+def _pad_time(x: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
+    if not n:
+        return x
+    return torch.cat([x, x.new_full((x.shape[0], n) + x.shape[2:], value)],
+                     dim=1)
+
+
+def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
+    """q, k, v: (B, S, H, dh); log_i, log_f: (B, S, H) fp32; ``state``
+    (C, n, m) or None for the zero state. Returns (out (B, S, H, dh)
+    fp32, (C, n, m)). The tail is padded to a whole chunk with log_i =
+    -1e30 and log_f = 0 (no input, no decay), as in the reference."""
+    b, s, nh, dh = q.shape
+    q = q.float() * (1.0 / math.sqrt(dh))
+    k, v = k.float(), v.float()
+    size = min(chunk, s)
+    pad = -s % size
+    q, k, v, log_f = (_pad_time(t, pad) for t in (q, k, v, log_f))
+    log_i = _pad_time(log_i, pad, _NEG)
+    if state is None:
+        C = q.new_zeros((b, nh, dh, dh))
+        n = q.new_zeros((b, nh, dh))
+        m = q.new_full((b, nh), _NEG)
+    else:
+        C, n, m = state
+    mask = torch.tril(torch.ones((size, size), dtype=torch.bool,
+                                 device=q.device))[None, :, :, None]
+    outs = []
+    for c0 in range(0, s + pad, size):
+        qh, kh, vh = q[:, c0:c0 + size], k[:, c0:c0 + size], v[:, c0:c0 + size]
+        li, lf = log_i[:, c0:c0 + size], log_f[:, c0:c0 + size]
+        fc = torch.cumsum(lf, dim=1)                  # inclusive decay
+        intra_max = (li - fc).amax(dim=1, keepdim=True)
+        m_pos = torch.maximum(m[:, None] + fc, fc + intra_max)   # (B,L,H)
+        # D[i, j] = exp(li_j + F_i - F_j - m_i) for j <= i
+        dmat = li[:, None] + fc[:, :, None] - fc[:, None] - m_pos[:, :, None]
+        w = torch.exp(torch.where(mask, dmat, torch.full_like(dmat, _NEG)))
+        scores = torch.einsum("bihd,bjhd->bijh", qh, kh) * w
+        num = torch.einsum("bijh,bjhd->bihd", scores, vh)
+        den = scores.sum(dim=2)                               # (B,L,H)
+        inter_w = torch.exp(m[:, None] + fc - m_pos)          # (B,L,H)
+        num = num + torch.einsum("bihd,bhde->bihe", qh, C) * inter_w[..., None]
+        den = den + torch.einsum("bihd,bhd->bih", qh, n) * inter_w
+        outs.append(num / torch.maximum(den.abs(),
+                                        torch.exp(-m_pos))[..., None])
+        ftot = fc[:, -1]                                      # (B,H)
+        m_new = torch.maximum(m + ftot, (li + ftot[:, None] - fc).amax(dim=1))
+        kw = torch.exp(li + ftot[:, None] - fc - m_new[:, None])
+        decay = torch.exp(m + ftot - m_new)
+        C = decay[..., None, None] * C + torch.einsum(
+            "bjhd,bjhe->bhde", kh * kw[..., None], vh)
+        n = decay[..., None] * n + torch.einsum("bjhd,bjh->bhd", kh, kw)
+        m = m_new
+    return torch.cat(outs, dim=1)[:, :s], (C, n, m)
+
+
+def _mlstm_out(p, out: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
+               cfg) -> torch.Tensor:
+    """The heads' output normed per head, gated by silu(z), projected
+    down, plus the residual."""
+    out = rms_norm(out.to(x.dtype), p.gn, cfg.norm_eps)
+    out = out.reshape(*out.shape[:-2], -1) * F.silu(z)
+    return x + out @ p.w_down
+
+
+def _mlstm_prompt(p, x: torch.Tensor, cfg):
+    q, k, v, z, log_i, log_f, xm = _mlstm_qkvg(p, x, cfg)
+    out, state = mlstm_chunkwise(q, k, v, log_i, log_f, None,
+                                 chunk=min(cfg.attn_chunk, 256))
+    return _mlstm_out(p, out, z, x, cfg), state, xm
+
+
+def mlstm_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence mLSTM block with residual. x: (B, S, D)."""
+    return _mlstm_prompt(p, x, cfg)[0]
+
+
+def _tail(xm: torch.Tensor, keep: int) -> torch.Tensor:
+    """The last ``keep`` rows of xm, leading zeros where it is shorter."""
+    tail = xm[:, -keep:]
+    if tail.shape[1] < keep:
+        tail = torch.cat([tail.new_zeros((tail.shape[0], keep - tail.shape[1],
+                                          tail.shape[2])), tail], dim=1)
+    return tail.contiguous()
+
+
+def mlstm_prefill_cache(p, x: torch.Tensor, cfg
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``mlstm_apply`` that also returns the decode state {"C", "n", "m"
+    (fp32), "conv" (B, 3, dm) in x's dtype}."""
+    out, (C, n, m), xm = _mlstm_prompt(p, x, cfg)
+    return out, {"C": C, "n": n, "m": m,
+                 "conv": _tail(xm, CONV_WIDTH - 1).to(x.dtype)}
+
+
+def mlstm_decode(p, x: torch.Tensor, cfg, *,
+                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One-token decode, the O(1) matrix-memory update. x: (B, 1, D);
+    ``cache`` {"C", "n", "m", "conv"} is advanced IN PLACE. Returns the
+    residual output."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    xm, z = (h @ p.w_up).chunk(2, dim=-1)
+    xc = F.silu(_causal_conv(xm, p.conv_w, p.conv_b, tail=cache["conv"]))
+    dh = p.wq.shape[2]
+    q = _heads(xc[:, 0], p.wq).float() / math.sqrt(dh)
+    k = _heads(xc[:, 0], p.wk).float()
+    v = _heads(xm[:, 0], p.wv).float()
+    log_i, log_f = _gates(p, xc[:, 0])
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    m_new = torch.maximum(log_f + m, log_i)
+    decay = torch.exp(log_f + m - m_new)
+    inw = torch.exp(log_i - m_new)
+    C_new = decay[..., None, None] * C + inw[..., None, None] \
+        * torch.einsum("bhd,bhe->bhde", k, v)
+    n_new = decay[..., None] * n + inw[..., None] * k
+    num = torch.einsum("bhd,bhde->bhe", q, C_new)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n_new).abs(),
+                        torch.exp(-m_new))
+    out = _mlstm_out(p, (num / den[..., None])[:, None], z, x, cfg)
+    tail = torch.cat([cache["conv"], xm.to(cache["conv"].dtype)], dim=1)
+    cache["conv"].copy_(tail[:, 1:])
+    C.copy_(C_new)
+    n.copy_(n_new)
+    m.copy_(m_new)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def _slstm_cell(p, wx_t: torch.Tensor, state):
+    """One sLSTM step in fp32. wx_t: (B, 4, H, dh) the input's share of
+    the gates; state (c, n, m, h), each (B, H, dh)."""
+    c, n, m, h = state
+    rec = torch.einsum("bhd,ghde->bghe", h.float(), p.r.float())
+    raw = wx_t.float() + rec + p.b
+    z = torch.tanh(raw[:, 0])
+    log_i = raw[:, 1]
+    log_f = -_softplus(-raw[:, 2])
+    o = torch.sigmoid(raw[:, 3])
+    m_new = torch.maximum(log_f + m, log_i)
+    i_s = torch.exp(log_i - m_new)
+    f_s = torch.exp(log_f + m - m_new)
+    c_new = f_s * c + i_s * z
+    n_new = torch.clamp(f_s * n + i_s, min=1e-6)
+    return c_new, n_new, m_new, o * c_new / n_new
+
+
+def slstm_scan(p, wx: torch.Tensor, state):
+    """wx: (B, S, 4, H, dh). One ``_slstm_cell`` a position, in order.
+    Returns (hs (B, S, H, dh) fp32, the last state)."""
+    hs = []
+    for t in range(wx.shape[1]):
+        state = _slstm_cell(p, wx[:, t], state)
+        hs.append(state[3])
+    return torch.stack(hs, dim=1), state
+
+
+def _slstm_zero_state(b: int, nh: int, dh: int, device):
+    z = torch.zeros((b, nh, dh), device=device)
+    return z, torch.ones_like(z), torch.full_like(z, _NEG), z
+
+
+def _slstm_wx(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """einsum("bsd,dghe->bsghe") of the normed input: (B, S, 4, H, dh)."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    d = p.w.shape[0]
+    return (h @ p.w.reshape(d, -1)).reshape(*h.shape[:-1], *p.w.shape[1:])
+
+
+def _slstm_out(p, hs: torch.Tensor, x: torch.Tensor, cfg) -> torch.Tensor:
+    """hs normed per head, the GeGLU up/down projection (the tanh GELU
+    of ``jax.nn.gelu``), plus the residual."""
+    hs = rms_norm(hs.to(x.dtype), p.gn, cfg.norm_eps)
+    a, g = (hs.reshape(*hs.shape[:-2], -1) @ p.w_up).chunk(2, dim=-1)
+    return x + (F.gelu(a, approximate="tanh") * g) @ p.w_down
+
+
+def _slstm_prompt(p, x: torch.Tensor, cfg):
+    nh, dh = p.gn.shape
+    hs, state = slstm_scan(p, _slstm_wx(p, x, cfg),
+                           _slstm_zero_state(x.shape[0], nh, dh, x.device))
+    return _slstm_out(p, hs, x, cfg), state
+
+
+def slstm_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence sLSTM block with residual. x: (B, S, D)."""
+    return _slstm_prompt(p, x, cfg)[0]
+
+
+def slstm_prefill_cache(p, x: torch.Tensor, cfg
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``slstm_apply`` that also returns the decode state {"c", "n",
+    "m", "h"} (B, H, dh) fp32."""
+    out, (c, n, m, h) = _slstm_prompt(p, x, cfg)
+    return out, {"c": c, "n": n, "m": m, "h": h}
+
+
+def slstm_decode(p, x: torch.Tensor, cfg, *,
+                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One-token decode. x: (B, 1, D); ``cache`` {"c", "n", "m", "h"} is
+    advanced IN PLACE. Returns the residual output."""
+    keys = ("c", "n", "m", "h")
+    state = _slstm_cell(p, _slstm_wx(p, x, cfg)[:, 0],
+                        tuple(cache[k] for k in keys))
+    for k, v in zip(keys, state):
+        cache[k].copy_(v)
+    return _slstm_out(p, state[3][:, None], x, cfg)
+
+
+def state_shapes(kind: str, cfg, batch: int) -> Optional[dict]:
+    """The per-sequence state of an xLSTM layer as {leaf: (shape,
+    fill, in the compute dtype?)}, or None for another kind."""
+    if kind == "mlstm":
+        dm, nh, dh = _mlstm_dims(cfg)
+        return {"C": ((batch, nh, dh, dh), 0.0, False),
+                "n": ((batch, nh, dh), 0.0, False),
+                "m": ((batch, nh), _NEG, False),
+                "conv": ((batch, CONV_WIDTH - 1, dm), 0.0, True)}
+    if kind == "slstm":
+        nh, dh, _ = _slstm_dims(cfg)
+        return {"c": ((batch, nh, dh), 0.0, False),
+                "n": ((batch, nh, dh), 1.0, False),
+                "m": ((batch, nh, dh), _NEG, False),
+                "h": ((batch, nh, dh), 0.0, False)}
+    return None
+
+
+__all__ = ["MLSTMBlock", "SLSTMBlock", "mlstm_init", "slstm_init",
+           "mlstm_chunkwise", "mlstm_apply", "mlstm_prefill_cache",
+           "mlstm_decode", "slstm_scan", "slstm_apply",
+           "slstm_prefill_cache", "slstm_decode", "state_shapes"]

@@ -8,18 +8,25 @@ params under ``lax.scan``; here the decoder layers sit in one
 then the remainder), and ``repro_torch.weights`` maps one layout onto
 the other. Parameters keep the reference's names and shapes.
 
-Two uses, two checks. ``forward`` / ``loss_fn`` (training) run the
-``attn``, ``attn_local`` and ``rglru`` block kinds (``check_trainable``)
-on fp32 master parameters: ``cast_params_for_compute`` makes the
-compute-dtype copy out of place at every call, as the reference casts
-at every step, and autograd carries the gradients back to the masters.
+A layer is its kind's block (``attn`` / ``attn_local`` attention,
+``rglru`` from ``models.rglru``, ``mlstm`` / ``slstm`` from
+``models.ssm``) and, on the kinds of ``_HAS_MLP`` only, an MLP or, when
+``cfg.moe``, a mixture of experts (``models.moe``); xLSTM blocks carry
+their own projections. Two uses, two checks. ``forward`` / ``loss_fn``
+(training) run every block kind (``check_trainable``: decoders without
+a frontend or an encoder) on fp32 master parameters:
+``cast_params_for_compute`` makes the compute-dtype copy out of place at
+every call, as the reference casts at every step, and autograd carries
+the gradients back to the masters. ``forward`` returns the MoE layers'
+aux loss summed over the depth, and ``loss_fn`` adds
+``router_aux_weight`` x that to the cross-entropy of an MoE config.
 When ``cfg.remat`` is set each scanned period runs under
 ``torch.utils.checkpoint``, as the reference wraps its scan body in
 ``jax.checkpoint``. Serving (``prefill``, ``decode_step``,
-``prefill_extend``) runs the same three block kinds (``check_servable``)
-on parameters held in the compute dtype (``to_compute_dtype_``, once);
+``prefill_extend``) runs the same configs (``check_servable``) on
+parameters held in the compute dtype (``to_compute_dtype_``, once);
 ``prefill_extend`` only all-``attn`` decoders
-(``supports_chunked_prefill``).
+(``supports_chunked_prefill``), MoE ones among them.
 
 ``to_actor_graph`` exports the decoder as a VR-PRUNE actor graph
 (Input, Embed, one actor per group of layers, Head) whose fire functions
@@ -29,7 +36,9 @@ partitioned prefill (``runtime.serving.PartitionedServeEngine``).
 The decode cache is a list with one dict per layer, by kind: ``{"k",
 "v"}`` (B, S_cache, Hk, hd) for attention (a ring of ``min(window,
 max_len)`` rows for ``attn_local``, slot = position % rows), ``{"h",
-"conv"}`` for ``rglru`` (``models.rglru``). With the paged layout
+"conv"}`` for ``rglru`` (``models.rglru``), ``{"C", "n", "m", "conv"}``
+for ``mlstm`` and ``{"c", "n", "m", "h"}`` for ``slstm``
+(``models.ssm``). With the paged layout
 (``init_paged_cache``) each ``attn`` layer's K/V is a shared (N, bs,
 Hk, hd) pool addressed through block tables, and every other leaf stays
 slot-indexed.
@@ -48,7 +57,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -76,27 +87,25 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-_TRAIN_KINDS = ("attn", "attn_local", "rglru")
+# the block kinds that carry an MLP (or the MoE), as the reference lists
+# them: xLSTM blocks embed their own projections
+_HAS_MLP = ("attn", "attn_local", "rglru")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """The configs the port builds and trains: decoders of ``attn``,
-    ``attn_local`` and ``rglru`` blocks."""
-    if any(k not in _TRAIN_KINDS for k in cfg.layer_kinds):
-        raise ValueError(f"{cfg.name}: the port runs {list(_TRAIN_KINDS)} "
-                         f"blocks; {sorted(set(cfg.layer_kinds))} come with "
+    """The configs the port builds and trains: decoders of any block kind
+    (``attn``, ``attn_local``, ``rglru``, ``mlstm``, ``slstm``), dense or
+    MoE, without a frontend or an encoder."""
+    if cfg.frontend or cfg.n_encoder_layers:
+        raise ValueError(f"{cfg.name}: frontends and encoders come with "
                          f"later slices (queue 1, item 10)")
-    if cfg.moe is not None or cfg.frontend or cfg.n_encoder_layers:
-        raise ValueError(f"{cfg.name}: MoE, frontends and encoders come "
-                         f"with later slices (queue 1, item 10)")
 
 
 def check_servable(cfg: ModelConfig) -> None:
     """The configs the port serves (prefill, decode, the ``Engine``):
-    the ones it trains, decoders of ``attn``, ``attn_local`` (a ring
-    cache) and ``rglru`` (a recurrent state) blocks. An alias of
-    ``check_trainable`` on purpose: the serving entry points name the
-    rule they apply, and it may part from training's in a later slice."""
+    the ones it trains. An alias of ``check_trainable`` on purpose: the
+    serving entry points name the rule they apply, and it may part from
+    training's in a later slice."""
     check_trainable(cfg)
 
 
@@ -129,27 +138,45 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    """Gated MLP params: w_gate / w_up (d, f), w_down (f, d), ln (d,);
+    ``f`` is ``cfg.d_ff`` unless given (the MoE's shared experts)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 width: Optional[int] = None):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, width or cfg.d_ff
         self.w_gate = _param((d, f), dtype, device)
         self.w_up = _param((d, f), dtype, device)
         self.w_down = _param((f, d), dtype, device)
         self.ln = _param((d,), dtype, device)
 
 
+_BLOCKS = {"rglru": R.RGLRUBlock, "mlstm": S.MLSTMBlock,
+           "slstm": S.SLSTMBlock}
+
+
 class DecoderLayer(nn.Module):
     """One decoder layer: its ``kind``'s block (``Attention`` for
-    ``attn`` / ``attn_local``, ``RGLRUBlock`` for ``rglru``) and the MLP
-    when ``d_ff``."""
+    ``attn`` / ``attn_local``, ``RGLRUBlock`` for ``rglru``,
+    ``MLSTMBlock`` / ``SLSTMBlock`` for ``mlstm`` / ``slstm``) and, on
+    the kinds of ``_HAS_MLP``, the ``moe`` when ``cfg.moe``, else the
+    ``mlp`` when ``d_ff``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
         self.kind = kind
-        self.block = R.RGLRUBlock(cfg, dtype, device, _param) \
-            if kind == "rglru" else Attention(cfg, dtype, device)
-        self.register_module("mlp", MLP(cfg, dtype, device)
-                             if cfg.d_ff else None)
+        self.block = _BLOCKS[kind](cfg, dtype, device, _param) \
+            if kind in _BLOCKS else Attention(cfg, dtype, device)
+        mlp = moe = None
+        if kind in _HAS_MLP and cfg.moe is not None:
+            m = cfg.moe
+            moe = M.MoE(cfg, dtype, device, _param, MLP(
+                cfg, dtype, device, m.d_ff_expert * m.n_shared_experts)
+                if m.n_shared_experts else None)
+        elif kind in _HAS_MLP and cfg.d_ff:
+            mlp = MLP(cfg, dtype, device)
+        self.register_module("mlp", mlp)
+        self.register_module("moe", moe)
 
 
 class Transformer(nn.Module):
@@ -239,17 +266,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
             a = layer.block
             if layer.kind == "rglru":
                 R.rglru_init(a, cfg, gen)
+            elif layer.kind == "mlstm":
+                S.mlstm_init(a, cfg, gen)
+            elif layer.kind == "slstm":
+                S.slstm_init(a, cfg, gen)
             else:
                 a.wq.copy_(L.dense_init(gen, d, a.wq.shape[1:], dt, dev))
                 a.wk.copy_(L.dense_init(gen, d, a.wk.shape[1:], dt, dev))
                 a.wv.copy_(L.dense_init(gen, d, a.wv.shape[1:], dt, dev))
                 a.wo.copy_(L.dense_init(gen, h * hd, (d,), dt, dev)
                            .reshape(a.wo.shape))
-            if layer.mlp is not None:
-                m = layer.mlp
-                m.w_gate.copy_(L.dense_init(gen, d, (cfg.d_ff,), dt, dev))
-                m.w_up.copy_(L.dense_init(gen, d, (cfg.d_ff,), dt, dev))
-                m.w_down.copy_(L.dense_init(gen, cfg.d_ff, (d,), dt, dev))
+            mlps = [layer.mlp]
+            if layer.moe is not None:
+                M.moe_init(layer.moe, cfg, gen)
+                mlps.append(layer.moe.shared)
+            for m in mlps:
+                if m is not None:
+                    f = m.w_gate.shape[1]
+                    m.w_gate.copy_(L.dense_init(gen, d, (f,), dt, dev))
+                    m.w_up.copy_(L.dense_init(gen, d, (f,), dt, dev))
+                    m.w_down.copy_(L.dense_init(gen, f, (d,), dt, dev))
     return model
 
 
@@ -287,54 +323,74 @@ def _head_logits(x: torch.Tensor, model: Transformer) -> torch.Tensor:
 # forward (train / no-cache)
 # ---------------------------------------------------------------------------
 
+def _ffn(layer, x: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's MoE or MLP after its block: (x, the MoE's aux loss or
+    None)."""
+    if layer.moe is not None:
+        return M.moe_apply(layer.moe, x, cfg)
+    if layer.mlp is not None:
+        x = L.mlp_apply(layer.mlp, x, cfg)
+    return x, None
+
+
 def _layer_apply(layer, x: torch.Tensor, cfg: ModelConfig, *,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer of ``forward``: (x, its aux loss or None)."""
     if layer.kind == "rglru":
         x = R.rglru_apply(layer.block, x, cfg)
+    elif layer.kind == "mlstm":
+        x = S.mlstm_apply(layer.block, x, cfg)
+    elif layer.kind == "slstm":
+        x = S.slstm_apply(layer.block, x, cfg)
     else:
         x = L.attn_apply(layer.block, x, cfg, kind=layer.kind,
                          positions=positions)
-    if layer.mlp is not None:
-        x = L.mlp_apply(layer.mlp, x, cfg)
-    return x
+    return _ffn(layer, x, cfg)
 
 
 def _run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor, train: bool = True) -> torch.Tensor:
-    """The decoder layers in ``layer_kinds`` order. With ``cfg.remat and
+               positions: torch.Tensor, train: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder layers in ``layer_kinds`` order: (x, the aux losses
+    summed over the layers, in layer order). With ``cfg.remat and
     train`` each scanned period runs under ``torch.utils.checkpoint``
     (its activations recomputed in the backward, as the reference's
     ``jax.checkpoint`` of the scan body); the remainder layers do not."""
     period = len(cfg.layer_pattern)
 
-    def run_period(x, first):
-        for layer in params.layers[first:first + period]:
-            x = _layer_apply(layer, x, cfg, positions=positions)
-        return x
+    def run_layers(x, aux, first, last):
+        for layer in params.layers[first:last]:
+            x, a = _layer_apply(layer, x, cfg, positions=positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), device=x.device)
     for p in range(cfg.n_periods):
+        span = (p * period, (p + 1) * period)
         if cfg.remat and train:
-            x = checkpoint(run_period, x, p * period, use_reentrant=False)
+            x, aux = checkpoint(run_layers, x, aux, *span,
+                                use_reentrant=False)
         else:
-            x = run_period(x, p * period)
-    for layer in params.layers[cfg.n_periods * period:]:
-        x = _layer_apply(layer, x, cfg, positions=positions)
-    return x
+            x, aux = run_layers(x, aux, *span)
+    return run_layers(x, aux, cfg.n_periods * period, len(params.layers))
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: Dict, *,
             train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens": (B, S) int}. Returns (logits (B, S, Vp) in the
-    compute dtype, aux loss 0.0: the port's configs have no MoE). The
-    compute copy is cast from ``model``'s params at every call."""
+    compute dtype, the MoE layers' aux loss summed, 0.0 without MoE).
+    The compute copy is cast from ``model``'s params at every call."""
     params = cast_params_for_compute(model, cfg)
     x = _embed_inputs(params, batch["tokens"])
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    x = _run_stack(params, x, cfg, positions=positions, train=train)
+    x, aux = _run_stack(params, x, cfg, positions=positions, train=train)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return _head_logits(x, params), torch.zeros((), device=x.device)
+    return _head_logits(x, params), aux
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict
@@ -342,7 +398,9 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict
     """Next-token cross-entropy in fp32, as the reference computes it:
     logits[:, :-1] against ``labels[:, 1:]`` (B, S), with -1 = masked.
     The picked logit is a gather (the reference's one-hot contraction is
-    the same sum). Returns (loss, {"ce", "aux"})."""
+    the same sum). An MoE config's loss adds ``router_aux_weight`` x the
+    aux loss; ``ce`` is the cross-entropy alone. Returns (loss, {"ce",
+    "aux"})."""
     logits, aux = forward(model, cfg, batch, train=True)
     logits = logits[:, :-1].float()
     targets = batch["labels"][:, 1:].long()
@@ -351,7 +409,8 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict
     picked = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
     nll = (lse - picked) * mask
     ce = nll.sum() / torch.clamp(mask.sum(), min=1.0)
-    return ce, {"ce": ce.detach(), "aux": aux}
+    loss = ce if cfg.moe is None else ce + cfg.moe.router_aux_weight * aux
+    return loss, {"ce": ce.detach(), "aux": aux.detach()}
 
 
 # ---------------------------------------------------------------------------
@@ -371,8 +430,15 @@ def _layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     """One layer's zeroed decode cache: {"k", "v"} (batch, S_cache, Hk,
     hd) for attention (S_cache ``min(window, max_len)`` for
     ``attn_local``), {"h": (batch, d) fp32, "conv": (batch, W - 1, d)}
-    for ``rglru``."""
+    for ``rglru``, and ``ssm.state_shapes``' leaves for ``mlstm`` (C, n
+    zero and m = -1e30 in fp32, the conv tail in the compute dtype) and
+    ``slstm`` (c = 0, n = 1, m = -1e30, h = 0 in fp32)."""
     dtype = _dtype(cfg.dtype)
+    state = S.state_shapes(kind, cfg, batch)
+    if state is not None:
+        return {k: torch.full(shape, fill, device=device,
+                              dtype=dtype if compute else torch.float32)
+                for k, (shape, fill, compute) in state.items()}
     if kind == "rglru":
         d = cfg.d_model
         return {"h": torch.zeros((batch, d), device=device),
@@ -437,13 +503,15 @@ def _prefill_layer(layer, x: torch.Tensor, cfg: ModelConfig, *,
     cache), as the reference's ``_layer_prefill``."""
     if layer.kind == "rglru":
         x, c = R.rglru_prefill_cache(layer.block, x, cfg)
+    elif layer.kind == "mlstm":
+        x, c = S.mlstm_prefill_cache(layer.block, x, cfg)
+    elif layer.kind == "slstm":
+        x, c = S.slstm_prefill_cache(layer.block, x, cfg)
     else:
         x, c = L.attn_prefill_cache(
             layer.block, x, cfg, kind=layer.kind, positions=positions,
             cache_size=_cache_size_for(layer.kind, cfg, max_len))
-    if layer.mlp is not None:
-        x = L.mlp_apply(layer.mlp, x, cfg)
-    return x, c
+    return _ffn(layer, x, cfg)[0], c
 
 
 @torch.no_grad()
@@ -480,6 +548,10 @@ def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
     for layer, c in zip(model.layers[lo:hi], cache[lo:hi]):
         if layer.kind == "rglru":
             x = R.rglru_decode(layer.block, x, cfg, cache=c)
+        elif layer.kind == "mlstm":
+            x = S.mlstm_decode(layer.block, x, cfg, cache=c)
+        elif layer.kind == "slstm":
+            x = S.slstm_decode(layer.block, x, cfg, cache=c)
         elif layer.kind == "attn" and block_tables is not None:
             x = L.attn_decode_paged(layer.block, x, cfg, k_pool=c["k"],
                                     v_pool=c["v"], tables=block_tables,
@@ -487,8 +559,7 @@ def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
         else:
             x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
                               cache_len=cache_len)
-        if layer.mlp is not None:
-            x = L.mlp_apply(layer.mlp, x, cfg)
+        x = _ffn(layer, x, cfg)[0]
     return x
 
 
@@ -578,8 +649,7 @@ def prefill_extend(model: Transformer, tokens: torch.Tensor, cache: Cache,
     for layer, lc in zip(model.layers, cache):
         x = L.attn_extend(layer.block, x, cfg, kind=layer.kind, cache=lc,
                           cache_len=cache_len)
-        if layer.mlp is not None:
-            x = L.mlp_apply(layer.mlp, x, cfg)
+        x = _ffn(layer, x, cfg)[0]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return _head_logits(x, model), cache, cache_len + c
 
@@ -655,10 +725,6 @@ def paged_copy_block(cfg: ModelConfig, cache: Cache, src: int,
 # VR-PRUNE actor-graph export (the Edge-PRUNE integration)
 # ---------------------------------------------------------------------------
 
-# the block kinds that carry an MLP, as the reference lists them
-_HAS_MLP = ("attn", "attn_local", "rglru")
-
-
 def to_actor_graph(cfg: ModelConfig, model: Optional[Transformer] = None,
                    *, batch: int = 1, seq: int = 8, group_size: int = 1):
     """Export the model as a VR-PRUNE dataflow graph: one actor per group
@@ -668,8 +734,9 @@ def to_actor_graph(cfg: ModelConfig, model: Optional[Transformer] = None,
     and ``cost_flops``. With ``model`` the actors carry fire functions
     that run the layers of ``forward`` (``_layer_apply``: the flash
     kernel for every attention layer, the scan's forward kernel for every
-    ``rglru`` layer) on the compute copy of the weights, cast once here;
-    without it the graph carries costs only.
+    ``rglru`` layer, the MoE, mLSTM and sLSTM layers in plain PyTorch)
+    on the compute copy of the weights, cast once here; without it the
+    graph carries costs only.
 
     The Head applies the final norm and the head without masking a
     padded vocabulary, and its sink result is the logits tensor itself,
@@ -755,7 +822,7 @@ def to_actor_graph(cfg: ModelConfig, model: Optional[Transformer] = None,
                 (x,) = inputs["in"]
                 for li in idxs:
                     x = _layer_apply(params.layers[li], x, cfg,
-                                     positions=positions)
+                                     positions=positions)[0]
                 return {"out": [x]}, st
             return fire
 

@@ -30,8 +30,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, *,
     gradients accumulated, as the reference does it: the microbatches'
     gradients summed, then scaled by 1 / microbatches; the loss and the
     metrics averaged. The model's parameters are updated in place.
-    Metrics: ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``, 0-d
-    tensors on the model's device."""
+    Metrics: ``loss``, ``ce``, ``aux`` (the MoE layers' summed aux loss,
+    averaged over the microbatches like the others), ``grad_norm`` and
+    ``lr``, 0-d tensors on the model's device. A parameter the loss
+    never reads gets a zero gradient, as ``jax.grad`` gives it."""
 
     def train_step(model: T.Transformer, opt_state: Dict[str, Any],
                    batch: Dict[str, Any]
@@ -60,6 +62,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, *,
             else:
                 loss = loss + l
                 metrics = {k: metrics[k] + m[k] for k in metrics}
+        for p in params:
+            # a leaf the loss never reads (the shared experts' ln): the
+            # zero gradient that jax.grad gives it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if microbatches > 1:
             scale = 1.0 / microbatches
             with torch.no_grad():

@@ -14,7 +14,9 @@ path-keyed dict that ``repro.runtime.checkpoint`` saves (keys such as
 
 A layer's leaves map by name whatever its kind (``block/wq`` of an
 ``attn`` or ``attn_local`` layer, ``block/w_in`` or ``block/lam`` of an
-``rglru`` one, ``mlp/w_gate``). By default every leaf but the
+``rglru`` one, ``block/w_if`` of an ``mlstm`` and ``block/r`` of an
+``slstm`` one, ``mlp/w_gate``, ``moe/router``, ``moe/w_down``,
+``moe/shared/w_up``). By default every leaf but the
 ``_KEEP_F32`` ones is cast to the compute dtype for serving, as the
 reference's ``cast_params_for_compute`` does at each step; training
 asks for ``dtype=torch.float32`` masters.
@@ -23,7 +25,9 @@ asks for ``dtype=torch.float32`` masters.
 checkpoint dict, scan leaves stacked over periods again, for
 checkpoints and tests. ``reference_leaves`` lists the port's tensors
 behind each reference leaf in the reference's flatten order (the order
-in which the optimizer sums the gradient norm).
+in which the optimizer sums the gradient norm). ``seeded_flat`` draws a
+config's weights in that layout from a numpy seed, the same numbers on
+any machine, so that a fixture can name its weights by a seed.
 """
 from __future__ import annotations
 
@@ -113,6 +117,23 @@ def to_flat(model: Transformer, *, grad: bool = False
         arrs = [(p.grad if grad else p).detach().float().cpu().numpy()
                 for p in params]
         out[key] = np.stack(arrs) if key.startswith("scan/") else arrs[0]
+    return out
+
+
+def seeded_flat(cfg: ModelConfig, seed: int, scale: float = 0.05
+                ) -> Dict[str, np.ndarray]:
+    """``cfg``'s weights as the reference's flat dict, drawn from a seed:
+    every leaf, norms and biases included, N(0, ``scale``^2) from
+    ``np.random.RandomState(seed)`` in the reference's flatten order,
+    rounded to the nearest bf16 value and held in fp32."""
+    rng = np.random.RandomState(seed)
+    model = Transformer(cfg, device="meta", dtype=torch.float32)
+    out = {}
+    for key, params in reference_leaves(model).items():
+        shape = ((len(params),) if key.startswith("scan/") else ()) \
+            + tuple(params[0].shape)
+        w = rng.standard_normal(shape).astype(np.float32) * scale
+        out[key] = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
     return out
 
 

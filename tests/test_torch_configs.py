@@ -3,7 +3,8 @@ dense configs it adds (llama3.2-3b, chatglm3-6b) against the reference
 on the CPU.
 
 Every registered config equals the reference's field for field, and its
-full-width shapes equal tests/test_arch_smoke.py's table; the aliases
+full-width shapes equal tests/test_arch_smoke.py's table (the MoE and
+xLSTM configs among them); the aliases
 resolve as the reference's do; an architecture the port does not run
 yet is refused by name. llama3.2-3b's and chatglm3-6b's smoke variants
 (the latter with QKV bias, a rotary half of each head and 16 query
@@ -34,6 +35,9 @@ SHAPES = {
     "llama3_2_3b": (28, 3072, 24, 8, 8192, 128256),
     "qwen2_1_5b": (28, 1536, 12, 2, 8960, 151936),
     "chatglm3_6b": (28, 4096, 32, 2, 13696, 65024),
+    "qwen2_moe_a2_7b": (24, 2048, 16, 16, 0, 151936),
+    "qwen3_moe_235b_a22b": (94, 4096, 64, 4, 0, 151936),
+    "xlstm_350m": (24, 1024, 4, 4, 0, 50304),
 }
 
 
@@ -59,7 +63,9 @@ def test_full_config_equals_the_reference(arch):
 @pytest.mark.parametrize("alias,arch", [
     ("gemma3-1b", "gemma3_1b"), ("llama3.2-3b", "llama3_2_3b"),
     ("chatglm3-6b", "chatglm3_6b"), ("recurrentgemma-9b", "recurrentgemma_9b"),
-    ("qwen2-1.5b", "qwen2_1_5b")])
+    ("qwen2-1.5b", "qwen2_1_5b"), ("qwen2-moe-a2.7b", "qwen2_moe_a2_7b"),
+    ("qwen3-moe-235b-a22b", "qwen3_moe_235b_a22b"),
+    ("xlstm-350m", "xlstm_350m")])
 def test_aliases_resolve_as_in_the_reference(alias, arch):
     from repro.configs import canonical as jax_canonical
     assert canonical(alias) == jax_canonical(alias) == arch

@@ -8,9 +8,9 @@
 * the ``EngineConfig`` fields run by the slices so far are accepted and
   build an engine (``step_delay_s``, the endpoint tier's handicap,
   leaves the tokens as they are), and the model families of later
-  slices (MoE, xLSTM, frontends) are refused with a ``ValueError`` that
-  says so (the hybrid's ``rglru`` and ``attn_local`` blocks build, train
-  and serve);
+  slices (frontends, encoders) are refused with a ``ValueError`` that
+  says so (every block kind, MoE and xLSTM among them, builds, trains
+  and serves);
 * ``chip_smoke.py`` fails, printing no result, without a card or outside
   a checkout.
 """
@@ -155,15 +155,14 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("change", [
-    dict(moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=16)),
-    dict(layer_pattern=("mlstm", "slstm"), d_ff=0),
+    dict(frontend="audio", frontend_dim=8),
+    dict(n_encoder_layers=2),
     dict(frontend="vision", frontend_dim=8)])
 def test_later_model_families_are_refused(change):
-    """MoE, xLSTM's blocks and frontends (and encoders) come with later
-    slices: the model is refused when it is built, and the serving
-    entry points refuse the config. The hybrid's block kinds, ``attn``,
-    ``attn_local`` and ``rglru``, are trained and served
-    (tests/test_torch_hybrid.py)."""
+    """Frontends and encoders come with a later slice: the model is
+    refused when it is built, and the serving entry points refuse the
+    config. Every block kind, MoE among them, is trained and served
+    (``test_this_slice_families_are_built_and_served``)."""
     cfg = ModelConfig(**{**TINY, **change})
     with pytest.raises(ValueError, match="later slices"):
         PT.Transformer(cfg, device="cpu")
@@ -172,6 +171,24 @@ def test_later_model_families_are_refused(change):
     model = PT.init_params(ModelConfig(**TINY), device="cpu")
     with pytest.raises(ValueError, match="later slices"):
         Engine(cfg, model, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=16)),
+    dict(layer_pattern=("mlstm", "slstm"), d_ff=0)])
+def test_this_slice_families_are_built_and_served(change):
+    """MoE and xLSTM's blocks (tests/test_torch_families.py holds them
+    to the reference): the model builds, the serving check passes and
+    an ``Engine`` serves a request."""
+    from repro_torch.runtime.scheduler import Request
+    cfg = ModelConfig(**{**TINY, **change})
+    PT.check_servable(cfg)
+    model = PT.init_params(cfg, device="cpu")
+    eng = Engine(cfg, model, EngineConfig(max_len=16, max_slots=2),
+                 device="cpu")
+    out = eng.generate([Request(0, np.arange(5, dtype=np.int32),
+                                max_new_tokens=3)])
+    assert len(out[0].tokens) == 3
 
 
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
