@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,4,5,6,7,8,9,10]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,...,11]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -268,12 +268,55 @@ Phases, one status line each; any failure exits non-zero:
    qwen2-moe's prefill (16/16 heads of 128), fifo decode, paged decode
    and training flash with its lse (S = 2,048), qwen3-moe's prefill and
    decode (64/4 heads).
+11. the encoder-decoder and the vision frontend on the card: (a) phase 2
+   holds and times their shapes: flash over every key at head_dim 64
+   (the 128 class) with Sq = Sk = 512 (seamless-m4t-medium's encoder
+   and its cross-attention prefill) and Sq != Sk (300 over 512), with
+   its lse at the training shape (1,024 over 1,024), the decoder's
+   causal prefill at head_dim 64, llava-next-mistral-7b's causal
+   prefill of 3,392 rows (2,880 patch rows + 512 tokens, 32/8 heads),
+   slotted and paged decode at seamless's g = 1 / D = 64 and llava's g =
+   4 over 3,432 rows, and decode over the cross cache (512 source rows
+   of 552); (b) the JAX fixture (``src/repro_torch/testdata/
+   golden_encdec.npz``: both smoke configs, weights named by numpy
+   seeds) in fp32 through the kernels: ``forward``, prefill and decode
+   logits within 1e-4 of JAX's, the Engine's batch, slotted fifo and
+   paged fifo tokens equal to the greedy tokens of JAX's ``forward``
+   loop and its batch engine, llava's slotted fifo record equal to
+   JAX's, and one training step of a narrow variant of each: loss and
+   every gradient leaf within 1e-4; (c) seamless-m4t-medium at full
+   width and depth in bf16 (12 encoder + 12 decoder layers, 16 heads of
+   64): 16 requests of 512 tokens over 512 stub frames, 32 new, 8
+   slots: fifo through the serve CLI, batch and paged; every request by
+   length, paged == slotted, fifo == batch or, where bf16 parts them,
+   each parted request's first differing token at a tie (the two
+   choices within 1e-2 of the largest logit of a B=1 ``forward`` over
+   the agreed tokens) and the same runs at 4 decoder layers in fp32
+   equal; launches exact:
+   flash 36 a prefill call (12 encoder, 12 self, 12 cross), 24 decode
+   launches a step (12 self + 12 cross; paged 12 paged + 12 slotted);
+   (d) llava-next-mistral-7b at full width and depth in bf16: 8
+   requests of 2,880 stub patch rows + 512 tokens, 32 new, 8 slots,
+   ``max_len`` 3,432 (the CLI counts the patch rows): the same runs and
+   gates, flash 32 a prefill call, 32 decode launches a step, and a
+   request of 2,880 + 522 + 32 rows refused; (e) each model through the
+   kernels against its plain versions (phase 9's ``model_vs_plain``:
+   logits 5e-2, a moved argmax only at a top-2 gap within 1e-2 of the
+   largest logit, cache leaves, the cross K/V among them, 5e-2); (f)
+   training through ``repro_torch.launch.train.run`` with the CLI's
+   stub inputs, 3 steps on the copy task: seamless-m4t-medium whole (2
+   x 1,024 tokens over 1,024 frames) and llava-next-mistral-7b cut to 4
+   layers (2 x (2,880 + 512) positions): loss finite, launches exact,
+   step time and peak memory printed, under 80 GB; (g) each fifo run's
+   wall, tok/s, TTFT p50, decode ms a step, traced busy time and idle
+   share beside the card's name and power limit.
 
 ``--phases`` runs a subset and prints no result line (``--phases 8``
 runs phase 8 after the build). With all phases, the line before the
 last holds the kernels' summary as JSON (an entry per kernel and main
 path, with its timed shape and path: qwen2-1.5b's, the training run's,
-phase 9's at head_dim 256 and phase 10's MoE shapes), after a line
+phase 9's at head_dim 256, phase 10's MoE shapes and phase 11's
+encoder-decoder and vision shapes), after a line
 with phase 8's launches by
 path; the last line is ``{"ok": true, "device": {...}}``.
 Needs one card; imports nothing of JAX.
@@ -359,7 +402,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/10] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/11] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -487,15 +530,57 @@ SERVE_PAGED = {"fifo": (12, 2, 128, PARITY_BLOCKS, BS, PAGES, FIFO_LENS),
                # gemma3-1b's 4 global layers at slotted parity
                "gemma3-global": (4, 1, 256, 8 * G3_PAGES + 1, BS, G3_PAGES,
                                  [1040] * 8)}
-# phase 9's (head_dim 256) and phase 10's (the MoE configs) serving
-# shapes are gated cases as well
+# phase 11's serving shapes: seamless-m4t-medium (16/16 heads of 64, g =
+# 1): the decoder's causal prefill of 512 tokens, slotted and paged
+# decode at phase 4's slot lengths, and decode over the cross cache (512
+# source rows of 552; the free slot holds none); llava-next-mistral-7b
+# (32/8 heads of 128, g = 4): 2,880 patch rows + 512 prompt tokens
+# prefilled, 3,432 rows a slot (215 pages of 16)
+LL_PREFILL = 2880 + 512
+LL_S = LL_PREFILL + 32 + 8
+LL_PAGES = -(-LL_S // BS)
+LL_LENS = [1] + [LL_PREFILL + 1 + 5 * i for i in range(7)]  # one free slot
+CROSS_LENS = [0] + [512] * 7
+SERVE_FA.update({"seamless-decoder": (1, 512, 16, 16, 64, 0),
+                 "llava": (1, LL_PREFILL, 32, 8, 128, 0)})
+SERVE_DEC.update({"seamless": (16, 16, 64, SERVE_S, FIFO_LENS),
+                  "seamless-cross": (16, 16, 64, SERVE_S, CROSS_LENS),
+                  "llava": (32, 8, 128, LL_S, LL_LENS)})
+SERVE_PAGED.update({"seamless": (16, 16, 64, PARITY_BLOCKS, BS, PAGES,
+                                 FIFO_LENS),
+                    "llava": (32, 8, 128, 8 * LL_PAGES + 1, BS, LL_PAGES,
+                              LL_LENS)})
+# flash over every key (``causal=False``), timed: (B, Sq, Sk, H, Hk, D):
+# seamless's encoder (its cross-attention prefill has the same shape:
+# 512 prompt rows over 512 source rows) and a cross-attention with Sq !=
+# Sk
+SERVE_FA_BIDIR = {"seamless-encoder": (1, 512, 512, 16, 16, 64),
+                  "seamless-cross": (1, 300, 512, 16, 16, 64)}
+ENCDEC_SHAPES = ("seamless", "seamless-cross", "seamless-decoder", "llava")
+# phase 9's (head_dim 256), phase 10's (the MoE configs) and phase 11's
+# serving shapes are gated cases as well
 MOE_SHAPES = ("qwen2-moe", "qwen3-moe")
 FA_CASES += [(b, s, s, h, hk, d, True, w, "bfloat16")
              for p, (b, s, h, hk, d, w) in SERVE_FA.items()
-             if d == 256 or p in MOE_SHAPES]
+             if d == 256 or p in MOE_SHAPES + ENCDEC_SHAPES]
+FA_CASES += [(b, sq, sk, h, hk, d, False, 0, "bfloat16")
+             for b, sq, sk, h, hk, d in SERVE_FA_BIDIR.values()]
+# every key at head_dim 64 (the 128 class, half of each tile idle): fp32,
+# Sq > Sk, lengths that end mid-tile, g = 2 and B > 1
+FA_CASES += [(2, 300, 512, 16, 16, 64, False, 0, "float32"),
+             (2, 200, 77, 4, 2, 64, False, 0, "bfloat16"),
+             (3, 65, 130, 16, 16, 64, False, 0, "bfloat16")]
 DEC_CASES += [(len(lens), h, hk, d, s, "bfloat16", lens)
               for p, (h, hk, d, s, lens) in SERVE_DEC.items()
-              if d == 256 or p in MOE_SHAPES]
+              if d == 256 or p in MOE_SHAPES + ENCDEC_SHAPES]
+# seamless's g = 1 at head_dim 64 in fp32, at the decode edge lengths
+DEC_CASES += [(8, 16, 16, 64, SERVE_S, "float32", EDGE_LENS)]
+# flash over every key with its lse, as the encoder-decoder's training
+# backward reads it: (b, sq, sk, h, hk, d, dtype); seamless's training
+# shape (1,024 positions over 1,024 frames), Sq != Sk in fp32, g = 2
+BIDIR_LSE_CASES = [(1, 1024, 1024, 16, 16, 64, "bfloat16"),
+                   (2, 300, 512, 16, 16, 64, "float32"),
+                   (1, 77, 200, 4, 2, 64, "bfloat16")]
 PAGED_CASES = [
     # (b, h, hk, d, num_blocks, block_size, pages, dtype, lengths or None
     # = random in [1, pages * bs]); tables random over [0, N), so they
@@ -521,7 +606,7 @@ PAGED_CASES += [(8, 32, 2, 128, 200, 16, 18, "bfloat16",
                  [0, 1, 31, 33, 200, 257, 271, 280])]
 PAGED_CASES += [(len(lens), h, hk, d, n, bs, nb, "bfloat16", lens)
                 for p, (h, hk, d, n, bs, nb, lens) in SERVE_PAGED.items()
-                if d == 256 or p in MOE_SHAPES]
+                if d == 256 or p in MOE_SHAPES + ENCDEC_SHAPES]
 # the serving pools get the serving runs' tables (fifo_tables)
 SERVE_POOLS = {shape[3] for shape in SERVE_PAGED.values()}
 OFFSET_CASES = [
@@ -692,6 +777,34 @@ def time_flash(torch, fa_ops, fa_ref, rnd, shape) -> dict:
                 *nxt(), window=w)),
             "library_ms": cuda_ms(torch, lambda: sdpa(
                 *nxt_l(), causal=mask is None, mask=mask)),
+            "copies": len(copies), **bound(flops, nbytes, dtn)}
+
+
+def time_flash_bidir(torch, fa_ops, fa_ref, rnd, shape) -> dict:
+    """Flash over every key (``causal=False``, Sq and Sk free) in bf16,
+    as the encoder's self-attention and cross-attention call it."""
+    b, sq, sk, h, hk, d = shape
+    dtn = "bfloat16"
+    dt = getattr(torch, dtn)
+    flops = 4 * d * sq * sk * h * b
+    nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * hk * d)
+    copies = [(rnd((b, sq, h, d), dt), rnd((b, sk, hk, d), dt),
+               rnd((b, sk, hk, d), dt)) for _ in range(n_copies(nbytes))]
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
+    nxt, nxt_l = cycle(copies), cycle(bhsd)
+    q, k, v = copies[0]
+    err = held(torch, "flash over every key",
+               fa_ops.flash_attention(q, k, v, causal=False),
+               fa_ref.attention_ref(q, k, v, causal=False),
+               TOL[("prefill", dtn)])
+    return {"shape": f"B={b} Sq={sq} Sk={sk} H={h}/{hk} D={d} {dtn}, "
+                     f"every key",
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
+                *nxt(), causal=False)),
+            "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(
+                *nxt(), causal=False)),
+            "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l())),
             "copies": len(copies), **bound(flops, nbytes, dtn)}
 
 
@@ -1073,6 +1186,23 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
             if not ok:
                 failures.append(tag)
         del q, k, v, o, lse, ro, rlse
+    for (b, sq, sk, h, hk, d, dtn) in BIDIR_LSE_CASES:
+        dt = getattr(torch, dtn)
+        q, k, v = rnd((b, sq, h, d), dt), rnd((b, sk, hk, d), dt), \
+            rnd((b, sk, hk, d), dt)
+        o, lse = fa_ops.flash_attention(q, k, v, causal=False,
+                                        return_lse=True)
+        ro, rlse = fa_ref.attention_ref(q, k, v, causal=False,
+                                        return_lse=True)
+        torch.cuda.synchronize()
+        for part, got, want, tol in (("o", o, ro, TOL[("prefill", dtn)]),
+                                     ("lse", lse, rlse, LSE_TOL[dtn])):
+            err, ok = err_vs(torch, got, want, tol)
+            tag = (f"flash {part} b{b} sq{sq} sk{sk} h{h}/{hk} d{d} every "
+                   f"key {dtn}")
+            rows.append((tag, err, tol, ok))
+            if not ok:
+                failures.append(tag)
     for (b, s, d) in SCAN_CASES:
         a = torch.rand((b, s, d), generator=gen, device=dev) * 0.499 + 0.5
         x = rnd((b, s, d), torch.float32) * 0.1
@@ -1108,6 +1238,9 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
             "paged_decode_attention": {p: time_paged(
                 torch, np, da_ops, da_ref, rnd, shape)
                 for p, shape in SERVE_PAGED.items()},
+            "flash_attention_bidir": {
+                p: time_flash_bidir(torch, fa_ops, fa_ref, rnd, shape)
+                for p, shape in SERVE_FA_BIDIR.items()},
             "flash_attention_extend": {
                 p: time_flash_extend(torch, fa_ops, fa_ref, rnd, case)
                 for p, case in SERVE_EXT.items()},
@@ -1136,10 +1269,11 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/10] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/11] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode and paged decode at "
-        f"head_dims to 256, flash at head_dim 256 with its lse, the RG-LRU "
-        f"scan forward and reverse)")
+        f"head_dims to 256, flash at head_dim 256 with its lse, flash over "
+        f"every key at head_dim 64 with Sq != Sk, the RG-LRU scan forward "
+        f"and reverse)")
     return main
 
 
@@ -1219,7 +1353,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/10] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/11] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1364,14 +1498,19 @@ def kind_counts(cfg) -> dict:
 
 def want_launches(cfg, n_calls: dict, steps: int, paged: bool) -> dict:
     """A serving run's launches, from the code: flash once a prefill or
-    extend call per attention layer, the scan's forward once a prefill
+    extend call per attention layer (and an encoder-decoder's per encoder
+    layer and per cross-attention), the scan's forward once a prefill
     call per rglru layer; per decode step the slotted kernel once per
-    ring layer (and per global layer when slotted), the paged kernel
-    once per global layer when paged, and the scan never."""
+    ring layer (and per global layer when slotted, and per
+    cross-attention on both layouts), the paged kernel once per global
+    layer when paged, and the scan never."""
     n = kind_counts(cfg)
     att = n["attn"] + n["attn_local"]
-    return {"flash_attention": att * sum(n_calls.values()),
-            "decode_attention": (n["attn_local"] if paged else att) * steps,
+    cross = att if cfg.n_encoder_layers else 0
+    return {"flash_attention": (att + cross + cfg.n_encoder_layers)
+            * sum(n_calls.values()),
+            "decode_attention": ((n["attn_local"] if paged else att) + cross)
+            * steps,
             "paged_decode_attention": n["attn"] * steps if paged else 0,
             "rglru_scan_fwd": n["rglru"] * n_calls["prefill"]}
 
@@ -1653,7 +1792,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/10] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/11] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -1917,7 +2056,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/10] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/11] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -2286,7 +2425,7 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/10] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/11] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
@@ -2789,7 +2928,7 @@ def phase_edge(torch, np, ops, smi: str) -> dict:
            "paper_rows": paper_rows(torch),
            "llm": llm_partitioned(torch, np, ops, smi),
            "hybrid": hybrid_partitioned(torch, np, ops)}
-    say("[7/10] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+    say("[7/11] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
         "within the CPU limit, every partition point equal to the "
         "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
         "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
@@ -3517,7 +3656,7 @@ def phase_tiered(torch, np, ops, smi: str) -> dict:
     del model
     torch.cuda.empty_cache()
     say(f"  {smi}; phase 8 took {out['phase_s']:.1f} s")
-    say("[8/10] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
+    say("[8/11] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
         "content-neutral, the gated tier beats the endpoint alone, every "
         "request equal to its tier alone, nothing lost across a link cut, "
         "the server over HTTP, failover frames equal to forward; launches "
@@ -3655,20 +3794,25 @@ def vs_plain_inputs(torch, cfg, batch: int, prompt_len: int, steps: int,
     return tokens, fed, prompt_len + steps + 8
 
 
-def drive_model(torch, model, tokens, fed, max_len: int) -> tuple:
-    """Prefill ``tokens`` and decode one step per row of ``fed``: (the
-    logits of every step in fp32, the cache at the end)."""
+def drive_model(torch, model, tokens, fed, max_len: int,
+                embeds=None) -> tuple:
+    """Prefill ``tokens`` (with a frontend config's ``embeds``) and decode
+    one step per row of ``fed``: (the logits of every step in fp32 over
+    the unpadded vocabulary, the cache at the end)."""
     from repro_torch.models import transformer as T
-    logits, cache, clen = T.prefill(model, tokens, max_len=max_len)
+    logits, cache, clen = T.prefill(model, tokens, max_len=max_len,
+                                    embeds=embeds)
     out = [logits.float()]
     for tok in fed:
         logits, cache, clen = T.decode_step(model, tok, cache, clen)
         out.append(logits.float())
-    return torch.cat(out), cache
+    # the vocabulary's padding (-1e30) is no logit to compare
+    return torch.cat(out)[:, :model.cfg.vocab_size], cache
 
 
 def model_vs_plain(torch, model, batch: int, prompt_len: int, steps: int,
-                   fa_ref, da_ref, scan_ref, seed: int = 1) -> dict:
+                   fa_ref, da_ref, scan_ref, seed: int = 1,
+                   embeds=None) -> dict:
     """Phase 4's ``vs_plain`` for any served config: the model run on the
     same inputs through the kernels, then with the plain versions in
     their place (flash, slotted and paged decode, the scan's forward).
@@ -3682,9 +3826,13 @@ def model_vs_plain(torch, model, batch: int, prompt_len: int, steps: int,
     38 layers it parts from the plain run by 3.6-5.9% of its largest
     magnitude, and by as much when the plain scan keeps its state in
     bf16 or even float8 (``tools/vs_plain_control.py``), so no limit on
-    it tells a sound scan from a wrong one."""
+    it tells a sound scan from a wrong one. A frontend config's prompts
+    go with ``embeds`` (batch, F, frontend_dim)."""
+    from repro_torch.models import transformer as T
     cfg = model.cfg
-    inputs = vs_plain_inputs(torch, cfg, batch, prompt_len, steps, seed)
+    tokens, fed, max_len = vs_plain_inputs(torch, cfg, batch, prompt_len,
+                                           steps, seed)
+    inputs = (tokens, fed, max_len + T.frontend_rows(cfg, embeds), embeds)
     got = drive_model(torch, model, *inputs)
     with PlainVersions(fa_ref, da_ref, scan_ref):
         want = drive_model(torch, model, *inputs)
@@ -3969,7 +4117,7 @@ def phase_hybrid(torch, np, ops, fa_ref, da_ref, scan_ref, smi: str) -> dict:
             f"ms, decode {s['decode_ms_per_step']:.3f} ms/step; traced "
             f"busy {t['device_busy_s']:.4f} s of {t['wall_s']:.4f} s, idle "
             f"share {t['idle_share']:.4f}")
-    say("[9/10] serving gemma3-1b and recurrentgemma-9b full width/depth "
+    say("[9/11] serving gemma3-1b and recurrentgemma-9b full width/depth "
         "bf16 (rings wrapped in prefill, RG-LRU state): every request "
         "'length', fifo == batch, paged == slotted, prefix-cache and "
         "prefill-chunk served one-shot, launches exact; llama3.2-3b and "
@@ -4800,7 +4948,7 @@ def phase_families(torch, np, ops, fa_ref, da_ref, scan_ref,
                if t else ""))
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 10 took {out['phase_s']:.1f} s")
-    say("[10/10] the MoE and xLSTM families on the card: the JAX fixture "
+    say("[10/11] the MoE and xLSTM families on the card: the JAX fixture "
         "within 1e-4 with JAX's engine records; qwen2-moe-a2.7b full "
         "width/depth bf16 served fifo, batch, paged, prefix-cache, chunked "
         "and on the gather dispatch, launches exact, paged == slotted, "
@@ -4810,6 +4958,412 @@ def phase_families(torch, np, ops, fa_ref, da_ref, scan_ref,
         "qwen3-moe-235b-a22b's width at 4 layers and xlstm-350m served "
         "(its fifo == batch held the same way); "
         "both families trained, losses finite, under 80 GB")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+GOLDEN_ENCDEC = SRC / "repro_torch" / "testdata" / "golden_encdec.npz"
+GOLDEN_ENCDEC_TOL = 1e-4
+# (c), (d): the serve CLI's workloads at full width and depth, 32 new
+# tokens over 8 slots: seamless-m4t-medium 16 requests of 512 tokens
+# over 512 stub frames, llava-next-mistral-7b 8 of 2,880 stub patch rows
+# + 512 tokens (the CLI's max_len counts the patch rows: 3,432)
+ENCDEC_SERVE = {"seamless": ("seamless_m4t_medium", 16),
+                "llava": ("llava_next_mistral_7b", 8)}
+ED_LEN, ED_NEW = 512, 32
+# (e): each model against its plain versions: (batch, prompt length,
+# decode steps); llava's plain attention over 3,392 rows holds (B, H,
+# 3,392, 3,392) fp32 scores, so 2 prompts
+ENCDEC_VS_PLAIN = {"seamless": (8, 512, 4), "llava": (2, 512, 4)}
+# where a bf16 fifo run parts from its batch run, both are run again in
+# fp32 with the decoder cut to this many layers, and must agree
+ENCDEC_FP32_LAYERS = 4
+# (f): 3 steps on the copy task: seamless-m4t-medium whole (2 x 1,024
+# tokens over 1,024 zero frames), llava-next-mistral-7b cut 32 -> 4
+# layers (2 x (2,880 zero patch rows + 512 tokens)); whole it needs
+# ~116 GB of fp32 masters, gradients and moments
+ENCDEC_TRAIN = {
+    "seamless-m4t-medium": ("seamless_m4t_medium", None,
+                            dict(batch=2, seq=1024)),
+    "llava-next-mistral-7b": ("llava_next_mistral_7b", 4,
+                              dict(batch=2, seq=512))}
+
+
+def golden_encdec(torch, np) -> dict:
+    """(b) The JAX fixture of seamless-m4t-medium's and
+    llava-next-mistral-7b's smoke configs on the card in fp32: the
+    weights regenerated from the fixture's seeds (their checksums the
+    fixture's), ``forward``'s and the prefill + decode logits within
+    1e-4 of JAX's; the Engine on the fixture's workload: batch records
+    equal to JAX's, batch, slotted fifo and paged fifo tokens equal to
+    the greedy tokens of JAX's ``forward`` loop, llava's slotted fifo
+    record (counters and ``kv_stats``) equal to JAX's; the narrow
+    variants' loss and every gradient leaf within 1e-4 of JAX's (less
+    the fixture's rounding of the gradients)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.scheduler import Request
+    from repro_torch.weights import from_jax_params, seeded_flat, to_flat
+    data = np.load(GOLDEN_ENCDEC)
+    meta = json.loads(str(data["meta"]))
+    tol = GOLDEN_ENCDEC_TOL
+
+    def weights(name, kw, checksums, dtype=None):
+        cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in kw.items()})
+        flat = seeded_flat(cfg, meta["seeds"][name])
+        if {k: float(np.asarray(v, np.float64).sum())
+                for k, v in flat.items()} != checksums:
+            raise PhaseFailed(f"{name}: the seeded weights are not the "
+                              f"fixture's")
+        return cfg, from_jax_params(flat, cfg, device="cuda", dtype=dtype)
+
+    def record(eng, outs, whole):
+        rec = {"tokens": [[int(t) for t in c.tokens] for c in outs],
+               "reasons": [c.finish_reason for c in outs]}
+        if whole:
+            rec["stats"] = {k: int(v) for k, v in eng.stats().items()}
+            rec["kv_stats"] = {k: float(v)
+                               for k, v in eng.kv_stats().items()}
+        return rec
+    out = {}
+    for name, kw in meta["configs"].items():
+        cfg, model = weights(name, kw, meta["checksums"][name])
+        prompt = torch.as_tensor(data[f"{name}|prompt"], device="cuda")
+        embeds = torch.as_tensor(data[f"{name}|embeds"], device="cuda")
+        with torch.no_grad():
+            fwd, _ = T.forward(model, cfg, {"tokens": prompt,
+                                            "embeds": embeds}, train=False)
+        max_len = prompt.shape[1] + cfg.frontend_tokens \
+            + meta["decode_steps"] + 3
+        logits, cache, clen = T.prefill(model, prompt, max_len=max_len,
+                                        embeds=embeds)
+        steps = [logits]
+        for tok in data[f"{name}|fed"]:
+            logits, cache, clen = T.decode_step(
+                model, torch.as_tensor(tok, device="cuda"), cache, clen)
+            steps.append(logits)
+        errs = {"forward": np.abs(fwd.float().cpu().numpy()
+                                  - data[f"{name}|forward_logits"]).max(),
+                "steps": np.abs(torch.stack(steps).cpu().numpy()
+                                - data[f"{name}|logits"]).max()}
+        errs = {k: float(v) for k, v in errs.items()}
+        if not all(np.isfinite(v) and v <= tol for v in errs.values()):
+            raise PhaseFailed(f"{name}: logits differ from JAX's: {errs}")
+        specs = meta["workload"][name]
+
+        def reqs():
+            return [Request(i, np.asarray(r["prompt"], np.int32),
+                            max_new_tokens=r["max_new"],
+                            embeds=data[f"{name}|workload|embeds|{i}"])
+                    for i, r in enumerate(specs)]
+        want = json.loads(str(data[f"{name}|records"]))
+        ml = meta["engine_max_len"]
+        eng = Engine(cfg, model, EngineConfig(max_len=ml, admission="batch"),
+                     device="cuda")
+        got = {"batch": record(eng, eng.generate(reqs()), False)}
+        for run, run_kw in (("slotted", {}), ("paged", dict(
+                kv_layout="paged", block_size=meta["block_size"]))):
+            eng = Engine(cfg, model, EngineConfig(
+                max_len=ml, max_slots=3, admission="fifo", debug=True,
+                **run_kw), device="cuda")
+            got[run] = record(eng, eng.generate(reqs()), True)
+        greedy = want["forward"]["tokens"]
+        if got["batch"] != want["batch"] or any(
+                got[run]["tokens"] != greedy
+                or set(got[run]["reasons"]) != {"length"}
+                for run in ("slotted", "paged")):
+            raise PhaseFailed(f"{name}: the engine's tokens differ from "
+                              f"JAX's forward loop and batch engine")
+        if "slotted" in want and got["slotted"] != want["slotted"]:
+            raise PhaseFailed(f"{name}: the slotted fifo record differs "
+                              f"from JAX's")
+        del model, cache
+        cfg, model = weights(name, meta["narrow"][name],
+                             meta["narrow_checksums"][name],
+                             dtype=torch.float32)
+        model.requires_grad_(True)
+        pre = f"{name}|train|batch|"
+        loss, _ = T.loss_fn(model, cfg, {
+            k[len(pre):]: torch.as_tensor(data[k], device="cuda")
+            for k in data.files if k.startswith(pre)})
+        loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = to_flat(model, grad=True)
+        pre = f"{name}|train|grads|"
+        wg = {k[len(pre):]: data[k] for k in data.files if k.startswith(pre)}
+        if sorted(grads) != sorted(wg):
+            raise PhaseFailed(f"{name}: the gradient leaves differ from the "
+                              f"fixture's")
+        margin = min(tol - np.abs(w).max() * 2.0 ** -meta["grad_bits"]
+                     - float(np.abs(grads[k] - w).max())
+                     for k, w in wg.items())
+        errs["loss"] = abs(float(loss.detach())
+                           - float(data[f"{name}|train|loss"]))
+        errs["grad"] = max(float(np.abs(grads[k] - w).max())
+                           for k, w in wg.items())
+        if errs["loss"] > tol or margin < 0:
+            raise PhaseFailed(f"{name}: the training step differs from "
+                              f"JAX's: {errs}")
+        out[name] = {**errs, "runs": sorted(got)}
+        del model
+    free(torch)
+    say(f"  (b) JAX enc-dec/VLM golden (fp32): {_fmt_err(out)} (tol {tol:g}; "
+        f"gradients less the fixture's rounding); batch, slotted fifo and "
+        f"paged fifo tokens equal JAX's forward loop and batch engine, "
+        f"llava's slotted fifo record JAX's")
+    return out
+
+
+def _fmt_err(out: dict) -> str:
+    return "; ".join(f"{k}: " + ", ".join(f"{n} {v:.3g}" for n, v in
+                                          r.items() if n != "runs")
+                     for k, r in out.items())
+
+
+def encdec_fp32(torch, arch: str, n: int) -> dict:
+    """fifo = batch held in fp32: ``arch`` with its decoder cut to
+    ``ENCDEC_FP32_LAYERS`` layers in fp32 (the serve CLI's init, seed 0)
+    on the serving workload under fifo and batch admission; the tokens
+    must be equal. Run where the bf16 runs part, to show that they part
+    at a rounding that depends on the batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.scheduler.types import cache_rows
+    cfg = dataclasses.replace(get_config(arch), n_layers=ENCDEC_FP32_LAYERS,
+                              dtype="float32")
+    model = T.init_params(cfg, 0, device="cuda")
+    reqs = serve.synthetic_requests(cfg, n, ED_LEN, ED_NEW, 0)
+    max_len = max(cache_rows(cfg, r) + r.max_new_tokens for r in reqs) + 8
+    served = {adm: [c.tokens for c in Engine(cfg, model, EngineConfig(
+        max_slots=8, max_len=max_len, admission=adm), device="cuda")
+        .generate(reqs)] for adm in ("fifo", "batch")}
+    del model
+    free(torch)
+    share = same_tokens("", served["fifo"], served["batch"], gate=False)
+    say(f"  {cfg.name} fp32 ({ENCDEC_FP32_LAYERS} decoder layers) fifo vs "
+        f"batch: tokens agree on {share:.3f} of the requests (must be 1)")
+    if share != 1.0:
+        raise PhaseFailed(f"{cfg.name}: fifo and batch differ in fp32")
+    return {"agreement": share}
+
+
+def split_at_ties(torch, np, model, reqs, fifo, batch) -> dict:
+    """Where a bf16 fifo run parts from its batch run: for each parted
+    request its first differing token, and there the two runs' choices'
+    logit gap in a B=1 ``forward`` over the prompt (with its embeds) and
+    the tokens both runs agree on, over the largest logit. Gate: every
+    gap within ``TIE_GAP``, so the runs part where the two choices tie
+    but for bf16 rounding that depends on the rows around them (cuBLAS
+    picks its kernels by the row count); ``encdec_fp32`` then holds fifo
+    = batch where nothing rounds to bf16."""
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    out = []
+    for r, f, b in zip(reqs, fifo, batch):
+        if f == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(f, b)) if x != y)
+        toks = torch.as_tensor(np.concatenate([r.prompt, f[:t]])[None],
+                               dtype=torch.int64, device="cuda")
+        emb = None if r.embeds is None else torch.as_tensor(
+            r.embeds[None], device="cuda")
+        with torch.no_grad():
+            logits, _ = T.forward(model, cfg, {"tokens": toks,
+                                               "embeds": emb}, train=False)
+        last = logits[0, -1, :cfg.vocab_size].float()
+        out.append({"request": r.id, "first_differing_token": t,
+                    "gap": (last[f[t]] - last[b[t]]).abs().item()
+                    / last.abs().max().item(),
+                    "forward_picks": int(last.argmax())})
+    gaps = [o["gap"] for o in out]
+    say(f"  {cfg.name} fifo vs batch (bf16) part in {len(out)} requests: "
+        f"first differing tokens "
+        f"{[o['first_differing_token'] for o in out]}, the two choices' "
+        f"gaps there {[float(f'{g:.3g}') for g in gaps]} of the largest "
+        f"logit (a tie <= {TIE_GAP:g})")
+    if max(gaps) > TIE_GAP:
+        raise PhaseFailed(f"{cfg.name}: fifo and batch part outside a tie")
+    return {"parted": out}
+
+
+def encdec_runs(torch, np, ops, calls, name, fa_ref, da_ref,
+                scan_ref) -> dict:
+    """(c) / (d): ``name``'s serve CLI fifo run at full width and depth,
+    then batch and paged fifo on the CLI's weights and requests; every
+    request by length, launches exact, paged = slotted, fifo = batch or
+    (``encdec_fp32``) equal in fp32; the fifo run traced; (e) the model
+    through the kernels against the plain versions; llava: a request
+    whose frontend + prompt + new rows exceed ``max_len`` refused. Where
+    fifo and batch part in bf16, ``split_at_ties`` shows where and
+    ``encdec_fp32`` holds them equal in fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.scheduler.types import cache_rows
+    arch, n = ENCDEC_SERVE[name]
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--no-smoke", "--slots", "8", "--requests",
+            str(n), "--prompt-len", str(ED_LEN), "--max-new", str(ED_NEW),
+            "--policy", "fifo", "--device", "cuda"]
+    out = {"fifo": checked_run(torch, ops, calls, cfg, f"{cfg.name} fifo",
+                               lambda: serve.main(argv), ED_NEW, n)}
+    free(torch)
+    model = T.init_params(cfg, 0, device="cuda")    # the CLI's weights
+    reqs = serve.synthetic_requests(cfg, n, ED_LEN, ED_NEW, 0)
+    max_len = max(cache_rows(cfg, r) + r.max_new_tokens for r in reqs) + 8
+    for label, kw in (("batch", dict(admission="batch")),
+                      ("paged", dict(kv_layout="paged", block_size=BS))):
+        out[label] = checked_run(
+            torch, ops, calls, cfg, f"{cfg.name} {label}",
+            lambda kw=kw: serve.run(Engine(cfg, model, EngineConfig(
+                max_slots=8, max_len=max_len, **{"admission": "fifo", **kw}),
+                device="cuda"), reqs), ED_NEW, n)
+    tokens = {k: [c.tokens for c in out[k]["summary"]["completions"]]
+              for k in ("fifo", "batch", "paged")}
+    same_tokens(f"{cfg.name} paged vs slotted fifo", tokens["paged"],
+                tokens["fifo"])
+    out["fifo_batch_agreement"] = same_tokens("", tokens["fifo"],
+                                              tokens["batch"], gate=False)
+    say(f"  {cfg.name} fifo vs batch (bf16): tokens agree on "
+        f"{out['fifo_batch_agreement']:.3f} of the requests")
+    if tokens["fifo"] != tokens["batch"]:
+        out["fifo_batch_split"] = split_at_ties(
+            torch, np, model, reqs, tokens["fifo"], tokens["batch"])
+    out["trace"] = traced_engine(torch, model, reqs, tokens["fifo"],
+                                 f"{cfg.name} fifo", max_len)
+    out["trace"]["untraced_wall_s"] = out["fifo"]["summary"]["wall_s"]
+    b, plen, steps = ENCDEC_VS_PLAIN[name]
+    embeds = torch.as_tensor(np.stack([r.embeds for r in reqs[:b]]),
+                             device="cuda")
+    out["vs_plain"] = model_vs_plain(torch, model, b, plen, steps, fa_ref,
+                                     da_ref, scan_ref, embeds=embeds)
+    if name == "llava":
+        big = serve.synthetic_requests(cfg, 1, max_len - cfg.frontend_tokens
+                                       - ED_NEW + 2, ED_NEW, 1)
+        try:
+            Engine(cfg, model, EngineConfig(max_slots=1, max_len=max_len),
+                   device="cuda").generate(big)
+        except ValueError as exc:
+            if f"frontend ({cfg.frontend_tokens}) + prompt" not in str(exc):
+                raise
+            out["refused"] = str(exc)
+            say(f"  {cfg.name}: refused, as it must be: {exc}")
+        else:
+            raise PhaseFailed(f"{cfg.name}: a request of {cfg.frontend_tokens}"
+                              f" + {len(big[0].prompt)} + {ED_NEW} rows was "
+                              f"served at max_len {max_len}")
+    del model
+    free(torch)
+    if tokens["fifo"] != tokens["batch"]:
+        out["fifo_batch_fp32"] = encdec_fp32(torch, arch, n)
+    return out
+
+
+def encdec_train_launches(cfg) -> int:
+    """Flash launches of one training step, from the code: the forward
+    once per encoder layer, decoder attention layer and cross-attention;
+    with ``cfg.remat`` the encoder layers and the scanned periods (all
+    the layers of these configs) again in the backward."""
+    att = sum(k in ("attn", "attn_local") for k in cfg.layer_kinds)
+    once = cfg.n_encoder_layers + att * (2 if cfg.n_encoder_layers else 1)
+    assert not cfg.remainder_kinds
+    return once * (2 if cfg.remat else 1)
+
+
+def encdec_training(torch, ops) -> dict:
+    """(f) ``repro_torch.launch.train.run`` on the copy task with the CLI's
+    stub inputs, bf16 over fp32 masters, ``ENCDEC_TRAIN``'s models, 3
+    steps. Gates: loss finite at every step, peak memory under
+    ``PEAK_MEM_GB``, launches exact (``encdec_train_launches``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    out = {}
+    for label, (arch, layers, shape) in ENCDEC_TRAIN.items():
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        for k in TRAIN_KERNELS:
+            ops[k].launches = 0
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        run = train.run(cfg, device="cuda", log_every=1, **shape,
+                        **FAMILY_TRAIN_RUN)
+        torch.cuda.synchronize()
+        steps = FAMILY_TRAIN_RUN["steps"]
+        want = dict.fromkeys(TRAIN_KERNELS, 0)
+        want["flash_attention"] = encdec_train_launches(cfg) * steps
+        front = cfg.frontend_tokens if cfg.arch_type == "vlm" else 0
+        rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} "
+                         f"{shape['batch']} x ({front} + {shape['seq']})",
+               "params": sum(p.numel() for p in run["model"].parameters()),
+               "losses": [m["loss"] for m in run["metrics"]],
+               "step_s": run["step_s"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts(ops), "want_launches": want}
+        del run
+        free(torch)
+        out[label] = rec
+        say(f"  (f) training {rec['config']} ({rec['params'] / 1e9:.3f} B "
+            f"params): losses {[round(x, 4) for x in rec['losses']]}; step "
+            f"times {[round(x, 4) for x in rec['step_s']]} s; peak memory "
+            f"{rec['peak_mem_gb']:.2f} GB; launches {rec['launches']}")
+        if not all(math.isfinite(v) for v in rec["losses"]):
+            raise PhaseFailed(f"training {label}: a non-finite loss")
+        if rec["peak_mem_gb"] >= PEAK_MEM_GB:
+            raise PhaseFailed(f"training {label}: peak memory "
+                              f"{rec['peak_mem_gb']:.2f} GB")
+        if rec["launches"] != want:
+            raise PhaseFailed(f"training {label}: launches "
+                              f"{rec['launches']}, want {want}")
+    return out
+
+
+def phase_encdec(torch, np, ops, fa_ref, da_ref, scan_ref,
+                 smi: str) -> dict:
+    """The encoder-decoder and the vision frontend on the card; see the
+    module docstring."""
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    free(torch)
+    out = {"golden": golden_encdec(torch, np)}
+    calls = Calls(T)
+    try:
+        for name in ENCDEC_SERVE:
+            out[name] = encdec_runs(torch, np, ops, calls, name, fa_ref,
+                                    da_ref, scan_ref)
+    finally:
+        calls.restore()
+    out["train"] = encdec_training(torch, ops)
+    for name in ENCDEC_SERVE:
+        s, t = out[name]["fifo"]["summary"], out[name]["trace"]
+        say(f"  {s['arch']} fifo on {smi}: wall {s['wall_s']:.4f} s, "
+            f"{s['tok_per_s']:.2f} tok/s, TTFT p50 {s['ttft_p50_ms']:.2f} "
+            f"ms, decode {s['decode_ms_per_step']:.3f} ms/step; traced busy "
+            f"{t['device_busy_s']:.4f} s of {t['wall_s']:.4f} s, idle share "
+            f"{t['idle_share']:.4f}")
+    out["phase_s"] = time.perf_counter() - t0
+    say(f"  phase 11 took {out['phase_s']:.1f} s")
+    say("[11/11] the encoder-decoder and the vision frontend on the card: "
+        "the JAX fixture within 1e-4 with JAX's tokens and records; "
+        "seamless-m4t-medium and llava-next-mistral-7b full width/depth "
+        "bf16 served fifo, batch and paged, launches exact, paged == "
+        "slotted, fifo == batch (or equal in fp32), each within its limits "
+        "of its plain-version run, an oversized vision request refused; "
+        "both trained, losses finite, under 80 GB")
     return out
 
 
@@ -4880,10 +5434,37 @@ KERNEL_LINE = [
     ("decode_attention", DA_SRC, DA_TPU, "qwen3-moe",
      ("moe", "qwen3-moe", "fifo"), "the launches count 4 layers x the "
      "fifo run's decode steps"),
+    # phase 11: seamless-m4t-medium (D = 64, g = 1) and
+    # llava-next-mistral-7b (2,880 patch rows + 512 tokens, g = 4)
+    ("flash_attention", FA_SRC, FA_TPU, "seamless-encoder",
+     ("encdec", "seamless", "fifo"), "the launches count 16 prefills x (12 "
+     "encoder layers and 12 cross-attentions at this shape, 12 causal "
+     "self-attentions timed as seamless-decoder)"),
+    ("decode_attention", DA_SRC, DA_TPU, "seamless",
+     ("encdec", "seamless", "fifo"), "the launches count the fifo run's "
+     "decode steps x (12 self-attention layers at this shape, 12 "
+     "cross-attentions timed as seamless-cross)"),
+    ("decode_attention", DA_SRC, DA_TPU, "seamless-cross",
+     ("encdec", "seamless", "paged"), "over the cross cache; the paged "
+     "run's launches: 12 cross-attentions x its decode steps (its 12 "
+     "self-attention layers launch the paged kernel)"),
+    ("paged_decode_attention", DA_SRC, PAGED_TPU, "seamless",
+     ("encdec", "seamless", "paged"), "the launches count 12 layers x the "
+     "paged run's decode steps"),
+    ("flash_attention", FA_SRC, FA_TPU, "llava",
+     ("encdec", "llava", "fifo"), "the launches count 32 layers x 8 "
+     "prefills of 2,880 patch rows + 512 tokens"),
+    ("decode_attention", DA_SRC, DA_TPU, "llava",
+     ("encdec", "llava", "fifo"), "the launches count 32 layers x the fifo "
+     "run's decode steps"),
+    ("paged_decode_attention", DA_SRC, PAGED_TPU, "llava",
+     ("encdec", "llava", "paged"), "the launches count 32 layers x the "
+     "paged run's decode steps"),
 ]
 # a KERNEL_LINE shape timed under another phase-2 record than its name's
-TIMED_AS = {"qwen2-moe-train": "flash_attention_train"}
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
+TIMED_AS = {"qwen2-moe-train": "flash_attention_train",
+            "seamless-encoder": "flash_attention_bidir"}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
 
 
 def tiered_launches(rec: dict) -> dict:
@@ -4899,7 +5480,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -4958,6 +5539,10 @@ def main() -> int:
             record["moe"] = phase_families(torch, np, ops, fa_ref, da_ref,
                                            scan_ref,
                                            record["device"]["nvidia_smi"])
+        if 11 in phases:
+            record["encdec"] = phase_encdec(torch, np, ops, fa_ref, da_ref,
+                                            scan_ref,
+                                            record["device"]["nvidia_smi"])
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1

@@ -5,7 +5,10 @@ Counterpart of ``repro.launch.serve``. Builds the model with the port's
 own seeded init (``--smoke``, the default, takes the config's reduced
 ``.smoke()`` variant; ``--no-smoke`` serves the full width and depth),
 makes ``--requests`` random prompts of ``--prompt-len`` tokens from
-``--seed``, and serves them through the ``Engine``: ``--policy batch``
+``--seed`` (with a frontend config's stub ``embeds``: 2,880 patch rows
+of a vision frontend, a frame a token of an audio one), and serves them
+through the ``Engine`` with ``max_len`` the rows a request needs, its
+frontend rows among them, + 8: ``--policy batch``
 is the static-bucket oracle, ``fifo`` / ``priority`` / ``edf`` stream
 through the continuous scheduler against the real clock, each
 completion printed the moment it finishes. The reference's ``--mode
@@ -70,13 +73,28 @@ from repro_torch.core.mapping import Mapping
 from repro_torch.models import transformer as T
 from repro_torch.runtime.engine import Engine, EngineConfig
 from repro_torch.runtime.scheduler import Request
+from repro_torch.runtime.scheduler.types import cache_rows
 from repro_torch.runtime.serving import PartitionedServeEngine
+
+
+def stub_embeds(cfg, rng: np.random.RandomState, prompt_len: int):
+    """A request's frontend stub, drawn as the reference's CLI draws it:
+    ``frontend_tokens`` patch rows for a vision frontend, one frame a
+    prompt token for an audio one, N(0, 1) from ``rng``; None without a
+    frontend."""
+    if cfg.arch_type == "vlm":
+        return rng.randn(cfg.frontend_tokens,
+                         cfg.frontend_dim).astype(np.float32)
+    if cfg.arch_type == "audio":
+        return rng.randn(prompt_len, cfg.frontend_dim).astype(np.float32)
+    return None
 
 
 def synthetic_requests(cfg, n: int, prompt_len: int, max_new: int,
                        seed: int, shared_prefix: bool = False
                        ) -> List[Request]:
-    """The reference CLI's synthetic workload: uniform random prompts.
+    """The reference CLI's synthetic workload: uniform random prompts,
+    each followed in the draw by its frontend stub (``stub_embeds``).
     With ``shared_prefix`` every prompt opens with the same first half
     (the shared-preamble traffic a prefix cache exists for), drawn from
     the seed before the prompts."""
@@ -89,7 +107,8 @@ def synthetic_requests(cfg, n: int, prompt_len: int, max_new: int,
         prompt = rng.randint(0, cfg.vocab_size, prompt_len).astype(np.int32)
         if shared is not None:
             prompt[:len(shared)] = shared
-        reqs.append(Request(i, prompt, max_new_tokens=max_new))
+        reqs.append(Request(i, prompt, max_new_tokens=max_new,
+                            embeds=stub_embeds(cfg, rng, prompt_len)))
     return reqs
 
 
@@ -98,8 +117,10 @@ def load_trace(path: str, cfg, rng: np.random.RandomState
     """Parse a JSONL request trace into (requests, arrival offsets), as
     the reference's ``load_trace`` does: request ``i`` is the ``i``-th
     non-empty line, ``prompt_len`` lines draw their tokens from ``rng``
-    in line order. (The port serves no frontend, so no line carries
-    ``embeds``.)"""
+    in line order, and a frontend config's requests get their stub
+    ``embeds`` from ``rng`` after their prompt (``stub_embeds``): a
+    trace records arrivals, prompts and budgets, not frontend
+    tensors."""
     reqs: List[Request] = []
     arrivals: List[float] = []
     with open(path) as fh:
@@ -118,7 +139,8 @@ def load_trace(path: str, cfg, rng: np.random.RandomState
                                 max_new_tokens=int(d.get("max_new", 16)),
                                 eos=d.get("eos"),
                                 priority=int(d.get("priority", 0)),
-                                deadline_s=d.get("deadline_s")))
+                                deadline_s=d.get("deadline_s"),
+                                embeds=stub_embeds(cfg, rng, len(prompt))))
             arrivals.append(float(d.get("arrival_s", 0.0)))
     if not reqs:
         raise ValueError(f"trace {path} contains no requests")
@@ -223,12 +245,14 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     if args.trace is not None:
         reqs, arrivals = load_trace(args.trace, cfg,
                                     np.random.RandomState(args.seed))
-        max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 8
     else:
         reqs = synthetic_requests(cfg, args.requests, args.prompt_len,
                                   args.max_new, args.seed,
                                   shared_prefix=prefix)
-        max_len = args.prompt_len + args.max_new + 8
+    # rows a slot needs: a vision frontend's, the prompt's and the new
+    # tokens', + 8 (the reference counts the prompt alone, and its cache
+    # then drops most of a vision request's rows)
+    max_len = max(cache_rows(cfg, r) + r.max_new_tokens for r in reqs) + 8
     eng = Engine(cfg, model, EngineConfig.from_args(
         args, max_len=max_len, admission=policy), device=args.device)
     if eng.device.type == "cuda":

@@ -8,7 +8,8 @@ The counterpart of ``repro.launch.train`` on one device: fp32 master
 parameters from ``init_params`` (seed 0), AdamW with warmup over a tenth
 of the steps and cosine decay, ``make_train_step`` with gradient
 accumulation over ``--microbatches``, the reference's ``lm_batches``
-stream, and the reference's step line. Runs on the card unless
+stream (with a frontend config's stub inputs, ``with_frontend``), and
+the reference's step line. Runs on the card unless
 ``--device cpu``.
 ``main(argv)`` parses the flags and calls ``run``, which ``chip_smoke.py``
 also calls.
@@ -19,6 +20,7 @@ import argparse
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -28,6 +30,24 @@ from repro_torch.runtime import checkpoint, data, optim
 from repro_torch.runtime.trainstep import make_train_step
 
 DATA = {"lm": data.lm_batches, "copy": data.copy_task_batches}
+
+
+def with_frontend(cfg: ModelConfig, batch: Dict) -> Dict:
+    """A token batch with a frontend config's stub inputs, as the
+    reference's CLI adds them: zero ``embeds`` of ``frontend_tokens``
+    rows ahead of the tokens (vision; their labels -1) or one frame a
+    token (audio, the encoder's source)."""
+    b, s = batch["tokens"].shape
+    if cfg.arch_type == "vlm":
+        f = cfg.frontend_tokens
+        return {**batch,
+                "embeds": np.zeros((b, f, cfg.frontend_dim), np.float32),
+                "labels": np.concatenate(
+                    [np.full((b, f), -1, np.int32), batch["labels"]], 1)}
+    if cfg.arch_type == "audio":
+        return {**batch,
+                "embeds": np.zeros((b, s, cfg.frontend_dim), np.float32)}
+    return batch
 
 
 def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
@@ -59,7 +79,7 @@ def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     t0 = time.time()
     for i in range(steps):
         if first is None or not repeat:
-            first = next(gen)
+            first = with_frontend(cfg, next(gen))
         b = first
         b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
         if dev.type == "cuda":

@@ -10,10 +10,14 @@ kernels, on the CPU their plain versions. Where the reference returns an
 updated cache, the port writes its cache (a slotted cache, a scratch
 cache or a paged pool) in place.
 
-Training (``attn_apply``) differentiates through the flash kernel with
-``FlashAttention``, a ``torch.autograd.Function`` whose backward is a
-port of the reference's custom-VJP backward ``_fa_bwd`` in torch ops:
+Training (``attn_apply``, the encoder's ``attn_encoder_apply`` and the
+decoder's ``cross_attn_apply``) differentiates through the flash kernel
+with ``FlashAttention``, a ``torch.autograd.Function`` whose backward is
+a port of the reference's custom-VJP backward ``_fa_bwd`` in torch ops:
 blockwise recompute of P from (q, k, lse), the reference's XLA code.
+The encoder and cross-attention attend over every key (``causal=False``,
+cross-attention with Sq != Sk); at decode a layer's cached cross K/V go
+through the slotted decode kernel (``cross_attn_decode``).
 """
 from __future__ import annotations
 
@@ -162,28 +166,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal (optionally windowed) GQA attention for training: forward
-    the flash kernel (``flash_attention`` with its log-sum-exp), backward
+    """GQA attention for training, causal (optionally windowed) or, with
+    ``causal=False``, over every key (the encoder's self-attention, and
+    cross-attention, where Sq and Sk differ): forward the flash kernel
+    (``flash_attention`` with its log-sum-exp), backward
     ``flash_attention_bwd``. ``flash_attention`` is looked up when
     called, so a caller may put the plain version in its place."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, chunk: int, scale: float):
+    def forward(ctx, q, k, v, window: int, chunk: int, scale: float,
+                causal: bool = True):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_attention(q, k, v, causal=True, window=window,
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
                                  scale=scale, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (window, chunk, scale)
+        ctx.args = (window, chunk, scale, causal)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        window, chunk, scale = ctx.args
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+        window, chunk, scale, causal = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                          window=window, chunk=chunk,
                                          scale=scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +238,61 @@ def attn_apply(p, x: torch.Tensor, cfg, *, kind: str,
     o = FlashAttention.apply(q, k, v, window, cfg.attn_chunk,
                              1.0 / math.sqrt(q.shape[-1]))
     return x + _out_proj(o, p.wo)
+
+
+def attn_encoder_apply(p, x: torch.Tensor, cfg, *,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional (encoder) self-attention sublayer with residual:
+    RoPE on q and k, then every key (``causal=False``)."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    o = FlashAttention.apply(q, k, v, 0, cfg.attn_chunk,
+                             1.0 / math.sqrt(q.shape[-1]), False)
+    return x + _out_proj(o, p.wo)
+
+
+def cross_kv(p, enc_out: torch.Tensor, cfg
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention K and V (B, S_src, Hk, hd) of the encoder
+    output, no RoPE, the bias when ``qkv_bias``: what a decoder layer
+    attends to, and caches at prefill so that decode never reads the
+    encoder output again."""
+    k = _proj_heads(enc_out, p.wk)
+    v = _proj_heads(enc_out, p.wv)
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    return k, v
+
+
+def _cross_q(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    q = _proj_heads(rms_norm(x, p.ln, cfg.norm_eps), p.wq)
+    return q + p.bq if cfg.qkv_bias else q
+
+
+def cross_attn_apply(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg) -> torch.Tensor:
+    """Decoder cross-attention with residual: queries from x (B, S, D)
+    over the source's K and V (``cross_kv``), every source row
+    (``causal=False``, Sq != Sk)."""
+    q = _cross_q(p, x, cfg)
+    o = FlashAttention.apply(q, k, v, 0, cfg.attn_chunk,
+                             1.0 / math.sqrt(q.shape[-1]), False)
+    return x + _out_proj(o, p.wo)
+
+
+def cross_attn_decode(p, x: torch.Tensor, cfg,
+                      cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One-token cross-attention over a layer's cached source: x (B, 1,
+    D); ``cache`` {"cross_k", "cross_v"} (B, S_cross, Hk, hd) with
+    ``cross_len`` (B,) int32 source rows per sequence (rows past it, a
+    slot's stale or zero rows, are never read), through the slotted
+    decode kernel. Returns the residual output."""
+    q = _cross_q(p, x, cfg)
+    o = decode_attention(q[:, 0].contiguous(), cache["cross_k"],
+                         cache["cross_v"], cache["cross_len"])
+    return x + _out_proj(o, p.wo)[:, None]
 
 
 def attn_prefill_cache(p, x: torch.Tensor, cfg, *, kind: str,

@@ -12,18 +12,26 @@ A layer is its kind's block (``attn`` / ``attn_local`` attention,
 ``rglru`` from ``models.rglru``, ``mlstm`` / ``slstm`` from
 ``models.ssm``) and, on the kinds of ``_HAS_MLP`` only, an MLP or, when
 ``cfg.moe``, a mixture of experts (``models.moe``); xLSTM blocks carry
-their own projections. Two uses, two checks. ``forward`` / ``loss_fn``
-(training) run every block kind (``check_trainable``: decoders without
-a frontend or an encoder) on fp32 master parameters:
+their own projections. With ``cfg.frontend`` a two-layer projector
+(``frontend_proj``) maps the frontend's embeddings (a stub's, given as
+``embeds``) to the model width: a decoder-only config (the vision
+frontend) puts the projected rows ahead of the prompt's, and with
+``cfg.n_encoder_layers`` (the audio encoder-decoder) they feed the
+encoder (``encode``: bidirectional attention layers and ``enc_norm``)
+whose output every decoder layer attends to through its ``cross``
+attention. Two uses, two checks. ``forward`` / ``loss_fn``
+(training) run every config (``check_trainable``) on fp32 master
+parameters:
 ``cast_params_for_compute`` makes the compute-dtype copy out of place at
 every call, as the reference casts at every step, and autograd carries
 the gradients back to the masters. ``forward`` returns the MoE layers'
 aux loss summed over the depth, and ``loss_fn`` adds
 ``router_aux_weight`` x that to the cross-entropy of an MoE config.
-When ``cfg.remat`` is set each scanned period runs under
-``torch.utils.checkpoint``, as the reference wraps its scan body in
-``jax.checkpoint``. Serving (``prefill``, ``decode_step``,
-``prefill_extend``) runs the same configs (``check_servable``) on
+When ``cfg.remat`` is set each scanned period and each encoder layer
+runs under ``torch.utils.checkpoint``, as the reference wraps its scan
+body and its encoder layers in ``jax.checkpoint``. Serving
+(``prefill``, ``decode_step``, ``prefill_extend``) runs the same
+configs (``check_servable``) on
 parameters held in the compute dtype (``to_compute_dtype_``, once);
 ``prefill_extend`` only all-``attn`` decoders
 (``supports_chunked_prefill``), MoE ones among them.
@@ -31,17 +39,21 @@ parameters held in the compute dtype (``to_compute_dtype_``, once);
 ``to_actor_graph`` exports the decoder as a VR-PRUNE actor graph
 (Input, Embed, one actor per group of layers, Head) whose fire functions
 run ``forward``'s layers on a compute copy cast once, for Edge-PRUNE's
-partitioned prefill (``runtime.serving.PartitionedServeEngine``).
+partitioned prefill (``runtime.serving.PartitionedServeEngine``); it
+refuses a frontend or an encoder, which the reference's export drops.
 
 The decode cache is a list with one dict per layer, by kind: ``{"k",
 "v"}`` (B, S_cache, Hk, hd) for attention (a ring of ``min(window,
 max_len)`` rows for ``attn_local``, slot = position % rows), ``{"h",
 "conv"}`` for ``rglru`` (``models.rglru``), ``{"C", "n", "m", "conv"}``
 for ``mlstm`` and ``{"c", "n", "m", "h"}`` for ``slstm``
-(``models.ssm``). With the paged layout
+(``models.ssm``). An encoder-decoder's attention layers also cache
+the cross-attention K/V of their source, ``{"cross_k", "cross_v"}``
+(B, max_len, Hk, hd) with its length ``cross_len`` (B,) int32 (rows
+past it are never read). With the paged layout
 (``init_paged_cache``) each ``attn`` layer's K/V is a shared (N, bs,
-Hk, hd) pool addressed through block tables, and every other leaf stays
-slot-indexed.
+Hk, hd) pool addressed through block tables, and every other leaf (the
+cross K/V among them) stays slot-indexed.
 ``decode_step``, ``decode_step_staged``, ``prefill_extend`` and the
 paged helpers (``paged_insert``, ``paged_seed``, ``paged_copy_block``)
 update caches in place where the reference returns new ones.
@@ -95,10 +107,20 @@ _HAS_MLP = ("attn", "attn_local", "rglru")
 def check_trainable(cfg: ModelConfig) -> None:
     """The configs the port builds and trains: decoders of any block kind
     (``attn``, ``attn_local``, ``rglru``, ``mlstm``, ``slstm``), dense or
-    MoE, without a frontend or an encoder."""
-    if cfg.frontend or cfg.n_encoder_layers:
-        raise ValueError(f"{cfg.name}: frontends and encoders come with "
-                         f"later slices (queue 1, item 10)")
+    MoE, with or without a frontend, and encoder-decoders. An encoder
+    reads the frontend's projected embeddings, and its decoder layers
+    cache the cross K/V beside their attention K/V, so an encoder needs a
+    frontend and a decoder of attention layers, as in the reference."""
+    if cfg.frontend and cfg.frontend_dim <= 0:
+        raise ValueError(f"{cfg.name}: a frontend needs frontend_dim > 0")
+    if cfg.n_encoder_layers and not cfg.frontend:
+        raise ValueError(f"{cfg.name}: an encoder reads frontend "
+                         f"embeddings; set frontend and frontend_dim")
+    if cfg.n_encoder_layers and any(k not in ("attn", "attn_local")
+                                    for k in cfg.layer_kinds):
+        raise ValueError(f"{cfg.name}: cross-attention K/V are cached in "
+                         f"attention layers; an encoder-decoder's decoder "
+                         f"layers must be attn or attn_local")
 
 
 def check_servable(cfg: ModelConfig) -> None:
@@ -151,6 +173,25 @@ class MLP(nn.Module):
         self.ln = _param((d,), dtype, device)
 
 
+class FrontendProj(nn.Module):
+    """The frontend's two-layer projector: w1 (frontend_dim, d), w2 (d,
+    d), gelu between."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.w1 = _param((cfg.frontend_dim, cfg.d_model), dtype, device)
+        self.w2 = _param((cfg.d_model, cfg.d_model), dtype, device)
+
+
+class EncoderLayer(nn.Module):
+    """One encoder layer: bidirectional ``Attention`` and the MLP."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.block = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+
 _BLOCKS = {"rglru": R.RGLRUBlock, "mlstm": S.MLSTMBlock,
            "slstm": S.SLSTMBlock}
 
@@ -158,9 +199,10 @@ _BLOCKS = {"rglru": R.RGLRUBlock, "mlstm": S.MLSTMBlock,
 class DecoderLayer(nn.Module):
     """One decoder layer: its ``kind``'s block (``Attention`` for
     ``attn`` / ``attn_local``, ``RGLRUBlock`` for ``rglru``,
-    ``MLSTMBlock`` / ``SLSTMBlock`` for ``mlstm`` / ``slstm``) and, on
-    the kinds of ``_HAS_MLP``, the ``moe`` when ``cfg.moe``, else the
-    ``mlp`` when ``d_ff``."""
+    ``MLSTMBlock`` / ``SLSTMBlock`` for ``mlstm`` / ``slstm``), the
+    ``cross`` attention of an encoder-decoder, and, on the kinds of
+    ``_HAS_MLP``, the ``moe`` when ``cfg.moe``, else the ``mlp`` when
+    ``d_ff``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
@@ -177,14 +219,18 @@ class DecoderLayer(nn.Module):
             mlp = MLP(cfg, dtype, device)
         self.register_module("mlp", mlp)
         self.register_module("moe", moe)
+        self.register_module("cross", Attention(cfg, dtype, device)
+                             if cfg.n_encoder_layers else None)
 
 
 class Transformer(nn.Module):
-    """The decoder: ``embed`` (Vp, d), ``layers`` (``nn.ModuleList`` in
-    ``cfg.layer_kinds`` order), ``final_norm`` (d,), and ``lm_head``
-    (d, Vp) unless embeddings are tied. Built zeroed in ``dtype``
-    (default: the config's compute dtype); fill it with ``init_params``
-    or ``repro_torch.weights.from_jax_params``."""
+    """The model: ``embed`` (Vp, d), ``layers`` (the decoder, an
+    ``nn.ModuleList`` in ``cfg.layer_kinds`` order), ``final_norm``
+    (d,), ``lm_head`` (d, Vp) unless embeddings are tied, and with a
+    frontend its ``frontend_proj``, with an encoder ``encoder`` (an
+    ``nn.ModuleList`` of ``EncoderLayer``) and ``enc_norm`` (d,). Built
+    zeroed in ``dtype`` (default: the config's compute dtype); fill it
+    with ``init_params`` or ``repro_torch.weights.from_jax_params``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None):
         super().__init__()
@@ -199,6 +245,14 @@ class Transformer(nn.Module):
                                 _param((d, vp), dtype, dev))
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, kind, dtype, dev) for kind in cfg.layer_kinds)
+        self.register_module("frontend_proj", FrontendProj(cfg, dtype, dev)
+                             if cfg.frontend else None)
+        enc = cfg.n_encoder_layers
+        self.register_module("encoder", nn.ModuleList(
+            EncoderLayer(cfg, dtype, dev) for _ in range(enc))
+            if enc else None)
+        self.register_parameter("enc_norm", _param((d,), dtype, dev)
+                                if enc else None)
 
     @property
     def device(self) -> torch.device:
@@ -245,17 +299,37 @@ def cast_params_for_compute(model: Transformer, cfg: ModelConfig):
     return view(model)
 
 
+def _attn_init(a: "Attention", cfg: ModelConfig, gen: torch.Generator
+               ) -> None:
+    d, dt, dev = cfg.d_model, a.wq.dtype, a.wq.device
+    a.wq.copy_(L.dense_init(gen, d, a.wq.shape[1:], dt, dev))
+    a.wk.copy_(L.dense_init(gen, d, a.wk.shape[1:], dt, dev))
+    a.wv.copy_(L.dense_init(gen, d, a.wv.shape[1:], dt, dev))
+    h, hd = a.wo.shape[:2]
+    a.wo.copy_(L.dense_init(gen, h * hd, (d,), dt, dev).reshape(a.wo.shape))
+
+
+def _mlp_init(m: "MLP", cfg: ModelConfig, gen: torch.Generator) -> None:
+    d, f, dt, dev = cfg.d_model, m.w_gate.shape[1], m.w_gate.dtype, \
+        m.w_gate.device
+    m.w_gate.copy_(L.dense_init(gen, d, (f,), dt, dev))
+    m.w_up.copy_(L.dense_init(gen, d, (f,), dt, dev))
+    m.w_down.copy_(L.dense_init(gen, f, (d,), dt, dev))
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 dtype=None) -> Transformer:
     """Random weights with the reference ``init_params``' shapes and
-    scales — embed N(0,1)*0.02, dense N(0,1)/sqrt(in_dim), norms and
-    biases zero — drawn from a ``torch.Generator`` seeded with ``seed``
-    on the target device. The numbers differ from JAX's PRNG; parity
-    tests carry JAX's weights across with ``from_jax_params`` instead."""
+    scales — embed N(0,1)*0.02, dense N(0,1)/sqrt(in_dim) (the
+    projector, the encoder and the cross-attention among them), norms
+    and biases zero — drawn from a ``torch.Generator`` seeded with
+    ``seed`` on the target device. The numbers differ from JAX's PRNG;
+    parity tests carry JAX's weights across with ``from_jax_params``
+    instead."""
     model = Transformer(cfg, device=device, dtype=dtype)
     dev, dt = model.device, model.embed.dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    d = cfg.d_model
     with torch.no_grad():
         model.embed.copy_(torch.randn(model.embed.shape, generator=gen,
                                       device=dev) * 0.02)
@@ -271,21 +345,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
             elif layer.kind == "slstm":
                 S.slstm_init(a, cfg, gen)
             else:
-                a.wq.copy_(L.dense_init(gen, d, a.wq.shape[1:], dt, dev))
-                a.wk.copy_(L.dense_init(gen, d, a.wk.shape[1:], dt, dev))
-                a.wv.copy_(L.dense_init(gen, d, a.wv.shape[1:], dt, dev))
-                a.wo.copy_(L.dense_init(gen, h * hd, (d,), dt, dev)
-                           .reshape(a.wo.shape))
+                _attn_init(a, cfg, gen)
             mlps = [layer.mlp]
             if layer.moe is not None:
                 M.moe_init(layer.moe, cfg, gen)
                 mlps.append(layer.moe.shared)
             for m in mlps:
                 if m is not None:
-                    f = m.w_gate.shape[1]
-                    m.w_gate.copy_(L.dense_init(gen, d, (f,), dt, dev))
-                    m.w_up.copy_(L.dense_init(gen, d, (f,), dt, dev))
-                    m.w_down.copy_(L.dense_init(gen, f, (d,), dt, dev))
+                    _mlp_init(m, cfg, gen)
+            if layer.cross is not None:
+                _attn_init(layer.cross, cfg, gen)
+        fp = model.frontend_proj
+        if fp is not None:
+            fp.w1.copy_(L.dense_init(gen, cfg.frontend_dim, (d,), dt, dev))
+            fp.w2.copy_(L.dense_init(gen, d, (d,), dt, dev))
+        for enc in model.encoder or ():
+            _attn_init(enc.block, cfg, gen)
+            _mlp_init(enc.mlp, cfg, gen)
     return model
 
 
@@ -293,9 +369,37 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 # embed / head
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """Table in the compute dtype, gather, then scale by sqrt(d_model)."""
-    return model.embed[tokens.long()] * math.sqrt(model.cfg.d_model)
+def _embed_inputs(model: Transformer, tokens: Optional[torch.Tensor],
+                  embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Table in the compute dtype, gather, then scale by sqrt(d_model).
+    With ``embeds`` (B, F, frontend_dim) and a frontend but no encoder
+    (the vision frontend) the projected rows come first, the prompt's
+    after them, as the reference's ``_embed_inputs``."""
+    cfg = model.cfg
+    parts = []
+    if embeds is not None and cfg.frontend and cfg.n_encoder_layers == 0:
+        parts.append(_project(model, embeds))
+    if tokens is not None:
+        parts.append(model.embed[tokens.long()] * math.sqrt(cfg.d_model))
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def _project(model: Transformer, embeds: torch.Tensor) -> torch.Tensor:
+    """The frontend projector: gelu(embeds @ w1) @ w2 in the compute
+    dtype (gelu's tanh form, the reference's ``jax.nn.gelu``)."""
+    fp = model.frontend_proj
+    e = embeds.to(device=fp.w1.device, dtype=_dtype(model.cfg.dtype))
+    return L.act_fn("gelu")(e @ fp.w1) @ fp.w2
+
+
+def frontend_rows(cfg: ModelConfig, embeds) -> int:
+    """Rows a request's ``embeds`` put ahead of its prompt in the
+    decoder's cache: the frontend's rows for a decoder-only frontend
+    config, none for an encoder-decoder (its frames feed the encoder) or
+    a config without a frontend."""
+    if embeds is None or not cfg.frontend or cfg.n_encoder_layers:
+        return 0
+    return int(embeds.shape[-2])
 
 
 def _lm_head(x: torch.Tensor, model: Transformer) -> torch.Tensor:
@@ -335,7 +439,8 @@ def _ffn(layer, x: torch.Tensor, cfg: ModelConfig
 
 
 def _layer_apply(layer, x: torch.Tensor, cfg: ModelConfig, *,
-                 positions: torch.Tensor
+                 positions: torch.Tensor,
+                 enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of ``forward``: (x, its aux loss or None)."""
     if layer.kind == "rglru":
@@ -347,11 +452,14 @@ def _layer_apply(layer, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         x = L.attn_apply(layer.block, x, cfg, kind=layer.kind,
                          positions=positions)
+    if layer.cross is not None and enc_out is not None:
+        x = L.cross_attn_apply(layer.cross, x,
+                               *L.cross_kv(layer.cross, enc_out, cfg), cfg)
     return _ffn(layer, x, cfg)
 
 
 def _run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor, train: bool = True
+               positions: torch.Tensor, enc_out=None, train: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decoder layers in ``layer_kinds`` order: (x, the aux losses
     summed over the layers, in layer order). With ``cfg.remat and
@@ -362,7 +470,8 @@ def _run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     def run_layers(x, aux, first, last):
         for layer in params.layers[first:last]:
-            x, a = _layer_apply(layer, x, cfg, positions=positions)
+            x, a = _layer_apply(layer, x, cfg, positions=positions,
+                                enc_out=enc_out)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -378,17 +487,57 @@ def _run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
     return run_layers(x, aux, cfg.n_periods * period, len(params.layers))
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
+def encode(params, cfg: ModelConfig, embeds: torch.Tensor, *,
+           train: bool = False) -> torch.Tensor:
+    """The encoder stack over frontend embeddings (B, S_src,
+    frontend_dim): the projector, then each encoder layer (RoPE'd
+    bidirectional attention, the MLP), then ``enc_norm``; (B, S_src, d).
+    With ``cfg.remat and train`` each layer runs under
+    ``torch.utils.checkpoint``, as the reference wraps its encoder
+    layers in ``jax.checkpoint``."""
+    if embeds is None:
+        raise ValueError(f"{cfg.name}: the encoder needs embeds")
+    x = _project(params, embeds)
+    positions = _positions(x)
+
+    def enc_layer(x, lp):
+        x = L.attn_encoder_apply(lp.block, x, cfg, positions=positions)
+        return L.mlp_apply(lp.mlp, x, cfg)
+    for lp in params.encoder:
+        if cfg.remat and train:
+            x = checkpoint(enc_layer, x, lp, use_reentrant=False)
+        else:
+            x = enc_layer(x, lp)
+    return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _inputs(params, cfg: ModelConfig, tokens, embeds, train: bool):
+    """The decoder's input rows and the encoder's output (None without
+    an encoder): an encoder-decoder encodes ``embeds`` and embeds the
+    tokens alone; a frontend decoder puts the projected rows first."""
+    if cfg.n_encoder_layers:
+        return (_embed_inputs(params, tokens),
+                encode(params, cfg, embeds, train=train))
+    return _embed_inputs(params, tokens, embeds), None
+
+
 def forward(model: Transformer, cfg: ModelConfig, batch: Dict, *,
             train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens": (B, S) int}. Returns (logits (B, S, Vp) in the
-    compute dtype, the MoE layers' aux loss summed, 0.0 without MoE).
-    The compute copy is cast from ``model``'s params at every call."""
+    """batch: {"tokens": (B, S) int, and with a frontend "embeds": (B,
+    F, frontend_dim)}. Returns (logits (B, S_total, Vp) in the compute
+    dtype, S_total = F + S for a decoder-only frontend config, else S;
+    the MoE layers' aux loss summed, 0.0 without MoE). The compute copy
+    is cast from ``model``'s params at every call."""
     params = cast_params_for_compute(model, cfg)
-    x = _embed_inputs(params, batch["tokens"])
-    b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
-    x, aux = _run_stack(params, x, cfg, positions=positions, train=train)
+    x, enc_out = _inputs(params, cfg, batch.get("tokens"),
+                         batch.get("embeds"), train)
+    x, aux = _run_stack(params, x, cfg, positions=_positions(x),
+                        enc_out=enc_out, train=train)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _head_logits(x, params), aux
 
@@ -396,7 +545,8 @@ def forward(model: Transformer, cfg: ModelConfig, batch: Dict, *,
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in fp32, as the reference computes it:
-    logits[:, :-1] against ``labels[:, 1:]`` (B, S), with -1 = masked.
+    logits[:, :-1] against ``labels[:, 1:]`` (B, S_total), with -1 =
+    masked (a vision frontend's rows among them).
     The picked logit is a gather (the reference's one-hot contraction is
     the same sum). An MoE config's loss adds ``router_aux_weight`` x the
     aux loss; ``ce`` is the cross-entropy alone. Returns (loss, {"ce",
@@ -425,14 +575,31 @@ def _cache_size_for(kind: str, cfg: ModelConfig, max_len: int) -> int:
     return 0
 
 
+def _cross_cache(cfg: ModelConfig, batch: int, max_len: int,
+                 device) -> Dict[str, torch.Tensor]:
+    """An encoder-decoder attention layer's zeroed cross cache:
+    {"cross_k", "cross_v"} (batch, max_len, Hk, hd) and ``cross_len``
+    (batch,) int32, the source rows each sequence holds; {} without an
+    encoder."""
+    if not cfg.n_encoder_layers:
+        return {}
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dtype = _dtype(cfg.dtype)
+    return {"cross_k": torch.zeros(shape, dtype=dtype, device=device),
+            "cross_v": torch.zeros(shape, dtype=dtype, device=device),
+            "cross_len": torch.zeros((batch,), dtype=torch.int32,
+                                     device=device)}
+
+
 def _layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                  device) -> Dict[str, torch.Tensor]:
     """One layer's zeroed decode cache: {"k", "v"} (batch, S_cache, Hk,
     hd) for attention (S_cache ``min(window, max_len)`` for
-    ``attn_local``), {"h": (batch, d) fp32, "conv": (batch, W - 1, d)}
-    for ``rglru``, and ``ssm.state_shapes``' leaves for ``mlstm`` (C, n
-    zero and m = -1e30 in fp32, the conv tail in the compute dtype) and
-    ``slstm`` (c = 0, n = 1, m = -1e30, h = 0 in fp32)."""
+    ``attn_local``) and an encoder-decoder's ``_cross_cache``, {"h":
+    (batch, d) fp32, "conv": (batch, W - 1, d)} for ``rglru``, and
+    ``ssm.state_shapes``' leaves for ``mlstm`` (C, n zero and m = -1e30
+    in fp32, the conv tail in the compute dtype) and ``slstm`` (c = 0,
+    n = 1, m = -1e30, h = 0 in fp32)."""
     dtype = _dtype(cfg.dtype)
     state = S.state_shapes(kind, cfg, batch)
     if state is not None:
@@ -447,13 +614,16 @@ def _layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     shape = (batch, _cache_size_for(kind, cfg, max_len), cfg.n_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            **_cross_cache(cfg, batch, max_len, device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device) -> Cache:
     """Zeroed decode cache, one ``_layer_cache`` per layer in
-    ``cfg.layer_kinds`` order, as the reference's ``init_cache``."""
+    ``cfg.layer_kinds`` order, as the reference's ``init_cache`` (whose
+    cross K/V take ``src_len`` rows; here ``max_len``, with the source
+    length a sequence holds in ``cross_len``)."""
     return [_layer_cache(kind, cfg, batch, max_len, device)
             for kind in cfg.layer_kinds]
 
@@ -473,13 +643,15 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     """Paged counterpart of ``init_cache``: each ``attn`` layer's K/V
     live in one shared pool of ``num_blocks`` blocks of ``block_size``
     rows, {"k", "v"} (N, bs, Hk, hd), addressed through per-slot block
-    tables; physical block 0 is the null block. Every other layer (a
-    local window's ring, a recurrent state) keeps ``init_cache``'s
-    leaves at ``max_slots`` rows, slot-indexed, as in the reference."""
+    tables; physical block 0 is the null block. Every other leaf (a
+    local window's ring, a recurrent state, an encoder-decoder's cross
+    K/V) keeps ``init_cache``'s shape at ``max_slots`` rows,
+    slot-indexed, as in the reference."""
     dtype = _dtype(cfg.dtype)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
+             "v": torch.zeros(shape, dtype=dtype, device=device),
+             **_cross_cache(cfg, max_slots, max_len, device)}
             if kind == "attn" else
             _layer_cache(kind, cfg, max_slots, max_len, device)
             for kind in cfg.layer_kinds]
@@ -497,10 +669,13 @@ def kv_row_bytes(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _prefill_layer(layer, x: torch.Tensor, cfg: ModelConfig, *,
-                   positions: torch.Tensor, max_len: int
+                   positions: torch.Tensor, max_len: int,
+                   enc_out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder layer of a prefill, by kind: (its output, its decode
-    cache), as the reference's ``_layer_prefill``."""
+    cache), as the reference's ``_layer_prefill``. An encoder-decoder's
+    layer attends to ``enc_out`` and caches its cross K/V in the first
+    rows of ``max_len``, with their count in ``cross_len``."""
     if layer.kind == "rglru":
         x, c = R.rglru_prefill_cache(layer.block, x, cfg)
     elif layer.kind == "mlstm":
@@ -511,28 +686,43 @@ def _prefill_layer(layer, x: torch.Tensor, cfg: ModelConfig, *,
         x, c = L.attn_prefill_cache(
             layer.block, x, cfg, kind=layer.kind, positions=positions,
             cache_size=_cache_size_for(layer.kind, cfg, max_len))
+    if layer.cross is not None and enc_out is not None:
+        ck, cv = L.cross_kv(layer.cross, enc_out, cfg)
+        x = L.cross_attn_apply(layer.cross, x, ck, cv, cfg)
+        b, src = enc_out.shape[:2]
+        c.update(_cross_cache(cfg, b, max_len, x.device))
+        c["cross_k"][:, :src] = ck
+        c["cross_v"][:, :src] = cv
+        c["cross_len"].fill_(src)
     return _ffn(layer, x, cfg)[0], c
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int
+def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int,
+            embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Run the prompt (B, S) through the model, materializing the decode
-    cache. Returns (last-position logits (B, Vp), cache, cache_len (B,)
-    int32)."""
+    cache. ``embeds`` (B, F, frontend_dim): a vision frontend's rows,
+    prefilled ahead of the prompt (the cache then holds F + S rows), or
+    an encoder-decoder's source frames, encoded once and cached as each
+    layer's cross K/V (F <= ``max_len``). Returns (last-position logits
+    (B, Vp), cache, cache_len (B,) int32)."""
     cfg = model.cfg
     check_servable(cfg)
-    x = _embed_inputs(model, tokens)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
+    if cfg.n_encoder_layers and embeds is not None \
+            and embeds.shape[1] > max_len:
+        raise ValueError(f"{cfg.name}: a source of {embeds.shape[1]} rows "
+                         f"exceeds the cross cache's max_len {max_len}")
+    x, enc_out = _inputs(model, cfg, tokens, embeds, False)
+    positions = _positions(x)
     cache: Cache = []
     for layer in model.layers:
         x, c = _prefill_layer(layer, x, cfg, positions=positions,
-                              max_len=max_len)
+                              max_len=max_len, enc_out=enc_out)
         cache.append(c)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = _head_logits(x[:, -1], model)
+    b, s = x.shape[:2]
     return logits, cache, torch.full((b,), s, dtype=torch.int32,
                                      device=x.device)
 
@@ -543,7 +733,8 @@ def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
     """Decoder layers ``lo .. hi - 1`` of one decode step. With
     ``block_tables`` the ``attn`` layers read their pool through the
     tables; ring and recurrent layers decode their slot-indexed leaves
-    either way."""
+    either way, and an encoder-decoder's layers attend to their cached
+    cross K/V through the slotted kernel on both layouts."""
     cfg = model.cfg
     for layer, c in zip(model.layers[lo:hi], cache[lo:hi]):
         if layer.kind == "rglru":
@@ -559,6 +750,8 @@ def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
         else:
             x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
                               cache_len=cache_len)
+        if layer.cross is not None:
+            x = L.cross_attn_decode(layer.cross, x, cfg, c)
         x = _ffn(layer, x, cfg)[0]
     return x
 
@@ -669,21 +862,23 @@ def paged_insert(cfg: ModelConfig, cache: Cache, req_cache: Cache,
     each ``attn`` layer's K/V rows go page-wise into the physical blocks
     named by ``block_ids`` (one per logical page; 0 = the null block, for
     pages past the allocation or pages shared with another request), and
-    every other leaf (a ring, a recurrent state) is written at ``slot``,
+    every other leaf (a ring, a recurrent state, the cross K/V) is
+    written at ``slot``,
     as the reference's ``ins_slot`` does. Rows of ``req_cache`` past the
     slot's page span (a chunk-rounded scratch cache is longer) are
     dropped: they lie beyond ``max_len``."""
     for kind, big, small in zip(cfg.layer_kinds, cache, req_cache):
-        if kind != "attn":
-            for key, leaf in big.items():
+        pooled = ("k", "v") if kind == "attn" else ()
+        for key, leaf in big.items():
+            if key not in pooled:
                 leaf[slot] = small[key][0]
-            continue
-        ids = _ids(block_ids, big["k"].device)
-        sg = ids.shape[0] * block_size
-        for key in ("k", "v"):
-            rows = small[key][0, :sg]
-            big[key][ids] = rows.reshape(ids.shape[0], block_size,
-                                         *rows.shape[1:])
+        if pooled:
+            ids = _ids(block_ids, big["k"].device)
+            sg = ids.shape[0] * block_size
+            for key in pooled:
+                rows = small[key][0, :sg]
+                big[key][ids] = rows.reshape(ids.shape[0], block_size,
+                                             *rows.shape[1:])
     return cache
 
 
@@ -740,8 +935,15 @@ def to_actor_graph(cfg: ModelConfig, model: Optional[Transformer] = None,
 
     The Head applies the final norm and the head without masking a
     padded vocabulary, and its sink result is the logits tensor itself,
-    as in the reference."""
+    as in the reference. A frontend or an encoder is refused: the
+    reference's export embeds the tokens alone and fires the layers
+    without the encoder's output, so its graph would drop them."""
     from repro_torch.core.graph import Actor, ActorType, Graph, Port, PortDir
+
+    if cfg.frontend or cfg.n_encoder_layers:
+        raise ValueError(f"{cfg.name}: the actor-graph export carries "
+                         f"tokens only; a frontend's embeddings and an "
+                         f"encoder have no actor in it")
 
     g = Graph(cfg.name)
     d = cfg.d_model
@@ -855,7 +1057,8 @@ def to_actor_graph(cfg: ModelConfig, model: Optional[Transformer] = None,
 
 __all__ = ["Transformer", "init_params", "cast_params_for_compute",
            "to_compute_dtype_", "check_trainable", "check_servable",
-           "forward", "loss_fn", "init_cache", "init_paged_cache", "kv_row_bytes", "prefill",
+           "forward", "loss_fn", "encode", "frontend_rows", "init_cache",
+           "init_paged_cache", "kv_row_bytes", "prefill",
            "decode_step", "decode_step_staged", "decode_stage_bounds",
            "prefill_extend", "supports_chunked_prefill",
            "paged_insert", "paged_seed", "paged_copy_block",

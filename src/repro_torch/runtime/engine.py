@@ -825,15 +825,19 @@ class Engine:
         return sorted(out, key=lambda c: c.id)
 
     def _run_bucket(self, handles: List[RequestHandle]) -> List[Completion]:
-        """One (batch, prompt_len) prefill, then greedy decode of the
-        whole bucket to completion, with the lifecycle hooks."""
+        """One (batch, prompt_len) prefill, the requests' ``embeds``
+        stacked, then greedy decode of the whole bucket to completion,
+        with the lifecycle hooks."""
         reqs = [h.request for h in handles]
         b = len(reqs)
         tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
                                  dtype=torch.int64, device=self.device)
+        embeds = None if reqs[0].embeds is None else torch.as_tensor(
+            np.stack([r.embeds for r in reqs]).astype(np.float32),
+            device=self.device)
         t0 = time.perf_counter()
         logits, cache, clen = T.prefill(self.model, tokens,
-                                        max_len=self.max_len)
+                                        max_len=self.max_len, embeds=embeds)
         toks = self.sampler(logits)
         host = toks.cpu().numpy()           # waits for the device
         t1 = time.perf_counter()

@@ -28,7 +28,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.scheduler.allocator import BlockAllocator
 from repro_torch.runtime.scheduler.prefix_pool import VictimCache
-from repro_torch.runtime.scheduler.types import Request, SchedulerConfig
+from repro_torch.runtime.scheduler.types import (Request, SchedulerConfig,
+                                                 cache_rows)
 
 __all__ = ["SlottedLayout", "PagedLayout", "_PagedReservation"]
 
@@ -80,12 +81,14 @@ class SlottedLayout:
     def insert(self, req_cache: T.Cache, slot: int) -> None:
         """Copy a batch=1 prefill cache into slot ``slot`` of the shared
         cache, in place: every leaf of every layer, so a reused slot's
-        ring rows and recurrent state are overwritten. A chunk-rounded
+        ring rows, recurrent state and cross K/V (with their length) are
+        overwritten. A chunk-rounded
         scratch cache is longer than a slot: only the first rows that a
         slot holds are kept."""
         for big, small in zip(self.cache, req_cache):
             for key, leaf in big.items():
-                leaf[slot].copy_(small[key][0, :leaf.shape[1]])
+                row = small[key][0]
+                leaf[slot].copy_(row[:leaf.shape[1]] if row.dim() else row)
 
     insert_scratch = insert
 
@@ -209,7 +212,9 @@ class PagedLayout:
                 policy=s.victim_eviction, quotas=s.prefix_cache_tenants)
 
     def _prompt_need(self, req: Request) -> int:
-        return max(1, -(-len(req.prompt) // self.block_size))
+        """Blocks of the prefill's rows: a vision frontend's and the
+        prompt's (``cache_rows``)."""
+        return max(1, -(-cache_rows(self.cfg, req) // self.block_size))
 
     def _tables(self) -> torch.Tensor:
         """The block tables on the device, uploaded again only after a
@@ -328,8 +333,10 @@ class PagedLayout:
         """Reject requests the pool can never serve: the worst case must
         fit the whole pool (decode growth bypasses the watermark, and
         growth preemption terminates only because of this), and the
-        prompt plus the watermark must fit at admission time."""
-        rows = max(1, len(req.prompt) + max(req.max_new_tokens - 1, 0))
+        prompt's rows (``cache_rows``: a vision frontend's among them)
+        plus the watermark must fit at admission time."""
+        rows = max(1, cache_rows(self.cfg, req)
+                   + max(req.max_new_tokens - 1, 0))
         worst = -(-rows // self.block_size)
         if worst > self.alloc.capacity:
             raise ValueError(

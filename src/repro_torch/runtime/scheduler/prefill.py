@@ -38,15 +38,17 @@ def _charge(sched, ticket: _Ticket, slot: int, tp: float, tokens: int,
 
 
 def admit_one_shot(sched, ticket: _Ticket, slot: int, t0: float) -> None:
-    """Whole-prompt prefill at admission: compute, insert into the
-    shared cache, register the prefix, sample the first token (which
-    waits for the device)."""
+    """Whole-prompt prefill at admission (with the request's ``embeds``):
+    compute, insert into the shared cache, register the prefix, sample
+    the first token (which waits for the device)."""
     r = ticket.req
     tokens = torch.as_tensor(r.prompt[None], dtype=torch.int64,
                              device=sched.device)
+    embeds = None if r.embeds is None else torch.as_tensor(
+        np.asarray(r.embeds, np.float32)[None], device=sched.device)
     tp = time.perf_counter()
     logits, req_cache, clen = T.prefill(sched.model, tokens,
-                                        max_len=sched.max_len)
+                                        max_len=sched.max_len, embeds=embeds)
     sched.layout.insert(req_cache, slot)
     if sched._prefix and r.embeds is None:
         sched.layout.register_prefix(slot, r.prompt)

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import frontend_rows
 
 FINISH_REASONS = ("eos", "length", "cancelled", "failed", "timeout",
                   "local_fallback")
@@ -80,26 +81,53 @@ class Completion:
         return self.finish_s - self.arrival_s
 
 
+def cache_rows(cfg: ModelConfig, req: Request) -> int:
+    """Rows a request's prefill writes into the decoder's cache: its
+    prompt's, and with a vision frontend its ``embeds``' rows ahead of
+    them (an encoder-decoder's source lives in the cross cache)."""
+    return len(req.prompt) + frontend_rows(cfg, req.embeds)
+
+
 def validate_request_fits(cfg: ModelConfig, req: Request,
                           max_len: int) -> None:
     """Shared admission check for every engine path. Decode writes KV
-    rows at positions len(prompt) .. len(prompt) + max_new_tokens - 2;
+    rows at positions rows .. rows + max_new_tokens - 2, ``rows`` the
+    prefill's ``cache_rows`` (a vision frontend's rows and the prompt);
     on an uncapped global-attention cache, rows past max_len would
     silently wrap the ring onto the prompt and corrupt the context.
     Sliding-window / recurrent (subquadratic) configs and explicitly
-    capped caches (max_cache_len) wrap by design and are exempt."""
-    if len(req.prompt) > max_len:
-        raise ValueError(
-            f"request {req.id}: prompt length {len(req.prompt)} exceeds "
-            f"max_len {max_len}")
+    capped caches (max_cache_len) wrap by design and are exempt. A
+    frontend config needs ``embeds`` (F, frontend_dim), and an
+    encoder-decoder's F source rows must fit its cross cache of
+    max_len rows."""
+    if cfg.frontend:
+        if req.embeds is None:
+            raise ValueError(f"request {req.id}: {cfg.name} reads "
+                             f"{cfg.frontend} frontend embeds; the request "
+                             f"carries none")
+        shape = np.shape(req.embeds)
+        if len(shape) != 2 or shape[1] != cfg.frontend_dim:
+            raise ValueError(f"request {req.id}: embeds of shape {shape}, "
+                             f"want (rows, {cfg.frontend_dim})")
+        if cfg.n_encoder_layers and shape[0] > max_len:
+            raise ValueError(f"request {req.id}: a source of {shape[0]} "
+                             f"rows exceeds the cross cache's max_len "
+                             f"{max_len}")
+    rows = cache_rows(cfg, req)
+    front = rows - len(req.prompt)
+    what = (f"frontend ({front}) + prompt ({len(req.prompt)})" if front
+            else f"prompt length {len(req.prompt)}")
+    if rows > max_len:
+        raise ValueError(f"request {req.id}: {what} exceeds max_len "
+                         f"{max_len}")
     if cfg.is_subquadratic_decode or cfg.max_cache_len:
         return
-    need = len(req.prompt) + req.max_new_tokens - 1
+    need = rows + req.max_new_tokens - 1
     if need > max_len:
         raise ValueError(
-            f"request {req.id}: prompt ({len(req.prompt)}) + "
-            f"max_new_tokens ({req.max_new_tokens}) needs {need} cache "
-            f"rows, exceeding max_len {max_len}")
+            f"request {req.id}: {what} + max_new_tokens "
+            f"({req.max_new_tokens}) needs {need} cache rows, exceeding "
+            f"max_len {max_len}")
 
 
 @dataclass

@@ -10,14 +10,18 @@ path-keyed dict that ``repro.runtime.checkpoint`` saves (keys such as
   ``p * len(layer_pattern) + i``;
 * ``rem[j]`` is decoder layer ``n_periods * len(layer_pattern) + j``;
 * ``embed``, ``final_norm`` and, unless embeddings are tied,
-  ``lm_head`` map by name.
+  ``lm_head`` map by name, as do a frontend's ``frontend_proj/w1`` and
+  ``w2`` and an encoder's ``enc_norm``;
+* ``encoder`` is a list, not stacked: ``encoder/<i>/block/*`` and
+  ``encoder/<i>/mlp/*`` are encoder layer ``i``'s.
 
 A layer's leaves map by name whatever its kind (``block/wq`` of an
 ``attn`` or ``attn_local`` layer, ``block/w_in`` or ``block/lam`` of an
 ``rglru`` one, ``block/w_if`` of an ``mlstm`` and ``block/r`` of an
 ``slstm`` one, ``mlp/w_gate``, ``moe/router``, ``moe/w_down``,
-``moe/shared/w_up``). By default every leaf but the
-``_KEEP_F32`` ones is cast to the compute dtype for serving, as the
+``moe/shared/w_up``, an encoder-decoder's ``cross/wq``). By default
+every leaf but the ``_KEEP_F32`` ones is cast to the compute dtype for
+serving, as the
 reference's ``cast_params_for_compute`` does at each step; training
 asks for ``dtype=torch.float32`` masters.
 
@@ -100,6 +104,14 @@ def reference_leaves(model: Transformer) -> Dict[str, List[torch.Tensor]]:
         "embed": [model.embed], "final_norm": [model.final_norm]}
     if model.lm_head is not None:
         out["lm_head"] = [model.lm_head]
+    if model.frontend_proj is not None:
+        out["frontend_proj/w1"] = [model.frontend_proj.w1]
+        out["frontend_proj/w2"] = [model.frontend_proj.w2]
+    if model.encoder is not None:
+        out["enc_norm"] = [model.enc_norm]
+        for i, enc in enumerate(model.encoder):
+            for name, param in enc.named_parameters():
+                out[f"encoder/{i}/{name.replace('.', '/')}"] = [param]
     for li, prefix, _ in layer_sources(model.cfg):
         for name, param in model.layers[li].named_parameters():
             out.setdefault(f"{prefix}/{name.replace('.', '/')}",

@@ -2,11 +2,11 @@
 dense configs it adds (llama3.2-3b, chatglm3-6b) against the reference
 on the CPU.
 
-Every registered config equals the reference's field for field, and its
-full-width shapes equal tests/test_arch_smoke.py's table (the MoE and
-xLSTM configs among them); the aliases
-resolve as the reference's do; an architecture the port does not run
-yet is refused by name. llama3.2-3b's and chatglm3-6b's smoke variants
+The registry is the reference's, every architecture in its order; every
+config equals the reference's field for field, and its full-width
+shapes equal tests/test_arch_smoke.py's table (the MoE, xLSTM,
+encoder-decoder and vision configs among them); the aliases resolve as
+the reference's do; an unknown architecture is refused by name. llama3.2-3b's and chatglm3-6b's smoke variants
 (the latter with QKV bias, a rotary half of each head and 16 query
 heads a KV head at full width, the decode kernel's ``MAX_GROUP``) give
 the reference's prefill and 4 decode-step logits and caches within
@@ -30,6 +30,8 @@ from test_torch_hybrid import (_close, jax_logits_run, port_logits_run,
 # tests/test_arch_smoke.py test_full_config_matches_assignment: (layers,
 # d_model, heads, kv heads, d_ff, vocabulary)
 SHAPES = {
+    "seamless_m4t_medium": (12, 1024, 16, 16, 4096, 256206),
+    "llava_next_mistral_7b": (32, 4096, 32, 8, 14336, 32000),
     "recurrentgemma_9b": (38, 4096, 16, 1, 12288, 256000),
     "gemma3_1b": (26, 1152, 4, 1, 6912, 262144),
     "llama3_2_3b": (28, 3072, 24, 8, 8192, 128256),
@@ -42,11 +44,12 @@ SHAPES = {
 
 
 def test_registry_is_the_references_less_the_later_families():
-    assert ARCH_IDS == [a for a in JAX_ARCH_IDS if a in SHAPES]
+    """No family is left for a later slice: the port's registry is the
+    reference's, in its order, and an unknown name is refused."""
+    assert ARCH_IDS == JAX_ARCH_IDS
     assert sorted(ARCH_IDS) == sorted(SHAPES)
-    for later in sorted(set(JAX_ARCH_IDS) - set(ARCH_IDS)):
-        with pytest.raises(ValueError, match="not ported yet"):
-            get_config(later)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("gpt2")
 
 
 @pytest.mark.parametrize("arch", sorted(SHAPES))
@@ -65,7 +68,9 @@ def test_full_config_equals_the_reference(arch):
     ("chatglm3-6b", "chatglm3_6b"), ("recurrentgemma-9b", "recurrentgemma_9b"),
     ("qwen2-1.5b", "qwen2_1_5b"), ("qwen2-moe-a2.7b", "qwen2_moe_a2_7b"),
     ("qwen3-moe-235b-a22b", "qwen3_moe_235b_a22b"),
-    ("xlstm-350m", "xlstm_350m")])
+    ("xlstm-350m", "xlstm_350m"),
+    ("seamless-m4t-medium", "seamless_m4t_medium"),
+    ("llava-next-mistral-7b", "llava_next_mistral_7b")])
 def test_aliases_resolve_as_in_the_reference(alias, arch):
     from repro.configs import canonical as jax_canonical
     assert canonical(alias) == jax_canonical(alias) == arch

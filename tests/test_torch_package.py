@@ -7,10 +7,8 @@
   card unless the caller passes ``device="cpu"``;
 * the ``EngineConfig`` fields run by the slices so far are accepted and
   build an engine (``step_delay_s``, the endpoint tier's handicap,
-  leaves the tokens as they are), and the model families of later
-  slices (frontends, encoders) are refused with a ``ValueError`` that
-  says so (every block kind, MoE and xLSTM among them, builds, trains
-  and serves);
+  leaves the tokens as they are), and every model family, MoE, xLSTM,
+  the frontends and the encoder-decoder among them, builds and serves;
 * ``chip_smoke.py`` fails, printing no result, without a card or outside
   a checkout.
 """
@@ -155,39 +153,30 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("change", [
-    dict(frontend="audio", frontend_dim=8),
-    dict(n_encoder_layers=2),
-    dict(frontend="vision", frontend_dim=8)])
-def test_later_model_families_are_refused(change):
-    """Frontends and encoders come with a later slice: the model is
-    refused when it is built, and the serving entry points refuse the
-    config. Every block kind, MoE among them, is trained and served
-    (``test_this_slice_families_are_built_and_served``)."""
-    cfg = ModelConfig(**{**TINY, **change})
-    with pytest.raises(ValueError, match="later slices"):
-        PT.Transformer(cfg, device="cpu")
-    with pytest.raises(ValueError, match="later slices"):
-        PT.check_servable(cfg)
-    model = PT.init_params(ModelConfig(**TINY), device="cpu")
-    with pytest.raises(ValueError, match="later slices"):
-        Engine(cfg, model, device="cpu")
-
-
-@pytest.mark.parametrize("change", [
     dict(moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=16)),
-    dict(layer_pattern=("mlstm", "slstm"), d_ff=0)])
+    dict(layer_pattern=("mlstm", "slstm"), d_ff=0),
+    dict(arch_type="audio", frontend="audio", frontend_dim=8),
+    dict(arch_type="audio", n_encoder_layers=2, frontend="audio",
+         frontend_dim=8),
+    dict(arch_type="vlm", frontend="vision", frontend_dim=8,
+         frontend_tokens=3)])
 def test_this_slice_families_are_built_and_served(change):
     """MoE and xLSTM's blocks (tests/test_torch_families.py holds them
-    to the reference): the model builds, the serving check passes and
-    an ``Engine`` serves a request."""
+    to the reference), an audio frontend's projector, an encoder-decoder
+    and a vision frontend (tests/test_torch_encdec.py and
+    tests/test_torch_vlm.py): the model builds, the serving check passes
+    and an ``Engine`` serves a request, with the stub ``embeds`` the
+    serve CLI draws for a frontend config."""
     from repro_torch.runtime.scheduler import Request
     cfg = ModelConfig(**{**TINY, **change})
     PT.check_servable(cfg)
     model = PT.init_params(cfg, device="cpu")
     eng = Engine(cfg, model, EngineConfig(max_len=16, max_slots=2),
                  device="cpu")
+    embeds = serve.stub_embeds(cfg, np.random.RandomState(0), 5)
+    assert (embeds is None) == (cfg.frontend is None)
     out = eng.generate([Request(0, np.arange(5, dtype=np.int32),
-                                max_new_tokens=3)])
+                                max_new_tokens=3, embeds=embeds)])
     assert len(out[0].tokens) == 3
 
 
