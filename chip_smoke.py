@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,...,11]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,...,12]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -310,6 +310,24 @@ Phases, one status line each; any failure exits non-zero:
    step time and peak memory printed, under 80 GB; (g) each fifo run's
    wall, tok/s, TTFT p50, decode ms a step, traced busy time and idle
    share beside the card's name and power limit.
+12. the dry run and the last two examples: (a) ``repro_torch.launch.
+   dryrun`` over all 33 applicable arch x shape combinations on the
+   one-card, 16 x 16 and 2 x 16 x 16 meshes, counted on the meta device
+   in a pool of worker processes, and its roofline table; no FAIL, no
+   launch counter moved and the card never reached in a worker, and
+   each tree count equal to the parameters of every registry config
+   that phases 4-11 built on the card; (b) the dry run's resident bytes
+   of qwen2-1.5b (B = 8, ``max_len`` 552) and llava-next-mistral-7b (B =
+   8, ``max_len`` 3,432) within 1% of the growth of ``memory_allocated``
+   across building that model and its cache on the card; (c)
+   qwen2-1.5b's prefill (B = 1, 512 tokens) and decode step (B = 8, 552
+   rows each) timed behind the spin kernel and traced for their device
+   busy time, each at or above the dry run's bound for the same call,
+   printed as a share beside the card's name and power limit; (d)
+   ``examples/torch_quickstart.py`` (the paper's pp3 chosen, 8 tokens
+   served) and ``examples/torch_train_small.py`` (300 steps; loss below
+   0.8x its first, the checkpoint restored bit for bit, 12 tokens
+   sampled) at their default sizes on the card.
 
 ``--phases`` runs a subset and prints no result line (``--phases 8``
 runs phase 8 after the build). With all phases, the line before the
@@ -339,9 +357,6 @@ SRC = ROOT / "src"
 GOLDEN = SRC / "repro_torch" / "testdata" / "golden_cm.npz"
 GOLDEN_TRAIN = SRC / "repro_torch" / "testdata" / "golden_train.npz"
 GOLDEN_PREFIX = SRC / "repro_torch" / "testdata" / "golden_prefix.npz"
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12,   # H100 SXM dense bf16 (tensor cores)
-              "float32": 67e12}     # H100 SXM fp32 outside the tensor cores
 L2_BYTES = 50e6
 SM_HZ = 1.98e9                  # H100 SXM boost clock: spin cycles per s
 TOL = {("prefill", "float32"): 2e-5, ("prefill", "bfloat16"): 2e-2,
@@ -402,7 +417,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/11] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/12] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -724,14 +739,18 @@ def sdpa(q, k, v, causal=False, mask=None):
                                           is_causal=causal, enable_gqa=True)
 
 
-def bound(flops: int, nbytes: int, dtn: str) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    HBM's rate and the operations over the peak rate of the input type."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtn], nbytes / HBM_BYTES_PER_S
+def bound(cost, dtn: str) -> dict:
+    """The least time the card could take for a call of the kernel's
+    ``cost`` (its cost function's operations and bytes): the larger of
+    the bytes over HBM's rate and the operations over the peak rate of
+    the input type."""
+    from repro_torch.launch import mesh
+    flops, nbytes = cost.flops, cost.bytes
+    t_ops, t_bytes = flops / mesh.PEAK_FLOPS[dtn], nbytes / mesh.HBM_BW
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
-            "fp32_fma_ms": flops / PEAK_FLOPS["float32"] * 1e3}
+            "fp32_fma_ms": flops / mesh.PEAK_FLOPS_FP32 * 1e3}
 
 
 def err_vs(torch, out, ref, tol):
@@ -755,10 +774,10 @@ def time_flash(torch, fa_ops, fa_ref, rnd, shape) -> dict:
     b, sq, h, hk, d, w = shape
     dtn = "bfloat16"
     dt = getattr(torch, dtn)
-    flops = 4 * d * window_pairs(sq, w) * h * b
-    nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * hk * d)
+    cost = fa_ops.flash_attention_cost((b, sq, h, d), (b, sq, hk, d),
+                                       window=w)
     copies = [(rnd((b, sq, h, d), dt), rnd((b, sq, hk, d), dt),
-               rnd((b, sq, hk, d), dt)) for _ in range(n_copies(nbytes))]
+               rnd((b, sq, hk, d), dt)) for _ in range(n_copies(cost.bytes))]
     bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
     nxt, nxt_l = cycle(copies), cycle(bhsd)
     pos = torch.arange(sq, device="cuda")
@@ -777,7 +796,7 @@ def time_flash(torch, fa_ops, fa_ref, rnd, shape) -> dict:
                 *nxt(), window=w)),
             "library_ms": cuda_ms(torch, lambda: sdpa(
                 *nxt_l(), causal=mask is None, mask=mask)),
-            "copies": len(copies), **bound(flops, nbytes, dtn)}
+            "copies": len(copies), **bound(cost, dtn)}
 
 
 def time_flash_bidir(torch, fa_ops, fa_ref, rnd, shape) -> dict:
@@ -786,10 +805,10 @@ def time_flash_bidir(torch, fa_ops, fa_ref, rnd, shape) -> dict:
     b, sq, sk, h, hk, d = shape
     dtn = "bfloat16"
     dt = getattr(torch, dtn)
-    flops = 4 * d * sq * sk * h * b
-    nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * hk * d)
+    cost = fa_ops.flash_attention_cost((b, sq, h, d), (b, sk, hk, d),
+                                       causal=False)
     copies = [(rnd((b, sq, h, d), dt), rnd((b, sk, hk, d), dt),
-               rnd((b, sk, hk, d), dt)) for _ in range(n_copies(nbytes))]
+               rnd((b, sk, hk, d), dt)) for _ in range(n_copies(cost.bytes))]
     bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
     nxt, nxt_l = cycle(copies), cycle(bhsd)
     q, k, v = copies[0]
@@ -805,7 +824,7 @@ def time_flash_bidir(torch, fa_ops, fa_ref, rnd, shape) -> dict:
             "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(
                 *nxt(), causal=False)),
             "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l())),
-            "copies": len(copies), **bound(flops, nbytes, dtn)}
+            "copies": len(copies), **bound(cost, dtn)}
 
 
 def time_decode(torch, da_ops, da_ref, rnd, shape) -> dict:
@@ -814,11 +833,10 @@ def time_decode(torch, da_ops, da_ref, rnd, shape) -> dict:
     dt = getattr(torch, dtn)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     live = sum(lens)
-    nbytes = 2 * (2 * live * hk * d + 2 * b * h * d) + 4 * b
-    flops = 4 * d * live * h
+    cost = da_ops.decode_attention_cost(b, h, hk, d, live_rows=live)
     copies = [(rnd((b, h, d), dt), rnd((b, s, hk, d), dt),
                rnd((b, s, hk, d), dt), lengths)
-              for _ in range(n_copies(nbytes))]
+              for _ in range(n_copies(cost.bytes))]
     mask = (torch.arange(s, device="cuda")[None]
             < lengths[:, None])[:, None, None]
     sdpa_in = [(c[0][:, :, None], c[1].transpose(1, 2).contiguous(),
@@ -834,7 +852,7 @@ def time_decode(torch, da_ops, da_ref, rnd, shape) -> dict:
             "plain_ms": cuda_ms(torch, lambda: da_ref.decode_attention_ref(
                 *nxt())),
             "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), mask=mask)),
-            "copies": len(copies), **bound(flops, nbytes, dtn)}
+            "copies": len(copies), **bound(cost, dtn)}
 
 
 def offset_mask(torch, b, sq, sk, q_offset, kv_len):
@@ -851,14 +869,13 @@ def time_flash_extend(torch, fa_ops, fa_ref, rnd, case) -> dict:
     b, sq, sk, h, hk, d, qo, kl, dtn = case
     dt = getattr(torch, dtn)
     mask = offset_mask(torch, b, sq, sk, qo, kl)
-    pairs = int(mask.sum().item())
-    flops = 4 * d * h * pairs
-    # q read and o written; only the K/V rows below kv_len are needed
-    nbytes = 2 * (2 * b * sq * h * d + 2 * sum(kl) * hk * d) + 8 * b
+    cost = fa_ops.flash_attention_cost((b, sq, h, d), (b, sk, hk, d),
+                                       q_offset=qo, kv_len=kl,
+                                       itemsize=dt.itemsize)
     kw = dict(q_offset=torch.tensor(qo, dtype=torch.int32, device="cuda"),
               kv_len=torch.tensor(kl, dtype=torch.int32, device="cuda"))
     copies = [(rnd((b, sq, h, d), dt), rnd((b, sk, hk, d), dt),
-               rnd((b, sk, hk, d), dt)) for _ in range(n_copies(nbytes))]
+               rnd((b, sk, hk, d), dt)) for _ in range(n_copies(cost.bytes))]
     bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
     nxt, nxt_l = cycle(copies), cycle(bhsd)
     q, k, v = copies[0]
@@ -872,7 +889,7 @@ def time_flash_extend(torch, fa_ops, fa_ref, rnd, case) -> dict:
             "plain_ms": cuda_ms(torch, lambda: fa_ref.attention_ref(
                 *nxt(), **kw)),
             "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), mask=lmask)),
-            "copies": len(copies), **bound(flops, nbytes, dtn)}
+            "copies": len(copies), **bound(cost, dtn)}
 
 
 def fifo_tables(torch, np, lens, n_blocks, pages, bs, seed=0):
@@ -896,13 +913,11 @@ def time_paged(torch, np, da_ops, da_ref, rnd, shape) -> dict:
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     tables = fifo_tables(torch, np, lens, n, nb, bs)
     live = sum(lens)
-    # live K/V rows (Hk * D * 2 bytes each, bf16), q, o, lengths and the
-    # tables, each once
-    nbytes = 2 * (2 * live * hk * d + 2 * b * h * d) + 4 * b + 4 * b * nb
-    flops = 4 * d * live * h
+    cost = da_ops.decode_attention_cost(b, h, hk, d, live_rows=live,
+                                        pages=nb)
     copies = [(rnd((b, h, d), dt), rnd((n, bs, hk, d), dt),
                rnd((n, bs, hk, d), dt), tables, lengths)
-              for _ in range(n_copies(nbytes))]
+              for _ in range(n_copies(cost.bytes))]
     nxt = cycle(copies)
     tl = tables.long()
     mask = (torch.arange(nb * bs, device="cuda")[None]
@@ -927,14 +942,7 @@ def time_paged(torch, np, da_ops, da_ref, rnd, shape) -> dict:
                                 .paged_decode_attention_ref(*nxt())),
             "library_ms": cuda_ms(torch, gather_sdpa),
             "library": "page gather + SDPA (two calls)",
-            "copies": len(copies), **bound(flops, nbytes, dtn)}
-
-
-def window_pairs(s: int, window: int) -> int:
-    """Live (query, key) pairs of causal attention over s positions with
-    a sliding window (all pairs within ``window`` positions)."""
-    w = min(window, s) if window > 0 else s
-    return w * (w + 1) // 2 + (s - w) * w
+            "copies": len(copies), **bound(cost, dtn)}
 
 
 def time_flash_train(torch, fa_ops, fa_ref, rnd,
@@ -945,11 +953,10 @@ def time_flash_train(torch, fa_ops, fa_ref, rnd,
     b, s, h, hk, d, w = shape
     dtn = "bfloat16"
     dt = getattr(torch, dtn)
-    flops = 4 * d * h * window_pairs(s, w) * b
-    # q read, o written, k and v read, lse (fp32) written
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * hk * d) + 4 * b * h * s
+    cost = fa_ops.flash_attention_cost((b, s, h, d), (b, s, hk, d),
+                                       window=w, return_lse=True)
     copies = [(rnd((b, s, h, d), dt), rnd((b, s, hk, d), dt),
-               rnd((b, s, hk, d), dt)) for _ in range(n_copies(nbytes))]
+               rnd((b, s, hk, d), dt)) for _ in range(n_copies(cost.bytes))]
     bhsd = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
     nxt, nxt_l = cycle(copies), cycle(bhsd)
     pos = torch.arange(s, device="cuda")
@@ -970,7 +977,7 @@ def time_flash_train(torch, fa_ops, fa_ref, rnd,
             "library_ms": cuda_ms(torch, lambda: sdpa(
                 *nxt_l(), causal=mask is None, mask=mask)),
             "library": "SDPA + window mask" if w else "SDPA",
-            "copies": len(copies), **bound(flops, nbytes, dtn)}
+            "copies": len(copies), **bound(cost, dtn)}
 
 
 def time_scan(torch, scan_ops, scan_ref, rnd, reverse: bool,
@@ -980,15 +987,13 @@ def time_scan(torch, scan_ops, scan_ref, rnd, reverse: bool,
     read, db, da written, dh0 too). No single PyTorch call computes the
     scan."""
     b, s, d = shape
-    n = b * s * d
-    nbytes = (20 if reverse else 12) * n + (12 if reverse else 8) * b * d
-    flops = (3 if reverse else 2) * n
+    cost = scan_ops.rglru_scan_cost(b, s, d, reverse=reverse)
 
     def inputs():
         a = torch.rand((b, s, d), device="cuda") * 0.499 + 0.5
         return a, rnd((b, s, d), torch.float32) * 0.1, \
             rnd((b, d), torch.float32)
-    copies = [inputs() for _ in range(n_copies(nbytes))]
+    copies = [inputs() for _ in range(n_copies(cost.bytes))]
     if reverse:
         copies = [(a, x, scan_ref.rglru_scan_seq_ref(a, x, h0), h0)
                   for a, x, h0 in copies]
@@ -1007,7 +1012,7 @@ def time_scan(torch, scan_ops, scan_ref, rnd, reverse: bool,
             "plain_ms": cuda_ms(torch, lambda: plain(*nxt()), iters=3,
                                 warmup=1),
             "library_ms": None, "library": "no single call",
-            "copies": len(copies), **bound(flops, nbytes, "float32")}
+            "copies": len(copies), **bound(cost, "float32")}
 
 
 def scan_repeats(torch, gen, scan_ops, scan_ref):
@@ -1269,7 +1274,7 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/11] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/12] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode and paged decode at "
         f"head_dims to 256, flash at head_dim 256 with its lse, flash over "
         f"every key at head_dim 64 with Sq != Sk, the RG-LRU scan forward "
@@ -1353,7 +1358,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/11] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/12] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1792,7 +1797,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/11] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/12] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -2056,7 +2061,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/11] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/12] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -2425,7 +2430,7 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/11] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/12] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
@@ -2928,7 +2933,7 @@ def phase_edge(torch, np, ops, smi: str) -> dict:
            "paper_rows": paper_rows(torch),
            "llm": llm_partitioned(torch, np, ops, smi),
            "hybrid": hybrid_partitioned(torch, np, ops)}
-    say("[7/11] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+    say("[7/12] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
         "within the CPU limit, every partition point equal to the "
         "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
         "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
@@ -3656,7 +3661,7 @@ def phase_tiered(torch, np, ops, smi: str) -> dict:
     del model
     torch.cuda.empty_cache()
     say(f"  {smi}; phase 8 took {out['phase_s']:.1f} s")
-    say("[8/11] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
+    say("[8/12] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
         "content-neutral, the gated tier beats the endpoint alone, every "
         "request equal to its tier alone, nothing lost across a link cut, "
         "the server over HTTP, failover frames equal to forward; launches "
@@ -4117,7 +4122,7 @@ def phase_hybrid(torch, np, ops, fa_ref, da_ref, scan_ref, smi: str) -> dict:
             f"ms, decode {s['decode_ms_per_step']:.3f} ms/step; traced "
             f"busy {t['device_busy_s']:.4f} s of {t['wall_s']:.4f} s, idle "
             f"share {t['idle_share']:.4f}")
-    say("[9/11] serving gemma3-1b and recurrentgemma-9b full width/depth "
+    say("[9/12] serving gemma3-1b and recurrentgemma-9b full width/depth "
         "bf16 (rings wrapped in prefill, RG-LRU state): every request "
         "'length', fifo == batch, paged == slotted, prefix-cache and "
         "prefill-chunk served one-shot, launches exact; llama3.2-3b and "
@@ -4948,7 +4953,7 @@ def phase_families(torch, np, ops, fa_ref, da_ref, scan_ref,
                if t else ""))
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 10 took {out['phase_s']:.1f} s")
-    say("[10/11] the MoE and xLSTM families on the card: the JAX fixture "
+    say("[10/12] the MoE and xLSTM families on the card: the JAX fixture "
         "within 1e-4 with JAX's engine records; qwen2-moe-a2.7b full "
         "width/depth bf16 served fifo, batch, paged, prefix-cache, chunked "
         "and on the gather dispatch, launches exact, paged == slotted, "
@@ -5357,13 +5362,263 @@ def phase_encdec(torch, np, ops, fa_ref, da_ref, scan_ref,
             f"{t['idle_share']:.4f}")
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 11 took {out['phase_s']:.1f} s")
-    say("[11/11] the encoder-decoder and the vision frontend on the card: "
+    say("[11/12] the encoder-decoder and the vision frontend on the card: "
         "the JAX fixture within 1e-4 with JAX's tokens and records; "
         "seamless-m4t-medium and llava-next-mistral-7b full width/depth "
         "bf16 served fifo, batch and paged, launches exact, paged == "
         "slotted, fifo == batch (or equal in fp32), each within its limits "
         "of its plain-version run, an oversized vision request refused; "
         "both trained, losses finite, under 80 GB")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+# (b): serving geometries whose dry-run resident bytes are held against
+# the card: (arch, batch, max_len): phase 4's and phase 11's
+RESIDENT_CASES = (("qwen2_1_5b", 8, SERVE_S), ("llava_next_mistral_7b", 8,
+                                                LL_S))
+RESIDENT_TOL = 0.01
+# (c): qwen2-1.5b's prefill (B = 1, 512 tokens) and decode step (B = 8,
+# every row at cache length SERVE_S - 1 of SERVE_S) timed against their
+# dry-run bounds
+FLOOR_PREFILL = (1, 512)
+FLOOR_DECODE = (8, SERVE_S)
+DRY_WORKERS = 8
+
+
+class Built:
+    """Records the configs and parameter counts of the models built on
+    the card through ``init_params`` (the CLIs' and the phases' way)
+    while installed, for phase 12's count gate."""
+
+    def __init__(self, T):
+        self.T, self.orig = T, T.init_params
+        self.models = {}
+        T.init_params = self._wrap
+
+    def _wrap(self, cfg, *a, **kw):
+        model = self.orig(cfg, *a, **kw)
+        if model.device.type == "cuda":
+            self.models[cfg] = sum(p.numel() for p in model.parameters())
+        return model
+
+    def restore(self):
+        self.T.init_params = self.orig
+
+
+def dry_combo(job) -> dict:
+    """One arch x shape of the dry run on every mesh, in a worker
+    process: its records, and whether it moved a launch counter or
+    reached the card (it must do neither)."""
+    arch, shape = job
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as sc
+    from repro_torch.launch import dryrun
+    wrappers = (fa.flash_attention, da.decode_attention,
+                da.paged_decode_attention, sc.rglru_scan_fwd,
+                sc.rglru_scan_bwd)
+    before = [w.launches for w in wrappers]
+    try:
+        recs = dryrun.run_combo(arch, shape, meshes=tuple(dryrun.MESHES))
+        err = None
+    except Exception as exc:    # noqa: BLE001 — reported as FAIL
+        recs, err = {}, repr(exc)
+    return {"arch": arch, "shape": shape, "records": recs, "error": err,
+            "launches_moved": [w.launches for w in wrappers] != before,
+            "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def dry_run_all(built: dict) -> dict:
+    """(a): every applicable arch x shape on every mesh, counted on the
+    meta device in a pool of worker processes (the heaviest first)."""
+    import multiprocessing as mp
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.shapes import SHAPES, shape_applicable
+    from repro_torch.launch import dryrun, roofline
+    jobs = [(a, s) for s in SHAPES for a in ARCH_IDS
+            if shape_applicable(get_config(a), s)]
+    jobs.sort(key=lambda j: (SHAPES[j[1]].kind != "train",
+                             j[0] != "qwen3_moe_235b_a22b"))
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(DRY_WORKERS) as pool:
+        results = pool.map(dry_combo, jobs, chunksize=1)
+    wall = time.perf_counter() - t0
+    data, fails = {}, []
+    for r in results:
+        tag = f"{r['arch']} x {r['shape']}"
+        why = [w for w, bad in ((r["error"], r["error"]),
+                                ("moved a launch counter",
+                                 r["launches_moved"]),
+                                ("reached the card", r["cuda_initialized"]))
+               if bad]
+        if why:
+            fails.append(f"{tag}: {'; '.join(why)}")
+            say(f"  FAIL {fails[-1]}")
+            continue
+        for rec in r["records"].values():
+            data[(rec["arch"], rec["shape"], rec["mesh"])] = rec
+        h = r["records"]["h100"]
+        say(f"  OK   {tag}: flops {h['flops']:.4e}, bytes {h['bytes']:.4e}, "
+            f"resident {h['resident_bytes'] / 1e9:.2f} GB, "
+            f"{h['bottleneck']} [{h['count_s']:.1f} s]")
+    if fails:
+        raise PhaseFailed(f"phase 12: {len(fails)} dry-run failures: {fails}")
+    say(roofline.table(data))
+    compared = {}
+    for cfg, n in built.items():
+        arch = next((a for a in ARCH_IDS if get_config(a) == cfg), None)
+        if arch is None:
+            continue            # a cut or retyped config: not in the run
+        want = data[(arch, "decode_32k", "h100")]["tree_param_count"]
+        if want != n:
+            raise PhaseFailed(f"phase 12: {arch}'s dry-run tree counts "
+                              f"{want:,} parameters, the card's model {n:,}")
+        compared[arch] = n
+    say(f"  dry run: {len(jobs)} combinations x {len(dryrun.MESHES)} meshes "
+        f"in {wall:.1f} s ({DRY_WORKERS} workers), no launch counter moved; "
+        f"tree counts equal the card's models: {compared}")
+    return {"records": {"/".join(k): v for k, v in data.items()},
+            "wall_s": wall, "tree_counts": compared}
+
+
+def resident_vs_card(torch, arch: str, batch: int, max_len: int) -> dict:
+    """(b): the dry run's resident bytes of a serving geometry against
+    the growth of ``memory_allocated`` across building that model
+    (``init_params``) and its cache on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    rec = dryrun.lower_combo(arch, InputShape(f"serve_{max_len}", max_len,
+                                              batch, "decode"))
+    free(torch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = T.init_params(get_config(arch), 0, device="cuda")
+    cache = T.init_cache(model.cfg, batch, max_len, device="cuda")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    del model, cache
+    free(torch)
+    rel = rec["resident_bytes"] / grown - 1
+    say(f"  resident {arch} B={batch} max_len {max_len}: dry run "
+        f"{rec['resident_bytes']:,} B, card {grown:,} B ({rel:+.4%})")
+    if abs(rel) > RESIDENT_TOL:
+        raise PhaseFailed(f"phase 12: {arch}'s resident bytes "
+                          f"{rec['resident_bytes']:,} differ from the card's "
+                          f"{grown:,} by {rel:+.2%} (limit "
+                          f"{RESIDENT_TOL:.0%})")
+    return {"dry_run_bytes": rec["resident_bytes"], "card_bytes": grown,
+            "rel": rel}
+
+
+def bound_floor(torch, smi: str) -> dict:
+    """(c): qwen2-1.5b's prefill and decode step timed behind the spin
+    kernel, and their device busy time in a trace of one call, against
+    the dry run's bound for the same call; a time under its bound is an
+    impossible reading. A step issues more kernels than the card's
+    launch queue holds, so the events time the host's enqueue of the
+    step once the queue fills; the trace's busy time is the card's
+    alone."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen2_1_5b")
+    model = T.init_params(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    (pb, ps), (db, ds) = FLOOR_PREFILL, FLOOR_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (pb, ps), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cache = T.init_cache(cfg, db, ds, device="cuda")
+    token = torch.randint(0, cfg.vocab_size, (db,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    cache_len = torch.full((db,), ds - 1, dtype=torch.int32, device="cuda")
+    calls = {
+        "prefill": (InputShape(f"prefill_{ps}", ps, pb, "prefill"),
+                    lambda: T.prefill(model, tokens, max_len=ps)),
+        "decode": (InputShape(f"decode_{ds}", ds, db, "decode"),
+                   lambda: T.decode_step(model, token, cache, cache_len))}
+    out = {}
+    for name, (shape, fn) in calls.items():
+        rec = dryrun.lower_combo("qwen2_1_5b", shape)
+        floor_ms = max(rec["t_compute_s"], rec["t_memory_s"]) * 1e3
+        ms = cuda_ms(torch, fn, iters=10, warmup=2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_ms = trace_summary(torch, prof, wall, f"{name} qwen2-1.5b",
+                                3)["device_busy_s"] * 1e3
+        say(f"  {name} qwen2-1.5b {shape.global_batch} x {shape.seq_len}: "
+            f"{ms:.4f} ms by events, {busy_ms:.4f} ms busy in the trace; "
+            f"bound {floor_ms:.4f} ms ({rec['bottleneck'][2:-2]}: "
+            f"{rec['flops']:.4e} FLOP, {rec['bytes']:.4e} B): "
+            f"{floor_ms / ms:.4f} / {floor_ms / busy_ms:.4f} of the bound "
+            f"({smi})")
+        for what, t in (("took", ms), ("kept the card busy", busy_ms)):
+            if t < floor_ms:
+                raise PhaseFailed(f"phase 12: qwen2-1.5b's {name} {what} "
+                                  f"{t:.4f} ms, under its bound "
+                                  f"{floor_ms:.4f} ms: an impossible "
+                                  f"reading")
+        out[name] = {"ms": ms, "busy_ms": busy_ms, "bound_ms": floor_ms,
+                     "share": floor_ms / ms, "busy_share": floor_ms / busy_ms,
+                     "bottleneck": rec["bottleneck"], "flops": rec["flops"],
+                     "bytes": rec["bytes"]}
+    del model, cache
+    free(torch)
+    return out
+
+
+def examples_on_card(torch) -> dict:
+    """(d): the last two examples at their default sizes on the card."""
+    import runpy
+    out = {}
+    for name in ("torch_quickstart", "torch_train_small"):
+        t0 = time.perf_counter()
+        out[name] = runpy.run_path(str(ROOT / "examples" / f"{name}.py"),
+                                   run_name="example")["main"]([])
+        out[name]["wall_s"] = time.perf_counter() - t0
+    q, t = out["torch_quickstart"], out["torch_train_small"]
+    if q["best_pp"] != 3 or len(q["tokens"]) != 8 \
+            or q["finish_reason"] != "length":
+        raise PhaseFailed(f"phase 12: quickstart chose pp{q['best_pp']} "
+                          f"(the paper's pp3) and served {len(q['tokens'])} "
+                          f"tokens ({q['finish_reason']})")
+    if not (t["learned"] and t["restored_exact"] and len(t["tokens"]) == 12):
+        raise PhaseFailed(f"phase 12: train-small loss {t['first']:.4f} -> "
+                          f"{t['last']:.4f} (LEARNED below 0.8x: "
+                          f"{t['learned']}), restore exact "
+                          f"{t['restored_exact']}, {len(t['tokens'])} tokens")
+    say(f"  examples: quickstart pp{q['best_pp']}, {len(q['tokens'])} tokens "
+        f"({q['wall_s']:.1f} s); train-small loss {t['first']:.4f} -> "
+        f"{t['last']:.4f} (LEARNED), restore bit for bit, "
+        f"{len(t['tokens'])} tokens sampled ({t['wall_s']:.1f} s)")
+    for rec in out.values():
+        rec.pop("probs", None)
+    return out
+
+
+def phase_dryrun(torch, built: dict, smi: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"dry_run": dry_run_all(built)}
+    out["resident"] = {arch: resident_vs_card(torch, arch, b, s)
+                       for arch, b, s in RESIDENT_CASES}
+    out["floor"] = bound_floor(torch, smi)
+    out["examples"] = examples_on_card(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"[12/12] dry run: {len(out['dry_run']['records'])} records, no "
+        f"FAIL; resident bytes within {RESIDENT_TOL:.0%} of the card; "
+        f"prefill and decode at or above their bounds; both examples pass "
+        f"({out['wall_s']:.1f} s)")
     return out
 
 
@@ -5464,7 +5719,7 @@ KERNEL_LINE = [
 # a KERNEL_LINE shape timed under another phase-2 record than its name's
 TIMED_AS = {"qwen2-moe-train": "flash_attention_train",
             "seamless-encoder": "flash_attention_bidir"}
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
 
 
 def tiered_launches(rec: dict) -> dict:
@@ -5480,7 +5735,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -5508,6 +5763,8 @@ def main() -> int:
            "paged_decode_attention": da_ops.paged_decode_attention,
            "rglru_scan_fwd": scan_ops.rglru_scan_fwd,
            "rglru_scan_bwd": scan_ops.rglru_scan_bwd}
+    from repro_torch.models import transformer as T
+    built = Built(T)
     t0 = time.perf_counter()
     record = {}
     try:
@@ -5543,9 +5800,14 @@ def main() -> int:
             record["encdec"] = phase_encdec(torch, np, ops, fa_ref, da_ref,
                                             scan_ref,
                                             record["device"]["nvidia_smi"])
+        if 12 in phases:
+            record["dryrun"] = phase_dryrun(torch, built.models,
+                                            record["device"]["nvidia_smi"])
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
+    finally:
+        built.restore()
     record["total_s"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,11 @@ slotted (B, S, Hk, D) cache and ``paged_decode_attention`` over a shared
 CPU tensors take the plain versions (``ref.py``); CUDA tensors launch
 the kernel or raise — there is no fallback from the card. Each wrapper's
 ``.launches`` counts its launches (each is the split-KV pass plus its
-combine pass).
+combine pass). Meta tensors launch nothing: each wrapper returns an
+empty output and adds its cost function's count to the active
+``kernels.cost.KernelCount``; meta lengths hold no values, so such a call
+counts every row of the cache (or of each table's pages) as live, as a
+full cache holds them.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import Cost, count_meta_call
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
@@ -57,6 +62,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
+    if q.device.type == "meta":
+        count_meta_call("decode_attention", decode_attention_cost(
+            b, h, hk, d, live_rows=b * s, itemsize=q.element_size()))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
@@ -122,6 +131,12 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
                                           lengths, scale=scale)
+    if q.device.type == "meta":
+        nb = block_tables.shape[1]
+        count_meta_call("paged_decode_attention", decode_attention_cost(
+            b, h, hk, d, live_rows=b * nb * bs, itemsize=q.element_size(),
+            pages=nb))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
     if not all(t.is_contiguous()
@@ -147,6 +162,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def decode_attention_cost(b: int, h: int, hk: int, d: int, *,
+                          live_rows: int, itemsize: int = 2,
+                          pages: int = 0) -> Cost:
+    """One decode call's least work over ``live_rows`` cache rows in all
+    (the sum of the lengths): 4 D H operations a live row (q.k and p v);
+    bytes: the live K and V rows (Hk D each) and q read, o written, the
+    int32 lengths read, and with ``pages`` > 0 (the paged entry) the
+    (B, pages) int32 block tables read."""
+    nbytes = itemsize * (2 * live_rows * hk * d + 2 * b * h * d) + 4 * b \
+        + 4 * b * pages
+    return Cost(4 * d * live_rows * h, nbytes)
 
 
 def _split_scratch(q: torch.Tensor, hk: int, s: int):

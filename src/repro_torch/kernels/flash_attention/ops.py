@@ -8,15 +8,18 @@ head dims up to 256 (instantiated for 128 and 256) and optionally
 returns the rows' log-sum-exp, which the training backward reads. bf16
 runs its tensor-core body (any number of query heads per KV head), fp32
 its FMA body (at most ``MAX_GROUP_FP32`` query heads per KV head).
+Meta tensors launch nothing: the wrapper returns empty outputs and adds
+``flash_attention_cost`` to the active ``kernels.cost.KernelCount``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import Cost, count_meta_call, live_pairs
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,6 +66,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset, kv_len=kv_len,
                              return_lse=return_lse)
+    if q.device.type == "meta":
+        if q_offset is not None or kv_len is not None:
+            raise ValueError("flash_attention: meta q_offset / kv_len hold "
+                             "no lengths to count the live pairs by")
+        count_meta_call("flash_attention", flash_attention_cost(
+            q.shape, k.shape, causal=causal, window=window,
+            return_lse=return_lse, itemsize=q.element_size()))
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        return (o, lse) if return_lse else o
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if not all(t.is_contiguous() for t in (q, k, v, q_offset, kv_len)
@@ -90,6 +103,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_cost(q_shape, k_shape, *, causal: bool = True,
+                         window: int = 0,
+                         q_offset: Optional[Sequence[int]] = None,
+                         kv_len: Optional[Sequence[int]] = None,
+                         return_lse: bool = False, itemsize: int = 2
+                         ) -> Cost:
+    """One ``flash_attention`` call's least work. q (B, Sq, H, D), k and
+    v (B, Sk, Hk, D) of ``itemsize`` bytes; ``q_offset`` / ``kv_len``
+    the values of the per-sequence tensors, if any. Operations: 4 D H a
+    live (query, key) pair (QK^T and P V). Bytes: q read and o written,
+    the K and V rows below each ``kv_len`` read, each int32 length
+    vector read, and the fp32 lse written when asked for."""
+    b, sq, h, d = q_shape
+    _, sk, hk, _ = k_shape
+    pairs = live_pairs(sq, sk, causal=causal, window=window,
+                       q_offset=q_offset, kv_len=kv_len, batch=b)
+    kv_rows = sum(min(n, sk) for n in kv_len) if kv_len is not None \
+        else b * sk
+    nbytes = itemsize * (2 * b * sq * h * d + 2 * kv_rows * hk * d)
+    nbytes += 4 * b * ((q_offset is not None) + (kv_len is not None))
+    if return_lse:
+        nbytes += 4 * b * h * sq
+    return Cost(4 * d * h * pairs, nbytes)
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -11,7 +11,9 @@ take the plain versions (``ref.py``); CUDA tensors launch the kernel or
 raise — there is no fallback from the card. ``rglru_scan`` is the
 differentiable entry the model calls: a ``torch.autograd.Function``
 whose forward is ``rglru_scan_fwd`` and whose backward is
-``rglru_scan_bwd``.
+``rglru_scan_bwd``. Meta tensors launch nothing: each entry returns
+empty outputs and adds ``rglru_scan_cost`` to the active
+``kernels.cost.KernelCount``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import Cost, count_meta_call
 from repro_torch.kernels.rglru_scan.ref import (rglru_scan_reverse_ref,
                                                 rglru_scan_seq_ref)
 
@@ -42,7 +45,7 @@ def _check(name: str, seq, state) -> Tuple[int, int, int]:
                         f"{[t.dtype for t in (*seq, *state)]}")
     if any(t.device != first.device for t in (*seq, *state)):
         raise ValueError(f"{name}: tensors on different devices")
-    if first.device.type not in ("cpu", "cuda"):
+    if first.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: no kernel for {first.device}")
     if first.device.type == "cuda" and (
             0 in (b, s, d)
@@ -76,6 +79,9 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor,
     bsz, s, d = _check("rglru_scan_fwd", (a, b), (h0,))
     if a.device.type == "cpu":
         return rglru_scan_seq_ref(a, b, h0)
+    if a.device.type == "meta":
+        count_meta_call("rglru_scan_fwd", rglru_scan_cost(bsz, s, d))
+        return torch.empty_like(a)
     y = torch.empty_like(a)
     fn = _build.entry("rglru_scan_fwd")
     with torch.cuda.device(a.device):
@@ -99,6 +105,11 @@ def rglru_scan_bwd(a: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
     bsz, s, d = _check("rglru_scan_bwd", (a, dy, y), (h0,))
     if a.device.type == "cpu":
         return rglru_scan_reverse_ref(a, dy, y, h0)
+    if a.device.type == "meta":
+        count_meta_call("rglru_scan_bwd",
+                        rglru_scan_cost(bsz, s, d, reverse=True))
+        return torch.empty_like(a), torch.empty_like(a), \
+            torch.empty_like(h0)
     db, da = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty_like(h0)
     fn = _build.entry("rglru_scan_bwd")
@@ -114,6 +125,19 @@ def rglru_scan_bwd(a: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
 
 
 rglru_scan_bwd.launches = 0
+
+
+def rglru_scan_cost(b: int, s: int, d: int, *, reverse: bool = False
+                    ) -> Cost:
+    """One scan call's least work over (B, S, D) fp32, n = B S D.
+    Forward: 2 operations a step (a y + b); a and b read and y written
+    (12 n bytes), and 8 B D bytes of (B, D) state around h0. Reverse: 3
+    operations a step; a, dy and y read, da and db written (20 n), and
+    12 B D of state around h0 and dh0."""
+    n = b * s * d
+    if reverse:
+        return Cost(3 * n, 20 * n + 12 * b * d)
+    return Cost(2 * n, 12 * n + 8 * b * d)
 
 
 class RGLRUScan(torch.autograd.Function):

@@ -114,7 +114,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-attention backward, a port of the reference's ``_fa_bwd``:
     P is recomputed blockwise from (q, k, lse) in fp32, with bq = bk =
-    ``min(chunk, ceil8(S))``, O(bq * bk) live score memory. q, o, do:
+    ``min(chunk, ceil8(S))``, O(bq * bk) live score memory (on the meta
+    device, one block of the padded lengths). q, o, do:
     (B, Sq, H, D); k, v: (B, Sk, Hk, D); lse: (B, H, Sq) fp32 from the
     forward. Returns (dq, dk, dv) in the inputs' dtypes."""
     b, sq, h, d = q.shape
@@ -124,6 +125,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bq = min(chunk, _ceil_to(sq, 8))
     bk = min(chunk, _ceil_to(sk, 8))
     nq, nk = -(-sq // bq), -(-sk // bk)
+    if q.device.type == "meta":
+        # no value flows between blocks on the meta device: one block of
+        # the padded lengths does every block's operations (the dry run)
+        bq, nq, bk, nk = nq * bq, 1, nk * bk, 1
     pq, pk = nq * bq - sq, nk * bk - sk
     f32 = torch.float32
     qf = _pad_seq(q, pq).reshape(b, nq, bq, hk, g, d)

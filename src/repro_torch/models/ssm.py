@@ -166,11 +166,75 @@ def _pad_time(x: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
                      dim=1)
 
 
+def _mlstm_chunk_out(qh, kh, vh, li, fc, C, n, m, mask):
+    """One chunk's output (B, L, H, dh) of ``mlstm_chunkwise`` from the
+    carried (C, n, m); ``fc`` the chunk's inclusive cumsum of log f."""
+    intra_max = (li - fc).amax(dim=1, keepdim=True)
+    m_pos = torch.maximum(m[:, None] + fc, fc + intra_max)   # (B,L,H)
+    # D[i, j] = exp(li_j + F_i - F_j - m_i) for j <= i
+    dmat = li[:, None] + fc[:, :, None] - fc[:, None] - m_pos[:, :, None]
+    w = torch.exp(torch.where(mask, dmat, torch.full_like(dmat, _NEG)))
+    scores = torch.einsum("bihd,bjhd->bijh", qh, kh) * w
+    num = torch.einsum("bijh,bjhd->bihd", scores, vh)
+    den = scores.sum(dim=2)                               # (B,L,H)
+    inter_w = torch.exp(m[:, None] + fc - m_pos)          # (B,L,H)
+    num = num + torch.einsum("bihd,bhde->bihe", qh, C) * inter_w[..., None]
+    den = den + torch.einsum("bihd,bhd->bih", qh, n) * inter_w
+    return num / torch.maximum(den.abs(), torch.exp(-m_pos))[..., None]
+
+
+def _mlstm_chunk_state(kh, vh, li, fc, C, n, m):
+    """The (C, n, m) a chunk hands on, from the ones it was handed."""
+    ftot = fc[:, -1]                                      # (B,H)
+    m_new = torch.maximum(m + ftot, (li + ftot[:, None] - fc).amax(dim=1))
+    kw = torch.exp(li + ftot[:, None] - fc - m_new[:, None])
+    decay = torch.exp(m + ftot - m_new)
+    C = decay[..., None, None] * C + torch.einsum(
+        "bjhd,bjhe->bhde", kh * kw[..., None], vh)
+    n = decay[..., None] * n + torch.einsum("bjhd,bjh->bhd", kh, kw)
+    return C, n, m_new
+
+
+def _mlstm_meta(q, k, v, log_i, log_f, state, mask, size):
+    """``mlstm_chunkwise``'s loop on the meta device, where no value
+    flows from one chunk to the next: the state updates of all chunks
+    but the last run as one batch from the handed-in state, and the
+    outputs of all chunks but the first as one batch from the states
+    those updates hand on; the first chunk's output and the last chunk's
+    update run alone, as in the loop. The loop's operations, forward and
+    backward, in a few chunks' ops."""
+    b, s, nh, dh = q.shape
+    nc = s // size
+    fc = torch.cumsum(log_f.reshape(b, nc, size, nh), dim=2) \
+        .reshape(b, s, nh)
+
+    def chunks(t, lo, hi):
+        return t[:, lo * size:hi * size].reshape(b * (hi - lo), size,
+                                                 *t.shape[2:])
+
+    def each(t, n):
+        return t[:, None].expand(b, n, *t.shape[1:]) \
+            .reshape(b * n, *t.shape[1:])
+    ins = (q, k, v, log_i, fc)
+    outs = [_mlstm_chunk_out(*(chunks(t, 0, 1) for t in ins), *state, mask)]
+    if nc > 1:
+        handed = _mlstm_chunk_state(*(chunks(t, 0, nc - 1) for t in ins[1:]),
+                                    *(each(t, nc - 1) for t in state))
+        outs.append(_mlstm_chunk_out(*(chunks(t, 1, nc) for t in ins),
+                                     *handed, mask))
+    last = _mlstm_chunk_state(*(chunks(t, nc - 1, nc) for t in ins[1:]),
+                              *state)
+    out = torch.cat([o.reshape(b, -1, nh, dh) for o in outs], dim=1)
+    return out, last
+
+
 def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
     """q, k, v: (B, S, H, dh); log_i, log_f: (B, S, H) fp32; ``state``
     (C, n, m) or None for the zero state. Returns (out (B, S, H, dh)
     fp32, (C, n, m)). The tail is padded to a whole chunk with log_i =
-    -1e30 and log_f = 0 (no input, no decay), as in the reference."""
+    -1e30 and log_f = 0 (no input, no decay), as in the reference. On
+    the meta device the chunks run as one batch (``_mlstm_meta``: the
+    dry run's count of a 32,768-position prompt)."""
     b, s, nh, dh = q.shape
     q = q.float() * (1.0 / math.sqrt(dh))
     k, v = k.float(), v.float()
@@ -186,32 +250,17 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
         C, n, m = state
     mask = torch.tril(torch.ones((size, size), dtype=torch.bool,
                                  device=q.device))[None, :, :, None]
+    if q.device.type == "meta":
+        out, state = _mlstm_meta(q, k, v, log_i, log_f, (C, n, m), mask,
+                                 size)
+        return out[:, :s], state
     outs = []
     for c0 in range(0, s + pad, size):
         qh, kh, vh = q[:, c0:c0 + size], k[:, c0:c0 + size], v[:, c0:c0 + size]
-        li, lf = log_i[:, c0:c0 + size], log_f[:, c0:c0 + size]
-        fc = torch.cumsum(lf, dim=1)                  # inclusive decay
-        intra_max = (li - fc).amax(dim=1, keepdim=True)
-        m_pos = torch.maximum(m[:, None] + fc, fc + intra_max)   # (B,L,H)
-        # D[i, j] = exp(li_j + F_i - F_j - m_i) for j <= i
-        dmat = li[:, None] + fc[:, :, None] - fc[:, None] - m_pos[:, :, None]
-        w = torch.exp(torch.where(mask, dmat, torch.full_like(dmat, _NEG)))
-        scores = torch.einsum("bihd,bjhd->bijh", qh, kh) * w
-        num = torch.einsum("bijh,bjhd->bihd", scores, vh)
-        den = scores.sum(dim=2)                               # (B,L,H)
-        inter_w = torch.exp(m[:, None] + fc - m_pos)          # (B,L,H)
-        num = num + torch.einsum("bihd,bhde->bihe", qh, C) * inter_w[..., None]
-        den = den + torch.einsum("bihd,bhd->bih", qh, n) * inter_w
-        outs.append(num / torch.maximum(den.abs(),
-                                        torch.exp(-m_pos))[..., None])
-        ftot = fc[:, -1]                                      # (B,H)
-        m_new = torch.maximum(m + ftot, (li + ftot[:, None] - fc).amax(dim=1))
-        kw = torch.exp(li + ftot[:, None] - fc - m_new[:, None])
-        decay = torch.exp(m + ftot - m_new)
-        C = decay[..., None, None] * C + torch.einsum(
-            "bjhd,bjhe->bhde", kh * kw[..., None], vh)
-        n = decay[..., None] * n + torch.einsum("bjhd,bjh->bhd", kh, kw)
-        m = m_new
+        li = log_i[:, c0:c0 + size]
+        fc = torch.cumsum(log_f[:, c0:c0 + size], dim=1)   # inclusive decay
+        outs.append(_mlstm_chunk_out(qh, kh, vh, li, fc, C, n, m, mask))
+        C, n, m = _mlstm_chunk_state(kh, vh, li, fc, C, n, m)
     return torch.cat(outs, dim=1)[:, :s], (C, n, m)
 
 
@@ -310,7 +359,24 @@ def _slstm_cell(p, wx_t: torch.Tensor, state):
 
 def slstm_scan(p, wx: torch.Tensor, state):
     """wx: (B, S, 4, H, dh). One ``_slstm_cell`` a position, in order.
-    Returns (hs (B, S, H, dh) fp32, the last state)."""
+    Returns (hs (B, S, H, dh) fp32, the last state). On the meta device,
+    where no value flows from one position to the next, the cell runs
+    at position 0 and then once over the B x (S - 1) rows of the other
+    positions, from position 0's state: the loop's operations, forward
+    and backward, in two cells' ops instead of S (the dry run's count
+    of a 32,768-position prompt)."""
+    if wx.device.type == "meta":
+        b, s = wx.shape[:2]
+        first = _slstm_cell(p, wx[:, 0], state)
+        if s == 1:
+            return first[3][:, None], first
+        rows = tuple(t[:, None].expand(b, s - 1, *t.shape[1:])
+                     .reshape(b * (s - 1), *t.shape[1:]) for t in first)
+        rest = _slstm_cell(p, wx[:, 1:].reshape(b * (s - 1), *wx.shape[2:]),
+                           rows)
+        rest = tuple(t.reshape(b, s - 1, *t.shape[1:]) for t in rest)
+        return torch.cat([first[3][:, None], rest[3]], dim=1), \
+            tuple(t[:, -1] for t in rest)
     hs = []
     for t in range(wx.shape[1]):
         state = _slstm_cell(p, wx[:, t], state)

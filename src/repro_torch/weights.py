@@ -29,9 +29,13 @@ asks for ``dtype=torch.float32`` masters.
 checkpoint dict, scan leaves stacked over periods again, for
 checkpoints and tests. ``reference_leaves`` lists the port's tensors
 behind each reference leaf in the reference's flatten order (the order
-in which the optimizer sums the gradient norm). ``seeded_flat`` draws a
-config's weights in that layout from a numpy seed, the same numbers on
-any machine, so that a fixture can name its weights by a seed.
+in which the optimizer sums the gradient norm); ``reference_cache``
+does the same for a decode cache, and ``reference_shapes`` gives either
+listing's stacked shapes and dtypes alone, reading no values, so that a
+meta-device model or cache serves (the dry run's sharding accounting).
+``seeded_flat`` draws a config's weights in that layout from a numpy
+seed, the same numbers on any machine, so that a fixture can name its
+weights by a seed.
 """
 from __future__ import annotations
 
@@ -41,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer, to_compute_dtype_
+from repro_torch.models.transformer import (Cache, Transformer, _dtype,
+                                            to_compute_dtype_)
 
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -117,6 +122,36 @@ def reference_leaves(model: Transformer) -> Dict[str, List[torch.Tensor]]:
             out.setdefault(f"{prefix}/{name.replace('.', '/')}",
                            []).append(param)
     return dict(sorted(out.items(), key=lambda kv: _tree_order(kv[0])))
+
+
+def reference_cache(cfg: ModelConfig, cache: Cache
+                    ) -> Dict[str, List[torch.Tensor]]:
+    """Reference flat key -> the port's cache tensors behind that leaf,
+    as ``reference_leaves`` for parameters: ``scan/<i>/<leaf>`` one per
+    period, ``rem/<j>/<leaf>`` one. The port's own leaves (an
+    encoder-decoder's ``cross_len``) are listed like the others."""
+    out: Dict[str, List[torch.Tensor]] = {}
+    for li, prefix, _ in layer_sources(cfg):
+        for name, t in cache[li].items():
+            out.setdefault(f"{prefix}/{name}", []).append(t)
+    return dict(sorted(out.items(), key=lambda kv: _tree_order(kv[0])))
+
+
+def reference_shapes(leaves: Any) -> Dict[str, Tuple[Tuple[int, ...],
+                                                     torch.dtype]]:
+    """Flat key -> (shape, dtype) of each reference leaf, ``scan/...``
+    leaves stacked over periods on a leading axis. ``leaves`` is a
+    ``reference_leaves`` / ``reference_cache`` listing, a model, or a
+    config (built on the meta device in its ``param_dtype``, the dtype
+    of the reference's parameter tree)."""
+    if isinstance(leaves, ModelConfig):
+        leaves = Transformer(leaves, device="meta",
+                             dtype=_dtype(leaves.param_dtype))
+    if isinstance(leaves, Transformer):
+        leaves = reference_leaves(leaves)
+    return {key: (((len(ts),) if key.startswith("scan/") else ())
+                  + tuple(ts[0].shape), ts[0].dtype)
+            for key, ts in leaves.items()}
 
 
 def to_flat(model: Transformer, *, grad: bool = False

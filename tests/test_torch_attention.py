@@ -34,6 +34,7 @@ from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models.layers import (_fa_forward, decode_attention_xla,
                                  flash_attention_xla)
+from repro_torch.kernels.cost import KernelCount
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -256,15 +257,25 @@ def test_wrappers_refuse_what_no_kernel_takes():
         fa_ops.flash_attention(q.double(), k.double(), k.double())
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, k, k[:, :3])
-    with pytest.raises(ValueError, match="no kernel"):
-        fa_ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    # meta tensors launch nothing: an empty output and the call's cost
+    # on the active counter (the dry run's branch), no launch counted
+    launches = (fa_ops.flash_attention.launches,
+                da_ops.decode_attention.launches,
+                da_ops.paged_decode_attention.launches)
+    with KernelCount() as kc:
+        o = fa_ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    assert o.device.type == "meta" and o.shape == q.shape
+    assert kc.calls == {"flash_attention": 1} and kc.flops > 0
     qd, kc = torch.zeros((2, 4, 16)), torch.zeros((2, 8, 2, 16))
     with pytest.raises(TypeError, match="int32"):
         da_ops.decode_attention(qd, kc, kc, torch.ones(2, dtype=torch.int64))
-    with pytest.raises(ValueError, match="no kernel"):
-        da_ops.decode_attention(qd.to("meta"), kc.to("meta"), kc.to("meta"),
-                                torch.ones(2, dtype=torch.int32,
-                                           device="meta"))
+    with KernelCount() as count:
+        o = da_ops.decode_attention(qd.to("meta"), kc.to("meta"),
+                                    kc.to("meta"),
+                                    torch.ones(2, dtype=torch.int32,
+                                               device="meta"))
+    assert o.device.type == "meta" and o.shape == qd.shape
+    assert count.calls == {"decode_attention": 1}
     with pytest.raises(TypeError, match="q_offset"):
         fa_ops.flash_attention(q, k, k, q_offset=torch.zeros(1))
     with pytest.raises(TypeError, match="kv_len"):
@@ -276,9 +287,14 @@ def test_wrappers_refuse_what_no_kernel_takes():
         da_ops.paged_decode_attention(qd, kc, kc, tables.long(), lens)
     with pytest.raises(TypeError, match="lengths"):
         da_ops.paged_decode_attention(qd, kc, kc, tables, lens.long())
-    with pytest.raises(ValueError, match="no kernel"):
-        da_ops.paged_decode_attention(*(t.to("meta") for t in
-                                        (qd, kc, kc, tables, lens)))
+    with KernelCount() as count:
+        o = da_ops.paged_decode_attention(*(t.to("meta") for t in
+                                            (qd, kc, kc, tables, lens)))
+    assert o.device.type == "meta" and o.shape == qd.shape
+    assert count.calls == {"paged_decode_attention": 1}
+    assert launches == (fa_ops.flash_attention.launches,
+                        da_ops.decode_attention.launches,
+                        da_ops.paged_decode_attention.launches)
 
 
 @pytest.mark.parametrize("b,s,h,hk,d,window,chunk", FA_BWD_CASES)

@@ -53,7 +53,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.serving", "repro_torch.runtime.serving",
             "repro_torch.models.cnn", "repro_torch.runtime.resilience",
             "repro_torch.runtime.escalation_queue",
-            "repro_torch.runtime.escalation"} | {
+            "repro_torch.runtime.escalation", "repro_torch.configs.shapes",
+            "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.launch.roofline", "repro_torch.sharding",
+            "repro_torch.sharding.rules", "repro_torch.kernels.cost"} | {
         f"repro_torch.core.{m}" for m in (
             "graph", "analyzer", "mapping", "calibration", "synthesis",
             "simulator", "explorer", "clocks")} <= set(mods)
@@ -91,6 +94,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         server.main(["--arch", "qwen2_1_5b", "--probe"])
     Engine(cfg, model, device="cpu")        # the explicit opt-in works
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_train_small"])
+def test_examples_default_to_cuda_and_raise_without_it(name):
+    """The last two examples' entry points run on the card unless asked
+    for the CPU (their CPU runs: tests/test_torch_partitioned.py)."""
+    _no_cuda()
+    import runpy
+    main = runpy.run_path(str(ROOT / "examples" / f"{name}.py"),
+                          run_name="example")["main"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([])
 
 
 def test_step_delay_is_accepted_and_leaves_tokens_unchanged():

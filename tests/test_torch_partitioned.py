@@ -296,16 +296,54 @@ def test_shim_output_matches_engine_and_keeps_legacy_errors(tiny):
     assert len(outs) == 2 and len(seen) == 2
 
 
-@pytest.mark.parametrize("name", ["torch_distributed_serving",
-                                  "torch_partition_explorer"])
-def test_examples_run_on_cpu(name, capsys, monkeypatch, tmp_path):
+def _quickstart_as_reference(out):
+    """torch_quickstart's Explorer records and chosen cut are the
+    reference quickstart's (pure modeled numbers: exactly equal)."""
+    from repro.core import Explorer as RefExplorer
+    from repro.models.cnn import vehicle_graph as ref_vehicle_graph
+    res = RefExplorer(ref_vehicle_graph(),
+                      ref_paper_platform("N2", "ethernet")).evaluate_modeled()
+    assert out["records"] == [(r.pp, r.endpoint_time_s, r.boundary_bytes)
+                              for r in res.records]
+    assert out["best_pp"] == res.best(privacy=True).pp == 3
+    assert len(out["tokens"]) == 8 and out["finish_reason"] == "length"
+    assert np.isclose(out["probs"].sum(), 1.0, atol=1e-5)
+
+
+def _train_small_round_trip(out):
+    """torch_train_small at a tiny size: finite losses, the checkpoint
+    restored bit for bit, 12 sampled tokens."""
+    assert np.isfinite([out["first"], out["last"]]).all()
+    assert out["restored_exact"]
+    assert len(out["tokens"]) == 12 and out["finish_reason"] == "length"
+
+
+@pytest.mark.parametrize("name,argv,check", [
+    pytest.param("torch_distributed_serving", [], None,
+                 id="torch_distributed_serving"),
+    pytest.param("torch_partition_explorer", [], None,
+                 id="torch_partition_explorer"),
+    pytest.param("torch_quickstart", [], _quickstart_as_reference,
+                 id="torch_quickstart"),
+    pytest.param("torch_train_small",
+                 ["--steps", "8", "--d-model", "32", "--layers", "2",
+                  "--batch", "4", "--seq", "16"], _train_small_round_trip,
+                 id="torch_train_small"),
+])
+def test_examples_run_on_cpu(name, argv, check, capsys, monkeypatch,
+                             tmp_path):
     """The examples' own checks (partitioned logits equal monolithic bit
     for bit, pipelined frames equal run_local, the explorer's chosen cut
-    executed) pass on the CPU; the explorer's artifacts go to tmp_path."""
+    executed) pass on the CPU, and the last two examples' results hold;
+    artifacts and checkpoints go to tmp_path."""
     import runpy
     import tempfile
     from pathlib import Path
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
-    runpy.run_path(str(path), run_name="example")["main"](["--device", "cpu"])
-    assert "bit for bit: True" in capsys.readouterr().out
+    out = runpy.run_path(str(path), run_name="example")["main"](
+        argv + ["--device", "cpu"])
+    if check is None:
+        assert "bit for bit: True" in capsys.readouterr().out
+    else:
+        check(out)

@@ -38,6 +38,7 @@ from repro.kernels.rglru_scan.ops import rglru_scan as rglru_scan_pallas
 from repro.kernels.rglru_scan.ref import rglru_scan_seq_ref
 from repro.models import rglru as JR
 from repro_torch.configs.recurrentgemma_9b import CONFIG as PRG
+from repro_torch.kernels.cost import KernelCount
 from repro_torch.kernels.rglru_scan import ops, ref
 from repro_torch.models import rglru as PR
 from repro_torch.models import transformer as PT
@@ -117,8 +118,14 @@ def test_scan_wrappers_refuse_what_no_kernel_takes():
         ops.rglru_scan_fwd(a.double(), a.double(), a[:, 0].double())
     with pytest.raises(ValueError, match="states"):
         ops.rglru_scan_fwd(a, a, a[0])
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.rglru_scan_fwd(a.to("meta"), a.to("meta"), a[:, 0].to("meta"))
+    # meta tensors launch nothing: an empty output and the call's cost
+    # on the active counter (the dry run's branch), no launch counted
+    launches = ops.rglru_scan_fwd.launches
+    with KernelCount() as kc:
+        y = ops.rglru_scan_fwd(a.to("meta"), a.to("meta"), a[:, 0].to("meta"))
+    assert y.device.type == "meta" and y.shape == a.shape
+    assert kc.calls == {"rglru_scan_fwd": 1}
+    assert ops.rglru_scan_fwd.launches == launches
     with pytest.raises(ValueError, match="one shape"):
         ops.rglru_scan_bwd(a, a, a[:, :3], a[:, 0])
 
