@@ -327,14 +327,37 @@ Phases, one status line each; any failure exits non-zero:
    ``examples/torch_quickstart.py`` (the paper's pp3 chosen, 8 tokens
    served) and ``examples/torch_train_small.py`` (300 steps; loss below
    0.8x its first, the checkpoint restored bit for bit, 12 tokens
-   sampled) at their default sizes on the card.
+   sampled) at their default sizes on the card; the 16 x 16 and 2 x 16 x
+   16 records of every train shape the sharded step runs print their
+   collective bytes a device by kind and ``t_collective_s``.
+13. the sharded training step (ZeRO-3 over "data" x tensor parallel
+   over "model", ``make_train_step(cfg, opt, mesh)``): (a) a 1 x 1 NCCL
+   mesh (a world of one rank through a ``FileStore`` in a temporary
+   directory) and recurrentgemma-9b at full width cut to phase 5's 5
+   layers, 2 sharded steps (global batch 2 x 4,096 on the copy task, 2
+   microbatches) against 2 steps of ``make_train_step`` without a mesh
+   on a deep copy of the same masters and batches, under
+   ``torch.use_deterministic_algorithms``: losses, gradient norms and
+   every updated master equal bit for bit, or else the first leaf that
+   parts and by how much, within ``SHARD_TOL``; flash and scan
+   launches per step equal the unsharded step's (``train_launches``),
+   counted from 0 just before the sharded run; the comm counters at 0;
+   the masters, gradients and moments the sharded model holds after
+   its steps (``memory_allocated`` grown across cutting and training
+   it) within 1% of the dry run's resident bytes on that mesh, the
+   activations' peak printed beside them; (b) with 4 or more cards, a 2
+   x 2 NCCL mesh of 4 processes trains recurrentgemma-9b at all 38
+   layers 2 steps: losses finite, each card's peak and held memory
+   against the dry run's bytes a device, step times; with fewer cards
+   it prints ``mesh 2x2: not run (<n> card)``.
 
 ``--phases`` runs a subset and prints no result line (``--phases 8``
 runs phase 8 after the build). With all phases, the line before the
 last holds the kernels' summary as JSON (an entry per kernel and main
 path, with its timed shape and path: qwen2-1.5b's, the training run's,
-phase 9's at head_dim 256, phase 10's MoE shapes and phase 11's
-encoder-decoder and vision shapes), after a line
+phase 9's at head_dim 256, phase 10's MoE shapes, phase 11's
+encoder-decoder and vision shapes and phase 13's sharded step), after a
+line
 with phase 8's launches by
 path; the last line is ``{"ok": true, "device": {...}}``.
 Needs one card; imports nothing of JAX.
@@ -417,7 +440,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/12] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/13] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -1274,7 +1297,7 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/12] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/13] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode and paged decode at "
         f"head_dims to 256, flash at head_dim 256 with its lse, flash over "
         f"every key at head_dim 64 with Sq != Sk, the RG-LRU scan forward "
@@ -1358,7 +1381,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/12] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/13] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1797,7 +1820,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/12] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/13] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -2061,7 +2084,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/12] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/13] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -2430,7 +2453,7 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/12] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/13] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
@@ -2933,7 +2956,7 @@ def phase_edge(torch, np, ops, smi: str) -> dict:
            "paper_rows": paper_rows(torch),
            "llm": llm_partitioned(torch, np, ops, smi),
            "hybrid": hybrid_partitioned(torch, np, ops)}
-    say("[7/12] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+    say("[7/13] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
         "within the CPU limit, every partition point equal to the "
         "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
         "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
@@ -3661,7 +3684,7 @@ def phase_tiered(torch, np, ops, smi: str) -> dict:
     del model
     torch.cuda.empty_cache()
     say(f"  {smi}; phase 8 took {out['phase_s']:.1f} s")
-    say("[8/12] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
+    say("[8/13] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
         "content-neutral, the gated tier beats the endpoint alone, every "
         "request equal to its tier alone, nothing lost across a link cut, "
         "the server over HTTP, failover frames equal to forward; launches "
@@ -4122,7 +4145,7 @@ def phase_hybrid(torch, np, ops, fa_ref, da_ref, scan_ref, smi: str) -> dict:
             f"ms, decode {s['decode_ms_per_step']:.3f} ms/step; traced "
             f"busy {t['device_busy_s']:.4f} s of {t['wall_s']:.4f} s, idle "
             f"share {t['idle_share']:.4f}")
-    say("[9/12] serving gemma3-1b and recurrentgemma-9b full width/depth "
+    say("[9/13] serving gemma3-1b and recurrentgemma-9b full width/depth "
         "bf16 (rings wrapped in prefill, RG-LRU state): every request "
         "'length', fifo == batch, paged == slotted, prefix-cache and "
         "prefill-chunk served one-shot, launches exact; llama3.2-3b and "
@@ -4953,7 +4976,7 @@ def phase_families(torch, np, ops, fa_ref, da_ref, scan_ref,
                if t else ""))
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 10 took {out['phase_s']:.1f} s")
-    say("[10/12] the MoE and xLSTM families on the card: the JAX fixture "
+    say("[10/13] the MoE and xLSTM families on the card: the JAX fixture "
         "within 1e-4 with JAX's engine records; qwen2-moe-a2.7b full "
         "width/depth bf16 served fifo, batch, paged, prefix-cache, chunked "
         "and on the gather dispatch, launches exact, paged == slotted, "
@@ -5362,7 +5385,7 @@ def phase_encdec(torch, np, ops, fa_ref, da_ref, scan_ref,
             f"{t['idle_share']:.4f}")
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 11 took {out['phase_s']:.1f} s")
-    say("[11/12] the encoder-decoder and the vision frontend on the card: "
+    say("[11/13] the encoder-decoder and the vision frontend on the card: "
         "the JAX fixture within 1e-4 with JAX's tokens and records; "
         "seamless-m4t-medium and llava-next-mistral-7b full width/depth "
         "bf16 served fifo, batch and paged, launches exact, paged == "
@@ -5469,6 +5492,17 @@ def dry_run_all(built: dict) -> dict:
     if fails:
         raise PhaseFailed(f"phase 12: {len(fails)} dry-run failures: {fails}")
     say(roofline.table(data))
+    for (arch, shape, mesh), rec in sorted(data.items()):
+        c = rec.get("collectives")
+        if c:
+            say(f"  collectives {arch} x {shape} x {mesh}: "
+                f"{rec['collective_bytes_per_device']:,} B a device "
+                f"(all-gather {c['all-gather']:,}, reduce-scatter "
+                f"{c['reduce-scatter']:,}, all-reduce {c['all-reduce']:,}; "
+                f"{c['count']} calls), t_collective_s "
+                f"{rec['t_collective_s']:.4f} (a bound at the links' "
+                f"peaks), held {rec['resident_bytes_per_device']:,} B a "
+                f"device")
     compared = {}
     for cfg, n in built.items():
         arch = next((a for a in ARCH_IDS if get_config(a) == cfg), None)
@@ -5615,9 +5649,338 @@ def phase_dryrun(torch, built: dict, smi: str) -> dict:
     out["floor"] = bound_floor(torch, smi)
     out["examples"] = examples_on_card(torch)
     out["wall_s"] = time.perf_counter() - t0
-    say(f"[12/12] dry run: {len(out['dry_run']['records'])} records, no "
+    say(f"[12/13] dry run: {len(out['dry_run']['records'])} records, no "
         f"FAIL; resident bytes within {RESIDENT_TOL:.0%} of the card; "
         f"prefill and decode at or above their bounds; both examples pass "
+        f"({out['wall_s']:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+# the sharded run's geometry: phase 5's (global batch 2 x 4,096 on the
+# copy task in 2 microbatches, so that each kernel call has phase 2's
+# training shape), 2 steps
+SHARD_RUN = dict(steps=2, batch=2, seq=TRAIN_S, microbatches=2, lr=1e-3)
+# where the 1 x 1 sharded step parts from the unsharded one (it should
+# not: the same kernels and operations): losses and gradient norms
+# relative, masters absolute (a quarter of lr, as the CPU tests hold
+# AdamW's eps regime)
+SHARD_TOL = {"loss": 1e-6, "grad_norm": 1e-6, "masters": 2.5e-4}
+RESIDENT_SHARD_TOL = 0.01
+# the 4-card run on a 2 x 2 mesh: recurrentgemma-9b cut to (a)'s 5
+# layers on (a)'s batches (in one microbatch: each row holds the same
+# number of labelled tokens, so the loss is (a)'s), then whole
+MESH4 = dict(data=2, model=2, steps=SHARD_RUN["steps"],
+             batch=SHARD_RUN["batch"], seq=SHARD_RUN["seq"],
+             microbatches=1, lr=SHARD_RUN["lr"], timeout_s=900)
+# the cut model on 2 x 2 against (a)'s unsharded run, relative: bf16
+# products and sums over other splits (phase 5's kernels-vs-plain loss
+# limit)
+MESH4_TOL = 1e-2
+
+
+def shard_batches(cfg, np, n: int, batch: int, seq: int) -> list:
+    from repro_torch.runtime import data
+    gen = data.copy_task_batches(batch, seq, cfg.vocab_size, seed=0)
+    return [next(gen) for _ in range(n)]
+
+
+def train_steps(torch, step, model, opt, batches) -> tuple:
+    """Run ``step`` over ``batches``: (model, opt, metrics as floats per
+    step, seconds per step, launches per step)."""
+    hist, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b)
+        hist.append({k: float(v) for k, v in m.items()})
+        secs.append(time.perf_counter() - t0)
+    return model, opt, hist, secs
+
+
+def one_rank_sharded(torch, np, ops, smi: str) -> dict:
+    """(a): the 1 x 1 NCCL mesh against the unsharded step."""
+    import copy
+
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import optim
+    from repro_torch.runtime.trainstep import make_train_step
+    from repro_torch.sharding.rules import shard_params
+    cfg = full_width_config()
+    oc = optim.AdamWConfig(lr=SHARD_RUN["lr"], warmup_steps=1,
+                           total_steps=SHARD_RUN["steps"])
+    batches = shard_batches(cfg, np, SHARD_RUN["steps"], SHARD_RUN["batch"],
+                            SHARD_RUN["seq"])
+    want_n = train_launches(cfg, SHARD_RUN["microbatches"])
+    tmp = tempfile.mkdtemp(prefix="shard")
+    mesh_lib.init_world(0, 1, str(Path(tmp) / "store"), device="cuda")
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = mesh_lib.make_debug_mesh(1, 1, device="cuda")
+        free(torch)
+        full = T.init_params(cfg, 0, device="cuda", dtype=torch.float32)
+        twin = copy.deepcopy(full)
+        full.requires_grad_(True)
+        step = make_train_step(cfg, oc,
+                               microbatches=SHARD_RUN["microbatches"])
+        before = counts(ops)
+        full, opt, plain_hist, plain_s = train_steps(
+            torch, step, full, optim.init(full), batches)
+        plain_n = {k: (counts(ops)[k] - before[k]) // SHARD_RUN["steps"]
+                   for k in before}
+        plain_after = {n: p.detach().to("cpu", copy=True)
+                       for n, p in full.named_parameters()}
+        del full, opt, step
+        free(torch)
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = shard_params(twin, mesh)
+        model.requires_grad_(True)
+        step = make_train_step(cfg, oc, mesh,
+                               microbatches=SHARD_RUN["microbatches"])
+        mesh.counts.reset()
+        for k in TRAIN_KERNELS:
+            ops[k].launches = 0
+        model, opt, hist, secs = train_steps(torch, step, model,
+                                             optim.init(model), batches)
+        torch.cuda.synchronize()
+        launches = counts(ops)
+        comm = mesh.counts.record()
+        held = torch.cuda.memory_allocated() - held0
+        peak = torch.cuda.max_memory_allocated() - held0
+        parts = first_parting(torch, plain_hist, hist, plain_after, model)
+        del model, opt, twin, plain_after
+        free(torch)
+    finally:
+        torch.use_deterministic_algorithms(det)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = dryrun.count_sharded(cfg, InputShape(
+        "shard13", SHARD_RUN["seq"], SHARD_RUN["batch"], "train"),
+        {"data": 1, "model": 1}, microbatches=SHARD_RUN["microbatches"])
+    dry = rec["resident_bytes_per_device"]
+    rel = held / dry - 1
+    per_step = {k: launches[k] // SHARD_RUN["steps"] for k in launches}
+    out = {"config": f"{cfg.name} n_layers={cfg.n_layers} bf16 over fp32 "
+                     f"masters, 1x1 NCCL mesh",
+           "losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "plain_losses": [m["loss"] for m in plain_hist],
+           "plain_grad_norms": [m["grad_norm"] for m in plain_hist],
+           "step_s": secs, "plain_step_s": plain_s,
+           "launches": launches, "launches_per_step": per_step,
+           "plain_launches_per_step": plain_n, "comm": comm,
+           "held_bytes": held, "dry_run_bytes": dry, "resident_rel": rel,
+           "activation_peak_bytes": peak - held, "parts": parts,
+           "nvidia_smi": smi}
+    say(f"  (a) {out['config']}: losses {out['losses']} (unsharded "
+        f"{out['plain_losses']}), grad norms {out['grad_norms']}; "
+        f"{'bit for bit' if parts is None else f'first parting {parts}'}; "
+        f"step {[round(x, 3) for x in secs]} s (unsharded "
+        f"{[round(x, 3) for x in plain_s]} s); launches a step {per_step} "
+        f"(unsharded {plain_n}); collectives {comm['count']} calls, "
+        f"{comm['total']} B; held {held:,} B against the dry run's "
+        f"{dry:,} B ({rel:+.4%}), activations' peak {peak - held:,} B "
+        f"[{smi}]")
+    if parts is not None and not parts["within"]:
+        raise PhaseFailed(f"phase 13: the 1x1 sharded step parts from the "
+                          f"unsharded one beyond SHARD_TOL: {parts}")
+    if per_step != plain_n or per_step != want_n or any(
+            launches[k] != per_step[k] * SHARD_RUN["steps"]
+            for k in launches):
+        raise PhaseFailed(f"phase 13: sharded launches {launches}, unsharded "
+                          f"{plain_n} a step, want {want_n} a step")
+    if comm["count"] or comm["total"]:
+        raise PhaseFailed(f"phase 13: a 1x1 mesh issued collectives: {comm}")
+    if abs(rel) > RESIDENT_SHARD_TOL:
+        raise PhaseFailed(f"phase 13: held {held:,} B vs the dry run's "
+                          f"{dry:,} B ({rel:+.2%})")
+    if not all(map(math.isfinite, out["losses"])):
+        raise PhaseFailed(f"phase 13: losses {out['losses']}")
+    return out
+
+
+def first_parting(torch, plain_hist, hist, plain_after, model):
+    """None when the sharded run equals the unsharded one bit for bit;
+    else the first metric or master leaf that parts, by how much, and
+    whether every difference is within ``SHARD_TOL``."""
+    first, within = None, True
+    for i, (a, b) in enumerate(zip(plain_hist, hist)):
+        for k in ("loss", "grad_norm"):
+            if a[k] != b[k]:
+                rel = abs(a[k] - b[k]) / abs(a[k])
+                first = first or f"step {i} {k}: rel {rel:.3e}"
+                within &= rel <= SHARD_TOL[k]
+    for name, p in model.named_parameters():
+        w = plain_after[name]
+        got = p.detach().cpu()
+        if not torch.equal(got, w):
+            d = float((got - w).abs().max())
+            first = first or f"{name}: max |diff| {d:.3e}"
+            within &= d <= SHARD_TOL["masters"]
+    return None if first is None else {"first": first, "within": within}
+
+
+def mesh_rank(rank: int, world: int, store: str, queue) -> None:
+    """One rank of (b)'s 2 x 2 NCCL mesh: recurrentgemma-9b cut to (a)'s
+    5 layers on (a)'s batches, then whole (38 layers), each cut into its
+    shards and trained 2 steps; each rank puts its record on ``queue``:
+    metrics, step times, memory and the last step's collectives."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import optim
+    from repro_torch.runtime.trainstep import make_train_step
+    from repro_torch.sharding.rules import shard_params
+    out = {"rank": rank}
+    try:
+        mesh_lib.init_world(rank, world, store, device="cuda")
+        mesh = mesh_lib.make_debug_mesh(MESH4["data"], MESH4["model"])
+        for name, cfg in (("cut", full_width_config()),
+                          ("whole", get_config("recurrentgemma_9b"))):
+            full = T.init_params(cfg, 0, device=mesh.device,
+                                 dtype=torch.float32)
+            model = shard_params(full, mesh)
+            del full
+            torch.cuda.empty_cache()
+            model.requires_grad_(True)
+            torch.cuda.synchronize()
+            held0 = torch.cuda.memory_allocated() - sum(
+                p.numel() * 4 for p in model.parameters())
+            torch.cuda.reset_peak_memory_stats()
+            oc = optim.AdamWConfig(lr=MESH4["lr"], warmup_steps=1,
+                                   total_steps=MESH4["steps"])
+            step = make_train_step(cfg, oc, mesh,
+                                   microbatches=MESH4["microbatches"])
+            batches = shard_batches(cfg, np, MESH4["steps"], MESH4["batch"],
+                                    MESH4["seq"])
+            opt = optim.init(model)
+            model, opt, hist, secs = train_steps(torch, step, model, opt,
+                                                 batches[:-1])
+            mesh.counts.reset()
+            model, opt, last, last_s = train_steps(torch, step, model, opt,
+                                                   batches[-1:])
+            torch.cuda.synchronize()
+            out[name] = {"losses": [m["loss"] for m in hist + last],
+                         "grad_norms": [m["grad_norm"] for m in hist + last],
+                         "step_s": secs + last_s,
+                         "held": torch.cuda.memory_allocated() - held0,
+                         "peak": torch.cuda.max_memory_allocated() - held0,
+                         "comm": mesh.counts.record()}
+            del model, opt, step
+            torch.cuda.empty_cache()
+        torch.distributed.destroy_process_group()
+    except Exception as exc:     # noqa: BLE001 — reported by the parent
+        out["error"] = repr(exc)
+    queue.put(out)
+
+
+def four_card_sharded(torch, smi: str, plain: dict) -> dict:
+    """(b): the 2 x 2 NCCL mesh over 4 cards, when there are 4: the cut
+    model against (a)'s unsharded run (``MESH4_TOL``), each model's
+    collectives against the dry run's count of the same step kind by
+    kind, memory against its bytes a device."""
+    import multiprocessing as mp
+    n = torch.cuda.device_count()
+    if n < MESH4["data"] * MESH4["model"]:
+        say(f"  (b) mesh 2x2: not run ({n} card)")
+        return {"run": False, "cards": n}
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    world = MESH4["data"] * MESH4["model"]
+    tmp = tempfile.mkdtemp(prefix="mesh4")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank, args=(r, world,
+                                                 str(Path(tmp) / "store"),
+                                                 queue))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    recs = []
+    try:
+        for _ in range(world):
+            recs.append(queue.get(timeout=MESH4["timeout_s"]))
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    errors = [r for r in recs if "error" in r]
+    if errors:
+        raise PhaseFailed(f"phase 13 (b): {errors}")
+    recs.sort(key=lambda r: r["rank"])
+    out = {"run": True, "cards": n, "wall_s": wall, "ranks": recs}
+    axes = {"data": MESH4["data"], "model": MESH4["model"]}
+    for name, cfg in (("cut", full_width_config()),
+                      ("whole", get_config("recurrentgemma_9b"))):
+        dry = dryrun.count_sharded(cfg, InputShape(
+            "mesh4", MESH4["seq"], MESH4["batch"], "train"), axes,
+            microbatches=MESH4["microbatches"])
+        r0 = recs[0][name]
+        out[name] = {"dry_run": {k: dry[k] for k in (
+            "resident_bytes_per_device", "collective_bytes_per_device",
+            "t_collective_s", "collectives")}}
+        say(f"  (b) {name} recurrentgemma-9b ({cfg.n_layers} layers) on a "
+            f"2x2 NCCL mesh: losses {r0['losses']}, grad norms "
+            f"{r0['grad_norms']}, step {[round(x, 3) for x in r0['step_s']]}"
+            f" s; per card held {[r[name]['held'] for r in recs]} B and "
+            f"peak {[r[name]['peak'] for r in recs]} B against the dry "
+            f"run's {dry['resident_bytes_per_device']:,} B a device; a "
+            f"step's collectives {r0['comm']['total']:,} B a card (dry run "
+            f"{dry['collective_bytes_per_device']:,} B, t_collective_s "
+            f"{dry['t_collective_s']:.4f} bound) [{smi}]")
+        for r in recs:
+            if r[name]["comm"] != dry["collectives"]:
+                raise PhaseFailed(f"phase 13 (b) {name}: rank {r['rank']}'s "
+                                  f"collectives {r[name]['comm']} differ "
+                                  f"from the dry run's "
+                                  f"{dry['collectives']}")
+            if not all(map(math.isfinite, r[name]["losses"])):
+                raise PhaseFailed(f"phase 13 (b) {name}: losses "
+                                  f"{r[name]['losses']}")
+    for k in ("losses", "grad_norms"):
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(recs[0]["cut"][k], plain[k]))
+        out["cut"][f"{k}_rel"] = rel
+        if rel > MESH4_TOL:
+            raise PhaseFailed(f"phase 13 (b): the 2x2 cut model's {k} "
+                              f"{recs[0]['cut'][k]} part from the unsharded "
+                              f"{plain[k]} by {rel:.3e} (limit {MESH4_TOL})")
+    say(f"  (b) the cut model against (a)'s unsharded run: losses within "
+        f"{out['cut']['losses_rel']:.3e}, grad norms within "
+        f"{out['cut']['grad_norms_rel']:.3e} relative ({wall:.1f} s in "
+        f"all)")
+    return out
+
+
+def phase_sharded(torch, np, ops, smi: str) -> dict:
+    t0 = time.perf_counter()
+    one = one_rank_sharded(torch, np, ops, smi)
+    out = {"one_rank": one, "mesh4": four_card_sharded(
+        torch, smi, {"losses": one["plain_losses"],
+                     "grad_norms": one["plain_grad_norms"]})}
+    out["wall_s"] = time.perf_counter() - t0
+    agree = "equals" if one["parts"] is None else "is within SHARD_TOL of"
+    say(f"[13/13] sharded training: the 1x1 NCCL mesh {agree} "
+        f"the unsharded step, launches equal, held bytes within "
+        f"{RESIDENT_SHARD_TOL:.0%} of the dry run's, no collective; "
+        f"2x2 {'run' if out['mesh4']['run'] else 'not run'} "
         f"({out['wall_s']:.1f} s)")
     return out
 
@@ -5715,11 +6078,20 @@ KERNEL_LINE = [
     ("paged_decode_attention", DA_SRC, PAGED_TPU, "llava",
      ("encdec", "llava", "paged"), "the launches count 32 layers x the "
      "paged run's decode steps"),
+    # phase 13: the sharded step on the 1 x 1 NCCL mesh
+    ("flash_attention", FA_SRC, FA_TPU, "train",
+     ("sharded", "one_rank"), "the sharded train step (1x1 mesh), 1 "
+     "attn_local layer x 2 microbatches x 2 steps"),
+    ("rglru_scan_fwd", SCAN_SRC, SCAN_TPU, "train",
+     ("sharded", "one_rank"), "the sharded train step (1x1 mesh)"),
+    ("rglru_scan_bwd", SCAN_SRC, SCAN_TPU, "train",
+     ("sharded", "one_rank"), "the sharded train step (1x1 mesh)"),
 ]
 # a KERNEL_LINE shape timed under another phase-2 record than its name's
 TIMED_AS = {"qwen2-moe-train": "flash_attention_train",
-            "seamless-encoder": "flash_attention_bidir"}
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
+            "seamless-encoder": "flash_attention_bidir",
+            ("flash_attention", "train"): "flash_attention_train"}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
 
 
 def tiered_launches(rec: dict) -> dict:
@@ -5735,7 +6107,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -5803,6 +6175,9 @@ def main() -> int:
         if 12 in phases:
             record["dryrun"] = phase_dryrun(torch, built.models,
                                             record["device"]["nvidia_smi"])
+        if 13 in phases:
+            record["sharded"] = phase_sharded(torch, np, ops,
+                                              record["device"]["nvidia_smi"])
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
@@ -5823,7 +6198,8 @@ def main() -> int:
         return 0
     kernels = []
     for name, source, replaces, shape, path, *also in KERNEL_LINE:
-        m = record["kernels"][TIMED_AS.get(shape, name)][shape]
+        m = record["kernels"][TIMED_AS.get((name, shape),
+                                           TIMED_AS.get(shape, name))][shape]
         run = record
         for key in path:
             run = run[key]

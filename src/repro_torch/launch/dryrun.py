@@ -23,15 +23,29 @@ its meta branch, which launches nothing), and records per combination:
   compute dtype's peak and ``bytes`` over HBM's rate, bounds from
   published H100 peaks (``launch.mesh``), never times;
 * ``param_bytes_per_device`` (and ``cache_bytes_per_device`` for decode)
-  under the sharding rules (``repro_torch.sharding``) on the mesh.
+  under the sharding rules (``repro_torch.sharding``) on the mesh;
+* ``collective_bytes_per_device``, ``collectives`` (bytes and calls by
+  kind, bytes by the axes crossed) and ``t_collective_s``: the
+  counterpart of the reference's ``collective_bytes``. For a train shape
+  of a family the sharded step runs, rank 0's per-device program of
+  ``make_train_step(cfg, opt, mesh)`` runs on the meta device over an
+  abstract mesh (``count_sharded``), whose collectives are counted as
+  the reference's parser counts them (each result's bytes on one
+  device), not issued; ``t_collective_s`` is each axis set's bytes over
+  its link's published peak (NVLink 4 inside a pod, InfiniBand across
+  pods; ``launch.mesh``), a bound. ``resident_bytes_per_device`` is that
+  program's fp32 masters, gradients and moments. A combination the
+  sharded step does not run records why in ``collective_note``, and
+  ``None`` for the three.
 
 Meshes: ``h100`` (one card), ``pod`` (16 x 16) and ``multipod`` (2 x 16 x
-16), abstract: a pod mesh's record splits the one-card counts evenly
-over its chips and has no collective term (the port never produces the
-HLO the reference parses collectives from).
+16), abstract, or any ``DxM`` / ``PxDxM`` (``2x2`` for the tests and the
+card): a mesh's time terms split the one-card counts evenly over its
+chips.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] \\
-        [--shape S] [--mesh h100|pod|multipod|all] [--outdir build/dryrun]
+        [--shape S] [--mesh h100|pod|multipod|DxM|all] \\
+        [--outdir build/dryrun]
 
 needs no device and writes one JSON per combination.
 """
@@ -56,9 +70,10 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import optim
-from repro_torch.runtime.trainstep import make_train_step
+from repro_torch.runtime.trainstep import check_shardable, make_train_step
 from repro_torch.sharding import (cache_shardings, device_bytes,
                                   params_shardings)
+from repro_torch.sharding.rules import batch_axes, shard_params
 from repro_torch.weights import reference_cache, reference_shapes
 
 OUTDIR = os.path.join("build", "dryrun")
@@ -132,6 +147,57 @@ def count_step(cfg: ModelConfig, shape: Union[str, InputShape], *,
             "count_s": count_s}
 
 
+def count_sharded(cfg: ModelConfig, shape: Union[str, InputShape],
+                  axes: Dict[str, int], *, microbatches: int = 1,
+                  batch_override: Optional[int] = None) -> Dict:
+    """The collectives of rank 0's program of the sharded train step on
+    ``axes``, run on the meta device over an abstract mesh: {"collectives"
+    (``CommCount.record``), "collective_bytes_per_device",
+    "t_collective_s", "resident_bytes_per_device"}, or the three None
+    and "collective_note" where the sharded step does not run the
+    combination."""
+    s = resolve(shape)
+    mesh = mesh_lib.abstract_mesh(axes)
+    specs = input_specs(cfg, s, batch_override)
+    b = next(iter(specs.values())).shape[0]
+    why = None
+    if s.kind != "train":
+        why = ("the sharded prefill and serve steps come in a later slice "
+               "(ROADMAP Queue 4)")
+    elif b % (mesh.size(batch_axes(axes)) * microbatches):
+        why = (f"a global batch of {b} in {microbatches} microbatches does "
+               f"not split over {mesh.size(batch_axes(axes))} data ranks")
+    else:
+        try:
+            check_shardable(cfg, mesh)
+        except ValueError as exc:
+            why = str(exc)
+    if why is not None:
+        return {"collectives": None, "collective_bytes_per_device": None,
+                "t_collective_s": None, "resident_bytes_per_device": None,
+                "collective_note": why}
+    with KernelCount():
+        full = T.Transformer(cfg, device=META, dtype=torch.float32)
+        model = shard_params(full, mesh)
+        model.requires_grad_(True)
+        step = make_train_step(cfg, optim.AdamWConfig(), mesh,
+                               microbatches=microbatches)
+        step(model, optim.init(model), specs)
+    n_local = sum(p.numel() for p in model.parameters())
+    return {"collectives": mesh.counts.record(),
+            "collective_bytes_per_device": mesh.counts.total,
+            "t_collective_s": mesh.counts.seconds(mesh_lib.LINK_PEAK_BW),
+            "resident_bytes_per_device": 4 * 4 * n_local}
+
+
+def mesh_axes(mesh: str):
+    """(record name, axes) of a mesh key of ``MESHES`` or a ``DxM`` /
+    ``PxDxM`` name."""
+    if mesh in MESHES:
+        return MESHES[mesh]
+    return mesh, mesh_lib.parse_mesh(mesh)
+
+
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
@@ -164,8 +230,10 @@ def _notes(cfg: ModelConfig, s: InputShape, mesh: str) -> List[str]:
              "AdamW moments for training) and the decode cache, no "
              "activations"]
     if mesh != "h100":
-        notes.append("a pod mesh's time terms split the one-card counts "
-                     "evenly over its chips, with no collective term")
+        notes.append("a mesh's time terms split the one-card counts "
+                     "evenly over its chips; the collective term is rank "
+                     "0's program of the sharded train step, bytes over "
+                     "the links' published peaks")
     if s.kind == "train" and any(k.startswith("attn") for k in
                                  cfg.layer_kinds):
         notes.append("flops count the flash backward as the port runs it, "
@@ -184,7 +252,7 @@ def record(arch: str, cfg: ModelConfig, counted: Dict,
            mesh: str = "h100") -> Dict:
     """One mesh's record of a counted step (``count_step``)."""
     s = counted["shape"]
-    mesh_name, axes = MESHES[mesh]
+    mesh_name, axes = mesh_axes(mesh)
     chips = math.prod(axes.values())
     tokens = counted["batch"] * (1 if s.kind == "decode" else s.seq_len)
     model_flops = (6 if s.kind == "train" else 2) \
@@ -215,6 +283,15 @@ def record(arch: str, cfg: ModelConfig, counted: Dict,
     if counted["cache"] is not None:
         res["cache_bytes_per_device"] = cache_bytes_per_device(
             cfg, counted["cache"], axes)
+    if chips == 1:
+        res.update(collectives=None, collective_bytes_per_device=0,
+                   t_collective_s=0.0,
+                   resident_bytes_per_device=counted["resident_bytes"],
+                   collective_note="one card: no collective")
+    else:
+        res.update(count_sharded(cfg, s, axes,
+                                 microbatches=counted["microbatches"],
+                                 batch_override=counted["batch"]))
     terms = {k: res[k] for k in ("t_compute_s", "t_memory_s")}
     res["bottleneck"] = max(terms, key=terms.get)
     return res
@@ -259,7 +336,7 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default=None, choices=list(SHAPES),
                     help="input shape (default: all)")
     ap.add_argument("--mesh", default="h100",
-                    choices=[*MESHES, "all"])
+                    help="h100, pod, multipod, DxM, PxDxM or all")
     ap.add_argument("--force", action="store_true",
                     help="count again where a record exists")
     ap.add_argument("--microbatches", type=int, default=1)
@@ -275,12 +352,12 @@ def main(argv=None) -> None:
         for shape in shapes:
             if not shape_applicable(cfg, shape):
                 for mesh in meshes:
-                    print(f"SKIP {arch} x {shape} x {MESHES[mesh][0]} "
+                    print(f"SKIP {arch} x {shape} x {mesh_axes(mesh)[0]} "
                           f"(long-context not applicable)")
                 continue
             counted = None
             for mesh in meshes:
-                tag = f"{arch} x {shape} x {MESHES[mesh][0]}"
+                tag = f"{arch} x {shape} x {mesh_axes(mesh)[0]}"
                 path = record_path(args.outdir, arch, shape, mesh)
                 try:
                     t0 = time.perf_counter()

@@ -2,21 +2,34 @@
 
     python -m repro_torch.launch.train --arch <id> [--smoke] [--steps N]
         [--batch B] [--seq S] [--lr LR] [--microbatches M] [--ckpt PATH]
-        [--log-every K] [--device cuda|cpu]
+        [--log-every K] [--device cuda|cpu] [--data N --model M]
 
-The counterpart of ``repro.launch.train`` on one device: fp32 master
-parameters from ``init_params`` (seed 0), AdamW with warmup over a tenth
-of the steps and cosine decay, ``make_train_step`` with gradient
-accumulation over ``--microbatches``, the reference's ``lm_batches``
-stream (with a frontend config's stub inputs, ``with_frontend``), and
-the reference's step line. Runs on the card unless
-``--device cpu``.
+The counterpart of ``repro.launch.train``: fp32 master parameters from
+``init_params`` (seed 0), AdamW with warmup over a tenth of the steps
+and cosine decay, ``make_train_step`` with gradient accumulation over
+``--microbatches``, the reference's ``lm_batches`` stream (with a
+frontend config's stub inputs, ``with_frontend``), and the reference's
+step line. Runs on the card unless ``--device cpu``.
+
+``--data N --model M`` trains over an N x M mesh (ZeRO-3 over "data" x
+tensor parallel over "model", ``runtime.trainstep``), one process a
+rank, started by ``torchrun``::
+
+    torchrun --standalone --nproc-per-node N*M -m repro_torch.launch.train \
+        --arch recurrentgemma_9b --data 2 --model 2 ...
+
+NCCL on the cards (rank r on card ``LOCAL_RANK``), gloo with ``--device
+cpu``. Every rank builds the same masters from the seed and keeps its
+shards; every rank draws the same global batches and trains on its rows;
+rank 0 alone prints, and writes ``--ckpt`` (the gathered masters, the
+file an unsharded run writes).
 ``main(argv)`` parses the flags and calls ``run``, which ``chip_smoke.py``
 also calls.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -26,8 +39,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.runtime import checkpoint, data, optim
 from repro_torch.runtime.trainstep import make_train_step
+from repro_torch.sharding.rules import shard_params
 
 DATA = {"lm": data.lm_batches, "copy": data.copy_task_batches}
 
@@ -53,25 +68,33 @@ def with_frontend(cfg: ModelConfig, batch: Dict) -> Dict:
 def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         lr: float = 1e-3, microbatches: int = 1, data_name: str = "lm",
         repeat: bool = False, ckpt: Optional[str] = None,
-        log_every: int = 10, device="cuda",
+        log_every: int = 10, device="cuda", mesh=None,
         on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
     """Train ``cfg`` for ``steps`` steps and print the reference's step
-    lines. ``data_name`` picks the synthetic stream (``"lm"``:
+    lines. With ``mesh`` (``launch.mesh.make_debug_mesh``; every rank
+    calls this) the model is cut into this rank's shards and trained by
+    the sharded step, and rank 0 alone prints. ``data_name`` picks the
+    synthetic stream (``"lm"``:
     ``lm_batches``; ``"copy"``: ``copy_task_batches``, cheap at any
     vocabulary); ``repeat`` trains every step on its first batch.
     ``on_step(i, metrics)`` is called after each step, with the step's
     metrics as floats (the device synchronised). Returns {"model",
     "metrics": [per step], "step_s": [per step, host clock around the
     synchronised step]}."""
-    dev = T.resolve_device(device)
-    print(f"# arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
-          f"params~{cfg.param_count()/1e6:.1f}M")
+    dev = T.resolve_device(device) if mesh is None else mesh.device
+    say = print if mesh is None or not any(mesh.coords.values()) \
+        else (lambda *a, **k: None)
+    say(f"# arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
+        f"params~{cfg.param_count()/1e6:.1f}M"
+        + ("" if mesh is None else f" mesh={mesh.shape}"))
     model = T.init_params(cfg, 0, device=dev, dtype=torch.float32)
+    if mesh is not None:
+        model = shard_params(model, mesh)
     model.requires_grad_(True)
     opt = optim.init(model)
     oc = optim.AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
                            total_steps=steps)
-    step = make_train_step(cfg, oc, microbatches=microbatches)
+    step = make_train_step(cfg, oc, mesh, microbatches=microbatches)
     gen = DATA[data_name](batch, seq, cfg.vocab_size)
     first = None
     history: List[Dict] = []
@@ -92,14 +115,14 @@ def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         if on_step is not None:
             on_step(i, m)
         if i % log_every == 0 or i == steps - 1:
-            print(f"step {i:5d} loss {m['loss']:.4f} "
-                  f"gnorm {m['grad_norm']:.3f} "
-                  f"lr {m['lr']:.2e} "
-                  f"({(time.time()-t0)/(i+1):.2f}s/step)", flush=True)
+            say(f"step {i:5d} loss {m['loss']:.4f} "
+                f"gnorm {m['grad_norm']:.3f} "
+                f"lr {m['lr']:.2e} "
+                f"({(time.time()-t0)/(i+1):.2f}s/step)", flush=True)
     if ckpt:
         checkpoint.save(ckpt, model,
                         meta={"arch": cfg.name, "steps": steps})
-        print(f"# checkpoint -> {ckpt}")
+        say(f"# checkpoint -> {ckpt}")
     return {"model": model, "metrics": history, "step_s": step_s}
 
 
@@ -117,13 +140,31 @@ def main(argv=None) -> Dict:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain path")
+    ap.add_argument("--data", type=int, default=None,
+                    help="ranks of the mesh's data axis (with --model; "
+                         "one process a rank, under torchrun)")
+    ap.add_argument("--model", type=int, default=None,
+                    help="ranks of the mesh's model axis")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    return run(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-               lr=args.lr, microbatches=args.microbatches, ckpt=args.ckpt,
-               log_every=args.log_every, device=args.device)
+    mesh = None
+    if args.data is not None or args.model is not None:
+        import torch.distributed as dist
+        if "RANK" in os.environ and not dist.is_initialized():
+            mesh_lib.init_world_from_env(device=args.device)
+        mesh = mesh_lib.make_debug_mesh(args.data or 1, args.model or 1,
+                                        device=args.device)
+    try:
+        return run(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                   lr=args.lr, microbatches=args.microbatches,
+                   ckpt=args.ckpt, log_every=args.log_every,
+                   device=args.device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ through the slotted decode kernel (``cross_attn_decode``).
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, Tuple
 
 import torch
@@ -229,12 +230,49 @@ def _theta_for(cfg, kind: str) -> float:
     return cfg.rope_theta
 
 
+def _local_heads(p, cfg, ctx):
+    """Under a ``ctx`` whose "model" axis cuts the query heads: ``p``
+    with this rank's kv heads, those of its query heads. A kv leaf the
+    axis cuts too holds them already; a kv leaf every rank holds whole
+    (fewer kv heads than ranks) is sliced (``ctx.tp_slice``), and where
+    the rank's query heads do not map onto its kv heads as the kernel
+    maps them (head j on kv head j // (H / Hk)), the kv heads are
+    repeated to one a query head."""
+    if ctx.split(p, "wk"):
+        return p
+    h, hk = cfg.n_heads, cfg.n_kv_heads
+    hl, g = p.wq.shape[1], h // hk
+    first = ctx.tp_index * hl
+    want = [(first + j) // g for j in range(hl)]
+    lo, hi = want[0], want[-1] + 1
+    idx = [w - lo for w in want]
+    uniform = hl % (hi - lo) == 0 and all(
+        i == j // (hl // (hi - lo)) for j, i in enumerate(idx))
+    out = SimpleNamespace(**vars(p))
+    for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        t = getattr(p, name, None)
+        if t is None:
+            continue
+        t = ctx.tp_slice(t, dim, lo, hi)
+        if not uniform:
+            t = t.index_select(dim, torch.tensor(idx, device=t.device))
+        setattr(out, name, t)
+    return out
+
+
 def attn_apply(p, x: torch.Tensor, cfg, *, kind: str,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, ctx=None) -> torch.Tensor:
     """Full-sequence (train) attention sublayer with residual: causal,
     with the sliding window for ``attn_local``, differentiable through
-    the flash kernel (``FlashAttention``)."""
+    the flash kernel (``FlashAttention``). Under a ``ctx`` whose "model"
+    axis cuts the query heads (``ShardCtx.split``), the rank's heads
+    only: q, k, v column-parallel, the output row-parallel and summed
+    over "model"."""
+    split = ctx is not None and ctx.split(p, "wq")
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if split:
+        p = _local_heads(p, cfg, ctx)
+        h = ctx.tp_in(h)
     q, k, v = _qkv(p, h, cfg)
     theta = _theta_for(cfg, kind)
     q = apply_rope(q, positions, theta, cfg.rope_fraction)
@@ -242,7 +280,8 @@ def attn_apply(p, x: torch.Tensor, cfg, *, kind: str,
     window = cfg.window if kind == "attn_local" else 0
     o = FlashAttention.apply(q, k, v, window, cfg.attn_chunk,
                              1.0 / math.sqrt(q.shape[-1]))
-    return x + _out_proj(o, p.wo)
+    out = _out_proj(o, p.wo)
+    return x + (ctx.tp_out(out) if split else out)
 
 
 def attn_encoder_apply(p, x: torch.Tensor, cfg, *,
@@ -424,10 +463,17 @@ def attn_decode_paged(p, x: torch.Tensor, cfg, *, k_pool: torch.Tensor,
 # gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
-def mlp_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
+    """Gated MLP with residual. Under a ``ctx`` whose "model" axis cuts
+    the ff dim: w_gate and w_up column-parallel, w_down row-parallel,
+    the output summed over "model"."""
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    split = ctx is not None and ctx.split(p, "w_gate")
+    if split:
+        h = ctx.tp_in(h)
     g = act_fn(cfg.act)(h @ p.w_gate) * (h @ p.w_up)
-    return x + g @ p.w_down
+    out = g @ p.w_down
+    return x + (ctx.tp_out(out) if split else out)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype,

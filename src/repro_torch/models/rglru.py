@@ -27,6 +27,7 @@ on such a prompt).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -93,10 +94,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b
 
 
-def _gates(p, xc: torch.Tensor):
+def _gates(p, xc: torch.Tensor, xg: Optional[torch.Tensor] = None):
     """(a, b) of the recurrence, fp32: a = exp(log_a) and b = beta * (i *
-    xc) with beta = sqrt(max(1 - exp(2 log_a), 1e-12))."""
-    gates = xc @ p.w_gates + p.b_gates
+    xc) with beta = sqrt(max(1 - exp(2 log_a), 1e-12)). ``xg``: the
+    gates' input where it is not ``xc`` (every channel of it, when
+    ``xc`` holds a rank's channels)."""
+    gates = (xc if xg is None else xg) @ p.w_gates + p.b_gates
     r, i = torch.sigmoid(gates.float()).chunk(2, dim=-1)
     log_a = -_C * _softplus(p.lam) * r
     a = torch.exp(log_a)
@@ -104,22 +107,56 @@ def _gates(p, xc: torch.Tensor):
     return a, beta * (i * xc.float())
 
 
-def _block(p, x: torch.Tensor, cfg):
+def _local_channels(p, ctx):
+    """Under a ``ctx`` whose "model" axis cuts the channels: ``p`` with
+    this rank's share of the leaves every rank holds whole (``conv_b``,
+    and ``b_gates`` as its r and i halves), through ``ctx.tp_slice``.
+    The cut leaves hold the rank's channels already (``w_in`` and
+    ``w_gates`` by halves, see ``sharding.rules``)."""
+    n = p.w_out.shape[0]
+    lo = ctx.tp_index * n
+    d = n * ctx.tp
+    out = SimpleNamespace(**vars(p))
+    for name in ("conv_b", "lam"):
+        if not ctx.split(p, name):
+            setattr(out, name, ctx.tp_slice(getattr(p, name), 0, lo,
+                                            lo + n))
+    bg = ctx.tp_in(p.b_gates)
+    out.b_gates = torch.cat([bg[lo:lo + n], bg[d + lo:d + lo + n]])
+    return out
+
+
+def _block(p, x: torch.Tensor, cfg, ctx=None):
     """The full-sequence block: (x + its output, the rec branch's inputs
-    to the conv, the recurrence's outputs y in fp32)."""
+    to the conv, the recurrence's outputs y in fp32). Under a ``ctx``
+    whose "model" axis cuts the channels, the rank's channels only: the
+    scan sees (B, S, D / model), the conv's output is gathered for the
+    gates' product, and w_out's partial output is summed over
+    "model"."""
+    split = ctx is not None and ctx.split(p, "w_out")
+    if split and not (ctx.split(p, "w_in") and ctx.split(p, "w_gates")):
+        raise ValueError("rglru: w_out's channels are cut over 'model' but "
+                         "w_in's or w_gates' are not")
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if split:
+        p = _local_channels(p, ctx)
+        h = ctx.tp_in(h)
     gate, rec = (h @ p.w_in).chunk(2, dim=-1)
     gate = F.gelu(gate, approximate="tanh")
     xc = _causal_conv(rec, p.conv_w, p.conv_b)
-    a, b = _gates(p, xc)
+    if split:
+        from repro_torch.sharding import comm
+        a, b = _gates(p, xc, comm.all_gather(xc, ctx.mesh, "model", -1))
+    else:
+        a, b = _gates(p, xc)
     y = rglru_scan(a, b, torch.zeros_like(a[:, 0]))
     out = (y.to(x.dtype) * gate) @ p.w_out
-    return x + out, rec, y
+    return x + (ctx.tp_out(out) if split else out), rec, y
 
 
-def rglru_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+def rglru_apply(p, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
     """Full-sequence recurrent block with residual. x: (B, S, D)."""
-    return _block(p, x, cfg)[0]
+    return _block(p, x, cfg, ctx)[0]
 
 
 def rglru_prefill_cache(p, x: torch.Tensor, cfg

@@ -279,17 +279,24 @@ def cast_params_for_compute(model: Transformer, cfg: ModelConfig):
     ``.layers[i].kind`` ...) whose floating leaves but the ``_KEEP_F32``
     names are ``.to(compute dtype)`` of the masters. The casts are
     differentiable, so gradients reach the masters, as through the
-    reference's ``astype``."""
+    reference's ``astype``. The leaves of a sharded model
+    (``sharding.shard_params``) are its shards, and each namespace lists
+    their specs in ``_specs`` for ``ShardCtx``."""
     ct = _dtype(cfg.dtype)
 
     def view(mod):
         if isinstance(mod, nn.ModuleList):
             return [view(m) for m in mod]
         out = SimpleNamespace()
+        specs = {}
         for name, p in mod._parameters.items():
+            if p is not None and hasattr(p, "shard_spec"):
+                specs[name] = p.shard_spec
             if p is not None and not _keeps_f32(name, p):
                 p = p.to(ct)
             setattr(out, name, p)
+        if specs:
+            out._specs = specs
         for name, child in mod._modules.items():
             setattr(out, name, None if child is None else view(child))
         for name in ("kind", "cfg"):
@@ -370,18 +377,37 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(model: Transformer, tokens: Optional[torch.Tensor],
-                  embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  embeds: Optional[torch.Tensor] = None, ctx=None
+                  ) -> torch.Tensor:
     """Table in the compute dtype, gather, then scale by sqrt(d_model).
     With ``embeds`` (B, F, frontend_dim) and a frontend but no encoder
     (the vision frontend) the projected rows come first, the prompt's
-    after them, as the reference's ``_embed_inputs``."""
+    after them, as the reference's ``_embed_inputs``. Under a ``ctx``
+    whose "model" axis cuts the table's rows, each rank looks up the
+    tokens its rows hold, zeros elsewhere, and the ranks sum."""
     cfg = model.cfg
     parts = []
     if embeds is not None and cfg.frontend and cfg.n_encoder_layers == 0:
         parts.append(_project(model, embeds))
     if tokens is not None:
-        parts.append(model.embed[tokens.long()] * math.sqrt(cfg.d_model))
+        if ctx is not None and ctx.split(model, "embed"):
+            parts.append(_embed_split(model.embed, tokens, ctx)
+                         * math.sqrt(cfg.d_model))
+        else:
+            parts.append(model.embed[tokens.long()] * math.sqrt(cfg.d_model))
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def _embed_split(table: torch.Tensor, tokens: torch.Tensor, ctx
+                 ) -> torch.Tensor:
+    """Vocabulary-parallel lookup: this rank's rows of the table are
+    ``[off, off + rows)``; a token outside them gives zeros, and the
+    "model" ranks' rows sum to the token's row."""
+    rows = table.shape[0]
+    local = tokens.long() - ctx.tp_index * rows
+    hit = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * hit[..., None].to(table.dtype)
+    return ctx.tp_out(x)
 
 
 def _project(model: Transformer, embeds: torch.Tensor) -> torch.Tensor:
@@ -410,13 +436,21 @@ def _lm_head(x: torch.Tensor, model: Transformer) -> torch.Tensor:
     return x @ model.lm_head.to(x.dtype)
 
 
-def _head_logits(x: torch.Tensor, model: Transformer) -> torch.Tensor:
+def _head_logits(x: torch.Tensor, model: Transformer, ctx=None
+                 ) -> torch.Tensor:
     """LM head in x.dtype with the padded vocabulary masked to -1e30.
-    x: (..., D) -> (..., padded_vocab)."""
+    x: (..., D) -> (..., padded_vocab). Under a ``ctx`` whose "model"
+    axis cuts the head's vocabulary, this rank's columns only, (...,
+    padded_vocab / model), the padding masked at the rank's offset."""
     cfg = model.cfg
+    off = 0
+    if ctx is not None and ctx.split(
+            model, "embed" if cfg.tie_embeddings else "lm_head"):
+        x = ctx.tp_in(x)
+        off = ctx.tp_index * (cfg.padded_vocab_size // ctx.tp)
     logits = _lm_head(x, model)
     if cfg.padded_vocab_size != cfg.vocab_size:
-        pad = torch.arange(cfg.padded_vocab_size,
+        pad = torch.arange(off, off + logits.shape[-1],
                            device=x.device) >= cfg.vocab_size
         logits = torch.where(pad, torch.full_like(logits.float(), -1e30),
                              logits.float()).to(logits.dtype)
@@ -427,51 +461,58 @@ def _head_logits(x: torch.Tensor, model: Transformer) -> torch.Tensor:
 # forward (train / no-cache)
 # ---------------------------------------------------------------------------
 
-def _ffn(layer, x: torch.Tensor, cfg: ModelConfig
+def _ffn(layer, x: torch.Tensor, cfg: ModelConfig, ctx=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A layer's MoE or MLP after its block: (x, the MoE's aux loss or
     None)."""
     if layer.moe is not None:
         return M.moe_apply(layer.moe, x, cfg)
     if layer.mlp is not None:
-        x = L.mlp_apply(layer.mlp, x, cfg)
+        x = L.mlp_apply(layer.mlp, x, cfg, ctx=ctx)
     return x, None
 
 
 def _layer_apply(layer, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: torch.Tensor,
-                 enc_out: Optional[torch.Tensor] = None
+                 enc_out: Optional[torch.Tensor] = None, ctx=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One layer of ``forward``: (x, its aux loss or None)."""
+    """One layer of ``forward``: (x, its aux loss or None). Under a
+    ``ctx`` the layer's compute copy is gathered first (``ctx.layer``)
+    and its block and MLP run on the rank's shards."""
+    if ctx is not None:
+        layer = ctx.layer(layer)
     if layer.kind == "rglru":
-        x = R.rglru_apply(layer.block, x, cfg)
+        x = R.rglru_apply(layer.block, x, cfg, ctx=ctx)
     elif layer.kind == "mlstm":
         x = S.mlstm_apply(layer.block, x, cfg)
     elif layer.kind == "slstm":
         x = S.slstm_apply(layer.block, x, cfg)
     else:
         x = L.attn_apply(layer.block, x, cfg, kind=layer.kind,
-                         positions=positions)
+                         positions=positions, ctx=ctx)
     if layer.cross is not None and enc_out is not None:
         x = L.cross_attn_apply(layer.cross, x,
                                *L.cross_kv(layer.cross, enc_out, cfg), cfg)
-    return _ffn(layer, x, cfg)
+    return _ffn(layer, x, cfg, ctx)
 
 
 def _run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor, enc_out=None, train: bool = True
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               positions: torch.Tensor, enc_out=None, train: bool = True,
+               ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decoder layers in ``layer_kinds`` order: (x, the aux losses
     summed over the layers, in layer order). With ``cfg.remat and
     train`` each scanned period runs under ``torch.utils.checkpoint``
     (its activations recomputed in the backward, as the reference's
-    ``jax.checkpoint`` of the scan body); the remainder layers do not."""
+    ``jax.checkpoint`` of the scan body); the remainder layers do not.
+    Under a ``ctx`` each layer's compute copy is gathered inside that
+    span (``ctx.layer``), so the backward gathers it again, and each
+    period's output passes ``ctx.act``."""
     period = len(cfg.layer_pattern)
 
     def run_layers(x, aux, first, last):
         for layer in params.layers[first:last]:
             x, a = _layer_apply(layer, x, cfg, positions=positions,
-                                enc_out=enc_out)
+                                enc_out=enc_out, ctx=ctx)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -484,6 +525,8 @@ def _run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
                                 use_reentrant=False)
         else:
             x, aux = run_layers(x, aux, *span)
+        if ctx is not None:
+            x = ctx.act(x)
     return run_layers(x, aux, cfg.n_periods * period, len(params.layers))
 
 
@@ -493,7 +536,7 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def encode(params, cfg: ModelConfig, embeds: torch.Tensor, *,
-           train: bool = False) -> torch.Tensor:
+           train: bool = False, ctx=None) -> torch.Tensor:
     """The encoder stack over frontend embeddings (B, S_src,
     frontend_dim): the projector, then each encoder layer (RoPE'd
     bidirectional attention, the MLP), then ``enc_norm``; (B, S_src, d).
@@ -506,6 +549,8 @@ def encode(params, cfg: ModelConfig, embeds: torch.Tensor, *,
     positions = _positions(x)
 
     def enc_layer(x, lp):
+        if ctx is not None:
+            lp = ctx.layer(lp)
         x = L.attn_encoder_apply(lp.block, x, cfg, positions=positions)
         return L.mlp_apply(lp.mlp, x, cfg)
     for lp in params.encoder:
@@ -516,33 +561,49 @@ def encode(params, cfg: ModelConfig, embeds: torch.Tensor, *,
     return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
-def _inputs(params, cfg: ModelConfig, tokens, embeds, train: bool):
+def _inputs(params, cfg: ModelConfig, tokens, embeds, train: bool,
+            ctx=None):
     """The decoder's input rows and the encoder's output (None without
     an encoder): an encoder-decoder encodes ``embeds`` and embeds the
     tokens alone; a frontend decoder puts the projected rows first."""
     if cfg.n_encoder_layers:
-        return (_embed_inputs(params, tokens),
-                encode(params, cfg, embeds, train=train))
-    return _embed_inputs(params, tokens, embeds), None
+        return (_embed_inputs(params, tokens, ctx=ctx),
+                encode(params, cfg, embeds, train=train, ctx=ctx))
+    return _embed_inputs(params, tokens, embeds, ctx=ctx), None
+
+
+def _prepare(model: Transformer, cfg: ModelConfig, ctx=None):
+    """The compute copy (``cast_params_for_compute``) and, under a
+    ``ctx``, its leaves outside the layers gathered to their compute
+    layout (the reference's ``_prepare``); the layers are gathered one
+    at a time inside the stack (``ctx.layer``)."""
+    params = cast_params_for_compute(model, cfg)
+    return params if ctx is None else ctx.prepare(params)
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: Dict, *,
-            train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            train: bool = True, ctx=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens": (B, S) int, and with a frontend "embeds": (B,
     F, frontend_dim)}. Returns (logits (B, S_total, Vp) in the compute
     dtype, S_total = F + S for a decoder-only frontend config, else S;
     the MoE layers' aux loss summed, 0.0 without MoE). The compute copy
-    is cast from ``model``'s params at every call."""
-    params = cast_params_for_compute(model, cfg)
+    is cast from ``model``'s params at every call. Under a ``ctx``
+    (``sharding.ShardCtx``) ``model`` holds this rank's shards, the batch
+    is this rank's rows, and the logits are this rank's vocabulary
+    columns where the "model" axis cuts the head."""
+    params = _prepare(model, cfg, ctx)
     x, enc_out = _inputs(params, cfg, batch.get("tokens"),
-                         batch.get("embeds"), train)
+                         batch.get("embeds"), train, ctx)
     x, aux = _run_stack(params, x, cfg, positions=_positions(x),
-                        enc_out=enc_out, train=train)
+                        enc_out=enc_out, train=train, ctx=ctx)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return _head_logits(x, params), aux
+    if ctx is not None:
+        x = ctx.batch_only(x)
+    return _head_logits(x, params, ctx), aux
 
 
-def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict
+def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict, ctx=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in fp32, as the reference computes it:
     logits[:, :-1] against ``labels[:, 1:]`` (B, S_total), with -1 =
@@ -550,17 +611,48 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict
     The picked logit is a gather (the reference's one-hot contraction is
     the same sum). An MoE config's loss adds ``router_aux_weight`` x the
     aux loss; ``ce`` is the cross-entropy alone. Returns (loss, {"ce",
-    "aux"})."""
-    logits, aux = forward(model, cfg, batch, train=True)
+    "aux"}).
+
+    Under a ``ctx`` the batch is this rank's rows: the token count is
+    summed over the batch axes, and the loss too, whose backward leaves
+    each rank the gradient of its own rows. Where the "model" axis cuts
+    the vocabulary, the log-sum-exp is reduced across the shards (the
+    largest logit, then the sum of exponentials) and the picked logit is
+    the shard's that holds the target."""
+    logits, aux = forward(model, cfg, batch, train=True, ctx=ctx)
     logits = logits[:, :-1].float()
     targets = batch["labels"][:, 1:].long()
     mask = (targets >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    if ctx is not None and logits.shape[-1] != cfg.padded_vocab_size:
+        lse, picked = _split_lse_picked(logits, targets, ctx)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
     nll = (lse - picked) * mask
-    ce = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if ctx is not None:
+        from repro_torch.sharding import comm
+        count = comm.all_reduce_(count, ctx.mesh, ctx.batch)
+    ce = nll.sum() / torch.clamp(count, min=1.0)
+    if ctx is not None:
+        ce = comm.all_reduce(ce, ctx.mesh, ctx.batch)
     loss = ce if cfg.moe is None else ce + cfg.moe.router_aux_weight * aux
     return loss, {"ce": ce.detach(), "aux": aux.detach()}
+
+
+def _split_lse_picked(logits: torch.Tensor, targets: torch.Tensor, ctx):
+    """Log-sum-exp and the target's logit over vocabulary shards: the
+    rank holds columns ``[off, off + V / model)`` of (B, S, V)."""
+    from repro_torch.sharding import comm
+    cols = logits.shape[-1]
+    top = comm.all_reduce_(logits.detach().amax(dim=-1), ctx.mesh, "model",
+                           op="max")
+    sumexp = torch.exp(logits - top[..., None]).sum(dim=-1)
+    lse = top + torch.log(ctx.tp_out(sumexp))
+    local = targets - ctx.tp_index * cols
+    hit = (local >= 0) & (local < cols)
+    picked = logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    return lse, ctx.tp_out(picked * hit.float())
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,11 @@ plus a sidecar ``<path>.meta.json``, the counterpart of
 restores in the other.
 
 ``save`` takes the port's model (written through
-``repro_torch.weights.to_flat``, fp32) or a plain dict of arrays;
+``repro_torch.weights.to_flat``, fp32) or a plain dict of arrays; a
+sharded model (``sharding.shard_params``) is gathered first
+(``gather_params``, a collective every rank of its mesh calls) and
+written by the mesh's rank 0 alone, the same file an unsharded model of
+those values writes;
 ``restore`` fills a model in place from a file; ``load_flat`` and
 ``load_meta`` read a file back as written, with no template.
 """
@@ -29,6 +33,12 @@ def save(path: str, tree: Any, *, meta: Optional[Dict] = None) -> None:
     """Write ``tree`` (a ``Transformer``, or nested dicts/lists of
     arrays) to ``path`` (``np.savez`` adds ``.npz``) and ``meta`` to
     ``path + ".meta.json"``."""
+    mesh = getattr(tree, "mesh", None)
+    if mesh is not None:
+        from repro_torch.sharding.rules import gather_params
+        tree = gather_params(tree)
+        if any(mesh.coords.values()):
+            return
     flat = to_flat(tree) if isinstance(tree, torch.nn.Module) else \
         flatten(tree)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

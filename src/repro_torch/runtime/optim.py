@@ -9,15 +9,22 @@ order (``repro_torch.weights.reference_leaves``), clipping to
 (step, schedule, bias corrections) are fp32 tensors, as in the
 reference. Parameters are updated in place (the reference returns new
 ones); ``apply`` returns the same model.
+
+A sharded model (``sharding.shard_params``) holds this rank's shards of
+the parameters, the moments are shards alike, and the update is the
+same on them. The gradient norm sums each leaf's local squares once over
+the ranks that hold a copy of it (the ranks at index 0 of every axis its
+spec does not cut) and sums those across the mesh.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.sharding.rules import spec_axes
 from repro_torch.weights import reference_leaves
 
 
@@ -54,28 +61,50 @@ def init(model) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(leaves: Iterable[Iterable[torch.Tensor]]) -> torch.Tensor:
+def global_norm(leaves: Iterable[Iterable[torch.Tensor]], mesh=None,
+                specs: Optional[Sequence] = None) -> torch.Tensor:
     """sqrt of the sum of squares, one term per reference leaf (a leaf
     stacked over periods sums its period tensors together), added in
-    the order given."""
+    the order given. With ``mesh``, the leaves are this rank's shards
+    under ``specs`` (one a leaf): a leaf's term is added on the ranks
+    that own it (``owns``) and the sums are summed across the mesh."""
     sq = None
-    for parts in leaves:
+    for i, parts in enumerate(leaves):
         parts = list(parts)
+        if mesh is not None and not owns(mesh, specs[i]):
+            continue
         x = parts[0].float() if len(parts) == 1 else \
             torch.stack([t.float() for t in parts])
         term = torch.sum(torch.square(x))
         sq = term if sq is None else sq + term
+    if mesh is not None:
+        from repro_torch.sharding import comm
+        if sq is None:
+            sq = torch.zeros((), device=mesh.device)
+        sq = comm.all_reduce_(sq, mesh, tuple(mesh.shape))
     return torch.sqrt(sq)
+
+
+def owns(mesh, spec) -> bool:
+    """Whether this rank counts a leaf of ``spec`` in a sum over the
+    mesh: it is at index 0 of every axis the spec does not cut, so that
+    each distinct shard is counted once."""
+    held = spec_axes(spec)
+    return all(mesh.coords[a] == 0 for a in mesh.shape if a not in held)
 
 
 @torch.no_grad()
 def apply(cfg: AdamWConfig, model, opt: Dict[str, Any]
           ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step from the gradients in each parameter's ``.grad``.
-    Returns (model, opt, {"grad_norm", "lr"})."""
+    """One AdamW step from the gradients in each parameter's ``.grad``
+    (of a sharded model, its shards'). Returns (model, opt,
+    {"grad_norm", "lr"})."""
+    mesh = getattr(model, "mesh", None)
     step = opt["step"] + 1
-    gnorm = global_norm([p.grad for p in parts]
-                        for parts in reference_leaves(model).values())
+    leaves = reference_leaves(model).values()
+    gnorm = global_norm(([p.grad for p in parts] for parts in leaves), mesh,
+                        [parts[0].shard_spec for parts in leaves]
+                        if mesh is not None else None)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.float()

@@ -16,20 +16,33 @@ multi-pod mesh:
 * long_500k (batch=1): KV cache batch unshardable -> sequence sharding
   over ("data", "model").
 
-The port runs on one card, so nothing here places a tensor: the dry run
-(``repro_torch.launch.dryrun``) reads the specs to count the bytes each
-device of a pod mesh would hold. A mesh is an ordered mapping from axis
-name to size (``repro_torch.launch.mesh``); a spec is a tuple with one
-entry a dim, each an axis name, a tuple of names or None, and ``()``
-replicates. Leaves are named by the reference's flat paths
-(``scan/<i>/block/wq`` stacked over periods, ``rem/<j>/...``,
-``encoder/<i>/...``; ``repro_torch.weights.reference_shapes`` and
-``reference_cache``), so the same regexes apply unchanged.
+The dry run (``repro_torch.launch.dryrun``) reads the specs to count the
+bytes each device of a pod mesh would hold. A mesh here is an ordered
+mapping from axis name to size (a ``launch.mesh.Mesh``'s ``shape``); a
+spec is a tuple with one entry a dim, each an axis name, a tuple of
+names or None, and ``()`` replicates.
+
+The sharded training step places tensors by the same specs
+(``shard_params`` cuts full masters into each rank's shards,
+``gather_params`` puts them back) and runs the model under ``ShardCtx``,
+the reference's four methods over ``sharding.comm``'s collectives:
+ZeRO-3 over "data" (``layer`` gathers one layer's compute copy, whose
+backward reduce-scatters the gradient) and Megatron-style tensor
+parallelism over "model" (the layers in ``models`` run on the rank's
+heads, channels, ff columns and vocabulary rows).
+
+Leaves are named by the reference's flat paths (``scan/<i>/block/wq``
+stacked over periods, ``rem/<j>/...``, ``encoder/<i>/...``;
+``repro_torch.weights.reference_shapes`` and ``reference_cache``), so
+the same regexes apply unchanged.
 """
 from __future__ import annotations
 
 import re
+from types import SimpleNamespace
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
 
 Axis = Optional[object]   # axis name, tuple of names, or None
 Spec = Tuple[Axis, ...]
@@ -261,3 +274,286 @@ def device_bytes(shape: Tuple[int, ...], itemsize: int, spec: Spec,
     for axis in spec:
         div *= _axis_size(mesh, axis)
     return n // div
+
+
+# ---------------------------------------------------------------------------
+# placement: full masters <-> each rank's shards
+# ---------------------------------------------------------------------------
+
+# leaves laid out as two halves on their last dim ([gate | rec] of the
+# RG-LRU's w_in, [r | i] of its w_gates): a rank's shard of that dim holds
+# its slice of each half, so that its gate, rec, r and i are of its own
+# channels
+_HALVES = re.compile(r"block/w_(in|gates)$")
+
+
+def _chunk(t: torch.Tensor, dim: int, n: int, i: int,
+           halves: bool) -> torch.Tensor:
+    if not halves:
+        return t.narrow(dim, i * (t.shape[dim] // n), t.shape[dim] // n)
+    a, b = t.chunk(2, dim)
+    return torch.cat([_chunk(a, dim, n, i, False),
+                      _chunk(b, dim, n, i, False)], dim)
+
+
+def local_shard(t: torch.Tensor, spec: Spec, mesh, *,
+                halves: bool = False) -> torch.Tensor:
+    """This rank's piece of the full tensor ``t`` under ``spec`` on
+    ``mesh`` (a ``launch.mesh.Mesh``): each sharded dim cut into equal
+    chunks, the chunk the rank's index on the dim's axes (the first axis
+    major). ``halves``: the last dim is two halves, each cut alike."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            t = _chunk(t, dim, mesh.size(axis), mesh.index(axis),
+                       halves and dim == t.dim() - 1)
+    return t
+
+
+def _gather_full(t: torch.Tensor, spec: Spec, mesh, halves: bool
+                 ) -> torch.Tensor:
+    from repro_torch.sharding import comm
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n = mesh.size(axis)
+        g = comm.gather_dim(t, mesh, axis, dim)
+        if halves and dim == t.dim() - 1 and n > 1:
+            # rank order (n, 2, w) -> (2, n, w)
+            shp = g.shape[:-1]
+            g = g.reshape(*shp, n, 2, -1).transpose(-3, -2).reshape(*shp, -1)
+        t = g
+    return t
+
+
+def _param_specs(model, axes) -> Dict[str, Tuple[Spec, bool]]:
+    """Port parameter name -> (its spec under ``axes``, halves): each
+    reference leaf's spec (``params_shardings`` on the full stacked
+    shapes), a stacked leaf's without its period dim."""
+    from repro_torch.weights import reference_leaves, reference_shapes
+    leaves = reference_leaves(model)
+    specs = params_shardings(reference_shapes(leaves), axes)
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {}
+    for key, params in leaves.items():
+        spec = specs[key]
+        if spec and _stacked(key):
+            spec = spec[1:]
+        halves = bool(_HALVES.search(key)) and any(
+            model.layers[int(names[id(p)].split(".")[1])].kind == "rglru"
+            for p in params if names[id(p)].startswith("layers."))
+        for p in params:
+            out[names[id(p)]] = (tuple(spec), halves)
+    return out
+
+
+def _set_param(model, name: str, value: torch.nn.Parameter) -> None:
+    *path, leaf = name.split(".")
+    mod = model
+    for part in path:
+        mod = mod[int(part)] if part.isdigit() else getattr(mod, part)
+    setattr(mod, leaf, value)
+
+
+@torch.no_grad()
+def shard_params(model, mesh):
+    """A model of the same config holding this rank's shards of
+    ``model``'s parameters under ``params_shardings`` on ``mesh``, on the
+    mesh's device: each parameter a new ``nn.Parameter`` (its
+    ``requires_grad`` kept) with its spec (``shard_spec``) and whether it
+    is cut by halves (``shard_halves``); the model's ``mesh`` is
+    ``mesh``. ``model`` is left as it was."""
+    from repro_torch.models.transformer import Transformer
+    specs = _param_specs(model, mesh.shape)
+    local = Transformer(model.cfg, device="meta", dtype=torch.float32)
+    for name, p in model.named_parameters():
+        spec, halves = specs[name]
+        t = local_shard(p.detach(), spec, mesh, halves=halves)
+        new = torch.nn.Parameter(t.to(mesh.device, copy=True)
+                                 .contiguous(),
+                                 requires_grad=p.requires_grad)
+        new.shard_spec, new.shard_halves = spec, halves
+        _set_param(local, name, new)
+    local.mesh = mesh
+    return local
+
+
+@torch.no_grad()
+def gather_params(model, *, grad: bool = False):
+    """The full model back from a sharded one (``shard_params``), on
+    every rank: each shard (with ``grad``, each shard's ``.grad``)
+    gathered over its spec's axes (a collective: every rank of the mesh
+    calls this at once). An unsharded model is returned as it is."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return model
+    from repro_torch.models.transformer import Transformer
+    full = Transformer(model.cfg, device="meta", dtype=torch.float32)
+    for name, p in model.named_parameters():
+        t = _gather_full((p.grad if grad else p).detach(), p.shard_spec,
+                         mesh, p.shard_halves)
+        _set_param(full, name, torch.nn.Parameter(
+            t.contiguous().clone(), requires_grad=p.requires_grad))
+    return full
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch: dim 0 cut over the batch axes
+    (``batch_axes``), rank order. Raises where the rows do not split
+    (the reference replicates such a batch; the port refuses it)."""
+    axes = batch_axes(mesh.shape)
+    n, i = mesh.size(axes), mesh.index(axes)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"a global batch of {v.shape[0]} rows does not "
+                             f"split over {n} data ranks")
+        out[k] = _chunk(v, 0, n, i, False)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sharding context threaded through the model
+# ---------------------------------------------------------------------------
+
+def spec_axes(spec: Spec) -> List[str]:
+    """The axis names a spec cuts over."""
+    out: List[str] = []
+    for a in spec:
+        if a is not None:
+            out.extend(a if isinstance(a, tuple) else (a,))
+    return out
+
+
+class ShardCtx:
+    """Sharding context threaded through the model functions, over a
+    ``launch.mesh.Mesh``.
+
+    * ``layer(p)``: one layer's compute copy (a namespace whose leaves
+      are the rank's master shards cast to the compute dtype, with their
+      specs in ``_specs``) gathered over every axis but "model": ZeRO-3's
+      per-layer weight all-gather, whose backward is the gradient's
+      reduce-scatter. A leaf the batch axes do not shard gets its
+      gradient summed over them instead (``comm.reduce_grad``). Called
+      inside the remat span, so the backward gathers again.
+    * ``act(x)``: the layout at layer boundaries: (B / data, S, D), the
+      features whole on every "model" rank (Megatron's; the reference
+      shards them over "model"). Nothing to move.
+    * ``batch_only(x)``: the final-norm output before the head, the same
+      layout; the vocabulary-parallel head takes its gradient sum.
+    * ``expert_tensor``: the MoE's routing tensors. No family of the
+      sharded step reaches it (the MoE is refused under a mesh of more
+      than one rank); it leaves its tensor as it is.
+
+    ``split(p, name)`` says whether leaf ``name`` of a compute namespace
+    is cut over "model" (and "model" has more than one rank): the
+    layers run on local shards where it is. ``tp_in`` / ``tp_out`` are
+    the column-parallel input (gradient summed over "model") and the
+    row-parallel output (summed over "model")."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.size("model")
+
+    @property
+    def tp_index(self) -> int:
+        return self.mesh.index("model")
+
+    @property
+    def batch(self):
+        return batch_axes(self.mesh.shape)
+
+    def _leaf(self, x: torch.Tensor, spec: Spec) -> torch.Tensor:
+        from repro_torch.sharding import comm
+        held = spec_axes(spec)
+        x = comm.reduce_grad(x, self.mesh,
+                             tuple(a for a in self.batch if a not in held))
+        for dim, axis in enumerate(spec):
+            names = [a for a in ((axis,) if isinstance(axis, str)
+                                 else axis or ()) if a != "model"]
+            if names and len(names) != len(spec_axes((axis,))):
+                raise ValueError(f"spec {spec}: a dim over 'model' and "
+                                 f"another axis")
+            if names:
+                x = comm.all_gather(x, self.mesh, tuple(names), dim)
+        return x
+
+    def _gather(self, ns):
+        if isinstance(ns, list):
+            return [self._gather(m) for m in ns]
+        if not isinstance(ns, SimpleNamespace):
+            return ns
+        specs = getattr(ns, "_specs", {})
+        out = SimpleNamespace()
+        for name, v in vars(ns).items():
+            if name == "_specs":
+                continue
+            if isinstance(v, torch.Tensor) and name in specs:
+                v = self._leaf(v, specs[name])
+            elif isinstance(v, (SimpleNamespace, list)):
+                v = self._gather(v)
+            setattr(out, name, v)
+        out._specs = {k: tuple(a if a == "model" else None for a in s)
+                      for k, s in specs.items()}
+        return out
+
+    def layer(self, layer_params):
+        return self._gather(layer_params)
+
+    def prepare(self, params):
+        """The compute copy's leaves outside the layers (embed, head,
+        norms, projector) gathered as ``layer`` gathers a layer's; the
+        decoder and encoder layers are left to ``layer``."""
+        out = SimpleNamespace(**vars(params))
+        gathered = self._gather(SimpleNamespace(**{
+            k: v for k, v in vars(params).items()
+            if k not in ("layers", "encoder")}))
+        for k, v in vars(gathered).items():
+            setattr(out, k, v)
+        return out
+
+    def act(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def batch_only(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def expert_tensor(self, x: torch.Tensor, *, expert_axis: int
+                      ) -> torch.Tensor:
+        return x
+
+    def split(self, p, name: str) -> bool:
+        spec = getattr(p, "_specs", {}).get(name)
+        return self.tp > 1 and spec is not None and "model" in spec
+
+    def tp_in(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.sharding import comm
+        return comm.reduce_grad(x, self.mesh, "model")
+
+    def tp_out(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.sharding import comm
+        return comm.all_reduce(x, self.mesh, "model")
+
+    def tp_slice(self, x: torch.Tensor, dim: int, lo: int, hi: int
+                 ) -> torch.Tensor:
+        """Rows ``lo:hi`` of dim ``dim`` of a leaf every "model" rank
+        holds whole, for this rank's share of the work: its gradient
+        summed over "model" (each rank's is partial)."""
+        return self.tp_in(x).narrow(dim, lo, hi - lo)
+
+
+class NoopShardCtx:
+    def layer(self, p):
+        return p
+
+    def act(self, x):
+        return x
+
+    def batch_only(self, x):
+        return x
+
+    def expert_tensor(self, x, *, expert_axis: int):
+        return x

@@ -20,10 +20,18 @@ against the reference (CPU; counts only, no times).
   no launch counter;
 * the meta paths (sLSTM and mLSTM loops, the flash backward's blocks)
   count what the CPU loops count;
-* the kernels' cost functions give ``PERF.md``'s bound column.
+* the kernels' cost functions give ``PERF.md``'s bound column;
+* the collective term: rank 0's program of the sharded train step on a
+  1x1 mesh issues and counts no collective; every full config the
+  sharded step runs gets finite collective bytes and ``t_collective_s``
+  at train_4k on 16x16, and every other one records why it has none
+  (the count of the smoke step on 2x2, 1x4 and 4x1 is held against the
+  bytes a gloo run moved in ``test_torch_sharded.py``, beside the world
+  it reads).
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache, partial
 
 import jax
@@ -380,12 +388,52 @@ def test_cli_and_roofline_table(tmp_path, capsys):
     assert "FAIL gemma3_1b x train_4k x h100" in capsys.readouterr().out
 
 
+def test_one_rank_mesh_counts_no_collective(no_cuda):
+    rec = dryrun.count_sharded(get_config("recurrentgemma_9b").smoke(),
+                               InputShape("t", 32, 4, "train"),
+                               {"data": 1, "model": 1})
+    assert rec["collective_bytes_per_device"] == 0
+    assert rec["t_collective_s"] == 0
+    assert rec["collectives"]["count"] == 0
+    assert rec["resident_bytes_per_device"] == 16 * sum(
+        int(np.prod(s)) for s, _ in reference_shapes(
+            T.Transformer(get_config("recurrentgemma_9b").smoke(),
+                          device="meta")).values())
+
+
+SHARDED = ("qwen2_1_5b", "llama3_2_3b", "chatglm3_6b", "gemma3_1b",
+           "recurrentgemma_9b")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_collective_term_on_the_pod(arch, no_cuda):
+    rec = dryrun.count_sharded(get_config(arch), "train_4k",
+                               {"data": 16, "model": 16})
+    if arch not in SHARDED:
+        assert rec["t_collective_s"] is None
+        assert "later slice" in rec["collective_note"]
+        return
+    c = rec["collectives"]
+    assert math.isfinite(rec["t_collective_s"]) and rec["t_collective_s"] > 0
+    assert rec["collective_bytes_per_device"] == c["total"] == sum(
+        c[k] for k in ("all-gather", "reduce-scatter", "all-reduce"))
+    # ZeRO-3: a gather of each layer's compute copy over "data" in the
+    # forward and again in the remat recompute of the scanned periods,
+    # and one reduce-scatter of its gradient, per sharded leaf
+    assert c["calls"]["all-gather"] > c["calls"]["reduce-scatter"] > 0
+    assert rec["t_collective_s"] == pytest.approx(
+        sum(n / mesh_lib.NVLINK_PEAK_BW for n in c["by_axes"].values()))
+
+
 def test_mesh_constants_and_debug_mesh():
     assert mesh_lib.make_production_mesh() == {"data": 16, "model": 16}
     assert list(mesh_lib.make_production_mesh(multi_pod=True)) == [
         "pod", "data", "model"]
     assert mesh_lib.PEAK_FLOPS["bfloat16"] == 989e12
     assert mesh_lib.HBM_BW == 3.35e12
+    assert mesh_lib.NVLINK_PEAK_BW == 450e9
+    assert mesh_lib.parse_mesh("2x16x16") == {"pod": 2, "data": 16,
+                                              "model": 16}
     if torch.cuda.device_count() == 0:
         with pytest.raises(RuntimeError, match="need 1 CUDA"):
             mesh_lib.make_debug_mesh()
