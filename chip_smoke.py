@@ -328,8 +328,9 @@ Phases, one status line each; any failure exits non-zero:
    served) and ``examples/torch_train_small.py`` (300 steps; loss below
    0.8x its first, the checkpoint restored bit for bit, 12 tokens
    sampled) at their default sizes on the card; the 16 x 16 and 2 x 16 x
-   16 records of every train shape the sharded step runs print their
-   collective bytes a device by kind and ``t_collective_s``.
+   16 records of every shape the sharded steps run (train_4k and, since
+   phase 14, the serving shapes) print their collective bytes a device
+   by kind and ``t_collective_s``.
 13. the sharded training step (ZeRO-3 over "data" x tensor parallel
    over "model", ``make_train_step(cfg, opt, mesh)``): (a) a 1 x 1 NCCL
    mesh (a world of one rank through a ``FileStore`` in a temporary
@@ -350,16 +351,51 @@ Phases, one status line each; any failure exits non-zero:
    layers 2 steps: losses finite, each card's peak and held memory
    against the dry run's bytes a device, step times; with fewer cards
    it prints ``mesh 2x2: not run (<n> card)``.
+14. the sharded prefill and serve steps (``make_prefill_step(cfg, *,
+   max_len, mesh)``, ``make_serve_step(cfg, mesh)``: ZeRO-3 gathers over
+   "data", tensor parallel over "model", the decode cache placed by the
+   cache rules): (a) on a 1 x 1 NCCL mesh, qwen2-1.5b at full width and
+   depth and recurrentgemma-9b at phase 5's 5-layer cut, 8 prompts of
+   512 tokens (``max_len`` 552), prefill + 31 greedy steps, against
+   ``T.prefill`` / ``T.decode_step`` on the compute copy of the same
+   masters under ``torch.use_deterministic_algorithms``: logits, tokens
+   and the last cache bit for bit, the flash, decode and scan launches
+   equal (counted from 0 just before the sharded run) and no
+   ``return_lse`` call (one rank holds every row), no collective,
+   the held masters and cache within 1% of the dry run's resident bytes
+   a device; (b) the decode kernel with ``return_lse`` over 2 and 4 row
+   ranges of one cache at qwen2-1.5b's heads (12/2, D = 128, B = 8, S =
+   32,768, lengths that leave ranges empty), merged by
+   ``sharding.combine_partials``, against the kernel over the whole
+   cache and the plain version (2e-3 bf16, 2e-5 fp32), and the lse call
+   timed against the default call at that shape; (c) with 4 or more
+   cards a 2 x 2 NCCL mesh of 4 processes serves qwen2-1.5b at 8 x 512
+   (its cache by kv heads) and at one 4,096-token prompt in a
+   32,768-row cache (by sequence over ("data", "model")), and
+   recurrentgemma-9b whole (38 layers; its rings by sequence over
+   "model"), prefill + 8 steps fed the one-card unsharded run's greedy
+   tokens: logits within 1e-2 of that run's largest logit, greedy
+   choices equal or parted only at a top-2 gap within 1e-2, each rank's
+   collectives of every call equal to the dry run's count, each rank's
+   launches in each run (counted from 0 just before it) those of the
+   code, the decode kernel's ``return_lse`` calls (counted apart) one
+   per sequence-sharded attention layer a step and not zero over the
+   runs; with fewer cards it prints ``mesh 2x2: not run (<n> card)``. Phase 2 adds the
+   decode kernel's ``return_lse`` output on every decode case (the fp32
+   ``o`` and ``lse`` against the plain version's, ``o`` rounded bit for
+   bit the default call's); phase 12's records add the serving shapes'
+   collective terms (prefill_32k, decode_32k, long_500k of the five
+   shardable configs on 16 x 16 and 2 x 16 x 16).
 
 ``--phases`` runs a subset and prints no result line (``--phases 8``
 runs phase 8 after the build). With all phases, the line before the
 last holds the kernels' summary as JSON (an entry per kernel and main
 path, with its timed shape and path: qwen2-1.5b's, the training run's,
 phase 9's at head_dim 256, phase 10's MoE shapes, phase 11's
-encoder-decoder and vision shapes and phase 13's sharded step), after a
-line
-with phase 8's launches by
-path; the last line is ``{"ok": true, "device": {...}}``.
+encoder-decoder and vision shapes, phase 13's sharded step and phase
+14's sharded serving steps and, with 4 cards, the decode kernel's lse
+call with phase 14 (c)'s launches), after a line with phase 8's
+launches by path; the last line is ``{"ok": true, "device": {...}}``.
 Needs one card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -440,7 +476,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/13] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/14] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -850,13 +886,51 @@ def time_flash_bidir(torch, fa_ops, fa_ref, rnd, shape) -> dict:
             "copies": len(copies), **bound(cost, dtn)}
 
 
-def time_decode(torch, da_ops, da_ref, rnd, shape) -> dict:
+def lse_err(torch, got, want, tol):
+    """``err_vs`` of two log-sum-exps whose -inf (rows with no live key)
+    must fall at the same places: the max |err| over the finite rest."""
+    inf = torch.isinf(want)
+    if not torch.equal(torch.isinf(got), inf) or (got[inf] > 0).any() \
+            or torch.isnan(got).any():
+        return float("inf"), False
+    return err_vs(torch, got[~inf], want[~inf], tol) if (~inf).any() \
+        else (0.0, True)
+
+
+def decode_lse_rows(torch, da_ops, da_ref, q, kc, vc, lengths, out, tag):
+    """The decode kernel with ``return_lse`` on one case: its fp32 ``o``
+    and ``lse`` against the plain version's, and its ``o`` rounded to the
+    input type bit for bit the default call's ``out``: (tag, err, tol,
+    ok) rows."""
+    dtn = str(q.dtype).split(".")[-1]
+    o, lse = da_ops.decode_attention(q, kc, vc, lengths, return_lse=True)
+    ro, rlse = da_ref.decode_attention_ref(q, kc, vc, lengths,
+                                           return_lse=True)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[("decode", dtn)], LSE_TOL[dtn]
+    err_o, ok_o = err_vs(torch, o, ro, tol_o)
+    err_l, ok_l = lse_err(torch, lse, rlse, tol_lse)
+    rounded = o.to(q.dtype)
+    return [(f"{tag} lse: o", err_o, tol_o, ok_o),
+            (f"{tag} lse: lse", err_l, tol_lse, ok_l),
+            (f"{tag} lse: o rounded == the default call",
+             float((rounded.float() - out.float()).abs().max()), 0.0,
+             torch.equal(rounded, out))]
+
+
+def time_decode(torch, da_ops, da_ref, rnd, shape, lse: bool = False
+                ) -> dict:
+    """Slotted decode at ``shape`` (h, hk, d, s, lens) in bf16, timed
+    against its plain version and SDPA; with ``lse`` the call that also
+    returns the fp32 output and the log-sum-exp (the flash-decode
+    partial)."""
     h, hk, d, s, lens = shape
     b, dtn = len(lens), "bfloat16"
     dt = getattr(torch, dtn)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     live = sum(lens)
-    cost = da_ops.decode_attention_cost(b, h, hk, d, live_rows=live)
+    cost = da_ops.decode_attention_cost(b, h, hk, d, live_rows=live,
+                                        return_lse=lse)
     copies = [(rnd((b, h, d), dt), rnd((b, s, hk, d), dt),
                rnd((b, s, hk, d), dt), lengths)
               for _ in range(n_copies(cost.bytes))]
@@ -866,14 +940,20 @@ def time_decode(torch, da_ops, da_ref, rnd, shape) -> dict:
                 c[2].transpose(1, 2).contiguous()) for c in copies]
     nxt, nxt_l = cycle(copies), cycle(sdpa_in)
     q, kc, vc, _ = copies[0]
-    err = held(torch, "decode", da_ops.decode_attention(q, kc, vc, lengths),
-               da_ref.decode_attention_ref(q, kc, vc, lengths),
-               TOL[("decode", dtn)])
-    return {"shape": f"B={b} S={s} H={h}/{hk} D={d} {dtn}, {live} live rows",
+    kw = {"return_lse": True} if lse else {}
+
+    def first(out):
+        return out[0] if lse else out
+    err = held(torch, "decode", first(da_ops.decode_attention(
+        q, kc, vc, lengths, **kw)), first(da_ref.decode_attention_ref(
+            q, kc, vc, lengths, **kw)), TOL[("decode", dtn)])
+    return {"shape": f"B={b} S={s} H={h}/{hk} D={d} {dtn}, {live} live rows"
+                     f"{', return_lse (fp32 o + lse)' if lse else ''}",
             "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: da_ops.decode_attention(*nxt())),
+            "ms": cuda_ms(torch, lambda: da_ops.decode_attention(*nxt(),
+                                                                 **kw)),
             "plain_ms": cuda_ms(torch, lambda: da_ref.decode_attention_ref(
-                *nxt())),
+                *nxt(), **kw)),
             "library_ms": cuda_ms(torch, lambda: sdpa(*nxt_l(), mask=mask)),
             "copies": len(copies), **bound(cost, dtn)}
 
@@ -1123,6 +1203,11 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
         rows.append((tag, err, tol, ok))
         if not ok:
             failures.append(tag)
+        for tag, err, tol, ok in decode_lse_rows(torch, da_ops, da_ref, q, kc,
+                                                 vc, lengths, out, tag):
+            rows.append((tag, err, tol, ok))
+            if not ok:
+                failures.append(tag)
     for (b, h, hk, d, n, bs, nb, dtn, lens) in PAGED_CASES:
         dt = getattr(torch, dtn)
         q, kp, vp = rnd((b, h, d), dt), rnd((n, bs, hk, d), dt), \
@@ -1297,7 +1382,7 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/13] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/14] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode and paged decode at "
         f"head_dims to 256, flash at head_dim 256 with its lse, flash over "
         f"every key at head_dim 64 with Sq != Sk, the RG-LRU scan forward "
@@ -1381,7 +1466,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/13] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/14] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1820,7 +1905,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/13] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/14] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -2084,7 +2169,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/13] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/14] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -2453,7 +2538,7 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/13] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/14] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
@@ -2956,7 +3041,7 @@ def phase_edge(torch, np, ops, smi: str) -> dict:
            "paper_rows": paper_rows(torch),
            "llm": llm_partitioned(torch, np, ops, smi),
            "hybrid": hybrid_partitioned(torch, np, ops)}
-    say("[7/13] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+    say("[7/14] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
         "within the CPU limit, every partition point equal to the "
         "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
         "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
@@ -3684,7 +3769,7 @@ def phase_tiered(torch, np, ops, smi: str) -> dict:
     del model
     torch.cuda.empty_cache()
     say(f"  {smi}; phase 8 took {out['phase_s']:.1f} s")
-    say("[8/13] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
+    say("[8/14] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
         "content-neutral, the gated tier beats the endpoint alone, every "
         "request equal to its tier alone, nothing lost across a link cut, "
         "the server over HTTP, failover frames equal to forward; launches "
@@ -4145,7 +4230,7 @@ def phase_hybrid(torch, np, ops, fa_ref, da_ref, scan_ref, smi: str) -> dict:
             f"ms, decode {s['decode_ms_per_step']:.3f} ms/step; traced "
             f"busy {t['device_busy_s']:.4f} s of {t['wall_s']:.4f} s, idle "
             f"share {t['idle_share']:.4f}")
-    say("[9/13] serving gemma3-1b and recurrentgemma-9b full width/depth "
+    say("[9/14] serving gemma3-1b and recurrentgemma-9b full width/depth "
         "bf16 (rings wrapped in prefill, RG-LRU state): every request "
         "'length', fifo == batch, paged == slotted, prefix-cache and "
         "prefill-chunk served one-shot, launches exact; llama3.2-3b and "
@@ -4976,7 +5061,7 @@ def phase_families(torch, np, ops, fa_ref, da_ref, scan_ref,
                if t else ""))
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 10 took {out['phase_s']:.1f} s")
-    say("[10/13] the MoE and xLSTM families on the card: the JAX fixture "
+    say("[10/14] the MoE and xLSTM families on the card: the JAX fixture "
         "within 1e-4 with JAX's engine records; qwen2-moe-a2.7b full "
         "width/depth bf16 served fifo, batch, paged, prefix-cache, chunked "
         "and on the gather dispatch, launches exact, paged == slotted, "
@@ -5385,7 +5470,7 @@ def phase_encdec(torch, np, ops, fa_ref, da_ref, scan_ref,
             f"{t['idle_share']:.4f}")
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 11 took {out['phase_s']:.1f} s")
-    say("[11/13] the encoder-decoder and the vision frontend on the card: "
+    say("[11/14] the encoder-decoder and the vision frontend on the card: "
         "the JAX fixture within 1e-4 with JAX's tokens and records; "
         "seamless-m4t-medium and llava-next-mistral-7b full width/depth "
         "bf16 served fifo, batch and paged, launches exact, paged == "
@@ -5649,8 +5734,10 @@ def phase_dryrun(torch, built: dict, smi: str) -> dict:
     out["floor"] = bound_floor(torch, smi)
     out["examples"] = examples_on_card(torch)
     out["wall_s"] = time.perf_counter() - t0
-    say(f"[12/13] dry run: {len(out['dry_run']['records'])} records, no "
-        f"FAIL; resident bytes within {RESIDENT_TOL:.0%} of the card; "
+    say(f"[12/14] dry run: {len(out['dry_run']['records'])} records, no "
+        f"FAIL, the collective terms of the train and serving shapes the "
+        f"sharded steps run; resident bytes within {RESIDENT_TOL:.0%} of "
+        f"the card; "
         f"prefill and decode at or above their bounds; both examples pass "
         f"({out['wall_s']:.1f} s)")
     return out
@@ -5977,10 +6064,541 @@ def phase_sharded(torch, np, ops, smi: str) -> dict:
                      "grad_norms": one["plain_grad_norms"]})}
     out["wall_s"] = time.perf_counter() - t0
     agree = "equals" if one["parts"] is None else "is within SHARD_TOL of"
-    say(f"[13/13] sharded training: the 1x1 NCCL mesh {agree} "
+    say(f"[13/14] sharded training: the 1x1 NCCL mesh {agree} "
         f"the unsharded step, launches equal, held bytes within "
         f"{RESIDENT_SHARD_TOL:.0%} of the dry run's, no collective; "
         f"2x2 {'run' if out['mesh4']['run'] else 'not run'} "
+        f"({out['wall_s']:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+
+# (a): the sharded serving steps on a 1 x 1 NCCL mesh against the
+# unsharded ones, at phase 4's geometry: (name, prompts, prompt length,
+# max_len, decode steps); recurrentgemma-9b at phase 5's cut
+SERVE14 = (("qwen2-1.5b", 8, 512, SERVE_S, 31),
+           ("recurrentgemma-9b", 8, 512, SERVE_S, 31))
+SERVE14_KERNELS = ("flash_attention", "decode_attention", "rglru_scan_fwd")
+RESIDENT_SERVE_TOL = 0.01
+# (b): the decode kernel's partials over 2 and 4 row ranges of one cache
+# at qwen2-1.5b's heads, merged by combine_partials, against the kernel
+# over the whole cache and the plain version: lengths that leave the
+# last ranges of most sequences empty, one sequence empty throughout
+SPLIT_S = 32768
+SPLIT_LENS = [0, 1, 4095, 8192, 8193, 16384, 30000, 32768]
+SPLIT_SHAPE = (12, 2, 128, SPLIT_S, SPLIT_LENS)
+SPLIT_TOL = {"bfloat16": 2e-3, "float32": 2e-5}
+# (c): with 4 cards, a 2 x 2 mesh: qwen2-1.5b at (a)'s batch (its cache by
+# kv heads), at one 4,096-token prompt in a 32,768-row cache (the
+# sequence over ("data", "model"): long_500k's layout), and
+# recurrentgemma-9b whole (38 layers; its rings by sequence over
+# "model"), each fed the greedy tokens of the one-card unsharded run;
+# the same run in fp32 on one card, fed those tokens, is the control
+# that says how far bf16 alone moves the logits
+MESH14 = dict(data=2, model=2, steps=8, timeout_s=900)
+MESH14_RUNS = (("qwen2-1.5b", 8, 512, SERVE_S),
+               ("qwen2-1.5b-long", 1, 4096, 32768),
+               ("recurrentgemma-9b-whole", 8, 512, SERVE_S))
+MESH14_TOL = 1e-2
+# the same runs computed in fp32 on the mesh against the one-card fp32
+# run: only the order of the sums over "model" and the ranks' rows
+# differs (the JAX fixtures' fp32 limit)
+MESH14_FP32_TOL = 1e-4
+
+
+def serve14_config(name: str):
+    from repro_torch.configs import get_config
+    if name.startswith("qwen2-1.5b"):
+        return get_config("qwen2_1_5b")
+    if name == "recurrentgemma-9b":
+        return full_width_config()
+    return get_config("recurrentgemma_9b")
+
+
+def serve14_prompts(torch, cfg, b: int, s: int, device):
+    """The run's prompts, drawn on the host from one seed: equal on every
+    card."""
+    gen = torch.Generator().manual_seed(14)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         dtype=torch.int32).to(device)
+
+
+def serve_drive(torch, prefill, step, prompts, steps: int, fed=None) -> dict:
+    """``prefill(prompts)`` then ``steps`` calls of ``step(token, cache,
+    cache_len)`` with the global batch's tokens and lengths: the greedy
+    token of the last logits, or ``fed[i]``. Returns the logits of every
+    call and the tokens fed (on the host), the last cache and the
+    seconds of the prefill and of each step."""
+    b, s = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, _ = prefill(prompts)
+    torch.cuda.synchronize()
+    out = {"logits": [logits.cpu()], "tokens": [],
+           "prefill_s": time.perf_counter() - t0, "step_s": []}
+    for i in range(steps):
+        tok = logits.argmax(-1).to(torch.int32) if fed is None \
+            else fed[i].to(prompts.device)
+        out["tokens"].append(tok.cpu())
+        clen = torch.full((b,), s + i, dtype=torch.int32,
+                          device=prompts.device)
+        t0 = time.perf_counter()
+        logits, cache, _ = step(tok, cache, clen)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["logits"].append(logits.cpu())
+    out["cache"] = cache
+    return out
+
+
+def host_cache(cache) -> list:
+    return [{k: t.cpu() for k, t in c.items()} for c in cache]
+
+
+def one_rank_serving(torch, ops, smi: str) -> dict:
+    """(a): each model's sharded prefill and serve steps on the 1 x 1
+    NCCL mesh against ``T.prefill`` / ``T.decode_step`` on its compute
+    copy."""
+    import copy
+
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainstep import (make_prefill_step,
+                                               make_serve_step)
+    from repro_torch.kernels import _build
+    from repro_torch.sharding.rules import shard_params
+    tmp = tempfile.mkdtemp(prefix="serve14")
+    mesh_lib.init_world(0, 1, str(Path(tmp) / "store"), device="cuda")
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        mesh = mesh_lib.make_debug_mesh(1, 1, device="cuda")
+        for name, b, s, max_len, steps in SERVE14:
+            cfg = serve14_config(name)
+            prompts = serve14_prompts(torch, cfg, b, s, "cuda")
+            free(torch)
+            full = T.init_params(cfg, 0, device="cuda", dtype=torch.float32)
+            twin = T.to_compute_dtype_(copy.deepcopy(full), cfg)
+            before = {k: ops[k].launches for k in SERVE14_KERNELS}
+            plain = serve_drive(
+                torch, lambda t: T.prefill(twin, t, max_len=max_len),
+                lambda tok, c, n: T.decode_step(twin, tok, c, n), prompts,
+                steps)
+            plain_n = {k: ops[k].launches - before[k]
+                       for k in SERVE14_KERNELS}
+            plain_cache = host_cache(plain.pop("cache"))
+            del twin
+            free(torch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() - sum(
+                p.numel() * 4 for p in full.parameters())
+            local = shard_params(full, mesh)
+            del full
+            free(torch)
+            pre = make_prefill_step(cfg, max_len=max_len, mesh=mesh)
+            srv = make_serve_step(cfg, mesh)
+            mesh.counts.reset()
+            _build.reset_launches(*(ops[k] for k in SERVE14_KERNELS))
+            run = serve_drive(torch, lambda t: pre(local, {"tokens": t}),
+                              lambda tok, c, n: srv(local, c, tok, n),
+                              prompts, steps)
+            torch.cuda.synchronize()
+            launches = {k: ops[k].launches for k in SERVE14_KERNELS}
+            lse_n = ops["decode_attention"].lse_launches
+            comm = mesh.counts.record()
+            held = torch.cuda.memory_allocated() - base
+            cache = host_cache(run.pop("cache"))
+            del local
+            free(torch)
+            dry = dryrun.count_sharded(cfg, InputShape(
+                "serve14", max_len, b, "decode"), {"data": 1, "model": 1})
+            rel = held / dry["resident_bytes_per_device"] - 1
+            same = {"logits": all(torch.equal(a, w) for a, w in
+                                  zip(run["logits"], plain["logits"])),
+                    "tokens": all(torch.equal(a, w) for a, w in
+                                  zip(run["tokens"], plain["tokens"])),
+                    "cache": all(torch.equal(c[k], w[k]) for c, w in
+                                 zip(cache, plain_cache) for k in w)}
+            rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} bf16 over "
+                             f"fp32 masters, 1x1 NCCL mesh",
+                   "batch": b, "prompt": s, "max_len": max_len,
+                   "steps": steps, "same": same, "launches": launches,
+                   "plain_launches": plain_n, "lse_launches": lse_n,
+                   "comm": comm, "held_bytes": held,
+                   "dry_run_bytes": dry["resident_bytes_per_device"],
+                   "resident_rel": rel, "prefill_s": run["prefill_s"],
+                   "step_s": run["step_s"], "plain_prefill_s":
+                   plain["prefill_s"], "plain_step_s": plain["step_s"],
+                   "nvidia_smi": smi}
+            out[name] = rec
+            say(f"  (a) {rec['config']}, {b} x {s} tokens, max_len "
+                f"{max_len}, prefill + {steps} steps: logits, tokens and "
+                f"cache {same} bit for bit against the unsharded steps; "
+                f"return_lse launches {lse_n} (every row on one rank); "
+                f"prefill {run['prefill_s']:.3f} s (unsharded "
+                f"{plain['prefill_s']:.3f} s), step median "
+                f"{sorted(run['step_s'])[steps // 2] * 1e3:.2f} ms "
+                f"(unsharded {sorted(plain['step_s'])[steps // 2] * 1e3:.2f}"
+                f" ms); launches {launches} (unsharded {plain_n}); "
+                f"collectives {comm['count']} calls, {comm['total']} B; held "
+                f"{held:,} B against the dry run's "
+                f"{dry['resident_bytes_per_device']:,} B ({rel:+.4%}) [{smi}]")
+            if not all(same.values()):
+                raise PhaseFailed(f"phase 14 (a) {name}: the 1x1 sharded "
+                                  f"serving steps part from the unsharded "
+                                  f"ones: {same}")
+            if launches != plain_n or not launches["flash_attention"] \
+                    or not launches["decode_attention"] or lse_n \
+                    or (cfg.layer_kinds.count("rglru") > 0) \
+                    != (launches["rglru_scan_fwd"] > 0):
+                raise PhaseFailed(f"phase 14 (a) {name}: sharded launches "
+                                  f"{launches}, unsharded {plain_n}")
+            if comm["count"] or comm["total"]:
+                raise PhaseFailed(f"phase 14 (a): a 1x1 mesh issued "
+                                  f"collectives: {comm}")
+            if abs(rel) > RESIDENT_SERVE_TOL:
+                raise PhaseFailed(f"phase 14 (a) {name}: held {held:,} B vs "
+                                  f"the dry run's "
+                                  f"{dry['resident_bytes_per_device']:,} B "
+                                  f"({rel:+.2%})")
+            del run, plain, cache, plain_cache
+    finally:
+        torch.use_deterministic_algorithms(det)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def split_by_hand(torch, da_ops, da_ref, smi: str) -> dict:
+    """(b): the flash-decode combine on one card: the decode kernel with
+    ``return_lse`` over 2 and 4 row ranges of a cache, each range with
+    its local lengths (0 where a sequence does not reach it), merged by
+    ``sharding.combine_partials``, against the kernel over the whole
+    cache and against the plain version; then the lse call and the
+    default call timed at that shape."""
+    from repro_torch.sharding import combine_partials
+    h, hk, d, s, lens = SPLIT_SHAPE
+    b = len(lens)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = {}
+    for dtn, tol in SPLIT_TOL.items():
+        dt = getattr(torch, dtn)
+        q = torch.randn((b, h, d), generator=gen, device="cuda").to(dt)
+        kc = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dt)
+        vc = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dt)
+        whole, whole_lse = da_ops.decode_attention(q, kc, vc, lengths,
+                                                   return_lse=True)
+        plain, _ = da_ref.decode_attention_ref(q, kc, vc, lengths,
+                                               return_lse=True)
+        for parts in (2, 4):
+            rows = s // parts
+            o_parts, lse_parts, empty = [], [], 0
+            for r in range(parts):
+                local = (lengths - r * rows).clamp(0, rows).to(torch.int32)
+                empty += int((local == 0).sum())
+                o, lse = da_ops.decode_attention(
+                    q, kc[:, r * rows:(r + 1) * rows].contiguous(),
+                    vc[:, r * rows:(r + 1) * rows].contiguous(), local,
+                    return_lse=True)
+                o_parts.append(o)
+                lse_parts.append(lse)
+            got = combine_partials(torch.stack(o_parts),
+                                   torch.stack(lse_parts))
+            err_k, ok_k = err_vs(torch, got, whole, tol)
+            err_p, ok_p = err_vs(torch, got, plain, tol)
+            lse = torch.logsumexp(torch.stack(lse_parts), dim=0)
+            err_l, ok_l = lse_err(torch, lse, whole_lse, LSE_TOL[dtn])
+            out[f"{dtn}/{parts}"] = {"vs_kernel": err_k, "vs_plain": err_p,
+                                     "lse": err_l, "empty_ranges": empty}
+            say(f"  (b) {parts} row ranges of B={b} S={s} H={h}/{hk} D={d} "
+                f"{dtn} ({empty} empty (sequence, range) pairs) combined: "
+                f"max |err| {err_k:.3g} against the kernel over the whole "
+                f"cache, {err_p:.3g} against the plain version (tol {tol:g}); "
+                f"the ranges' log-sum-exp {err_l:.3g} from the whole's")
+            if not (ok_k and ok_p and ok_l) or torch.isnan(got).any():
+                raise PhaseFailed(f"phase 14 (b): the combine of {parts} "
+                                  f"ranges in {dtn} parts from the whole "
+                                  f"cache: {out[f'{dtn}/{parts}']}")
+        del q, kc, vc, whole, plain, o_parts
+        free(torch)
+    gen_t = torch.Generator(device="cuda").manual_seed(15)
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen_t, device="cuda").to(dt)
+    out["timed"] = {"default": time_decode(torch, da_ops, da_ref, rnd,
+                                           SPLIT_SHAPE),
+                    "lse": time_decode(torch, da_ops, da_ref, rnd,
+                                       SPLIT_SHAPE, lse=True)}
+    for k, m in out["timed"].items():
+        say(f"  (b) decode {k} call ({m['shape']}): {m['ms']:.4f} ms kernel, "
+            f"{m['plain_ms']:.4f} ms plain, {m['library_ms']:.4f} ms SDPA, "
+            f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}) [{smi}]")
+    free(torch)
+    return out
+
+
+def mesh14_variants(name: str):
+    """(c)'s two runs of a model: (tag, config, the one-card run it is
+    held against): the config's bf16 compute against the one-card bf16
+    run, and the same weights computed in fp32 against the one-card fp32
+    run."""
+    from dataclasses import replace
+    cfg = serve14_config(name)
+    return ((name, cfg, "logits"),
+            (f"{name}-fp32", replace(cfg, dtype="float32"), "fp32"))
+
+
+def mesh14_rank(rank: int, world: int, store: str, refs: str,
+                queue) -> None:
+    """One rank of (c)'s 2 x 2 NCCL mesh: each run's model (each of its
+    ``mesh14_variants``) cut into its shards, prefilled and stepped with
+    the one-card run's tokens; each rank puts on ``queue`` its logits'
+    largest error against the one-card run it is held against and
+    against the one-card fp32 run (over the largest logit), its greedy
+    choices that part from the first with that run's top-2 gap there,
+    its collectives per call, its times, and its kernel launches in the
+    run (the counters set to 0 just before it) beside those the code
+    gives: flash once per attention layer, the decode kernel once per
+    attention layer a step, of them with ``return_lse`` those whose
+    cache the prefill placed with the sequence cut over more than one
+    rank, and the scan's forward once per rglru layer."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainstep import (make_prefill_step,
+                                               make_serve_step)
+    from repro_torch.sharding.rules import ShardCtx, seq_axes, shard_params
+    wrappers = {"flash_attention": fa_ops.flash_attention,
+                "decode_attention": da_ops.decode_attention,
+                "rglru_scan_fwd": scan_ops.rglru_scan_fwd}
+    out = {"rank": rank}
+    try:
+        mesh_lib.init_world(rank, world, store, device="cuda")
+        mesh = mesh_lib.make_debug_mesh(MESH14["data"], MESH14["model"])
+        for name, b, s, max_len in MESH14_RUNS:
+            ref = torch.load(str(Path(refs) / f"{name}.pt"))
+            rows = ShardCtx(mesh, batch=b).rows(torch.arange(b))
+            for tag, cfg, against in mesh14_variants(name):
+                full = T.init_params(cfg, 0, device=mesh.device,
+                                     dtype=torch.float32)
+                local = shard_params(full, mesh)
+                del full
+                torch.cuda.empty_cache()
+                pre = make_prefill_step(cfg, max_len=max_len, mesh=mesh)
+                srv = make_serve_step(cfg, mesh)
+                calls = []
+
+                def counted(fn):
+                    def call(*a):
+                        mesh.counts.reset()
+                        res = fn(*a)
+                        calls.append(mesh.counts.record())
+                        return res
+                    return call
+                steps = len(ref["fed"])
+                _build.reset_launches(*wrappers.values())
+                run = serve_drive(
+                    torch, counted(lambda t: pre(local, {"tokens": t})),
+                    counted(lambda tok, c, n: srv(local, c, tok, n)),
+                    ref["prompts"].to(mesh.device), steps, fed=ref["fed"])
+                torch.cuda.synchronize()
+                launches = {k: w.launches for k, w in wrappers.items()}
+                launches["decode_attention_lse"] = \
+                    da_ops.decode_attention.lse_launches
+                n = kind_counts(cfg)
+                att = n["attn"] + n["attn_local"]
+                seq = sum(1 for c in run["cache"] if "k" in c and
+                          mesh.size(seq_axes(c["k"].shard_spec)) > 1)
+                want_n = {"flash_attention": att,
+                          "decode_attention": att * steps,
+                          "rglru_scan_fwd": n["rglru"],
+                          "decode_attention_lse": seq * steps}
+                errs, errs32, parted = [], [], []
+                for i, got in enumerate(run["logits"]):
+                    want = ref[against][i][rows].float()
+                    exact = ref["fp32"][i][rows]
+                    got = got.float()
+                    errs.append(float((got - want).abs().max()
+                                      / want.abs().max()))
+                    errs32.append(float((got - exact).abs().max()
+                                        / exact.abs().max()))
+                    top = want.topk(2, dim=-1).values
+                    for j in torch.nonzero(got.argmax(-1)
+                                           != want.argmax(-1)):
+                        j = int(j)
+                        parted.append({"call": i, "row": int(rows[j]),
+                                       "gap": float((top[j, 0] - top[j, 1])
+                                                    / want[j].abs().max())})
+                out[tag] = {"err": max(errs), "err_fp32": max(errs32),
+                            "parted": parted, "comm": calls,
+                            "launches": launches, "want_launches": want_n,
+                            "prefill_s": run["prefill_s"],
+                            "step_s": run["step_s"],
+                            "peak": torch.cuda.max_memory_allocated()}
+                del local, run
+                torch.cuda.empty_cache()
+        torch.distributed.destroy_process_group()
+    except Exception as exc:     # noqa: BLE001 — reported by the parent
+        out["error"] = repr(exc)
+    queue.put(out)
+
+
+def four_card_serving(torch, smi: str) -> dict:
+    """(c): the 2 x 2 NCCL mesh over 4 cards, when there are 4: each run
+    in bf16 against the one-card bf16 run (``MESH14_TOL``) and in fp32
+    against the one-card fp32 run (``MESH14_FP32_TOL``), each rank's
+    collectives of every call against the dry run's count; beside them,
+    how far the one-card bf16 run and the mesh's bf16 run each are from
+    the one-card fp32 run fed the same tokens. Every run is reported
+    before a failure is raised."""
+    import copy
+    import multiprocessing as mp
+    n = torch.cuda.device_count()
+    if n < MESH14["data"] * MESH14["model"]:
+        say(f"  (c) mesh 2x2: not run ({n} card)")
+        return {"run": False, "cards": n}
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    tmp = tempfile.mkdtemp(prefix="mesh14")
+    world = MESH14["data"] * MESH14["model"]
+    axes = {"data": MESH14["data"], "model": MESH14["model"]}
+    out = {"run": True, "cards": n}
+    try:
+        for name, b, s, max_len in MESH14_RUNS:
+            cfg = serve14_config(name)
+            prompts = serve14_prompts(torch, cfg, b, s, "cuda")
+            fp32 = T.init_params(cfg, 0, device="cuda", dtype=torch.float32)
+            model = T.to_compute_dtype_(copy.deepcopy(fp32), cfg)
+            plain = serve_drive(
+                torch, lambda t: T.prefill(model, t, max_len=max_len),
+                lambda tok, c, nn: T.decode_step(model, tok, c, nn),
+                prompts, MESH14["steps"])
+            del model, plain["cache"]
+            free(torch)
+            exact = serve_drive(
+                torch, lambda t: T.prefill(fp32, t, max_len=max_len),
+                lambda tok, c, nn: T.decode_step(fp32, tok, c, nn),
+                prompts, MESH14["steps"], fed=plain["tokens"])
+            out[f"{name}-bf16-vs-fp32"] = max(
+                float((a.float() - w).abs().max() / w.abs().max())
+                for a, w in zip(plain["logits"], exact["logits"]))
+            torch.save({"prompts": prompts.cpu(), "fed": plain["tokens"],
+                        "logits": plain["logits"],
+                        "fp32": exact["logits"]},
+                       str(Path(tmp) / f"{name}.pt"))
+            del fp32, plain, exact
+            free(torch)
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=mesh14_rank,
+                             args=(r, world, str(Path(tmp) / "store"), tmp,
+                                   queue)) for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        recs = []
+        try:
+            for _ in range(world):
+                recs.append(queue.get(timeout=MESH14["timeout_s"]))
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errors = [r for r in recs if "error" in r]
+    if errors:
+        raise PhaseFailed(f"phase 14 (c): {errors}")
+    recs.sort(key=lambda r: r["rank"])
+    out["ranks"] = recs
+    failed = []
+    for name, b, s, max_len in MESH14_RUNS:
+        for tag, cfg, against in mesh14_variants(name):
+            want = [dryrun.count_sharded(cfg, InputShape(
+                "p", s, b, "prefill"), axes, max_len=max_len)["collectives"]]
+            want += [dryrun.count_sharded(cfg, InputShape(
+                "d", max_len, b, "decode"), axes)["collectives"]] \
+                * MESH14["steps"]
+            r0 = recs[0][tag]
+            err = max(r[tag]["err"] for r in recs)
+            err32 = max(r[tag]["err_fp32"] for r in recs)
+            parted = [p for r in recs for p in r[tag]["parted"]]
+            tol = MESH14_TOL if against == "logits" else MESH14_FP32_TOL
+            out[tag] = {"err": err, "err_fp32": err32, "parted": parted,
+                        "limit": tol, "against": against,
+                        "collectives_prefill": want[0],
+                        "collectives_step": want[1]}
+            beside = (f"; against the one-card fp32 run the mesh's logits "
+                      f"are within {err32:.3e}, the one-card bf16 run's "
+                      f"{out[f'{name}-bf16-vs-fp32']:.3e}"
+                      if against == "logits" else "")
+            say(f"  (c) {tag} ({cfg.n_layers} layers, {cfg.dtype}) B={b} "
+                f"prompt {s} max_len {max_len} on a 2x2 NCCL mesh, prefill "
+                f"+ {MESH14['steps']} steps: logits within {err:.3e} of the "
+                f"largest logit of the one-card {cfg.dtype} run (limit "
+                f"{tol:g}), {len(parted)} greedy choices parted "
+                f"{parted[:4]}{beside}; prefill {r0['prefill_s']:.3f} s, "
+                f"step median "
+                f"{sorted(r0['step_s'])[len(r0['step_s']) // 2] * 1e3:.2f}"
+                f" ms; collectives a card: prefill {want[0]['total']:,} B, "
+                f"step {want[1]['total']:,} B (the dry run's, every rank); "
+                f"peak {[r[tag]['peak'] for r in recs]} B [{smi}]")
+            say(f"  (c) {tag} launches a rank: "
+                f"{[r[tag]['launches'] for r in recs]} (the code's "
+                f"{r0['want_launches']})")
+            for r in recs:
+                if r[tag]["comm"] != want:
+                    failed.append(f"{tag}: rank {r['rank']}'s collectives "
+                                  f"{r[tag]['comm'][:2]} differ from the "
+                                  f"dry run's {want[:2]}")
+                if r[tag]["launches"] != r[tag]["want_launches"] \
+                        or not r[tag]["launches"]["flash_attention"] \
+                        or not r[tag]["launches"]["decode_attention"]:
+                    failed.append(f"{tag}: rank {r['rank']}'s launches "
+                                  f"{r[tag]['launches']}, the code's "
+                                  f"{r[tag]['want_launches']}")
+            if err > tol or any(p["gap"] > TIE_GAP for p in parted):
+                failed.append(f"{tag}: logits within {err:.3e} (limit "
+                              f"{tol:g}), parted choices {parted}")
+    lse = [sum(r[tag]["launches"]["decode_attention_lse"]
+               for tag in r if isinstance(r[tag], dict)) for r in recs]
+    out["lse"] = {"launches": {"decode_attention": lse[0]}, "ranks": lse}
+    say(f"  (c) decode_attention return_lse launches a rank over every "
+        f"run: {lse}")
+    if not all(lse):
+        failed.append(f"no sequence-sharded decode with return_lse: {lse}")
+    if failed:
+        raise PhaseFailed(f"phase 14 (c): {failed}")
+    return out
+
+
+def phase_sharded_serving(torch, np, ops, da_ops, da_ref, smi: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"one_rank": one_rank_serving(torch, ops, smi),
+           "split": split_by_hand(torch, da_ops, da_ref, smi),
+           "mesh4": four_card_serving(torch, smi)}
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"[14/14] sharded serving: the 1x1 NCCL mesh's prefill and serve "
+        f"steps equal the unsharded ones bit for bit, launches equal, no "
+        f"collective, held bytes within {RESIDENT_SERVE_TOL:.0%} of the dry "
+        f"run's; the decode kernel's partials over 2 and 4 row ranges "
+        f"combine to the whole cache's; 2x2 "
+        f"{'run' if out['mesh4']['run'] else 'not run'} "
         f"({out['wall_s']:.1f} s)")
     return out
 
@@ -6086,12 +6704,36 @@ KERNEL_LINE = [
      ("sharded", "one_rank"), "the sharded train step (1x1 mesh)"),
     ("rglru_scan_bwd", SCAN_SRC, SCAN_TPU, "train",
      ("sharded", "one_rank"), "the sharded train step (1x1 mesh)"),
+    # phase 14: the sharded prefill and serve steps on the 1 x 1 NCCL mesh
+    ("flash_attention", FA_SRC, FA_TPU, "fifo",
+     ("serve_sharded", "one_rank", "qwen2-1.5b"), "the sharded prefill "
+     "step (1x1 mesh): 28 layers x 1 prefill of 8 x 512 tokens"),
+    ("decode_attention", DA_SRC, DA_TPU, "fifo",
+     ("serve_sharded", "one_rank", "qwen2-1.5b"), "the sharded serve step "
+     "(1x1 mesh): 28 layers x 31 steps of 8 rows"),
+    # only with 4 cards: a 1 x 1 mesh holds every row (the default output)
+    ("decode_attention", DA_SRC, DA_TPU,
+     ("serve_sharded", "split", "timed", "lse"),
+     ("serve_sharded", "mesh4", "lse"), "return_lse=True, the flash-decode "
+     "partial of a sequence-sharded cache; the launches count rank 0's "
+     "return_lse calls over phase 14 (c)'s runs on the 2x2 mesh"),
+    ("flash_attention", FA_SRC, FA_TPU, "recurrentgemma-local",
+     ("serve_sharded", "one_rank", "recurrentgemma-9b"), "the sharded "
+     "prefill step (1x1 mesh, 5 layers): 1 attn_local layer x 1 prefill "
+     "of 8 x 512 tokens"),
+    ("decode_attention", DA_SRC, DA_TPU, "recurrentgemma-local",
+     ("serve_sharded", "one_rank", "recurrentgemma-9b"), "the sharded serve "
+     "step (1x1 mesh, 5 layers): 1 ring x 31 steps of 8 rows"),
+    ("rglru_scan_fwd", SCAN_SRC, SCAN_TPU, "recurrentgemma",
+     ("serve_sharded", "one_rank", "recurrentgemma-9b"), "the sharded "
+     "prefill step (1x1 mesh, 5 layers): 4 rglru layers x 1 prefill of 8 "
+     "x 512 tokens"),
 ]
 # a KERNEL_LINE shape timed under another phase-2 record than its name's
 TIMED_AS = {"qwen2-moe-train": "flash_attention_train",
             "seamless-encoder": "flash_attention_bidir",
             ("flash_attention", "train"): "flash_attention_train"}
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
 
 
 def tiered_launches(rec: dict) -> dict:
@@ -6107,7 +6749,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -6140,44 +6782,35 @@ def main() -> int:
     t0 = time.perf_counter()
     record = {}
     try:
-        record["device"] = phase_device(torch, build)
-        if 2 in phases:
-            record["kernels"] = phase_kernels(torch, np, fa_ops, fa_ref,
-                                              da_ops, da_ref, scan_ops,
-                                              scan_ref)
-        if 3 in phases:
-            record["golden"] = phase_golden(torch, np)
-        if 4 in phases:
-            record["serve"] = phase_serve(torch, np, ops, fa_ref, da_ref)
-        if 5 in phases:
-            record["train"] = phase_train(torch, np, ops)
-        if 6 in phases:
-            record["http"] = phase_http(torch, np, ops,
-                                        record["device"]["nvidia_smi"])
-        if 7 in phases:
-            record["edge"] = phase_edge(torch, np, ops,
-                                        record["device"]["nvidia_smi"])
-        if 8 in phases:
-            record["tiered"] = phase_tiered(torch, np, ops,
-                                            record["device"]["nvidia_smi"])
-        if 9 in phases:
-            record["hybrid"] = phase_hybrid(torch, np, ops, fa_ref, da_ref,
-                                            scan_ref,
-                                            record["device"]["nvidia_smi"])
-        if 10 in phases:
-            record["moe"] = phase_families(torch, np, ops, fa_ref, da_ref,
-                                           scan_ref,
-                                           record["device"]["nvidia_smi"])
-        if 11 in phases:
-            record["encdec"] = phase_encdec(torch, np, ops, fa_ref, da_ref,
-                                            scan_ref,
-                                            record["device"]["nvidia_smi"])
-        if 12 in phases:
-            record["dryrun"] = phase_dryrun(torch, built.models,
-                                            record["device"]["nvidia_smi"])
-        if 13 in phases:
-            record["sharded"] = phase_sharded(torch, np, ops,
-                                              record["device"]["nvidia_smi"])
+        smi = None
+        steps = [
+            (1, "device", lambda: phase_device(torch, build)),
+            (2, "kernels", lambda: phase_kernels(
+                torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
+                scan_ref)),
+            (3, "golden", lambda: phase_golden(torch, np)),
+            (4, "serve", lambda: phase_serve(torch, np, ops, fa_ref, da_ref)),
+            (5, "train", lambda: phase_train(torch, np, ops)),
+            (6, "http", lambda: phase_http(torch, np, ops, smi)),
+            (7, "edge", lambda: phase_edge(torch, np, ops, smi)),
+            (8, "tiered", lambda: phase_tiered(torch, np, ops, smi)),
+            (9, "hybrid", lambda: phase_hybrid(torch, np, ops, fa_ref, da_ref,
+                                               scan_ref, smi)),
+            (10, "moe", lambda: phase_families(torch, np, ops, fa_ref, da_ref,
+                                               scan_ref, smi)),
+            (11, "encdec", lambda: phase_encdec(torch, np, ops, fa_ref,
+                                                da_ref, scan_ref, smi)),
+            (12, "dryrun", lambda: phase_dryrun(torch, built.models, smi)),
+            (13, "sharded", lambda: phase_sharded(torch, np, ops, smi)),
+            (14, "serve_sharded", lambda: phase_sharded_serving(
+                torch, np, ops, da_ops, da_ref, smi))]
+        record["phase_s"] = {}
+        for k, key, run in steps:
+            if k in phases:
+                t1 = time.perf_counter()
+                record[key] = run()
+                record["phase_s"][k] = time.perf_counter() - t1
+                smi = record["device"]["nvidia_smi"]
     except PhaseFailed as exc:
         say(f"FAIL: {exc}")
         return 1
@@ -6189,7 +6822,8 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(without_completions(record),
                                              indent=1, default=str,
                                              sort_keys=True))
-    say(f"# total {record['total_s']:.1f} s")
+    say(f"# total {record['total_s']:.1f} s; by phase "
+        f"{json.dumps({k: round(v, 1) for k, v in record['phase_s'].items()})}")
     if 8 in phases:
         say(f"# phase 8 launches by path: "
             f"{json.dumps(tiered_launches(record['tiered']))}")
@@ -6198,8 +6832,19 @@ def main() -> int:
         return 0
     kernels = []
     for name, source, replaces, shape, path, *also in KERNEL_LINE:
-        m = record["kernels"][TIMED_AS.get((name, shape),
-                                           TIMED_AS.get(shape, name))][shape]
+        if isinstance(shape, tuple):     # timed outside phase 2
+            m = record
+            for key in shape:
+                m = m[key]
+        else:
+            m = record["kernels"][TIMED_AS.get((name, shape),
+                                               TIMED_AS.get(shape, name))][
+                                                   shape]
+        if path[:2] == ("serve_sharded", "mesh4") \
+                and not record["serve_sharded"]["mesh4"]["run"]:
+            say(f"# {name} ({m['shape']}): not on the main path with "
+                f"{torch.cuda.device_count()} card; timed in phase 14 (b)")
+            continue
         run = record
         for key in path:
             run = run[key]

@@ -28,7 +28,11 @@
 // lengths[b] are never read, so the bytes moved follow the live
 // context, not the cache size. A sequence with length 0 gets zeros
 // (acc / max(l, 1e-30) with l = 0), never NaN. Masked scores are
-// NEG_INF = -1e30 as in `_decode_kernel`; no fast-math exp.
+// NEG_INF = -1e30 as in `_decode_kernel`; no fast-math exp. On request
+// the combine pass also writes the output unrounded in fp32 and each
+// head's log-sum-exp (-inf for a sequence with no live row), so that the
+// partial outputs of one sequence's row ranges, held on several cards
+// (the flash-decode cache layout), can be combined exactly.
 //   - Loads: tiles stay in the storage type in shared memory and move
 //     with 16-byte cp.async (8 bf16 or 4 fp32 a thread, 16 threads a
 //     256-byte row) into a ring of NSTAGE = 4 tiles (3 for fp32 rows of
@@ -432,10 +436,14 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 // one CTA per (query head, batch); thread d owns one output column. The
 // splits' m and l are staged in shared memory by one pass of loads, so
 // each thread's sums over the splits wait on the pacc loads alone; the
-// order of the sums is the splits' order.
+// order of the sums is the splits' order. With o32 the output is written
+// there in fp32, unrounded, and o is not written; with lse, each head's
+// log-sum-exp m + log(l) of its scaled scores (-inf where no row is
+// live): what a combine of partial outputs over row ranges reads.
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
-                                      const float* __restrict__ pacc, T* __restrict__ o, int H,
+                                      const float* __restrict__ pacc, T* __restrict__ o,
+                                      float* __restrict__ o32, float* __restrict__ lse, int H,
                                       int Hk, int D, int nsplit) {
   extern __shared__ float sML[];          // [nsplit] m, then [nsplit] l
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
@@ -456,13 +464,21 @@ __global__ void decode_combine_kernel(const float* __restrict__ pm, const float*
     l = fmaf(sML[nsplit + s], w, l);
     acc = fmaf(pacc[((base + s) * g + gi) * D + d], w, acc);
   }
-  if (d < D) o[((size_t)b * H + h) * D + d] = from_f<T>(acc / fmaxf(l, 1e-30f));
+  const size_t row = (size_t)b * H + h;
+  if (d < D) {
+    const float out = acc / fmaxf(l, 1e-30f);
+    if (o32)
+      o32[row * D + d] = out;
+    else
+      o[row * D + d] = from_f<T>(out);
+  }
+  if (lse && d == 0) lse[row] = l > 0.f ? m + logf(l) : __int_as_float(0xff800000);  // -inf
 }
 
 template <typename T, typename Rows, int DM>
 int launch(const void* q, const void* kc, const void* vc, const int* lengths, float* pm,
-           float* pl, float* pacc, void* o, Rows rows, int B, int S, int H, int Hk, int D,
-           int chunk, float scale, cudaStream_t stream) {
+           float* pl, float* pacc, void* o, float* o32, float* lse, Rows rows, int B, int S,
+           int H, int Hk, int D, int chunk, float scale, cudaStream_t stream) {
   const int nsplit = (S + chunk - 1) / chunk;
   const size_t smem = smem_bytes(D, (int)sizeof(T), nstage<T, DM>(), rows.pages(chunk));
   // the default limit, raised once as needed: one value per instantiation
@@ -484,14 +500,14 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths, fl
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<T><<<dim3(H, B), D, 2 * sizeof(float) * nsplit, stream>>>(
-      pm, pl, pacc, static_cast<T*>(o), H, Hk, D, nsplit);
+      pm, pl, pacc, static_cast<T*>(o), o32, lse, H, Hk, D, nsplit);
   return (int)cudaGetLastError();
 }
 
 template <typename Rows>
 int dispatch(const void* q, const void* kc, const void* vc, const void* lengths, void* pm,
-             void* pl, void* pacc, void* o, Rows rows, int B, int S, int H, int Hk, int D,
-             int chunk, float scale, int dtype, void* stream) {
+             void* pl, void* pacc, void* o, void* o32, void* lse, Rows rows, int B, int S,
+             int H, int Hk, int D, int chunk, float scale, int dtype, void* stream) {
   if (Hk <= 0 || H % Hk != 0 || H / Hk > GMAX || D <= 0 || D > DMAX || S <= 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -499,13 +515,15 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* lengths,
   float* fm = static_cast<float*>(pm);
   float* fl = static_cast<float*>(pl);
   float* fa = static_cast<float*>(pacc);
+  float* fo = static_cast<float*>(o32);
+  float* fs = static_cast<float*>(lse);
   const bool wide = D > 128;
   if (dtype == 0)
     return (wide ? launch<float, Rows, 256> : launch<float, Rows, 128>)(
-        q, kc, vc, lens, fm, fl, fa, o, rows, B, S, H, Hk, D, chunk, scale, st);
+        q, kc, vc, lens, fm, fl, fa, o, fo, fs, rows, B, S, H, Hk, D, chunk, scale, st);
   if (dtype == 1)
     return (wide ? launch<__nv_bfloat16, Rows, 256> : launch<__nv_bfloat16, Rows, 128>)(
-        q, kc, vc, lens, fm, fl, fa, o, rows, B, S, H, Hk, D, chunk, scale, st);
+        q, kc, vc, lens, fm, fl, fa, o, fo, fs, rows, B, S, H, Hk, D, chunk, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -514,13 +532,15 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* lengths,
 // q (B,H,D), caches (B,S,Hk,D), lengths (B,) int32, o (B,H,D); q, caches
 // and o share one dtype (0 = float32, 1 = bfloat16). The fp32 scratch
 // pm/pl hold B*Hk*nsplit*g floats and pacc that times D, with
-// nsplit = ceil(S / chunk). Returns a cudaError_t code (0 = ok).
+// nsplit = ceil(S / chunk). o32 (B,H,D) and lse (B,H), fp32, may be null:
+// with o32 the output goes there unrounded instead of to o; with lse each
+// head's log-sum-exp is written too. Returns a cudaError_t code (0 = ok).
 extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc,
                                     const void* lengths, void* pm, void* pl, void* pacc,
-                                    void* o, int B, int S, int H, int Hk, int D, int chunk,
-                                    float scale, int dtype, void* stream) {
-  return dispatch(q, kc, vc, lengths, pm, pl, pacc, o, SlottedRows{S}, B, S, H, Hk, D, chunk,
-                  scale, dtype, stream);
+                                    void* o, void* o32, void* lse, int B, int S, int H, int Hk,
+                                    int D, int chunk, float scale, int dtype, void* stream) {
+  return dispatch(q, kc, vc, lengths, pm, pl, pacc, o, o32, lse, SlottedRows{S}, B, S, H, Hk,
+                  D, chunk, scale, dtype, stream);
 }
 
 // q (B,H,D), pools (N,bs,Hk,D), tables (B,nb) int32, lengths (B,) int32,
@@ -533,6 +553,6 @@ extern "C" int paged_decode_attention_fwd(const void* q, const void* kp, const v
                                           int dtype, void* stream) {
   if (nb <= 0 || bs <= 0) return (int)cudaErrorInvalidValue;
   PagedRows rows{static_cast<const int*>(tables), nb, bs};
-  return dispatch(q, kp, vp, lengths, pm, pl, pacc, o, rows, B, nb * bs, H, Hk, D, chunk,
-                  scale, dtype, stream);
+  return dispatch(q, kp, vp, lengths, pm, pl, pacc, o, nullptr, nullptr, rows, B, nb * bs, H,
+                  Hk, D, chunk, scale, dtype, stream);
 }

@@ -12,7 +12,8 @@ Thread-safe: a serving engine's drain thread and a server's warmup may
 be the first to reach a kernel, so ``entry`` and ``build_all`` run under
 one lock, each build writes a temporary library named for its process
 and thread, and ``count_launch`` / ``reset_launches`` keep the
-wrappers' ``.launches`` counters exact across threads.
+wrappers' ``.launches`` counters (and ``decode_attention``'s
+``.lse_launches``) exact across threads.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "flash_attention_fwd": ("flash_attention",
                             [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
     "decode_attention_fwd": ("decode_attention",
-                             [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
+                             [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
     "paged_decode_attention_fwd": ("decode_attention",
                                    [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
     "rglru_scan_workspace": ("rglru_scan",
@@ -137,18 +138,29 @@ def entry(name: str):
         return fn
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``: called by a wrapper where it
-    launches its kernel, and nowhere else."""
+def count_launch(wrapper, also: str = "") -> None:
+    """Add one to ``wrapper.launches``, and to ``wrapper.<also>`` where
+    given (a counter of one kind of its launches): called by a wrapper
+    where it launches its kernel, and nowhere else."""
     with _count_lock:
         wrapper.launches += 1
+        if also:
+            setattr(wrapper, also, getattr(wrapper, also) + 1)
+
+
+# counters of one kind of a wrapper's launches, beside ``launches``
+KIND_COUNTERS = ("lse_launches",)
 
 
 def reset_launches(*wrappers) -> None:
-    """Set the launch counters of ``wrappers`` to 0."""
+    """Set the launch counters of ``wrappers`` to 0, those of one kind
+    of their launches too."""
     with _count_lock:
         for w in wrappers:
             w.launches = 0
+            for name in KIND_COUNTERS:
+                if hasattr(w, name):
+                    setattr(w, name, 0)
 
 
 def check(code: int, name: str) -> None:

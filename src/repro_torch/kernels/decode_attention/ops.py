@@ -6,7 +6,8 @@ slotted (B, S, Hk, D) cache and ``paged_decode_attention`` over a shared
 CPU tensors take the plain versions (``ref.py``); CUDA tensors launch
 the kernel or raise — there is no fallback from the card. Each wrapper's
 ``.launches`` counts its launches (each is the split-KV pass plus its
-combine pass). Meta tensors launch nothing: each wrapper returns an
+combine pass); ``decode_attention.lse_launches`` counts those of them
+with ``return_lse``. Meta tensors launch nothing: each wrapper returns an
 empty output and adds its cost function's count to the active
 ``kernels.cost.KernelCount``; meta lengths hold no values, so such a call
 counts every row of the cache (or of each table's pages) as live, as a
@@ -39,9 +40,13 @@ def split_rows(b: int, hk: int, s: int, sms: int) -> int:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                     scale=None) -> torch.Tensor:
+                     scale=None, return_lse: bool = False):
     """q: (B, H, D); caches: (B, S, Hk, D); lengths: (B,) int32 valid rows
-    per sequence. Returns (B, H, D) in q's dtype."""
+    per sequence. Returns (B, H, D) in q's dtype; with ``return_lse``
+    (o, lse): o (B, H, D) in fp32, unrounded, and lse (B, H) fp32, each
+    head's log-sum-exp of its scaled scores over the live rows, -inf
+    where a sequence has none (there o is zeros): a partial over a range
+    of rows, for ``sharding.rules.combine_partials``."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: want q (B,H,D) and caches "
                          f"(B,S,Hk,D), got {tuple(q.shape)}, "
@@ -61,10 +66,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention: tensors on different devices")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
+        return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale,
+                                    return_lse=return_lse)
     if q.device.type == "meta":
         count_meta_call("decode_attention", decode_attention_cost(
-            b, h, hk, d, live_rows=b * s, itemsize=q.element_size()))
+            b, h, hk, d, live_rows=b * s, itemsize=q.element_size(),
+            return_lse=return_lse))
+        if return_lse:
+            return (torch.empty(q.shape, dtype=torch.float32, device="meta"),
+                    torch.empty((b, h), dtype=torch.float32, device="meta"))
         return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
@@ -75,19 +85,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{MAX_HEAD_DIM}, H/Hk <= {MAX_GROUP} and non-empty "
                          f"caches, got D={d}, H/Hk={h // hk}, B={b}, S={s}")
     o, parts, chunk = _split_scratch(q, hk, s)
+    o32 = lse = None
+    if return_lse:
+        o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     fn = _build.entry("decode_attention_fwd")
     with torch.cuda.device(q.device):     # launches go to q's card
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   lengths.data_ptr(), *(t.data_ptr() for t in parts),
-                  o.data_ptr(), b, s, h, hk, d, chunk, float(scale),
-                  _DTYPES[q.dtype], stream)
+                  o.data_ptr(), None if o32 is None else o32.data_ptr(),
+                  None if lse is None else lse.data_ptr(), b, s, h, hk, d,
+                  chunk, float(scale), _DTYPES[q.dtype], stream)
     _build.check(code, "decode_attention")
-    _build.count_launch(decode_attention)
-    return o
+    _build.count_launch(decode_attention,
+                        "lse_launches" if return_lse else "")
+    return (o32, lse) if return_lse else o
 
 
 decode_attention.launches = 0
+decode_attention.lse_launches = 0
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -166,14 +183,16 @@ paged_decode_attention.launches = 0
 
 def decode_attention_cost(b: int, h: int, hk: int, d: int, *,
                           live_rows: int, itemsize: int = 2,
-                          pages: int = 0) -> Cost:
+                          pages: int = 0, return_lse: bool = False) -> Cost:
     """One decode call's least work over ``live_rows`` cache rows in all
     (the sum of the lengths): 4 D H operations a live row (q.k and p v);
     bytes: the live K and V rows (Hk D each) and q read, o written, the
     int32 lengths read, and with ``pages`` > 0 (the paged entry) the
-    (B, pages) int32 block tables read."""
-    nbytes = itemsize * (2 * live_rows * hk * d + 2 * b * h * d) + 4 * b \
-        + 4 * b * pages
+    (B, pages) int32 block tables read. With ``return_lse`` o is written
+    in fp32 and the (B, H) fp32 log-sum-exp besides."""
+    out = (4 * b * h * d + 4 * b * h) if return_lse else itemsize * b * h * d
+    nbytes = itemsize * (2 * live_rows * hk * d + b * h * d) + out \
+        + 4 * b + 4 * b * pages
     return Cost(4 * d * live_rows * h, nbytes)
 
 

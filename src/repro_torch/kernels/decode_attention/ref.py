@@ -36,8 +36,10 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                         scale=None) -> torch.Tensor:
-    """q: (B, H, D); caches: (B, S, Hk, D); lengths: (B,)."""
+                         scale=None, return_lse: bool = False):
+    """q: (B, H, D); caches: (B, S, Hk, D); lengths: (B,). With
+    ``return_lse`` (o in fp32, unrounded; lse (B, H) fp32, -inf where a
+    sequence has no live row), as ``ops.decode_attention``."""
     b, h, d = q.shape
     _, s, hk, _ = k_cache.shape
     g = h // hk
@@ -50,5 +52,10 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
-    o = o * (lengths > 0).to(o.dtype)[:, None, None, None]
-    return o.reshape(b, h, d).to(q.dtype)
+    live = (lengths > 0)[:, None, None]
+    o = o * live.to(o.dtype)[..., None]
+    if not return_lse:
+        return o.reshape(b, h, d).to(q.dtype)
+    lse = torch.where(live, torch.logsumexp(logits, dim=-1),
+                      torch.full_like(logits[..., 0], -math.inf))
+    return o.reshape(b, h, d), lse.reshape(b, h)

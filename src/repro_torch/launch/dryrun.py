@@ -26,17 +26,19 @@ its meta branch, which launches nothing), and records per combination:
   under the sharding rules (``repro_torch.sharding``) on the mesh;
 * ``collective_bytes_per_device``, ``collectives`` (bytes and calls by
   kind, bytes by the axes crossed) and ``t_collective_s``: the
-  counterpart of the reference's ``collective_bytes``. For a train shape
-  of a family the sharded step runs, rank 0's per-device program of
-  ``make_train_step(cfg, opt, mesh)`` runs on the meta device over an
-  abstract mesh (``count_sharded``), whose collectives are counted as
-  the reference's parser counts them (each result's bytes on one
-  device), not issued; ``t_collective_s`` is each axis set's bytes over
-  its link's published peak (NVLink 4 inside a pod, InfiniBand across
-  pods; ``launch.mesh``), a bound. ``resident_bytes_per_device`` is that
-  program's fp32 masters, gradients and moments. A combination the
-  sharded step does not run records why in ``collective_note``, and
-  ``None`` for the three.
+  counterpart of the reference's ``collective_bytes``. For a family the
+  sharded steps run, rank 0's per-device program of the shape's step
+  (``make_train_step(cfg, opt, mesh)``, ``make_prefill_step`` or
+  ``make_serve_step``, the last over ``shard_cache`` of the shape's
+  cache) runs on the meta device over an abstract mesh
+  (``count_sharded``), whose collectives are counted as the reference's
+  parser counts them (each result's bytes on one device), not issued;
+  ``t_collective_s`` is each axis set's bytes over its link's published
+  peak (NVLink 4 inside a pod, InfiniBand across pods; ``launch.mesh``),
+  a bound. ``resident_bytes_per_device`` is that program's fp32 master
+  shards (with their gradients and moments for training) and the cache
+  shards a serving step leaves. A combination the sharded steps do not
+  run records why in ``collective_note``, and ``None`` for the four.
 
 Meshes: ``h100`` (one card), ``pod`` (16 x 16) and ``multipod`` (2 x 16 x
 16), abstract, or any ``DxM`` / ``PxDxM`` (``2x2`` for the tests and the
@@ -70,10 +72,12 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import optim
-from repro_torch.runtime.trainstep import check_shardable, make_train_step
+from repro_torch.runtime.trainstep import (check_shardable,
+                                           make_prefill_step,
+                                           make_serve_step, make_train_step)
 from repro_torch.sharding import (cache_shardings, device_bytes,
                                   params_shardings)
-from repro_torch.sharding.rules import batch_axes, shard_params
+from repro_torch.sharding.rules import batch_axes, shard_cache, shard_params
 from repro_torch.weights import reference_cache, reference_shapes
 
 OUTDIR = os.path.join("build", "dryrun")
@@ -149,22 +153,28 @@ def count_step(cfg: ModelConfig, shape: Union[str, InputShape], *,
 
 def count_sharded(cfg: ModelConfig, shape: Union[str, InputShape],
                   axes: Dict[str, int], *, microbatches: int = 1,
-                  batch_override: Optional[int] = None) -> Dict:
-    """The collectives of rank 0's program of the sharded train step on
-    ``axes``, run on the meta device over an abstract mesh: {"collectives"
+                  batch_override: Optional[int] = None,
+                  max_len: Optional[int] = None) -> Dict:
+    """The collectives of rank 0's program of the shape's sharded step
+    (``make_train_step``, ``make_prefill_step`` or ``make_serve_step``)
+    on ``axes``, run on the meta device over an abstract mesh; a prefill
+    writes a cache of ``max_len`` rows (default: the shape's length), a
+    decode step starts from ``shard_cache`` of ``init_cache`` at
+    ``decode_context``'s geometry. Returns {"collectives"
     (``CommCount.record``), "collective_bytes_per_device",
-    "t_collective_s", "resident_bytes_per_device"}, or the three None
-    and "collective_note" where the sharded step does not run the
+    "t_collective_s", "resident_bytes_per_device"}: the last is the fp32
+    master shards (with their gradients and moments for training) and,
+    for prefill and decode, the cache shards the step leaves, each leaf's
+    bytes under its spec (``device_bytes``). The four are None, with
+    "collective_note", where the sharded steps do not run the
     combination."""
     s = resolve(shape)
     mesh = mesh_lib.abstract_mesh(axes)
     specs = input_specs(cfg, s, batch_override)
     b = next(iter(specs.values())).shape[0]
     why = None
-    if s.kind != "train":
-        why = ("the sharded prefill and serve steps come in a later slice "
-               "(ROADMAP Queue 4)")
-    elif b % (mesh.size(batch_axes(axes)) * microbatches):
+    if s.kind == "train" and b % (mesh.size(batch_axes(axes))
+                                  * microbatches):
         why = (f"a global batch of {b} in {microbatches} microbatches does "
                f"not split over {mesh.size(batch_axes(axes))} data ranks")
     else:
@@ -176,18 +186,33 @@ def count_sharded(cfg: ModelConfig, shape: Union[str, InputShape],
         return {"collectives": None, "collective_bytes_per_device": None,
                 "t_collective_s": None, "resident_bytes_per_device": None,
                 "collective_note": why}
+    cache = []
     with KernelCount():
         full = T.Transformer(cfg, device=META, dtype=torch.float32)
         model = shard_params(full, mesh)
-        model.requires_grad_(True)
-        step = make_train_step(cfg, optim.AdamWConfig(), mesh,
-                               microbatches=microbatches)
-        step(model, optim.init(model), specs)
+        if s.kind == "train":
+            model.requires_grad_(True)
+            step = make_train_step(cfg, optim.AdamWConfig(), mesh,
+                                   microbatches=microbatches)
+            step(model, optim.init(model), specs)
+        elif s.kind == "prefill":
+            step = make_prefill_step(cfg, max_len=max_len or s.seq_len,
+                                     mesh=mesh)
+            _, cache, _ = step(model, specs)
+        else:
+            ctx = decode_context(cfg, s)
+            cache = shard_cache(T.init_cache(cfg, b, ctx["max_len"],
+                                             device=META), mesh)
+            step = make_serve_step(cfg, mesh)
+            step(model, cache, specs["token"], specs["cache_len"])
     n_local = sum(p.numel() for p in model.parameters())
+    per_param = 16 if s.kind == "train" else 4
+    # a shard's bytes: its leaf's ``device_bytes`` under its spec
+    held = _nbytes(_cache_tensors(cache))
     return {"collectives": mesh.counts.record(),
             "collective_bytes_per_device": mesh.counts.total,
             "t_collective_s": mesh.counts.seconds(mesh_lib.LINK_PEAK_BW),
-            "resident_bytes_per_device": 4 * 4 * n_local}
+            "resident_bytes_per_device": per_param * n_local + held}
 
 
 def mesh_axes(mesh: str):
@@ -232,7 +257,7 @@ def _notes(cfg: ModelConfig, s: InputShape, mesh: str) -> List[str]:
     if mesh != "h100":
         notes.append("a mesh's time terms split the one-card counts "
                      "evenly over its chips; the collective term is rank "
-                     "0's program of the sharded train step, bytes over "
+                     "0's program of the shape's sharded step, bytes over "
                      "the links' published peaks")
     if s.kind == "train" and any(k.startswith("attn") for k in
                                  cfg.layer_kinds):

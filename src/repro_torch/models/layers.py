@@ -240,24 +240,32 @@ def _local_heads(p, cfg, ctx):
     repeated to one a query head."""
     if ctx.split(p, "wk"):
         return p
-    h, hk = cfg.n_heads, cfg.n_kv_heads
-    hl, g = p.wq.shape[1], h // hk
-    first = ctx.tp_index * hl
-    want = [(first + j) // g for j in range(hl)]
-    lo, hi = want[0], want[-1] + 1
-    idx = [w - lo for w in want]
-    uniform = hl % (hi - lo) == 0 and all(
-        i == j // (hl // (hi - lo)) for j, i in enumerate(idx))
+    lo, hi, idx = _kv_of_local_heads(cfg, ctx, p.wq.shape[1])
     out = SimpleNamespace(**vars(p))
     for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
         t = getattr(p, name, None)
         if t is None:
             continue
         t = ctx.tp_slice(t, dim, lo, hi)
-        if not uniform:
+        if idx is not None:
             t = t.index_select(dim, torch.tensor(idx, device=t.device))
         setattr(out, name, t)
     return out
+
+
+def _kv_of_local_heads(cfg, ctx, hl: int):
+    """The kv heads of this rank's ``hl`` query heads (head j on kv head
+    j // (H / Hk)): (lo, hi, idx), the range ``[lo, hi)`` that holds
+    them and, where they do not map onto it as the kernel maps heads,
+    the index into it of each query head's kv head (else None)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = ctx.tp_index * hl
+    want = [(first + j) // g for j in range(hl)]
+    lo, hi = want[0], want[-1] + 1
+    idx = [w - lo for w in want]
+    uniform = hl % (hi - lo) == 0 and all(
+        i == j // (hl // (hi - lo)) for j, i in enumerate(idx))
+    return lo, hi, None if uniform else idx
 
 
 def attn_apply(p, x: torch.Tensor, cfg, *, kind: str,
@@ -340,55 +348,142 @@ def cross_attn_decode(p, x: torch.Tensor, cfg,
 
 
 def attn_prefill_cache(p, x: torch.Tensor, cfg, *, kind: str,
-                       positions: torch.Tensor, cache_size: int
+                       positions: torch.Tensor, cache_size: int, ctx=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence prefill that also materializes the decode cache:
     returns (residual output, {"k", "v"} of ``cache_size`` rows). Rows
     keep the last ``cache_size`` positions at their ring slots
-    (slot = position % cache_size), matching ``attn_decode``."""
+    (slot = position % cache_size), matching ``attn_decode``.
+
+    Under a ``ctx`` (a sharded serving step), the rank's batch rows and,
+    where the "model" axis cuts the query heads, its heads: q
+    column-parallel, the flash kernel on the rank's heads, the output
+    row-parallel and summed over "model". K and V are computed for the
+    rank's kv heads where the axis cuts ``wk``, else for every kv head
+    (each rank holds ``wk`` whole then), and the rank's query heads read
+    theirs. The cache leaves are placed as ``cache_spec`` says: the
+    rank's kv heads (the heads layout), or its rows of the ring of every
+    kv head (the sequence, flash-decode, layout; kv heads that "model"
+    cuts gathered over it through ``comm``)."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import held, seq_rows
+    split = ctx is not None and ctx.split(p, "wq")
+    kv_split = split and ctx.split(p, "wk")
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if split:
+        h = ctx.tp_in(h)
     q, k, v = _qkv(p, h, cfg)
     theta = _theta_for(cfg, kind)
     q = apply_rope(q, positions, theta, cfg.rope_fraction)
     k = apply_rope(k, positions, theta, cfg.rope_fraction)
+    kf, vf = k, v
+    if split and not kv_split:
+        lo, hi, idx = _kv_of_local_heads(cfg, ctx, q.shape[2])
+        kf, vf = k[:, :, lo:hi], v[:, :, lo:hi]
+        if idx is not None:
+            sel = torch.tensor(idx, device=k.device)
+            kf, vf = kf.index_select(2, sel), vf.index_select(2, sel)
     window = cfg.window if kind == "attn_local" else 0
-    o = flash_attention(q, k, v.contiguous(), causal=True, window=window)
-    out = x + _out_proj(o, p.wo)
-    b, s, hk, hd = k.shape
-    kc = k.new_zeros((b, cache_size, hk, hd))
-    vc = v.new_zeros((b, cache_size, hk, hd))
-    if cache_size >= s:
-        kc[:, :s] = k
-        vc[:, :s] = v
-    else:
-        slots = torch.arange(s - cache_size, s, device=x.device) % cache_size
-        kc[:, slots] = k[:, s - cache_size:]
-        vc[:, slots] = v[:, s - cache_size:]
-    return out, {"k": kc, "v": vc}
+    o = flash_attention(q, kf.contiguous(), vf.contiguous(), causal=True,
+                        window=window)
+    out = _out_proj(o, p.wo)
+    out = x + (ctx.tp_out(out) if split else out)
+    if ctx is None:
+        return out, {"k": _ring_rows(k, cache_size, 0, cache_size),
+                     "v": _ring_rows(v, cache_size, 0, cache_size)}
+    spec = ctx.cache_spec("k", (x.shape[0], cache_size, cfg.n_kv_heads,
+                                cfg.resolved_head_dim))
+    if kv_split and spec[2:3] != ("model",):
+        k = comm.gather_dim(k, ctx.mesh, "model", 2)
+        v = comm.gather_dim(v, ctx.mesh, "model", 2)
+    lo, hi = seq_rows(spec, cache_size, ctx.mesh)
+    return out, {"k": held(_ring_rows(k, cache_size, lo, hi), spec),
+                 "v": held(_ring_rows(v, cache_size, lo, hi), spec)}
+
+
+def _ring_rows(k: torch.Tensor, size: int, lo: int, hi: int
+               ) -> torch.Tensor:
+    """Slots ``[lo, hi)`` of a ring of ``size`` rows filled from a
+    prompt's (B, S, Hk, hd) rows: the last ``size`` positions at
+    slot = position % size, zeros past the prompt."""
+    s = k.shape[1]
+    if size >= s:
+        out = k.new_zeros((k.shape[0], hi - lo) + k.shape[2:])
+        n = max(0, min(hi, s) - lo)
+        out[:, :n] = k[:, lo:lo + n]
+        return out
+    first = s - size
+    slot = torch.arange(lo, hi, device=k.device)
+    return k[:, first + (slot - first) % size].contiguous()
 
 
 def attn_decode(p, x: torch.Tensor, cfg, *, kind: str,
-                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor
-                ) -> torch.Tensor:
+                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
+                ctx=None) -> torch.Tensor:
     """One-token decode. x: (B, 1, D); cache {"k","v"}: (B, S_cache, Hk,
     hd); cache_len: (B,) int32. The new K/V row is written at
     ``cache_len % S_cache`` IN PLACE in ``cache`` before attending over
-    ``min(cache_len + 1, S_cache)`` rows. Returns the residual output."""
+    ``min(cache_len + 1, S_cache)`` rows. Returns the residual output.
+    No window mask: a ring holds only the window.
+
+    Under a ``ctx`` (a sharded serving step), the rank's batch rows and
+    shards, the cache placed as its leaves' ``shard_spec`` says. The
+    heads layout: the rank's query heads over its kv heads, as
+    unsharded. Otherwise the cache holds every kv head, so the rank's q
+    (and K, V where "model" cuts ``wk``) are gathered to every head over
+    "model"; where the sequence is cut over ranks, the new row goes to
+    the rank that holds slot ``cache_len % S`` of the ring, the kernel
+    reads the rank's rows up to ``clamp(valid - lo, 0, rows)`` and
+    returns its fp32 partial and log-sum-exp, which ``ctx.combine``
+    merges across them. The rank's heads of the result go through its
+    rows of ``wo``, summed over "model"."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import seq_axes, seq_rows
+    split = ctx is not None and ctx.split(p, "wq")
+    kv_split = split and ctx.split(p, "wk")
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if split:
+        h = ctx.tp_in(h)
     positions = cache_len[:, None]
     q, k, v = _qkv(p, h, cfg)
     theta = _theta_for(cfg, kind)
     q = apply_rope(q, positions, theta, cfg.rope_fraction)
     k = apply_rope(k, positions, theta, cfg.rope_fraction)
     kc, vc = cache["k"], cache["v"]
-    size = kc.shape[1]
+    spec = kc.shard_spec if ctx is not None else ()
+    heads = split and spec[2:3] == ("model",)
+    hl = q.shape[2]
+    if split and not heads:
+        q = comm.gather_dim(q, ctx.mesh, "model", 2)
+        if kv_split:
+            k = comm.gather_dim(k, ctx.mesh, "model", 2)
+            v = comm.gather_dim(v, ctx.mesh, "model", 2)
+    axes = seq_axes(spec)
+    n = ctx.mesh.size(axes) if ctx is not None else 1
+    rows_l = kc.shape[1]
+    size = rows_l * n
     idx = (cache_len % size).long()
     rows = torch.arange(kc.shape[0], device=kc.device)
-    kc[rows, idx] = k[:, 0]         # in-place cache write
-    vc[rows, idx] = v[:, 0]
     valid = torch.clamp(cache_len + 1, max=size).to(torch.int32)
-    o = decode_attention(q[:, 0].contiguous(), kc, vc, valid)
-    return x + _out_proj(o, p.wo)[:, None]
+    if n == 1:
+        kc[rows, idx] = k[:, 0]         # in-place cache write
+        vc[rows, idx] = v[:, 0]
+        o = decode_attention(q[:, 0].contiguous(), kc, vc, valid)
+    else:
+        lo, _ = seq_rows(spec, size, ctx.mesh)
+        local = idx - lo
+        mine = ((local >= 0) & (local < rows_l))[:, None, None]
+        local = local.clamp(0, rows_l - 1)
+        kc[rows, local] = torch.where(mine, k[:, 0], kc[rows, local])
+        vc[rows, local] = torch.where(mine, v[:, 0], vc[rows, local])
+        o, lse = decode_attention(
+            q[:, 0].contiguous(), kc, vc,
+            (valid - lo).clamp(0, rows_l).to(torch.int32), return_lse=True)
+        o = ctx.combine(o, lse, axes).to(q.dtype)
+    if split and not heads:
+        o = o[:, ctx.tp_index * hl:(ctx.tp_index + 1) * hl]
+    out = _out_proj(o, p.wo)[:, None]
+    return x + (ctx.tp_out(out) if split else out)
 
 
 def attn_extend(p, x: torch.Tensor, cfg, *, kind: str,

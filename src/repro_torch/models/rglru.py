@@ -159,38 +159,73 @@ def rglru_apply(p, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
     return _block(p, x, cfg, ctx)[0]
 
 
-def rglru_prefill_cache(p, x: torch.Tensor, cfg
+def _split(p, ctx) -> bool:
+    """Whether the layer runs on this rank's channels (``_block``)."""
+    return ctx is not None and ctx.split(p, "w_out")
+
+
+def rglru_prefill_cache(p, x: torch.Tensor, cfg, ctx=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``rglru_apply`` that also returns the decode state: {"h": the
     last output (B, D) fp32, "conv": the rec branch's last W - 1 inputs
     (B, W - 1, D) in x's dtype, leading zeros where the prompt is
-    shorter}."""
-    out, rec, y = _block(p, x, cfg)
+    shorter}. Under a ``ctx`` (a sharded serving step) the block runs on
+    the rank's channels and each leaf is placed as ``cache_spec`` says:
+    ``conv`` cut over "model" as the channels are, ``h`` whole over
+    "model" where the batch is cut over the batch axes (the channels
+    gathered through ``comm``), else cut too."""
+    out, rec, y = _block(p, x, cfg, ctx)
     keep = cfg.rglru_conv_width - 1
     tail = rec[:, -keep:]
     if tail.shape[1] < keep:
         tail = torch.cat([tail.new_zeros((tail.shape[0], keep - tail.shape[1],
                                           tail.shape[2])), tail], dim=1)
-    return out, {"h": y[:, -1].contiguous(),
-                 "conv": tail.to(x.dtype).contiguous()}
+    state = {"h": y[:, -1].contiguous(),
+             "conv": tail.to(x.dtype).contiguous()}
+    if ctx is not None:
+        from repro_torch.sharding.rules import held
+        b, d = x.shape[0], cfg.d_model
+        for name, shape in (("h", (b, d)), ("conv", (b, keep, d))):
+            spec = ctx.cache_spec(name, shape)
+            state[name] = held(ctx.to_held(state[name], spec,
+                                           _split(p, ctx)).contiguous(), spec)
+    return out, state
 
 
 def rglru_decode(p, x: torch.Tensor, cfg, *,
-                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 cache: Dict[str, torch.Tensor], ctx=None) -> torch.Tensor:
     """One-token decode, the O(1) state update. x: (B, 1, D); ``cache``
     {"h", "conv"} is advanced IN PLACE (h <- y, the tail shifted by the
-    new input). Returns the residual output."""
+    new input). Returns the residual output. Under a ``ctx`` the step
+    runs on the rank's channels as ``_block`` does (the gates read every
+    channel of the conv output, gathered over "model"), reading and
+    writing the state leaves in their placement (``ShardCtx.channels``,
+    ``ShardCtx.to_held``)."""
+    split = _split(p, ctx)
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if split:
+        p = _local_channels(p, ctx)
+        h = ctx.tp_in(h)
+    state, conv = cache["h"], cache["conv"]
+    if ctx is not None:
+        state, conv = ctx.channels(state, split), ctx.channels(conv, split)
     gate, rec = (h @ p.w_in).chunk(2, dim=-1)
     gate = F.gelu(gate, approximate="tanh")
-    xc = _causal_conv(rec, p.conv_w, p.conv_b, tail=cache["conv"])
-    a, b = _gates(p, xc)
-    y = a[:, 0] * cache["h"] + b[:, 0]
+    xc = _causal_conv(rec, p.conv_w, p.conv_b, tail=conv)
+    if split:
+        from repro_torch.sharding import comm
+        a, b = _gates(p, xc, comm.all_gather(xc, ctx.mesh, "model", -1))
+    else:
+        a, b = _gates(p, xc)
+    y = a[:, 0] * state + b[:, 0]
     out = (y[:, None].to(x.dtype) * gate) @ p.w_out
-    tail = torch.cat([cache["conv"], rec.to(cache["conv"].dtype)], dim=1)
-    cache["conv"].copy_(tail[:, 1:])
+    tail = torch.cat([conv, rec.to(conv.dtype)], dim=1)[:, 1:]
+    if ctx is not None:
+        tail = ctx.to_held(tail, cache["conv"].shard_spec, split)
+        y = ctx.to_held(y, cache["h"].shard_spec, split)
+    cache["conv"].copy_(tail)
     cache["h"].copy_(y)
-    return x + out
+    return x + (ctx.tp_out(out) if split else out)
 
 
 __all__ = ["RGLRUBlock", "rglru_init", "rglru_apply", "rglru_prefill_cache",

@@ -762,14 +762,18 @@ def kv_row_bytes(cfg: ModelConfig) -> int:
 
 def _prefill_layer(layer, x: torch.Tensor, cfg: ModelConfig, *,
                    positions: torch.Tensor, max_len: int,
-                   enc_out: Optional[torch.Tensor] = None
+                   enc_out: Optional[torch.Tensor] = None, ctx=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder layer of a prefill, by kind: (its output, its decode
     cache), as the reference's ``_layer_prefill``. An encoder-decoder's
     layer attends to ``enc_out`` and caches its cross K/V in the first
-    rows of ``max_len``, with their count in ``cross_len``."""
+    rows of ``max_len``, with their count in ``cross_len``. Under a
+    ``ctx`` the layer's compute copy is gathered first (``ctx.layer``)
+    and its block and MLP run on the rank's shards."""
+    if ctx is not None:
+        layer = ctx.layer(layer)
     if layer.kind == "rglru":
-        x, c = R.rglru_prefill_cache(layer.block, x, cfg)
+        x, c = R.rglru_prefill_cache(layer.block, x, cfg, ctx=ctx)
     elif layer.kind == "mlstm":
         x, c = S.mlstm_prefill_cache(layer.block, x, cfg)
     elif layer.kind == "slstm":
@@ -777,7 +781,7 @@ def _prefill_layer(layer, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         x, c = L.attn_prefill_cache(
             layer.block, x, cfg, kind=layer.kind, positions=positions,
-            cache_size=_cache_size_for(layer.kind, cfg, max_len))
+            cache_size=_cache_size_for(layer.kind, cfg, max_len), ctx=ctx)
     if layer.cross is not None and enc_out is not None:
         ck, cv = L.cross_kv(layer.cross, enc_out, cfg)
         x = L.cross_attn_apply(layer.cross, x, ck, cv, cfg)
@@ -786,51 +790,91 @@ def _prefill_layer(layer, x: torch.Tensor, cfg: ModelConfig, *,
         c["cross_k"][:, :src] = ck
         c["cross_v"][:, :src] = cv
         c["cross_len"].fill_(src)
-    return _ffn(layer, x, cfg)[0], c
+    return _ffn(layer, x, cfg, ctx)[0], c
+
+
+def _held_cache(cache: Cache, ctx) -> Cache:
+    """Every leaf of a sharded prefill's cache marked with its placement:
+    the attention and RG-LRU leaves place themselves; the other kinds
+    run only on a mesh of one rank, where every leaf is whole."""
+    from repro_torch.sharding.rules import held
+    for c in cache:
+        for name, t in c.items():
+            if not hasattr(t, "shard_spec"):
+                held(t, ctx.cache_spec(name, tuple(t.shape)))
+    return cache
+
+
+def _serving_head(params, x: torch.Tensor, cfg: ModelConfig, ctx
+                  ) -> torch.Tensor:
+    """Logits (B, Vp) of the last position of ``x`` (B, S, D), the
+    final norm included; under a ``ctx`` the head's vocabulary shards
+    gathered over "model"."""
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)[:, -1]
+    if ctx is None:
+        return _head_logits(x, params)
+    logits = _head_logits(ctx.batch_only(x), params, ctx)
+    return ctx.full_vocab(logits, cfg.padded_vocab_size)
 
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int,
-            embeds: Optional[torch.Tensor] = None
+            embeds: Optional[torch.Tensor] = None, ctx=None
             ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Run the prompt (B, S) through the model, materializing the decode
     cache. ``embeds`` (B, F, frontend_dim): a vision frontend's rows,
     prefilled ahead of the prompt (the cache then holds F + S rows), or
     an encoder-decoder's source frames, encoded once and cached as each
     layer's cross K/V (F <= ``max_len``). Returns (last-position logits
-    (B, Vp), cache, cache_len (B,) int32)."""
+    (B, Vp), cache, cache_len (B,) int32).
+
+    Under a ``ctx`` (``sharding.ShardCtx`` of a sharded serving step,
+    ``runtime.trainstep.make_prefill_step``) ``model`` holds this rank's
+    fp32 master shards and ``tokens`` are its batch rows: the compute
+    copy is cast at the call, its leaves outside the layers gathered
+    first and each layer's just before it (ZeRO-3, as training), the
+    layers run tensor parallel over "model", the logits are the rank's
+    rows over the whole vocabulary and each cache leaf is this rank's
+    shard under ``cache_spec`` (marked ``shard_spec``)."""
     cfg = model.cfg
     check_servable(cfg)
     if cfg.n_encoder_layers and embeds is not None \
             and embeds.shape[1] > max_len:
         raise ValueError(f"{cfg.name}: a source of {embeds.shape[1]} rows "
                          f"exceeds the cross cache's max_len {max_len}")
-    x, enc_out = _inputs(model, cfg, tokens, embeds, False)
+    params = model if ctx is None else _prepare(model, cfg, ctx)
+    x, enc_out = _inputs(params, cfg, tokens, embeds, False, ctx)
     positions = _positions(x)
     cache: Cache = []
-    for layer in model.layers:
+    for layer in params.layers:
         x, c = _prefill_layer(layer, x, cfg, positions=positions,
-                              max_len=max_len, enc_out=enc_out)
+                              max_len=max_len, enc_out=enc_out, ctx=ctx)
         cache.append(c)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = _head_logits(x[:, -1], model)
+    logits = _serving_head(params, x, cfg, ctx)
+    if ctx is not None:
+        cache = _held_cache(cache, ctx)
     b, s = x.shape[:2]
     return logits, cache, torch.full((b,), s, dtype=torch.int32,
                                      device=x.device)
 
 
 def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
-                   cache_len: torch.Tensor, block_tables, lo: int, hi: int
-                   ) -> torch.Tensor:
+                   cache_len: torch.Tensor, block_tables, lo: int, hi: int,
+                   ctx=None) -> torch.Tensor:
     """Decoder layers ``lo .. hi - 1`` of one decode step. With
     ``block_tables`` the ``attn`` layers read their pool through the
     tables; ring and recurrent layers decode their slot-indexed leaves
     either way, and an encoder-decoder's layers attend to their cached
-    cross K/V through the slotted kernel on both layouts."""
+    cross K/V through the slotted kernel on both layouts. Under a
+    ``ctx`` ``model`` is the compute copy (``_prepare``), each layer
+    gathered just before it, and the layers run on the rank's shards of
+    the weights and the cache."""
     cfg = model.cfg
     for layer, c in zip(model.layers[lo:hi], cache[lo:hi]):
+        if ctx is not None:
+            layer = ctx.layer(layer)
         if layer.kind == "rglru":
-            x = R.rglru_decode(layer.block, x, cfg, cache=c)
+            x = R.rglru_decode(layer.block, x, cfg, cache=c, ctx=ctx)
         elif layer.kind == "mlstm":
             x = S.mlstm_decode(layer.block, x, cfg, cache=c)
         elif layer.kind == "slstm":
@@ -841,31 +885,38 @@ def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
                                     cache_len=cache_len)
         else:
             x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
-                              cache_len=cache_len)
+                              cache_len=cache_len, ctx=ctx)
         if layer.cross is not None:
             x = L.cross_attn_decode(layer.cross, x, cfg, c)
-        x = _ffn(layer, x, cfg)[0]
+        x = _ffn(layer, x, cfg, ctx)[0]
     return x
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, token: torch.Tensor, cache: Cache,
                 cache_len: torch.Tensor, *,
-                block_tables: Optional[torch.Tensor] = None
+                block_tables: Optional[torch.Tensor] = None, ctx=None
                 ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """One serving step: next-token logits for one new token per
     sequence. token: (B,) int; cache_len: (B,) int32 current context
     length. ``block_tables`` (B, nb) int32 switches the layers to the
     paged layout (``init_paged_cache``): each reads only the pages its
     table names. ``cache`` is updated in place (and returned, like the
-    reference's functional step)."""
+    reference's functional step). Under a ``ctx`` (a sharded serving
+    step, ``runtime.trainstep.make_serve_step``), as ``prefill``'s:
+    ``model`` holds the rank's master shards, ``token`` and
+    ``cache_len`` are its batch rows, ``cache`` its shards (their
+    ``shard_spec`` says how each is placed), and the logits its rows over
+    the whole vocabulary; the slotted layout only."""
     cfg = model.cfg
     check_servable(cfg)
-    x = _embed_inputs(model, token)[:, None]
-    x = _decode_layers(model, x, cache, cache_len, block_tables, 0,
-                       len(model.layers))
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return _head_logits(x[:, 0], model), cache, cache_len + 1
+    if ctx is not None and block_tables is not None:
+        raise ValueError("a sharded serve step runs the slotted cache only")
+    params = model if ctx is None else _prepare(model, cfg, ctx)
+    x = _embed_inputs(params, token, ctx=ctx)[:, None]
+    x = _decode_layers(params, x, cache, cache_len, block_tables, 0,
+                       len(params.layers), ctx)
+    return _serving_head(params, x, cfg, ctx), cache, cache_len + 1
 
 
 def decode_stage_bounds(cfg: ModelConfig, num_stages: int) -> list:

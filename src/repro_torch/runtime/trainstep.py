@@ -1,6 +1,6 @@
-"""The training step of the port: the counterpart of
-``repro.runtime.trainstep.make_train_step``, on one device or over a
-mesh.
+"""The step functions of the port: the counterparts of
+``repro.runtime.trainstep``'s ``make_train_step``, ``make_prefill_step``
+and ``make_serve_step``, on one device or over a mesh.
 
 The model holds fp32 master parameters with ``requires_grad``; each
 forward casts the compute copy from them (``cast_params_for_compute``),
@@ -19,6 +19,26 @@ sharded step trains the dense and hybrid families (``attn``,
 ``attn_local``, ``rglru``); under a mesh of more than one rank it refuses
 the MoE, xLSTM, encoder-decoder and frontend families, which a later
 slice shards.
+
+The serving steps run the same program forward only: the model holds
+this rank's fp32 master shards, each call casts the compute copy and
+gathers it over "data" a layer at a time, and the layers run tensor
+parallel over "model". The decode cache is placed by the cache rules
+(``sharding.cache_spec``): a KV leaf by batch x kv heads where the kv
+heads divide "model", else by batch x sequence over "model" (the
+flash-decode layout: each rank attends over its rows of every
+sequence, and the partial outputs are combined across ranks through
+their log-sum-exp), and, where the batch does not divide the batch
+axes (``long_500k``'s single sequence), by sequence over ("data",
+"model"); RG-LRU states by batch, their conv tail and, for a batch that
+does not divide, ``h`` cut over "model" as the channels are. The global
+batch's rows are cut over the batch axes where they divide, else every
+rank runs all of them. ``make_prefill_step`` returns each rank's rows'
+logits over the whole vocabulary, its cache shards (``shard_spec`` on
+each leaf) and their ``cache_len``; ``make_serve_step`` takes those
+shards (or ``sharding.shard_cache`` of a whole cache) with the global
+batch's tokens and lengths. The same families as training, slotted
+caches only (the reference's serve step passes no block tables).
 """
 from __future__ import annotations
 
@@ -31,14 +51,15 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import optim
 from repro_torch.sharding.rules import ShardCtx, shard_batch
 
-LATER = "the MoE, xLSTM, encoder-decoder and frontend families under a mesh"
+LATER = ("the MoE, xLSTM, encoder-decoder and frontend families under a "
+         "mesh, in the train, prefill and serve steps,")
 
 
 def check_shardable(cfg: ModelConfig, mesh) -> None:
-    """Raise unless the sharded step runs ``cfg`` on ``mesh``: a mesh of
-    one rank runs every config; more ranks run the decoders of
-    ``attn``, ``attn_local`` and ``rglru`` layers without MoE, encoder
-    or frontend."""
+    """Raise unless the sharded train, prefill and serve steps run
+    ``cfg`` on ``mesh``: a mesh of one rank runs every config; more ranks
+    run the decoders of ``attn``, ``attn_local`` and ``rglru`` layers
+    without MoE, encoder or frontend."""
     if mesh is None or mesh.n_ranks == 1:
         return
     why = []
@@ -52,7 +73,7 @@ def check_shardable(cfg: ModelConfig, mesh) -> None:
     if cfg.frontend:
         why.append("a frontend")
     if why:
-        raise ValueError(f"{cfg.name}: the sharded train step does not yet "
+        raise ValueError(f"{cfg.name}: the sharded steps do not yet "
                          f"shard {', '.join(why)} over a "
                          f"{'x'.join(map(str, mesh.shape.values()))} mesh; "
                          f"{LATER} come in a later slice (ROADMAP Queue 4)")
@@ -60,6 +81,13 @@ def check_shardable(cfg: ModelConfig, mesh) -> None:
 
 def _as_tensors(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _check_model(model, mesh, what: str) -> None:
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError(f"{what} over {mesh} got a model sharded for "
+                         f"{getattr(model, 'mesh', None)} "
+                         f"(sharding.shard_params cuts one)")
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
@@ -93,10 +121,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
             raise ValueError("train_step wants fp32 master parameters with "
                              "requires_grad (init_params(..., dtype="
                              "torch.float32).requires_grad_(True))")
-        if getattr(model, "mesh", None) is not mesh:
-            raise ValueError(f"train_step over {mesh} got a model sharded "
-                             f"for {getattr(model, 'mesh', None)} "
-                             f"(sharding.shard_params cuts one)")
+        _check_model(model, mesh, "train_step")
         batch = _as_tensors(batch, model.device)
         lead = batch["tokens"].shape[0]
         if lead % microbatches:
@@ -133,3 +158,58 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
         return model, opt_state, {"loss": loss, **metrics, **om}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, *, max_len: int, mesh=None):
+    """prefill_step(model, batch) -> (logits, cache, cache_len).
+
+    ``batch``: {"tokens": (B, S)} and, with a frontend, "embeds" (arrays
+    or tensors). Without a mesh, ``transformer.prefill`` on the model as
+    it is held (a serving model holds its compute copy). With ``mesh``,
+    ``model`` must hold the shards ``shard_params`` cut for it and every
+    rank passes the same global batch: the logits (B_rank, Vp) are this
+    rank's rows over the whole vocabulary, the cache its shards and
+    ``cache_len`` its rows'."""
+    check_shardable(cfg, mesh)
+
+    def prefill_step(model: T.Transformer, batch: Dict[str, Any]):
+        _check_model(model, mesh, "prefill_step")
+        batch = _as_tensors(batch, model.device)
+        tokens, embeds = batch["tokens"], batch.get("embeds")
+        if mesh is None:
+            return T.prefill(model, tokens, max_len=max_len, embeds=embeds)
+        ctx = ShardCtx(mesh, batch=tokens.shape[0])
+        return T.prefill(model, ctx.rows(tokens), max_len=max_len,
+                         embeds=ctx.rows(embeds), ctx=ctx)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, mesh=None):
+    """serve_step(model, cache, token, cache_len) -> (logits, cache,
+    cache_len): one decode step, the cache updated in place.
+
+    ``token`` and ``cache_len``: (B,) of the global batch, every rank the
+    same. Without a mesh, ``transformer.decode_step``. With ``mesh``,
+    ``model`` holds the rank's master shards and ``cache`` its shards
+    (``make_prefill_step``'s, or ``sharding.shard_cache`` of a whole
+    cache): the logits (B_rank, Vp) are its rows over the whole
+    vocabulary and ``cache_len`` its rows' plus one."""
+    check_shardable(cfg, mesh)
+
+    def serve_step(model: T.Transformer, cache, token, cache_len):
+        _check_model(model, mesh, "serve_step")
+        token = torch.as_tensor(token, device=model.device)
+        cache_len = torch.as_tensor(cache_len, dtype=torch.int32,
+                                    device=model.device)
+        if mesh is None:
+            return T.decode_step(model, token, cache, cache_len)
+        if any(not hasattr(t, "shard_spec") for c in cache
+               for t in c.values()):
+            raise ValueError("serve_step over a mesh wants the cache's shards "
+                             "(make_prefill_step's, or sharding.shard_cache)")
+        ctx = ShardCtx(mesh, batch=token.shape[0])
+        return T.decode_step(model, ctx.rows(token), cache,
+                             ctx.rows(cache_len), ctx=ctx)
+
+    return serve_step

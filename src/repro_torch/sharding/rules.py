@@ -29,7 +29,11 @@ the reference's four methods over ``sharding.comm``'s collectives:
 ZeRO-3 over "data" (``layer`` gathers one layer's compute copy, whose
 backward reduce-scatters the gradient) and Megatron-style tensor
 parallelism over "model" (the layers in ``models`` run on the rank's
-heads, channels, ff columns and vocabulary rows).
+heads, channels, ff columns and vocabulary rows). The sharded prefill
+and serve steps run the same program forward over a decode cache cut
+by ``cache_spec`` (``shard_cache`` / ``gather_cache``); where a KV leaf
+is cut by sequence, each rank's decode partials are merged across the
+ranks (``ShardCtx.combine``, ``combine_partials``).
 
 Leaves are named by the reference's flat paths (``scan/<i>/block/wq``
 stacked over periods, ``rem/<j>/...``, ``encoder/<i>/...``;
@@ -196,45 +200,50 @@ def batch_shardings(leaves: Mapping[str, Any], mesh: Mesh
     return {path: one(leaf) for path, leaf in leaves.items()}
 
 
+def cache_spec(name: str, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
+    """Spec of one layer's decode-cache leaf ``name`` (its last path
+    component) of ``shape`` (the global shape, no period dim). KV
+    tensors (B, S, Hk, hd): batch x kv-head sharding when divisible,
+    else sequence sharding (the long-context path). Recurrent states
+    (B, ...): batch sharding, falling back to feature sharding for
+    batch=1."""
+    ba = batch_axes(mesh)
+    if name in ("k", "v", "cross_k", "cross_v"):
+        # batch x kv-heads when heads divide; otherwise batch x
+        # sequence over "model" (the flash-decode layout)
+        cands = [
+            (ba, None, "model", None),
+            (ba, "model", None, None),
+            (ba, None, None, None),
+            (None, ("data", "model"), None, None),
+            (None, "data", None, None),
+            (None, "model", None, None),
+        ]
+    elif name == "C":      # mlstm matrix memory (B, nh, dh, dh)
+        cands = [(ba, "model", None, None), (ba, None, None, None),
+                 (None, "model", None, None)]
+    elif name == "conv":   # (B, W-1, D)
+        cands = [(ba, None, "model"), (ba, None, None),
+                 (None, None, "model")]
+    elif len(shape) >= 2:  # other recurrent states (B, ...)
+        cands = [(ba,) + (None,) * (len(shape) - 1),
+                 (None, "model") + (None,) * (len(shape) - 2)]
+    else:
+        cands = [(ba,)]
+    return _resolve(cands, tuple(shape), mesh)
+
+
 def cache_shardings(leaves: Mapping[str, Any], mesh: Mesh
                     ) -> Dict[str, Spec]:
-    """Decode caches. KV tensors (B, S, Hk, hd): batch x kv-head sharding
-    when divisible, else sequence sharding (the long-context path).
-    Recurrent states (B, ...): batch sharding, falling back to feature
-    sharding for batch=1."""
-    ba = batch_axes(mesh)
-
+    """Decode caches by flat path (``scan/<i>/<leaf>`` stacked over
+    periods, ``rem/<j>/<leaf>``): each leaf's ``cache_spec``, a stacked
+    leaf's with a leading None for its period dim."""
     def one(path, leaf):
         stacked = _stacked(path)
         full = _shape(leaf)
-        shape = full[1:] if stacked else full
-        last = path.split("/")[-1]
-        if last in ("k", "v", "cross_k", "cross_v"):
-            # batch x kv-heads when heads divide; otherwise batch x
-            # sequence over "model" (the flash-decode layout)
-            cands = [
-                (ba, None, "model", None),
-                (ba, "model", None, None),
-                (ba, None, None, None),
-                (None, ("data", "model"), None, None),
-                (None, "data", None, None),
-                (None, "model", None, None),
-            ]
-        elif last == "C":      # mlstm matrix memory (B, nh, dh, dh)
-            cands = [(ba, "model", None, None), (ba, None, None, None),
-                     (None, "model", None, None)]
-        elif last == "conv":   # (B, W-1, D)
-            cands = [(ba, None, "model"), (ba, None, None),
-                     (None, None, "model")]
-        elif len(shape) >= 2:  # other recurrent states (B, ...)
-            cands = [(ba,) + (None,) * (len(shape) - 1),
-                     (None, "model") + (None,) * (len(shape) - 2)]
-        else:
-            cands = [(ba,)]
-        spec = _resolve(cands, shape, mesh)
-        if stacked:
-            spec = (None,) + spec
-        return spec
+        spec = cache_spec(path.split("/")[-1], full[1:] if stacked else full,
+                          mesh)
+        return (None,) + spec if stacked else spec
     return {path: one(path, leaf) for path, leaf in leaves.items()}
 
 
@@ -396,6 +405,98 @@ def gather_params(model, *, grad: bool = False):
     return full
 
 
+@torch.no_grad()
+def shard_cache(cache, mesh):
+    """This rank's shard of every leaf of a decode cache (a list of
+    per-layer dicts, ``transformer.init_cache``, global shapes) under
+    ``cache_shardings`` on ``mesh``, on the mesh's device. A per-layer
+    leaf's spec is its reference leaf's (``scan/<i>/<leaf>`` or
+    ``rem/<j>/<leaf>``) without the period dim, so it is read from the
+    leaf's name and shape alone; each shard carries it as
+    ``shard_spec``, which the serving steps and ``gather_cache`` read."""
+    out = []
+    for layer in cache:
+        shards = {}
+        for name, t in layer.items():
+            spec = cache_spec(name, tuple(t.shape), mesh.shape)
+            shards[name] = held(local_shard(t, spec, mesh).to(
+                mesh.device, copy=True).contiguous(), spec)
+        out.append(shards)
+    return out
+
+
+@torch.no_grad()
+def gather_cache(cache, mesh):
+    """The whole cache back from this rank's shards (``shard_cache`` or a
+    sharded serving step's), on every rank: each leaf gathered over its
+    ``shard_spec``'s axes (a collective: every rank of the mesh calls
+    this at once)."""
+    if mesh is None:
+        return cache
+    out = []
+    for layer in cache:
+        whole = {}
+        for name, t in layer.items():
+            spec = getattr(t, "shard_spec", None)
+            if spec is None:
+                raise ValueError(f"cache leaf {name!r} carries no shard_spec "
+                                 f"(sharding.shard_cache cuts one)")
+            whole[name] = _gather_full(t, spec, mesh, False).contiguous()
+        out.append(whole)
+    return out
+
+
+def held(t: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """``t``, marked as this rank's shard of a cache leaf under
+    ``spec``."""
+    t.shard_spec = tuple(spec)
+    return t
+
+
+def seq_axes(spec: Spec) -> Tuple[str, ...]:
+    """The axes a KV leaf's (B, S, Hk, hd) spec cuts its sequence over:
+    the flash-decode layout's."""
+    return tuple(spec_axes(spec[1:2])) if len(spec) > 1 else ()
+
+
+def seq_rows(spec: Spec, size: int, mesh) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` of a KV leaf of ``size`` sequence rows that
+    this rank holds under ``spec`` on ``mesh`` (all of them where the
+    sequence is not cut)."""
+    axes = seq_axes(spec)
+    n = mesh.size(axes)
+    if size % n:
+        raise ValueError(f"{size} cache rows do not split over {n} ranks")
+    rows = size // n
+    lo = mesh.index(axes) * rows
+    return lo, lo + rows
+
+
+def _combine(o: torch.Tensor, lse: torch.Tensor, rmax, rsum
+             ) -> torch.Tensor:
+    """Partial attention outputs over disjoint row ranges into one, in
+    fp32: weights exp(lse - m) with m the largest lse (0 where every
+    part is empty: no -inf - -inf), the weighted outputs and weights
+    summed in one reduction, divided once. ``rmax`` / ``rsum`` reduce
+    over the parts."""
+    m = rmax(lse)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    sums = rsum(torch.cat([w * o.float(), w], dim=-1))
+    return sums[..., :-1] / sums[..., -1:].clamp(min=1e-30)
+
+
+def combine_partials(o_parts: torch.Tensor, lse_parts: torch.Tensor
+                     ) -> torch.Tensor:
+    """One attention output (B, H, D) fp32 from R partial ones over
+    disjoint row ranges of the same sequences: ``o_parts`` (R, B, H, D)
+    and ``lse_parts`` (R, B, H), as ``decode_attention(...,
+    return_lse=True)`` gives each range (an empty range's lse is -inf:
+    it weighs 0). ``ShardCtx.combine`` is the same over ranks."""
+    return _combine(o_parts, lse_parts, lambda t: t.amax(0),
+                    lambda t: t.sum(0))
+
+
 def shard_batch(batch: Dict[str, torch.Tensor], mesh
                 ) -> Dict[str, torch.Tensor]:
     """This rank's rows of a global batch: dim 0 cut over the batch axes
@@ -449,10 +550,21 @@ class ShardCtx:
     is cut over "model" (and "model" has more than one rank): the
     layers run on local shards where it is. ``tp_in`` / ``tp_out`` are
     the column-parallel input (gradient summed over "model") and the
-    row-parallel output (summed over "model")."""
+    row-parallel output (summed over "model").
 
-    def __init__(self, mesh):
+    The serving steps give ``batch``, the global batch's rows. Their
+    rows are cut over the batch axes where they divide, else every rank
+    runs all of them (``rows``), as ``cache_spec`` places the cache's
+    batch dim; ``cache_spec`` places each leaf the layers write;
+    ``combine`` merges the flash-decode layout's partial outputs across
+    the ranks that hold a sequence's rows; ``channels`` / ``to_held``
+    move a recurrent state's channels between the layer's compute cut
+    and the leaf's placement; ``full_vocab`` gathers the head's
+    vocabulary shards."""
+
+    def __init__(self, mesh, batch: Optional[int] = None):
         self.mesh = mesh
+        self.global_batch = batch
 
     @property
     def tp(self) -> int:
@@ -543,6 +655,67 @@ class ShardCtx:
         holds whole, for this rank's share of the work: its gradient
         summed over "model" (each rank's is partial)."""
         return self.tp_in(x).narrow(dim, lo, hi - lo)
+
+    # -- serving ------------------------------------------------------------
+
+    def rows(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's rows of a global (B, ...) input: cut over the batch
+        axes where they divide the global batch, else all of them."""
+        n = self.mesh.size(self.batch)
+        if x is None or self.global_batch % n:
+            return x
+        return _chunk(x, 0, n, self.mesh.index(self.batch), False)
+
+    def cache_spec(self, name: str, shape: Tuple[int, ...]) -> Spec:
+        """``cache_spec`` of a leaf whose rank-local shape is ``shape``
+        but for the batch dim, the global batch's."""
+        return cache_spec(name, (self.global_batch,) + tuple(shape[1:]),
+                          self.mesh.shape)
+
+    def combine(self, o: torch.Tensor, lse: torch.Tensor, axes
+                ) -> torch.Tensor:
+        """The flash-decode combine across the ranks of ``axes`` that
+        hold one sequence's row ranges: ``o`` (B, H, D) fp32 and ``lse``
+        (B, H) this rank's partial (``decode_attention(...,
+        return_lse=True)`` over its rows). The largest lse through
+        ``comm.all_reduce_(op="max")``, then one sum of the weighted
+        outputs and weights, divided in fp32: ``combine_partials`` over
+        ranks."""
+        from repro_torch.sharding import comm
+        return _combine(
+            o, lse, lambda t: comm.all_reduce_(t, self.mesh, axes, op="max"),
+            lambda t: comm.all_reduce_(t, self.mesh, axes))
+
+    def _cut(self, spec: Spec) -> bool:
+        return self.tp > 1 and "model" in spec_axes(tuple(spec[-1:]))
+
+    def channels(self, state: torch.Tensor, split: bool) -> torch.Tensor:
+        """A recurrent state leaf's channels (last dim) as a layer whose
+        channels are ``split`` over "model" computes on them: this rank's
+        where the leaf is held whole."""
+        if split and not self._cut(state.shard_spec):
+            n = state.shape[-1] // self.tp
+            return state.narrow(-1, self.tp_index * n, n)
+        return state
+
+    def to_held(self, x: torch.Tensor, spec: Spec, split: bool
+                ) -> torch.Tensor:
+        """``x``, a recurrent state over the layer's channels (``split``
+        over "model" or whole), in the placement ``spec``: gathered over
+        "model" where the leaf is held whole and the channels are
+        split."""
+        from repro_torch.sharding import comm
+        if split and not self._cut(spec):
+            return comm.gather_dim(x, self.mesh, "model", -1)
+        return x
+
+    def full_vocab(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
+        """Logits over the whole (padded) vocabulary: the head's "model"
+        shards gathered where it is cut."""
+        from repro_torch.sharding import comm
+        if logits.shape[-1] == vocab:
+            return logits
+        return comm.gather_dim(logits, self.mesh, "model", -1)
 
 
 class NoopShardCtx:

@@ -108,3 +108,16 @@ def test_launch_counters_exact_across_threads():
     assert wrapper.launches == n_threads * per
     _build.reset_launches(wrapper)
     assert wrapper.launches == 0
+
+
+def test_launch_counter_of_one_kind():
+    """``count_launch(w, "lse_launches")`` adds one to both counters, a
+    plain call to ``launches`` alone; ``reset_launches`` zeroes both."""
+    def wrapper():
+        pass
+    wrapper.launches = wrapper.lse_launches = 0
+    for also in ("", "lse_launches", "", "lse_launches", "lse_launches"):
+        _build.count_launch(wrapper, also)
+    assert (wrapper.launches, wrapper.lse_launches) == (5, 3)
+    _build.reset_launches(wrapper)
+    assert (wrapper.launches, wrapper.lse_launches) == (0, 0)

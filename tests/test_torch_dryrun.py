@@ -23,11 +23,13 @@ against the reference (CPU; counts only, no times).
 * the kernels' cost functions give ``PERF.md``'s bound column;
 * the collective term: rank 0's program of the sharded train step on a
   1x1 mesh issues and counts no collective; every full config the
-  sharded step runs gets finite collective bytes and ``t_collective_s``
-  at train_4k on 16x16, and every other one records why it has none
-  (the count of the smoke step on 2x2, 1x4 and 4x1 is held against the
-  bytes a gloo run moved in ``test_torch_sharded.py``, beside the world
-  it reads).
+  sharded steps run gets finite collective bytes and ``t_collective_s``
+  at train_4k, prefill_32k, decode_32k and long_500k on 16x16 (the
+  decode shapes' KV leaves sequence-sharded), and every other one
+  records why it has none (the count of the smoke steps on 2x2, 1x4 and
+  4x1 is held against the bytes a gloo run moved in
+  ``test_torch_sharded.py`` and ``test_torch_sharded_serve.py``, beside
+  the worlds they read).
 """
 from __future__ import annotations
 
@@ -405,10 +407,18 @@ SHARDED = ("qwen2_1_5b", "llama3_2_3b", "chatglm3_6b", "gemma3_1b",
            "recurrentgemma_9b")
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_collective_term_on_the_pod(arch, no_cuda):
-    rec = dryrun.count_sharded(get_config(arch), "train_4k",
-                               {"data": 16, "model": 16})
+# train_4k keeps the arch as its id; the serving shapes are cases of
+# the same test
+POD_CASES = [pytest.param(a, "train_4k", id=a) for a in ARCH_IDS] + [
+    pytest.param(a, s, id=f"{a}-{s}")
+    for s in ("prefill_32k", "decode_32k", "long_500k") for a in ARCH_IDS
+    if shapes.shape_applicable(get_config(a), s)]
+
+
+@pytest.mark.parametrize("arch,shape", POD_CASES)
+def test_collective_term_on_the_pod(arch, shape, no_cuda):
+    pod = {"data": 16, "model": 16}
+    rec = dryrun.count_sharded(get_config(arch), shape, pod)
     if arch not in SHARDED:
         assert rec["t_collective_s"] is None
         assert "later slice" in rec["collective_note"]
@@ -417,12 +427,35 @@ def test_collective_term_on_the_pod(arch, no_cuda):
     assert math.isfinite(rec["t_collective_s"]) and rec["t_collective_s"] > 0
     assert rec["collective_bytes_per_device"] == c["total"] == sum(
         c[k] for k in ("all-gather", "reduce-scatter", "all-reduce"))
-    # ZeRO-3: a gather of each layer's compute copy over "data" in the
-    # forward and again in the remat recompute of the scanned periods,
-    # and one reduce-scatter of its gradient, per sharded leaf
-    assert c["calls"]["all-gather"] > c["calls"]["reduce-scatter"] > 0
     assert rec["t_collective_s"] == pytest.approx(
         sum(n / mesh_lib.NVLINK_PEAK_BW for n in c["by_axes"].values()))
+    if shape == "train_4k":
+        # ZeRO-3: a gather of each layer's compute copy over "data" in the
+        # forward and again in the remat recompute of the scanned periods,
+        # and one reduce-scatter of its gradient, per sharded leaf
+        assert c["calls"]["all-gather"] > c["calls"]["reduce-scatter"] > 0
+        return
+    # serving: ZeRO-3's gathers over "data", the "model" sums, no
+    # gradient to reduce-scatter
+    assert c["calls"]["reduce-scatter"] == 0
+    assert c["by_axes"]["data"] > 0 and c["by_axes"]["model"] > 0
+    assert rec["resident_bytes_per_device"] > 0
+    if shape == "prefill_32k":
+        return
+    # no served config's kv heads divide 16: decode_32k's KV leaves are
+    # sequence-sharded over "model", long_500k's single sequence over
+    # ("data", "model"), whose partials the decode step combines there
+    cfg = get_config(arch)
+    ctx = shapes.decode_context(cfg, shape)
+    cache = T.init_cache(cfg, ctx["batch"], ctx["max_len"], device="meta")
+    specs = rules.cache_shardings(reference_shapes(reference_cache(
+        cfg, cache)), pod)
+    kv = [spec for key, spec in specs.items()
+          if key.split("/")[-1] in ("k", "v")]
+    seq = "model" if shape == "decode_32k" else ("data", "model")
+    assert kv and all(spec[-3] == seq for spec in kv)
+    if shape == "long_500k":
+        assert c["by_axes"]["data,model"] > 0
 
 
 def test_mesh_constants_and_debug_mesh():

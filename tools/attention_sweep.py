@@ -211,7 +211,8 @@ def sweep_decode(torch, cs, build, chunks) -> None:
         def call():
             code = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                       lens.data_ptr(), pm.data_ptr(), pl.data_ptr(),
-                      pacc.data_ptr(), o.data_ptr(), b, s, h, hk, d, chunk,
+                      pacc.data_ptr(), o.data_ptr(), None, None, b, s, h,
+                      hk, d, chunk,
                       d ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
             build.check(code, "decode_attention")
         for _ in range(3):
