@@ -58,6 +58,7 @@ import json
 import math
 import os
 import time
+from dataclasses import replace
 from typing import Dict, List, Optional, Union
 
 import torch
@@ -75,6 +76,7 @@ from repro_torch.runtime import optim
 from repro_torch.runtime.trainstep import (check_shardable,
                                            make_prefill_step,
                                            make_serve_step, make_train_step)
+from repro_torch.sharding.comm import CommCount
 from repro_torch.sharding import (cache_shardings, device_bytes,
                                   params_shardings)
 from repro_torch.sharding.rules import batch_axes, shard_cache, shard_params
@@ -167,7 +169,14 @@ def count_sharded(cfg: ModelConfig, shape: Union[str, InputShape],
     for prefill and decode, the cache shards the step leaves, each leaf's
     bytes under its spec (``device_bytes``). The four are None, with
     "collective_note", where the sharded steps do not run the
-    combination."""
+    combination.
+
+    The scanned periods run one program each, the same shapes through
+    the same collectives, as the reference's scan lowers one body: a
+    config of more than two periods is run at one and at two periods
+    (its remainder layers kept), and every count and cache byte of the
+    other periods is the difference of the two, once a period
+    (``_by_periods``); the master shards are the whole config's."""
     s = resolve(shape)
     mesh = mesh_lib.abstract_mesh(axes)
     specs = input_specs(cfg, s, batch_override)
@@ -186,6 +195,34 @@ def count_sharded(cfg: ModelConfig, shape: Union[str, InputShape],
         return {"collectives": None, "collective_bytes_per_device": None,
                 "t_collective_s": None, "resident_bytes_per_device": None,
                 "collective_note": why}
+    args = (s, axes, specs, microbatches, max_len)
+    if cfg.n_periods > 2:
+        counts, held = _by_periods(*(_run_sharded(_depth(cfg, k), *args)
+                                     for k in (1, 2)), cfg.n_periods)
+    else:
+        counts, held = _run_sharded(cfg, *args)
+    model = shard_params(T.Transformer(cfg, device=META, dtype=torch.float32),
+                         mesh)
+    n_local = sum(p.numel() for p in model.parameters())
+    per_param = 16 if s.kind == "train" else 4
+    return {"collectives": counts.record(),
+            "collective_bytes_per_device": counts.total,
+            "t_collective_s": counts.seconds(mesh_lib.LINK_PEAK_BW),
+            "resident_bytes_per_device": per_param * n_local + held}
+
+
+def _depth(cfg: ModelConfig, periods: int) -> ModelConfig:
+    """``cfg`` cut to ``periods`` scanned periods, its remainder kept."""
+    return replace(cfg, n_layers=periods * len(cfg.layer_pattern)
+                   + len(cfg.remainder_kinds))
+
+
+def _run_sharded(cfg: ModelConfig, s: InputShape, axes, specs,
+                 microbatches: int, max_len: Optional[int]):
+    """Rank 0's program of the sharded step on meta: (its collectives
+    (``CommCount``), the bytes of the cache shards it leaves)."""
+    mesh = mesh_lib.abstract_mesh(axes)
+    b = next(iter(specs.values())).shape[0]
     cache = []
     with KernelCount():
         full = T.Transformer(cfg, device=META, dtype=torch.float32)
@@ -205,14 +242,21 @@ def count_sharded(cfg: ModelConfig, shape: Union[str, InputShape],
                                              device=META), mesh)
             step = make_serve_step(cfg, mesh)
             step(model, cache, specs["token"], specs["cache_len"])
-    n_local = sum(p.numel() for p in model.parameters())
-    per_param = 16 if s.kind == "train" else 4
     # a shard's bytes: its leaf's ``device_bytes`` under its spec
-    held = _nbytes(_cache_tensors(cache))
-    return {"collectives": mesh.counts.record(),
-            "collective_bytes_per_device": mesh.counts.total,
-            "t_collective_s": mesh.counts.seconds(mesh_lib.LINK_PEAK_BW),
-            "resident_bytes_per_device": per_param * n_local + held}
+    return mesh.counts, _nbytes(_cache_tensors(cache))
+
+
+def _by_periods(one, two, periods: int):
+    """The counts and cache bytes of ``periods`` periods from those of
+    one and of two: one's, and two's less one's for each other period."""
+    (c1, h1), (c2, h2) = one, two
+    out = CommCount()
+    for name in ("calls", "bytes", "axis_bytes"):
+        a, b = getattr(c1, name), getattr(c2, name)
+        getattr(out, name).update(
+            {k: a.get(k, 0) + (periods - 1) * (b.get(k, 0) - a.get(k, 0))
+             for k in set(a) | set(b)})
+    return out, h1 + (periods - 1) * (h2 - h1)
 
 
 def mesh_axes(mesh: str):

@@ -18,11 +18,13 @@ rank, started by ``torchrun``::
     torchrun --standalone --nproc-per-node N*M -m repro_torch.launch.train \
         --arch recurrentgemma_9b --data 2 --model 2 ...
 
-NCCL on the cards (rank r on card ``LOCAL_RANK``), gloo with ``--device
-cpu``. Every rank builds the same masters from the seed and keeps its
-shards; every rank draws the same global batches and trains on its rows;
-rank 0 alone prints, and writes ``--ckpt`` (the gathered masters, the
-file an unsharded run writes).
+The dense, hybrid and MoE families train so; an MoE config's experts go
+by expert over "model" where their count divides it, else by their ff
+columns (``models.moe``). NCCL on the cards (rank r on card
+``LOCAL_RANK``), gloo with ``--device cpu``. Every rank builds the same
+masters from the seed and keeps its shards; every rank draws the same
+global batches and trains on its rows; rank 0 alone prints, and writes
+``--ckpt`` (the gathered masters, the file an unsharded run writes).
 ``main(argv)`` parses the flags and calls ``run``, which ``chip_smoke.py``
 also calls.
 """

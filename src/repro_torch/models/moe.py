@@ -17,10 +17,23 @@ kernel. Top-k breaks ties as ``jax.lax.top_k`` does, lowest index
 first (a stable descending sort): in bf16 the router logits of 60 or
 128 experts often tie exactly. The aux loss is the Switch load-balance
 loss plus 1e-3 x the router z-loss.
+
+Over a mesh (``ctx``, a ``sharding.ShardCtx``) the layer runs on the
+part of the expert banks that ZeRO-3's per-layer gather leaves each
+"model" rank, with no all-to-all: the banks cut by expert where the
+expert count divides "model"
+(qwen3-moe's 128: expert parallelism), else every expert over F / model
+columns (qwen2-moe's 60 on 16: the per-expert tensor-parallel
+fallback). The activations are whole on every rank, so each rank routes
+its rows over all E experts exactly as the unsharded layer does (the
+same top-k, queue positions, drops and aux loss), builds dispatch and
+combine for its own experts only, runs them, and adds the shared
+experts' column-parallel share; the partial outputs are summed over
+"model" once per layer (``_Cut``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,27 +90,60 @@ def _top_k(probs: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-def _assign(router_logits: torch.Tensor, cfg, capacity: int):
+def _assign(router_logits: torch.Tensor, cfg, capacity: int,
+            experts: Optional[Tuple[int, int]] = None):
     """The routing both dispatches share. router_logits (G, T, E) fp32.
     Returns (top_idx (G,T,K) expert ids, pos (G,T,K) slot in the
     expert's queue, keep (G,T,K) bool, top_p (G,T,K) renormalized fp32,
     aux loss): queue positions by a cumsum over the choices flattened
-    k-major, so first choices win capacity over second choices."""
+    k-major, so first choices win capacity over second choices.
+
+    ``experts`` = (lo, hi) restricts the queues to those experts (a
+    rank's under expert parallelism; default all): a queue is a cumsum
+    down its own expert's column, so the local columns give the local
+    experts' positions unchanged, and a choice of any other expert has
+    ``keep`` False here. Top-k, ``top_p`` and the aux loss always see
+    every expert."""
     g, t, e = router_logits.shape
+    lo, hi = experts or (0, e)
     k = cfg.moe.top_k
     probs = torch.softmax(router_logits.float(), dim=-1)
     top_p, top_idx = _top_k(probs, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-    onehot = F.one_hot(top_idx, e)                          # (G, T, K, E)
-    pos = torch.cumsum(onehot.transpose(1, 2).reshape(g, k * t, e),
-                       dim=1) - 1                           # (G, K*T, E)
-    pos = pos.reshape(g, k, t, e).transpose(1, 2)            # (G, T, K, E)
-    pos = (pos * onehot).sum(-1)                            # (G, T, K)
-    keep = pos < capacity
-    frac_tokens = onehot.float().sum(2).mean(1)             # (G, E)
+    mine = _local_onehot(top_idx, lo, hi).long()            # (G, T, K, El)
+    pos = torch.cumsum(mine.transpose(1, 2).reshape(g, k * t, hi - lo),
+                       dim=1) - 1                           # (G, K*T, El)
+    pos = pos.reshape(g, k, t, hi - lo).transpose(1, 2)      # (G, T, K, El)
+    pos = (pos * mine).sum(-1)                              # (G, T, K)
+    keep = (pos < capacity) & (top_idx >= lo) & (top_idx < hi)
+    frac_tokens = F.one_hot(top_idx, e).float().sum(2).mean(1)  # (G, E)
     aux = e * (frac_tokens * probs.mean(1)).sum(-1).mean()
     z = (torch.logsumexp(router_logits, dim=-1) ** 2).mean()
     return top_idx, pos, keep, top_p, aux + 1e-3 * z
+
+
+def _local_onehot(top_idx: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """(G, T, K, hi - lo) bool: which of experts lo..hi-1 each choice
+    names."""
+    return top_idx[..., None] == torch.arange(lo, hi, device=top_idx.device)
+
+
+def _slots(top_idx, pos, keep, top_p, capacity: int, compute_dtype,
+           experts: Tuple[int, int]):
+    """The one-hot dispatch (G, T, El, C) bool and combine (G, T, El, C)
+    in ``compute_dtype`` over the experts lo..hi-1 alone. A token's K
+    choices are distinct experts, so each (t, e, c) of ``combine`` holds
+    one choice's renormalized probability, rounded once to
+    ``compute_dtype``."""
+    disp_f = (_local_onehot(top_idx, *experts)
+              & keep[..., None]).to(compute_dtype)
+    pos_oh = F.one_hot(torch.where(keep, pos, capacity), capacity + 1)[
+        ..., :capacity].to(compute_dtype)                   # (G, T, K, C)
+    dispatch = torch.einsum("gtke,gtkc->gtec", disp_f, pos_oh) > 0
+    combine = torch.einsum("gtke,gtkc->gtec",
+                           disp_f * top_p.to(compute_dtype)[..., None],
+                           pos_oh)
+    return dispatch, combine
 
 
 def route(router_logits: torch.Tensor, cfg, capacity: int, *,
@@ -105,19 +151,10 @@ def route(router_logits: torch.Tensor, cfg, capacity: int, *,
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """router_logits: (G, T, E). Returns (dispatch (G,T,E,C) bool,
     combine (G,T,E,C) in ``compute_dtype``, aux loss): the reference's
-    one-hot dispatch. A token's K choices are distinct experts, so each
-    (t, e, c) of ``combine`` holds one choice's renormalized
-    probability, rounded once to ``compute_dtype``."""
+    one-hot dispatch over every expert."""
     top_idx, pos, keep, top_p, aux = _assign(router_logits, cfg, capacity)
-    e = router_logits.shape[-1]
-    disp_f = (F.one_hot(top_idx, e) * keep[..., None]).to(compute_dtype)
-    pos_oh = F.one_hot(torch.where(keep, pos, capacity), capacity + 1)[
-        ..., :capacity].to(compute_dtype)                   # (G, T, K, C)
-    dispatch = torch.einsum("gtke,gtkc->gtec", disp_f, pos_oh) > 0
-    combine = torch.einsum("gtke,gtkc->gtec",
-                           disp_f * top_p.to(compute_dtype)[..., None],
-                           pos_oh)
-    return dispatch, combine, aux
+    return (*_slots(top_idx, pos, keep, top_p, capacity, compute_dtype,
+                    (0, router_logits.shape[-1])), aux)
 
 
 def route_indices(router_logits: torch.Tensor, cfg, capacity: int):
@@ -141,62 +178,121 @@ def _experts(p, xe: torch.Tensor, cfg) -> torch.Tensor:
     return torch.einsum("gecf,efd->gecd", hidden, p.w_down)
 
 
-def _shared(p, h: torch.Tensor, y: torch.Tensor, cfg) -> torch.Tensor:
-    """y plus the shared experts, run densely on every token of h."""
-    if p.shared is None:
-        return y
-    sh, act = p.shared, act_fn(cfg.act)
-    return y + (act(h @ sh.w_gate) * (h @ sh.w_up)) @ sh.w_down
+class _Cut:
+    """How the "model" axis of a ``ctx`` (``sharding.ShardCtx``; None:
+    unsharded) cuts an MoE layer's compute copy ``p``: ``experts`` the
+    routed experts [lo, hi) this rank computes (E / model of them under
+    expert parallelism, else all), ``routed`` / ``shared`` whether the
+    routed experts' and the shared experts' outputs are this rank's
+    partial sums (by expert, or over its F / model columns).
+
+    Every rank routes its rows over all E experts (the router is whole
+    on each); the gradient reaching ``top_p`` through the combine is
+    then partial (the local experts', or their local columns') and is
+    summed over "model" (``weights``), while the aux loss's, the same on
+    every rank, is not. The experts' input takes the column-parallel
+    gradient sum (``inputs``) and the partial outputs one sum over
+    "model" (``output``)."""
+
+    def __init__(self, p, cfg, ctx):
+        e = cfg.moe.n_experts
+        self.ctx = ctx
+        self.experts = (0, e) if ctx is None else ctx.experts(p, e)
+        self.routed = ctx is not None and ctx.split(p, "w_gate")
+        self.shared = ctx is not None and p.shared is not None \
+            and ctx.split(p.shared, "w_gate")
+
+    def weights(self, top_p: torch.Tensor) -> torch.Tensor:
+        return self.ctx.tp_in(top_p) if self.routed else top_p
+
+    def inputs(self, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the routed experts' input, the shared experts')."""
+        if not (self.routed or self.shared):
+            return h, h
+        ht = self.ctx.tp_in(h)
+        return (ht if self.routed else h), (ht if self.shared else h)
+
+    def output(self, p, hs: torch.Tensor, y: torch.Tensor, cfg
+               ) -> torch.Tensor:
+        """y (the routed experts' output) plus the shared experts run
+        densely on every token of ``hs``, each partial sum summed over
+        "model" once."""
+        if p.shared is None:
+            return self.ctx.tp_out(y) if self.routed else y
+        sh, act = p.shared, act_fn(cfg.act)
+        z = (act(hs @ sh.w_gate) * (hs @ sh.w_up)) @ sh.w_down
+        if self.routed == self.shared:
+            y = y + z
+            return self.ctx.tp_out(y) if self.routed else y
+        if self.routed:
+            return self.ctx.tp_out(y) + z
+        return y + self.ctx.tp_out(z)
 
 
-def moe_apply_einsum(p, x: torch.Tensor, cfg
+def moe_apply_einsum(p, x: torch.Tensor, cfg, ctx=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (x + the MoE's output, aux loss), through the
-    one-hot dispatch and combine tensors."""
+    one-hot dispatch and combine tensors. Under a ``ctx`` whose "model"
+    axis cuts the experts (``_Cut``), those tensors are (G, T, E / model,
+    C): the rank's experts' columns alone."""
     s = x.shape[1]
+    cut = _Cut(p, cfg, ctx)
     h = rms_norm(x, p.ln, cfg.norm_eps)
-    dispatch, combine, aux = route(_router_logits(p, h), cfg,
-                                   _capacity(s, cfg), compute_dtype=h.dtype)
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(h.dtype), h)
+    cap = _capacity(s, cfg)
+    top_idx, pos, keep, top_p, aux = _assign(_router_logits(p, h), cfg, cap,
+                                             cut.experts)
+    dispatch, combine = _slots(top_idx, pos, keep, cut.weights(top_p), cap,
+                               h.dtype, cut.experts)
+    hr, hs = cut.inputs(h)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(h.dtype), hr)
     ye = _experts(p, xe, cfg)
     y = torch.einsum("gtec,gecd->gtd", combine.to(h.dtype), ye)
-    return x + _shared(p, h, y, cfg).to(x.dtype), aux
+    return x + cut.output(p, hs, y, cfg).to(x.dtype), aux
 
 
-def moe_apply_gather(p, x: torch.Tensor, cfg
+def moe_apply_gather(p, x: torch.Tensor, cfg, ctx=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The index-form dispatch: a slot -> token table (G, E, C) whose
     empty slots name the zero row ``s`` appended to h (a dropped choice
     writes past the last slot and is discarded), one gather into the
     (G, E, C, D) expert buffers, and the combine as a gather of each
-    token's K slots weighted by its kept probabilities."""
+    token's K slots weighted by its kept probabilities. Under a ``ctx``
+    whose "model" axis cuts the experts the table is (G, E / model, C)
+    over the rank's experts, and a choice of another rank's expert
+    weighs zero here."""
     b, s, d = x.shape
-    e = cfg.moe.n_experts
+    cut = _Cut(p, cfg, ctx)
+    lo, hi = cut.experts
     h = rms_norm(x, p.ln, cfg.norm_eps)
     cap = _capacity(s, cfg)
-    top_idx, pos, keep, top_p, aux = route_indices(_router_logits(p, h), cfg,
-                                                   cap)
+    top_idx, pos, keep, top_p, aux = _assign(_router_logits(p, h), cfg, cap,
+                                             cut.experts)
+    local = (top_idx - lo).clamp(0, hi - lo - 1)   # others: dropped slot
     rows = torch.arange(b, device=x.device)[:, None, None]
-    idx_token = torch.full((b, e, cap + 1), s, dtype=torch.int64,
+    idx_token = torch.full((b, hi - lo, cap + 1), s, dtype=torch.int64,
                            device=x.device)
-    idx_token[rows.expand_as(top_idx), top_idx,
+    idx_token[rows.expand_as(top_idx), local,
               torch.where(keep, pos, cap)] = torch.arange(
                   s, device=x.device)[None, :, None].expand_as(top_idx)
-    h_pad = torch.cat([h, h.new_zeros((b, 1, d))], dim=1)
+    hr, hs = cut.inputs(h)
+    h_pad = torch.cat([hr, hr.new_zeros((b, 1, d))], dim=1)
     xe = h_pad[rows, idx_token[..., :cap]]                  # (G, E, C, D)
-    ye = _experts(p, xe, cfg).reshape(b, e * cap, d)
-    yk = ye[rows, top_idx * cap + torch.where(keep, pos, 0)]  # (G,T,K,D)
-    w = (top_p * keep).to(h.dtype)
+    ye = _experts(p, xe, cfg).reshape(b, (hi - lo) * cap, d)
+    yk = ye[rows, local * cap + torch.where(keep, pos, 0)]  # (G,T,K,D)
+    w = (cut.weights(top_p) * keep).to(h.dtype)
     y = torch.einsum("gtk,gtkd->gtd", w, yk)
-    return x + _shared(p, h, y, cfg).to(x.dtype), aux
+    return x + cut.output(p, hs, y, cfg).to(x.dtype), aux
 
 
-def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p, x: torch.Tensor, cfg, ctx=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dispatch ``cfg.moe_impl`` names: ``"gather"``, else the
-    one-hot einsum dispatch, as the reference reads the switch."""
+    one-hot einsum dispatch, as the reference reads the switch. ``ctx``
+    (``sharding.ShardCtx``): the layer's compute copy is this rank's
+    cut (``_Cut``)."""
     if getattr(cfg, "moe_impl", "gather") == "gather":
-        return moe_apply_gather(p, x, cfg)
-    return moe_apply_einsum(p, x, cfg)
+        return moe_apply_gather(p, x, cfg, ctx)
+    return moe_apply_einsum(p, x, cfg, ctx)
 
 
 def moe_apply_dense_oracle(p, x: torch.Tensor, cfg
@@ -218,7 +314,7 @@ def moe_apply_dense_oracle(p, x: torch.Tensor, cfg
     y = torch.einsum("gte,gted->gtd", weights.to(h.dtype), ye)
     frac_tokens = F.one_hot(top_idx, m.n_experts).float().sum(2).mean(1)
     aux = m.n_experts * (frac_tokens * probs.mean(1)).sum(-1).mean()
-    return x + _shared(p, h, y, cfg).to(x.dtype), aux
+    return x + _Cut(p, cfg, None).output(p, h, y, cfg).to(x.dtype), aux
 
 
 __all__ = ["MoE", "moe_init", "route", "route_indices", "moe_apply",

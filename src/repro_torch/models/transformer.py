@@ -464,9 +464,9 @@ def _head_logits(x: torch.Tensor, model: Transformer, ctx=None
 def _ffn(layer, x: torch.Tensor, cfg: ModelConfig, ctx=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A layer's MoE or MLP after its block: (x, the MoE's aux loss or
-    None)."""
+    None), on the rank's cut under a ``ctx``."""
     if layer.moe is not None:
-        return M.moe_apply(layer.moe, x, cfg)
+        return M.moe_apply(layer.moe, x, cfg, ctx)
     if layer.mlp is not None:
         x = L.mlp_apply(layer.mlp, x, cfg, ctx=ctx)
     return x, None
@@ -615,7 +615,8 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict, ctx=None
 
     Under a ``ctx`` the batch is this rank's rows: the token count is
     summed over the batch axes, and the loss too, whose backward leaves
-    each rank the gradient of its own rows. Where the "model" axis cuts
+    each rank the gradient of its own rows; the aux loss is averaged
+    over the batch ranks alike. Where the "model" axis cuts
     the vocabulary, the log-sum-exp is reduced across the shards (the
     largest logit, then the sum of exponentials) and the picked logit is
     the shard's that holds the target."""
@@ -636,6 +637,12 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict, ctx=None
     ce = nll.sum() / torch.clamp(count, min=1.0)
     if ctx is not None:
         ce = comm.all_reduce(ce, ctx.mesh, ctx.batch)
+        if cfg.moe is not None:
+            # each rank's aux is its rows' mean (the same on every
+            # "model" rank): the batch's is the mean over the batch
+            # ranks, each rank's gradient that of its own share
+            aux = comm.all_reduce(aux / ctx.mesh.size(ctx.batch), ctx.mesh,
+                                  ctx.batch)
     loss = ce if cfg.moe is None else ce + cfg.moe.router_aux_weight * aux
     return loss, {"ce": ce.detach(), "aux": aux.detach()}
 

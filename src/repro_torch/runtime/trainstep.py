@@ -15,10 +15,12 @@ layer (``ShardCtx.layer``; the leaves outside the layers first, in
 ``transformer._prepare``), the backward reduce-scatters the gradients
 back onto the shards, and the layers run tensor parallel over "model".
 Every rank passes the same global batch; each takes its rows. The
-sharded step trains the dense and hybrid families (``attn``,
-``attn_local``, ``rglru``); under a mesh of more than one rank it refuses
-the MoE, xLSTM, encoder-decoder and frontend families, which a later
-slice shards.
+sharded step trains the dense, hybrid and MoE families (``attn``,
+``attn_local``, ``rglru`` layers, with an MLP or a mixture of experts);
+an MoE layer's experts go by expert over "model" where their count
+divides it, else every expert by its ff columns (``models.moe``). Under
+a mesh of more than one rank it refuses the xLSTM, encoder-decoder and
+frontend families, which a later slice shards.
 
 The serving steps run the same program forward only: the model holds
 this rank's fp32 master shards, each call casts the compute copy and
@@ -51,20 +53,18 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import optim
 from repro_torch.sharding.rules import ShardCtx, shard_batch
 
-LATER = ("the MoE, xLSTM, encoder-decoder and frontend families under a "
-         "mesh, in the train, prefill and serve steps,")
+LATER = ("the xLSTM, encoder-decoder and frontend families under a mesh, "
+         "in the train, prefill and serve steps,")
 
 
 def check_shardable(cfg: ModelConfig, mesh) -> None:
     """Raise unless the sharded train, prefill and serve steps run
     ``cfg`` on ``mesh``: a mesh of one rank runs every config; more ranks
-    run the decoders of ``attn``, ``attn_local`` and ``rglru`` layers
-    without MoE, encoder or frontend."""
+    run the decoders of ``attn``, ``attn_local`` and ``rglru`` layers,
+    MoE among them, without encoder or frontend."""
     if mesh is None or mesh.n_ranks == 1:
         return
     why = []
-    if cfg.moe is not None:
-        why.append("MoE (expert parallelism through expert_tensor)")
     kinds = sorted(set(cfg.layer_kinds) - {"attn", "attn_local", "rglru"})
     if kinds:
         why.append(f"{'/'.join(kinds)} layers")

@@ -29,7 +29,7 @@ the reference's four methods over ``sharding.comm``'s collectives:
 ZeRO-3 over "data" (``layer`` gathers one layer's compute copy, whose
 backward reduce-scatters the gradient) and Megatron-style tensor
 parallelism over "model" (the layers in ``models`` run on the rank's
-heads, channels, ff columns and vocabulary rows). The sharded prefill
+heads, channels, ff columns, experts and vocabulary rows). The sharded prefill
 and serve steps run the same program forward over a decode cache cut
 by ``cache_spec`` (``shard_cache`` / ``gather_cache``); where a KV leaf
 is cut by sequence, each rank's decode partials are merged across the
@@ -542,9 +542,14 @@ class ShardCtx:
       shards them over "model"). Nothing to move.
     * ``batch_only(x)``: the final-norm output before the head, the same
       layout; the vocabulary-parallel head takes its gradient sum.
-    * ``expert_tensor``: the MoE's routing tensors. No family of the
-      sharded step reaches it (the MoE is refused under a mesh of more
-      than one rank); it leaves its tensor as it is.
+    * ``experts(p, n)``: the routed experts an MoE layer's compute copy
+      holds on this rank: E / model of them where its banks are cut by
+      expert, else all n (each over F / model columns where the banks
+      are cut by column, the per-expert tensor-parallel fallback). It
+      takes the place of the reference's ``expert_tensor``, which pins
+      the (G, T, E, C) routing tensors and (G, E, C, D) buffers for
+      GSPMD: here each rank builds its experts' columns of them alone
+      (``models.moe``), so there is no tensor to pin.
 
     ``split(p, name)`` says whether leaf ``name`` of a compute namespace
     is cut over "model" (and "model" has more than one rank): the
@@ -633,9 +638,14 @@ class ShardCtx:
     def batch_only(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
-    def expert_tensor(self, x: torch.Tensor, *, expert_axis: int
-                      ) -> torch.Tensor:
-        return x
+    def experts(self, p, n: int) -> Tuple[int, int]:
+        """The routed experts [lo, hi) of the MoE compute copy ``p``
+        (``n`` in all) this rank computes."""
+        spec = getattr(p, "_specs", {}).get("w_gate", ())
+        if self.tp > 1 and spec[:1] == ("model",):
+            local = n // self.tp
+            return self.tp_index * local, (self.tp_index + 1) * local
+        return 0, n
 
     def split(self, p, name: str) -> bool:
         spec = getattr(p, "_specs", {}).get(name)
@@ -719,6 +729,9 @@ class ShardCtx:
 
 
 class NoopShardCtx:
+    """The reference's no-op context (no ``expert_tensor``: see
+    ``ShardCtx.experts``). The unsharded path passes no context."""
+
     def layer(self, p):
         return p
 
@@ -726,7 +739,4 @@ class NoopShardCtx:
         return x
 
     def batch_only(self, x):
-        return x
-
-    def expert_tensor(self, x, *, expert_axis: int):
         return x

@@ -34,6 +34,7 @@ against the reference (CPU; counts only, no times).
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 from functools import lru_cache, partial
 
 import jax
@@ -404,7 +405,7 @@ def test_one_rank_mesh_counts_no_collective(no_cuda):
 
 
 SHARDED = ("qwen2_1_5b", "llama3_2_3b", "chatglm3_6b", "gemma3_1b",
-           "recurrentgemma_9b")
+           "recurrentgemma_9b", "qwen2_moe_a2_7b", "qwen3_moe_235b_a22b")
 
 
 # train_4k keeps the arch as its id; the serving shapes are cases of
@@ -417,18 +418,25 @@ POD_CASES = [pytest.param(a, "train_4k", id=a) for a in ARCH_IDS] + [
 
 @pytest.mark.parametrize("arch,shape", POD_CASES)
 def test_collective_term_on_the_pod(arch, shape, no_cuda):
-    pod = {"data": 16, "model": 16}
+    """On 16 x 16 and 2 x 16 x 16."""
+    for mesh in ("pod", "multipod"):
+        _pod_term(arch, shape, dryrun.MESHES[mesh][1])
+
+
+def _pod_term(arch, shape, pod):
     rec = dryrun.count_sharded(get_config(arch), shape, pod)
     if arch not in SHARDED:
         assert rec["t_collective_s"] is None
         assert "later slice" in rec["collective_note"]
         return
+    assert "collective_note" not in rec
     c = rec["collectives"]
     assert math.isfinite(rec["t_collective_s"]) and rec["t_collective_s"] > 0
     assert rec["collective_bytes_per_device"] == c["total"] == sum(
         c[k] for k in ("all-gather", "reduce-scatter", "all-reduce"))
-    assert rec["t_collective_s"] == pytest.approx(
-        sum(n / mesh_lib.NVLINK_PEAK_BW for n in c["by_axes"].values()))
+    assert rec["t_collective_s"] == pytest.approx(sum(
+        n / min(mesh_lib.LINK_PEAK_BW[a] for a in key.split(","))
+        for key, n in c["by_axes"].items()))
     if shape == "train_4k":
         # ZeRO-3: a gather of each layer's compute copy over "data" in the
         # forward and again in the remat recompute of the scanned periods,
@@ -442,9 +450,10 @@ def test_collective_term_on_the_pod(arch, shape, no_cuda):
     assert rec["resident_bytes_per_device"] > 0
     if shape == "prefill_32k":
         return
-    # no served config's kv heads divide 16: decode_32k's KV leaves are
-    # sequence-sharded over "model", long_500k's single sequence over
-    # ("data", "model"), whose partials the decode step combines there
+    # decode_32k's KV leaves go by kv heads where they divide 16
+    # (qwen2-moe's 16), else by sequence over "model"; long_500k's single
+    # sequence by sequence over ("data", "model"), whose partials the
+    # decode step combines there
     cfg = get_config(arch)
     ctx = shapes.decode_context(cfg, shape)
     cache = T.init_cache(cfg, ctx["batch"], ctx["max_len"], device="meta")
@@ -452,10 +461,53 @@ def test_collective_term_on_the_pod(arch, shape, no_cuda):
         cfg, cache)), pod)
     kv = [spec for key, spec in specs.items()
           if key.split("/")[-1] in ("k", "v")]
-    seq = "model" if shape == "decode_32k" else ("data", "model")
-    assert kv and all(spec[-3] == seq for spec in kv)
+    assert kv
+    if shape == "decode_32k" and cfg.n_kv_heads % pod["model"] == 0:
+        assert all(spec[-2] == "model" for spec in kv)
+    else:
+        seq = "model" if shape == "decode_32k" else ("data", "model")
+        assert all(spec[-3] == seq for spec in kv)
     if shape == "long_500k":
         assert c["by_axes"]["data,model"] > 0
+
+
+@pytest.mark.parametrize("mesh", ["pod", "multipod"])
+def test_moe_banks_take_the_reference_cut(mesh):
+    """qwen3-moe's 128 experts divide "model": its banks go by expert;
+    qwen2-moe's 60 do not: every expert by its ff columns."""
+    axes = dryrun.MESHES[mesh][1]
+    want = {"qwen3_moe_235b_a22b": ((None, "model", "data", None),
+                                    (None, "model", None, "data")),
+            "qwen2_moe_a2_7b": ((None, None, "data", "model"),
+                                (None, None, "model", "data"))}
+    for arch, (up, down) in want.items():
+        specs = rules.params_shardings(reference_shapes(get_config(arch)),
+                                       axes)
+        banks = {k: v for k, v in specs.items() if "/moe/w_" in k}
+        assert banks and all(v == (down if k.endswith("w_down") else up)
+                             for k, v in banks.items())
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "recurrentgemma_9b",
+                                  "gemma3_1b"])
+def test_periods_counted_by_difference(arch, no_cuda):
+    """A config of more than two periods is counted at one and two: the
+    same counts and bytes as the whole program run on meta."""
+    cfg = replace(get_config(arch).smoke(), n_layers=7)
+    for shape in (InputShape("t", 32, 4, "train"),
+                  InputShape("p", 16, 4, "prefill"),
+                  InputShape("d", 32, 4, "decode")):
+        axes = {"data": 2, "model": 2}
+        rec = dryrun.count_sharded(cfg, shape, axes)
+        counts, held = dryrun._run_sharded(
+            cfg, shape, axes, shapes.input_specs(cfg, shape), 1, None)
+        n = sum(p.numel() for p in rules.shard_params(T.Transformer(
+            cfg, device="meta", dtype=torch.float32),
+            mesh_lib.abstract_mesh(axes)).parameters())
+        assert cfg.n_periods > 2
+        assert rec["collectives"] == counts.record()
+        assert rec["resident_bytes_per_device"] == (
+            16 if shape.kind == "train" else 4) * n + held
 
 
 def test_mesh_constants_and_debug_mesh():

@@ -4,15 +4,18 @@ One world of 4 ranks (separate processes started once for the module,
 joined through a ``FileStore`` under the test's temporary directory, so
 no port is chosen) runs the meshes 2x2, 1x4 and 4x1 in turn: 2 steps
 of ``make_train_step(cfg, opt, mesh)`` on ``recurrentgemma_9b.smoke()``
-(rglru + attn_local, 4 query heads over 1 kv head, d_model 256) and on
-``qwen2_1_5b.smoke()`` (attn x 2, 4 over 2 kv heads, qkv biases), batch
-4 x 32 from ``lm_batches``. The weights are the reference's flat
-parameter dict drawn from a numpy seed (``weights.seeded_flat``: every
-leaf N(0, 0.05^2), norms and Lambda among them), carried in by
-``from_jax_params`` and cut by ``shard_params``; the reference's step
-takes the same dict. Held against:
+(rglru + attn_local, 4 query heads over 1 kv head, d_model 256), on
+``qwen2_1_5b.smoke()`` (attn x 2, 4 over 2 kv heads, qkv biases) and on
+the MoE smoke configs of qwen2-moe and qwen3-moe (4 routed experts
+top-2, qwen2-moe's with a shared expert; the experts go by expert over
+"model" on every mesh), batch 4 x 32 from ``lm_batches``. The weights
+are the reference's flat parameter dict drawn from a numpy seed
+(``weights.seeded_flat``: every leaf N(0, 0.05^2), norms and Lambda
+among them), carried in by ``from_jax_params`` and cut by
+``shard_params``; the reference's step takes the same dict. Held
+against:
 
-* the loss, ce and gradient norm of each step to 1e-5 relative;
+* the loss, ce, aux and gradient norm of each step to 1e-5 relative;
 * every step-1 gradient leaf (gathered by ``gather_params(grad=True)``)
   to 1e-5 of the leaf's largest magnitude [measured 2.2e-6];
 * every master after the second AdamW update (gathered by
@@ -31,11 +34,12 @@ against
 
 * the port's unsharded ``make_train_step`` on the same masters and
   batches;
-* the reference's ``make_train_step`` with ``mesh=None`` (both
-  configs) and, for recurrentgemma, on a 1x1 mesh of ``AxisType.Auto``
-  axes built here (the reference's own ``make_debug_mesh`` makes
-  Explicit axes, which its step refuses), each compiled once at XLA's
-  lowest optimisation level (``fast_jit``);
+* the reference's ``make_train_step`` with ``mesh=None`` (the dense
+  and hybrid configs) and, for recurrentgemma and qwen2-moe, on a 1x1
+  mesh of ``AxisType.Auto`` axes built here (the reference's own
+  ``make_debug_mesh`` makes Explicit axes, which its step refuses),
+  each compiled once at XLA's lowest optimisation level
+  (``fast_jit``);
 
 and, on each mesh: ``shard_params`` then ``gather_params`` is exact, a
 sharded checkpoint equals the unsharded ``.npz``, and the collective
@@ -44,8 +48,11 @@ abstract count of the same step (rank 0's program on the meta device).
 A world of one rank gives the unsharded step bit for bit (with
 ``torch.use_deterministic_algorithms``: the CPU's threaded embedding
 backward adds in a varying order). The refused families raise, and a
-mesh larger than the cards present raises. ``launch/train.py --data 2
---model 1 --device cpu`` runs under ``torch.distributed.run``.
+mesh larger than the cards present raises; the MoE configs build over
+a mesh. ``launch/train.py --data 2 --model 1 --device cpu`` runs under
+``torch.distributed.run``, and an MoE config with ``--data 2 --model
+2``. ``tests/test_torch_sharded_moe.py`` holds both dispatches, the
+per-expert tensor-parallel fallback and capacity drops.
 """
 from __future__ import annotations
 
@@ -72,16 +79,17 @@ from repro_torch.sharding.rules import (gather_params, shard_params)
 from repro_torch.weights import from_jax_params, seeded_flat, to_flat
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("recurrentgemma_9b", "qwen2_1_5b")
+ARCHS = ("recurrentgemma_9b", "qwen2_1_5b", "qwen2_moe_a2_7b",
+         "qwen3_moe_235b_a22b")
 MESHES = ((2, 2), (1, 4), (4, 1))
 WORLD = 4
 BATCH, SEQ, STEPS = 4, 32, 2
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=STEPS)
 TOL = 1e-5
 TOL_MASTERS = OPT["lr"] / 4
-METRICS = ("loss", "ce", "grad_norm")
+METRICS = ("loss", "ce", "aux", "grad_norm")
 JAX_RUNS = (("recurrentgemma_9b", "none"), ("recurrentgemma_9b", "1x1"),
-            ("qwen2_1_5b", "none"))
+            ("qwen2_1_5b", "none"), ("qwen2_moe_a2_7b", "1x1"))
 
 # one rank of the world: every mesh, every config, the step and its
 # counters, the round trip and the checkpoint; rank 0 writes the results
@@ -368,11 +376,14 @@ def test_dry_run_counts_equal_the_gloo_run(world, mesh):
 
 def test_refusals():
     mesh = mesh_lib.abstract_mesh({"data": 2, "model": 2})
-    for arch in ("qwen2_moe_a2_7b", "xlstm_350m", "seamless_m4t_medium",
+    for arch in ("xlstm_350m", "seamless_m4t_medium",
                  "llava_next_mistral_7b"):
         with pytest.raises(ValueError, match="later slice"):
             make_train_step(get_config(arch).smoke(),
                             poptim.AdamWConfig(), mesh)
+    # the MoE family builds over the mesh
+    for arch in ("qwen2_moe_a2_7b", "qwen3_moe_235b_a22b"):
+        make_train_step(get_config(arch).smoke(), poptim.AdamWConfig(), mesh)
     # one rank runs every family
     make_train_step(get_config("xlstm_350m").smoke(), poptim.AdamWConfig(),
                     mesh_lib.abstract_mesh({"data": 1, "model": 1}))
@@ -391,14 +402,24 @@ def test_refusals():
 
 
 def test_train_cli_under_torchrun(tmp_path):
-    args = ["--arch", "qwen2_1_5b", "--smoke", "--device", "cpu",
+    _cli_under_torchrun(tmp_path, "qwen2_1_5b", 2, 1)
+
+
+def test_moe_train_cli_under_torchrun(tmp_path):
+    """An MoE config over a 2x2 mesh: its 4 experts by expert."""
+    _cli_under_torchrun(tmp_path, "qwen3_moe_235b_a22b", 2, 2)
+
+
+def _cli_under_torchrun(tmp_path, arch, data, model):
+    args = ["--arch", arch, "--smoke", "--device", "cpu",
             "--steps", "2", "--batch", "4", "--seq", "16", "--log-every",
             "1"]
     env = _env()
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *args,
-         "--data", "2", "--model", "1"], env=env, cwd=tmp_path,
+         "--nproc-per-node", str(data * model), "-m",
+         "repro_torch.launch.train", *args, "--data", str(data), "--model",
+         str(model)], env=env, cwd=tmp_path,
         capture_output=True, text=True, timeout=180)
     assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
     steps = [ln.split()[1:6] for ln in run.stdout.splitlines()

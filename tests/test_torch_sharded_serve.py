@@ -10,7 +10,9 @@ layout on 2x2, the sequence layout over "model" on 1x4) and on
 ``recurrentgemma_9b.smoke()`` (rglru + attn_local over 1 kv head: the
 sequence layout; its ring of 8 rows wraps during the run), at batch 4
 and at batch 1, where the 2x2 mesh cuts the sequence over ("data",
-"model") as ``long_500k`` does. The weights are ``weights.seeded_flat``
+"model") as ``long_500k`` does; and on the MoE smoke configs of
+qwen2-moe and qwen3-moe (4 query heads over 4 kv heads, 4 routed
+experts by expert over "model"). The weights are ``weights.seeded_flat``
 (seed 0) carried in by ``from_jax_params``, cut by ``shard_params``.
 Every step feeds the greedy tokens of the port's unsharded run. Held
 against:
@@ -20,9 +22,10 @@ against:
   greedy tokens identical, every leaf of ``gather_cache`` after the
   last step within 1e-5 absolute [measured: 3.9e-7 and 1.9e-6];
 * the reference's ``make_prefill_step`` / ``make_serve_step`` with
-  ``mesh=None`` (both configs) and, for recurrentgemma, on a 1x1 mesh of
-  ``AxisType.Auto`` axes (the reference's own ``make_debug_mesh`` makes
-  Explicit axes): logits within 1e-4 of the largest, tokens identical;
+  ``mesh=None`` (the dense and hybrid configs) and, for recurrentgemma
+  and qwen2-moe, on a 1x1 mesh of ``AxisType.Auto`` axes (the
+  reference's own ``make_debug_mesh`` makes Explicit axes): logits
+  within 1e-4 of the largest, tokens identical;
 
 and, on each mesh: ``shard_cache`` then ``gather_cache`` of the
 unsharded prefill's cache is exact, and each rank's collectives of the
@@ -31,7 +34,7 @@ count of the same step (``dryrun.count_sharded``, rank 0's program on
 the meta device), and the decode kernel is called with ``return_lse``
 exactly where the sequence is cut over more than one rank. A world of
 one rank gives the unsharded steps bit for bit; the refused families
-raise. ``decode_attention(...,
+raise, and the MoE family builds and is counted. ``decode_attention(...,
 return_lse=True)``'s plain version split over 2 and 4 row ranges (some
 empty) and merged by ``combine_partials`` gives the unsplit result.
 """
@@ -58,7 +61,8 @@ from repro_torch.sharding.rules import shard_params
 from repro_torch.weights import from_jax_params, seeded_flat
 from test_torch_sharded import _env
 
-ARCHS = ("qwen2_1_5b", "recurrentgemma_9b")
+ARCHS = ("qwen2_1_5b", "recurrentgemma_9b", "qwen2_moe_a2_7b",
+         "qwen3_moe_235b_a22b")
 MESHES = ((2, 2), (1, 4), (4, 1))
 # geometry: (batch, prompt length, max_len)
 GEOMS = {"b4": (4, 16, 32), "b1": (1, 16, 32)}
@@ -69,7 +73,7 @@ TOL_JAX = 1e-4
 TOL_CACHE = 1e-5
 TOL_SPLIT = 2e-6
 JAX_RUNS = (("recurrentgemma_9b", "none"), ("recurrentgemma_9b", "1x1"),
-            ("qwen2_1_5b", "none"))
+            ("qwen2_1_5b", "none"), ("qwen2_moe_a2_7b", "1x1"))
 
 # one rank of the world: every mesh, config and geometry; each rank
 # writes its rows' logits and its counts, rank 0 the gathered caches
@@ -406,7 +410,7 @@ def test_one_rank_world_is_bit_for_bit(unsharded, tmp_path):
 
 def test_refusals():
     mesh = mesh_lib.abstract_mesh({"data": 2, "model": 2})
-    for arch in ("qwen2_moe_a2_7b", "xlstm_350m", "seamless_m4t_medium",
+    for arch in ("xlstm_350m", "seamless_m4t_medium",
                  "llava_next_mistral_7b"):
         cfg = get_config(arch).smoke()
         for make in (lambda: make_prefill_step(cfg, max_len=8, mesh=mesh),
@@ -416,6 +420,14 @@ def test_refusals():
         rec = dryrun.count_sharded(cfg, "decode_32k", mesh.shape)
         assert rec["collectives"] is None
         assert "later slice" in rec["collective_note"]
+    # the MoE family builds over the mesh, and the dry run counts it
+    for arch in ("qwen2_moe_a2_7b", "qwen3_moe_235b_a22b"):
+        cfg = get_config(arch).smoke()
+        make_prefill_step(cfg, max_len=8, mesh=mesh)
+        make_serve_step(cfg, mesh)
+        rec = dryrun.count_sharded(cfg, "decode_32k", mesh.shape)
+        assert rec["collectives"]["total"] > 0
+        assert "collective_note" not in rec
     # one rank runs every family
     make_serve_step(get_config("xlstm_350m").smoke(),
                     mesh_lib.abstract_mesh({"data": 1, "model": 1}))
