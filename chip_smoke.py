@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,...,12]
+    python3 chip_smoke.py [--out results.json] [--phases 1,2,3,...,16]
 
 Phases, one status line each; any failure exits non-zero:
 
@@ -422,6 +422,24 @@ Phases, one status line each; any failure exits non-zero:
    of (a)'s unsharded run) and in fp32 (within 1e-4 of the one-card
    fp32 run), each rank's last-step collectives the dry run's; with
    fewer cards it prints ``not run``.
+16. the xLSTM, encoder-decoder and vision-frontend families through the
+   sharded steps (``models.ssm`` on the rank's heads, the encoder, the
+   cross attention and its cache and the projector under ``ShardCtx``):
+   (a) on a 1 x 1 NCCL mesh under ``torch.use_deterministic_algorithms``,
+   2 sharded train steps on the copy task of xlstm-350m whole (2 x 256),
+   seamless-m4t-medium whole (2 x 256 over a source of 256 frames) and
+   llava-next-mistral-7b cut to 4 layers (2 x (2,880 patch rows + 256)),
+   each against 2 steps of ``make_train_step`` without a mesh from the
+   same masters: metrics and every master bit for bit, flash launches
+   the code's (none for xLSTM), no collective, held bytes within 1% of
+   the dry run's; then the sharded prefill and 8 serve steps of the three
+   whole (xlstm 8 x 128, seamless 8 x 512 over 512 frames, llava 4 x
+   (2,880 + 256)) against ``T.prefill`` / ``T.decode_step`` on the
+   compute copy: logits, tokens and cache bit for bit, flash and decode
+   launches the code's (seamless: 36 a prefill, 12 encoder + 12 self + 12
+   cross; 24 decode a step), no collective, held bytes within 1%; (b)
+   with 4 or more cards, the three served on 2 x 2 as phase 14 (c)
+   serves; with fewer cards it prints ``not run``.
 
 ``--phases`` runs a subset and prints no result line (``--phases 8``
 runs phase 8 after the build). With all phases, the line before the
@@ -429,8 +447,9 @@ last holds the kernels' summary as JSON (an entry per kernel and main
 path, with its timed shape and path: qwen2-1.5b's, the training run's,
 phase 9's at head_dim 256, phase 10's MoE shapes, phase 11's
 encoder-decoder and vision shapes, phase 13's sharded step, phase
-14's sharded serving steps, phase 15's sharded MoE serving steps and,
-with 4 cards, the decode kernel's lse
+14's sharded serving steps, phase 15's sharded MoE serving steps,
+phase 16's encoder-decoder and vision serving steps and, with 4 cards,
+the decode kernel's lse
 call with phase 14 (c)'s launches), after a line with phase 8's
 launches by path; the last line is ``{"ok": true, "device": {...}}``.
 Needs one card; imports nothing of JAX.
@@ -530,7 +549,7 @@ def phase_device(torch, build) -> dict:
                 say(f"  ptxas {stem}: {line.split('function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 say(f"  ptxas {stem}:   {line.replace('ptxas info    :', '').strip()}")
-    say(f"[1/15] device: {torch.cuda.get_device_name(0)}, torch "
+    say(f"[1/16] device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
         f"{build_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items()) or 'cached'})")
     return {"nvidia_smi": smi, "build_s": build_s}
@@ -685,6 +704,20 @@ SERVE_PAGED.update({"seamless": (16, 16, 64, PARITY_BLOCKS, BS, PAGES,
 SERVE_FA_BIDIR = {"seamless-encoder": (1, 512, 512, 16, 16, 64),
                   "seamless-cross": (1, 300, 512, 16, 16, 64)}
 ENCDEC_SHAPES = ("seamless", "seamless-cross", "seamless-decoder", "llava")
+# phase 16's serving shapes, as its sharded steps run them on the 1 x 1
+# mesh (``FAM16``): seamless-m4t-medium's 8 prompts of 512 tokens over
+# 512 frames (the encoder and the cross-attention prefill over every
+# key, the decoder's causal self-attention; decode at the run's middle
+# step, 516 rows of 528, and over the cross cache's 512 source rows),
+# llava-next-mistral-7b's 4 prompts of 2,880 patch rows + 256 tokens
+# (decode at 3,140 rows of 3,152)
+LL16 = 2880 + 256
+SERVE_FA.update({"seamless16-decoder": (8, 512, 16, 16, 64, 0),
+                 "llava16": (4, LL16, 32, 8, 128, 0)})
+SERVE_FA_BIDIR["seamless16-encoder"] = (8, 512, 512, 16, 16, 64)
+SERVE_DEC.update({"seamless16": (16, 16, 64, 528, [516] * 8),
+                  "seamless16-cross": (16, 16, 64, 528, [512] * 8),
+                  "llava16": (32, 8, 128, LL16 + 16, [LL16 + 4] * 4)})
 # phase 9's (head_dim 256), phase 10's (the MoE configs) and phase 11's
 # serving shapes are gated cases as well
 MOE_SHAPES = ("qwen2-moe", "qwen3-moe")
@@ -1436,7 +1469,7 @@ def phase_kernels(torch, np, fa_ops, fa_ref, da_ops, da_ref, scan_ops,
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']}; "
                 f"fp32 FMA {m['fp32_fma_ms']:.4f} ms), max |err| "
                 f"{m['max_abs_err']:.3g}, {m['copies']} input copies")
-    say(f"[2/15] kernels: {len(rows)} cases agree with the plain versions "
+    say(f"[2/16] kernels: {len(rows)} cases agree with the plain versions "
         f"(flash, flash with q_offset/kv_len, decode and paged decode at "
         f"head_dims to 256, flash at head_dim 256 with its lse, flash over "
         f"every key at head_dim 64 with Sq != Sk, the RG-LRU scan forward "
@@ -1520,7 +1553,7 @@ def phase_golden(torch, np) -> dict:
                     home_whole(eng, f"{name}/{lay}")
                 cell_counters[f"{name}/{lay}"] = got_c
     service = golden_service(torch, np, data, meta)
-    say(f"[3/15] JAX golden: tokens identical on {sorted(meta['configs'])} "
+    say(f"[3/16] JAX golden: tokens identical on {sorted(meta['configs'])} "
         f"(batch, fifo, and fifo on {', '.join(meta['counter_cells'])}, "
         f"whose counters equal JAX's); logits max |err| {worst:.3g}, "
         f"extend logits {worst_ext:.3g} (tol 1e-4); the prefix-cache "
@@ -1963,7 +1996,7 @@ def phase_serve(torch, np, ops, fa_ref, da_ref) -> dict:
     out["agreement"] = agreement(torch, serve, model,
                                  {k: out[k] for k in ("prefix",
                                                       "prefix-chunked")})
-    say("[4/15] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
+    say("[4/16] serving qwen2-1.5b full width/depth bf16: 16 requests, all "
         "'length' in every run; fifo == batch == paged == tight pool "
         "(preempting) tokens; prefix hits in both prefix runs")
     return out
@@ -2227,7 +2260,7 @@ def phase_train(torch, np, ops) -> dict:
     out = {"golden": golden_train(torch, np, ops),
            "vs_plain": train_vs_plain(torch, cfg)}
     out["full_width"] = full = full_width_train(torch, ops, cfg)
-    say(f"[5/15] training recurrentgemma-9b through the kernels: the JAX "
+    say(f"[5/16] training recurrentgemma-9b through the kernels: the JAX "
         f"golden fixture reproduced; full width, 5 layers, 4 steps, loss "
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}, launches "
         f"exact; kernels vs plain within the bf16 limits")
@@ -2596,7 +2629,7 @@ def phase_http(torch, np, ops, smi: str) -> dict:
         f"hits, {r['prefill_tokens_saved']} prompt tokens saved, tokens "
         f"equal to the ordered run's on {r['agreement_ordered']:.3f} (to the "
         f"concurrent run's {r['agreement_concurrent']:.3f})")
-    say("[6/15] serving qwen2-1.5b over HTTP (background drain, paged pool, "
+    say("[6/16] serving qwen2-1.5b over HTTP (background drain, paged pool, "
         "victim cache, tenant quotas, 2 decode stages, deadlines, "
         "observability): tokens equal the in-process run, the restored "
         "cache's and launches exact in every run")
@@ -3099,7 +3132,7 @@ def phase_edge(torch, np, ops, smi: str) -> dict:
            "paper_rows": paper_rows(torch),
            "llm": llm_partitioned(torch, np, ops, smi),
            "hybrid": hybrid_partitioned(torch, np, ops)}
-    say("[7/15] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
+    say("[7/16] Edge-PRUNE on the card: the paper's CNNs at the paper's sizes "
         "within the CPU limit, every partition point equal to the "
         "Simulator bit for bit, the modeled Fig 4-6 rows the reference's; "
         "qwen2-1.5b and recurrentgemma-9b actor graphs partitioned equal "
@@ -3827,7 +3860,7 @@ def phase_tiered(torch, np, ops, smi: str) -> dict:
     del model
     torch.cuda.empty_cache()
     say(f"  {smi}; phase 8 took {out['phase_s']:.1f} s")
-    say("[8/15] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
+    say("[8/16] hierarchical serving of qwen2-1.5b on the card: step_delay_s "
         "content-neutral, the gated tier beats the endpoint alone, every "
         "request equal to its tier alone, nothing lost across a link cut, "
         "the server over HTTP, failover frames equal to forward; launches "
@@ -4309,7 +4342,7 @@ def phase_hybrid(torch, np, ops, fa_ref, da_ref, scan_ref, smi: str) -> dict:
             f"ms, decode {s['decode_ms_per_step']:.3f} ms/step; traced "
             f"busy {t['device_busy_s']:.4f} s of {t['wall_s']:.4f} s, idle "
             f"share {t['idle_share']:.4f}")
-    say("[9/15] serving gemma3-1b and recurrentgemma-9b full width/depth "
+    say("[9/16] serving gemma3-1b and recurrentgemma-9b full width/depth "
         "bf16 (rings wrapped in prefill, RG-LRU state): every request "
         "'length', fifo == batch, paged == slotted, prefix-cache and "
         "prefill-chunk served one-shot, launches exact; llama3.2-3b and "
@@ -5164,7 +5197,7 @@ def phase_families(torch, np, ops, fa_ref, da_ref, scan_ref,
                if t else ""))
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 10 took {out['phase_s']:.1f} s")
-    say("[10/15] the MoE and xLSTM families on the card: the JAX fixture "
+    say("[10/16] the MoE and xLSTM families on the card: the JAX fixture "
         "within 1e-4 with JAX's engine records; qwen2-moe-a2.7b full "
         "width/depth bf16 served fifo, batch, paged, prefix-cache, chunked "
         "and on the gather dispatch, launches exact, paged == slotted, "
@@ -5573,7 +5606,7 @@ def phase_encdec(torch, np, ops, fa_ref, da_ref, scan_ref,
             f"{t['idle_share']:.4f}")
     out["phase_s"] = time.perf_counter() - t0
     say(f"  phase 11 took {out['phase_s']:.1f} s")
-    say("[11/15] the encoder-decoder and the vision frontend on the card: "
+    say("[11/16] the encoder-decoder and the vision frontend on the card: "
         "the JAX fixture within 1e-4 with JAX's tokens and records; "
         "seamless-m4t-medium and llava-next-mistral-7b full width/depth "
         "bf16 served fifo, batch and paged, launches exact, paged == "
@@ -5837,7 +5870,7 @@ def phase_dryrun(torch, built: dict, smi: str) -> dict:
     out["floor"] = bound_floor(torch, smi)
     out["examples"] = examples_on_card(torch)
     out["wall_s"] = time.perf_counter() - t0
-    say(f"[12/15] dry run: {len(out['dry_run']['records'])} records, no "
+    say(f"[12/16] dry run: {len(out['dry_run']['records'])} records, no "
         f"FAIL, the collective terms of the train and serving shapes the "
         f"sharded steps run; resident bytes within {RESIDENT_TOL:.0%} of "
         f"the card; "
@@ -6143,7 +6176,7 @@ def phase_sharded(torch, np, ops, smi: str) -> dict:
                      "grad_norms": one["plain_grad_norms"]})}
     out["wall_s"] = time.perf_counter() - t0
     agree = "equals" if one["parts"] is None else "is within SHARD_TOL of"
-    say(f"[13/15] sharded training: the 1x1 NCCL mesh {agree} "
+    say(f"[13/16] sharded training: the 1x1 NCCL mesh {agree} "
         f"the unsharded step, launches equal, held bytes within "
         f"{RESIDENT_SHARD_TOL:.0%} of the dry run's, no collective; "
         f"2x2 {'run' if out['mesh4']['run'] else 'not run'} "
@@ -6187,6 +6220,10 @@ MESH14_RUNS = (("qwen2-1.5b", 8, 512, SERVE_S),
 # 1.026 and 1.027 of it; bf16 alone moves the one-card logits by
 # 1.0-2.2e-2 of the largest, beyond the 1e-2 limit it replaces)
 MESH_BF16_FACTOR = 1.25
+# an mLSTM config's bf16 greedy choices on a mesh: at most this many
+# times those its one-card run parts at a data rank's rows
+# (``rows_witness``)
+WITNESS_FACTOR = 2.0
 # the same runs computed in fp32 on the mesh against the one-card fp32
 # run: only the order of the sums over "model" and the ranks' rows
 # differs (the JAX fixtures' fp32 limit)
@@ -6194,8 +6231,10 @@ MESH14_FP32_TOL = 1e-4
 
 
 def serve_config(name: str):
-    """A sharded serving run's config by its name (phases 14 and 15)."""
+    """A sharded serving run's config by its name (phases 14 to 16)."""
     from repro_torch.configs import get_config
+    if name in FAM16:
+        return get_config(FAM16[name][0])
     if name.startswith("qwen2-1.5b"):
         return get_config("qwen2_1_5b")
     if name == "recurrentgemma-9b":
@@ -6213,12 +6252,51 @@ def serve14_prompts(torch, cfg, b: int, s: int, device):
                          dtype=torch.int32).to(device)
 
 
-def serve_drive(torch, prefill, step, prompts, steps: int, fed=None) -> dict:
+def frontend_embeds(torch, cfg, b: int, s: int, device):
+    """A frontend config's ``embeds`` for ``b`` prompts of ``s`` tokens,
+    N(0, 1) drawn on the host from one seed: the vision frontend's rows,
+    or an audio source of one frame a token; None without a frontend."""
+    from repro_torch.models import transformer as T
+    if not cfg.frontend:
+        return None
+    gen = torch.Generator().manual_seed(16)
+    return torch.randn((b, T.frontend_prefix(cfg) or s, cfg.frontend_dim),
+                       generator=gen).to(device)
+
+
+def with_embeds(tokens, embeds) -> dict:
+    return {"tokens": tokens} if embeds is None else \
+        {"tokens": tokens, "embeds": embeds}
+
+
+def serve_launches(cfg, cache, mesh, steps: int) -> dict:
+    """A sharded prefill and ``steps`` serve steps' launches, from the
+    code: flash once a prefill per attention layer (an encoder-decoder's
+    also per encoder layer and per cross-attention), the decode kernel
+    once a step per attention layer (and cross-attention), of them with
+    ``return_lse`` those whose cache the prefill placed with the sequence
+    cut over more than one rank, and the scan's forward once per rglru
+    layer."""
+    from repro_torch.sharding.rules import seq_axes
+    n = kind_counts(cfg)
+    att = n["attn"] + n["attn_local"]
+    att += att if cfg.n_encoder_layers else 0
+    seq = sum(1 for c in cache for k in ("k", "cross_k") if k in c and
+              mesh.size(seq_axes(c[k].shard_spec)) > 1)
+    return {"flash_attention": att + cfg.n_encoder_layers,
+            "decode_attention": att * steps,
+            "rglru_scan_fwd": n["rglru"],
+            "decode_attention_lse": seq * steps}
+
+
+def serve_drive(torch, prefill, step, prompts, steps: int, fed=None,
+                front: int = 0) -> dict:
     """``prefill(prompts)`` then ``steps`` calls of ``step(token, cache,
-    cache_len)`` with the global batch's tokens and lengths: the greedy
-    token of the last logits, or ``fed[i]``. Returns the logits of every
-    call and the tokens fed (on the host), the last cache and the
-    seconds of the prefill and of each step."""
+    cache_len)`` with the global batch's tokens and lengths (``front``
+    rows of a vision frontend ahead of each prompt): the greedy token of
+    the last logits, or ``fed[i]``. Returns the logits of every call and
+    the tokens fed (on the host), the last cache and the seconds of the
+    prefill and of each step."""
     b, s = prompts.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6230,7 +6308,7 @@ def serve_drive(torch, prefill, step, prompts, steps: int, fed=None) -> dict:
         tok = logits.argmax(-1).to(torch.int32) if fed is None \
             else fed[i].to(prompts.device)
         out["tokens"].append(tok.cpu())
-        clen = torch.full((b,), s + i, dtype=torch.int32,
+        clen = torch.full((b,), front + s + i, dtype=torch.int32,
                           device=prompts.device)
         t0 = time.perf_counter()
         logits, cache, _ = step(tok, cache, clen)
@@ -6467,7 +6545,7 @@ def mesh_serving_rank(rank: int, world: int, store: str, refs: str,
     from repro_torch.models import transformer as T
     from repro_torch.runtime.trainstep import (make_prefill_step,
                                                make_serve_step)
-    from repro_torch.sharding.rules import ShardCtx, seq_axes, shard_params
+    from repro_torch.sharding.rules import ShardCtx, shard_params
     wrappers = {"flash_attention": fa_ops.flash_attention,
                 "decode_attention": da_ops.decode_attention,
                 "rglru_scan_fwd": scan_ops.rglru_scan_fwd}
@@ -6478,6 +6556,8 @@ def mesh_serving_rank(rank: int, world: int, store: str, refs: str,
         for name, b, s, max_len in runs:
             ref = torch.load(str(Path(refs) / f"{name}.pt"))
             rows = ShardCtx(mesh, batch=b).rows(torch.arange(b))
+            embeds = None if ref["embeds"] is None else \
+                ref["embeds"].to(mesh.device)
             for tag, cfg, against in mesh_variants(name):
                 full = T.init_params(cfg, 0, device=mesh.device,
                                      dtype=torch.float32)
@@ -6498,26 +6578,24 @@ def mesh_serving_rank(rank: int, world: int, store: str, refs: str,
                 steps = len(ref["fed"])
                 _build.reset_launches(*wrappers.values())
                 run = serve_drive(
-                    torch, counted(lambda t: pre(local, {"tokens": t})),
+                    torch, counted(lambda t: pre(local,
+                                                 with_embeds(t, embeds))),
                     counted(lambda tok, c, n: srv(local, c, tok, n)),
-                    ref["prompts"].to(mesh.device), steps, fed=ref["fed"])
+                    ref["prompts"].to(mesh.device), steps, fed=ref["fed"],
+                    front=T.frontend_prefix(cfg))
                 torch.cuda.synchronize()
                 launches = {k: w.launches for k, w in wrappers.items()}
                 launches["decode_attention_lse"] = \
                     da_ops.decode_attention.lse_launches
-                n = kind_counts(cfg)
-                att = n["attn"] + n["attn_local"]
-                seq = sum(1 for c in run["cache"] if "k" in c and
-                          mesh.size(seq_axes(c["k"].shard_spec)) > 1)
-                want_n = {"flash_attention": att,
-                          "decode_attention": att * steps,
-                          "rglru_scan_fwd": n["rglru"],
-                          "decode_attention_lse": seq * steps}
+                want_n = serve_launches(cfg, run["cache"], mesh, steps)
                 errs, errs32, parted, off32 = [], [], [], []
+                # over the real vocabulary: the padded columns' -1e30
+                # would stand for the largest logit
+                v = cfg.vocab_size
                 for i, got in enumerate(run["logits"]):
-                    want = ref[against][i][rows].float()
-                    exact = ref["fp32"][i][rows]
-                    got = got.float()
+                    want = ref[against][i][rows, :v].float()
+                    exact = ref["fp32"][i][rows, :v]
+                    got = got[:, :v].float()
                     errs.append(float((got - want).abs().max()
                                       / want.abs().max()))
                     errs32.append(float((got - exact).abs().max()
@@ -6579,7 +6657,7 @@ def spawn_ranks(target, args: tuple, world: int, timeout_s: float,
 
 
 def mesh_serving(torch, smi: str, cells, steps: int, timeout_s: float,
-                 label: str, need_lse: bool) -> dict:
+                 label: str, need_lse: bool, witness=None) -> dict:
     """Serving over 4 cards, when there are 4: each cell (a (data, model)
     mesh and its runs) in bf16 and in fp32, fed the one-card bf16 run's
     greedy tokens. Each run's bf16 logits held by ``MESH_BF16_FACTOR``:
@@ -6587,7 +6665,8 @@ def mesh_serving(torch, smi: str, cells, steps: int, timeout_s: float,
     the one-card bf16 run's own distance from it; its fp32 logits within
     ``MESH14_FP32_TOL`` of the one-card fp32 run, every greedy choice
     equal; a bf16 greedy choice may part only at a tie (``TIE_GAP``; an
-    MoE config's are reported, ``mesh_serving_readings``); each rank's collectives of every
+    MoE config's are reported, an mLSTM config's held to its ``witness``
+    by name, ``mesh_serving_readings``); each rank's collectives of every
     call those of the dry run's count, its launches the code's; with
     ``need_lse`` some rank's decode kernel calls ``return_lse``. Every
     run is reported before a failure is raised."""
@@ -6607,31 +6686,41 @@ def mesh_serving(torch, smi: str, cells, steps: int, timeout_s: float,
                 r for _, runs in cells for r in runs):
             cfg = serve_config(name)
             prompts = serve14_prompts(torch, cfg, b, s, "cuda")
+            embeds = frontend_embeds(torch, cfg, b, s, "cuda")
             free(torch)
             # the bf16 compute copy drawn as such: the fp32 draw cast
             model = T.init_params(cfg, 0, device="cuda")
             plain = serve_drive(
-                torch, lambda t: T.prefill(model, t, max_len=max_len),
+                torch, lambda t: T.prefill(model, t, max_len=max_len,
+                                           embeds=embeds),
                 lambda tok, c, nn: T.decode_step(model, tok, c, nn),
-                prompts, steps)
+                prompts, steps, front=T.frontend_prefix(cfg))
             del model, plain["cache"]
             free(torch)
-            fp32 = T.init_params(cfg, 0, device="cuda", dtype=torch.float32)
+            # the control computes in fp32 throughout, caches included,
+            # as the mesh's fp32 runs do (``mesh_variants``)
+            fp32 = T.init_params(mesh_variants(name)[1][1], 0, device="cuda",
+                                 dtype=torch.float32)
             exact = serve_drive(
-                torch, lambda t: T.prefill(fp32, t, max_len=max_len),
+                torch, lambda t: T.prefill(fp32, t, max_len=max_len,
+                                           embeds=embeds),
                 lambda tok, c, nn: T.decode_step(fp32, tok, c, nn),
-                prompts, steps, fed=plain["tokens"])
+                prompts, steps, fed=plain["tokens"],
+                front=T.frontend_prefix(cfg))
+            v = cfg.vocab_size
             out[f"{name}-bf16-vs-fp32"] = max(
-                float((a.float() - w).abs().max() / w.abs().max())
+                float((a[:, :v].float() - w[:, :v]).abs().max()
+                      / w[:, :v].abs().max())
                 for a, w in zip(plain["logits"], exact["logits"]))
             out[f"{name}-bf16-off-fp32"] = sum(
                 int((a.float().argmax(-1) != w.argmax(-1)).sum())
                 for a, w in zip(plain["logits"], exact["logits"]))
             torch.save({"prompts": prompts.cpu(), "fed": plain["tokens"],
+                        "embeds": None if embeds is None else embeds.cpu(),
                         "logits": plain["logits"],
                         "fp32": exact["logits"]},
                        str(Path(tmp) / f"{name}.pt"))
-            del fp32, plain, exact
+            del fp32, plain, exact, embeds
             free(torch)
         for shape, runs in cells:
             axes = {"data": shape[0], "model": shape[1]}
@@ -6641,15 +6730,17 @@ def mesh_serving(torch, smi: str, cells, steps: int, timeout_s: float,
             out[where] = {"ranks": recs}
             for name, b, s, max_len in runs:
                 for tag, cfg, against in mesh_variants(name):
+                    # the dry run's prompt counts a vision frontend's rows
                     want = [dryrun.count_sharded(cfg, InputShape(
-                        "p", s, b, "prefill"), axes,
+                        "p", s + T.frontend_prefix(cfg), b, "prefill"), axes,
                         max_len=max_len)["collectives"]]
                     want += [dryrun.count_sharded(cfg, InputShape(
                         "d", max_len, b, "decode"), axes)["collectives"]] \
                         * steps
                     failed += mesh_serving_readings(
                         out, where, recs, name, tag, cfg, against, want,
-                        (b, s, max_len, steps), label, smi)
+                        (b, s, max_len, steps), label, smi,
+                        (witness or {}).get(name))
             lse += [sum(r[tag]["launches"]["decode_attention_lse"]
                         for tag in r if isinstance(r[tag], dict))
                     for r in recs]
@@ -6666,13 +6757,17 @@ def mesh_serving(torch, smi: str, cells, steps: int, timeout_s: float,
 
 
 def mesh_serving_readings(out, where, recs, name, tag, cfg, against, want,
-                          geom, label, smi) -> list:
+                          geom, label, smi, witness=None) -> list:
     """Report one mesh run of ``mesh_serving`` and return its failures.
     An MoE config's bf16 greedy choices that part from the one-card bf16
     run's are reported and not held to ``TIE_GAP``: a bf16 routing
     decision turns on a rounding that depends on a rank's rows (cuBLAS
-    picks its kernel by row count, PR 20), and a moved expert moves the
-    logits further than a tie; its fp32 run holds every choice."""
+    picks its kernel by row count), and a moved expert moves the logits
+    further than a tie. An mLSTM config's are held to its ``witness``
+    (``rows_witness``): where the one-card bf16 run at each data rank's
+    rows parts W choices beyond a tie from the whole batch's run, with
+    no mesh, the mesh may part at most ``WITNESS_FACTOR`` x W. Its fp32
+    run holds every choice."""
     b, s, max_len, steps = geom
     r0 = recs[0][tag]
     err = max(r[tag]["err"] for r in recs)
@@ -6708,19 +6803,35 @@ def mesh_serving_readings(out, where, recs, name, tag, cfg, against, want,
         f"{[r[tag]['launches'] for r in recs]} (the code's "
         f"{r0['want_launches']})")
     failed = []
+    att = kind_counts(cfg)["attn"] + kind_counts(cfg)["attn_local"]
     for r in recs:
         if r[tag]["comm"] != want:
             failed.append(f"{where} {tag}: rank {r['rank']}'s collectives "
                           f"{r[tag]['comm'][:2]} differ from the dry run's "
                           f"{want[:2]}")
-        if r[tag]["launches"] != r[tag]["want_launches"] \
-                or not r[tag]["launches"]["flash_attention"] \
-                or not r[tag]["launches"]["decode_attention"]:
+        got = r[tag]["launches"]
+        if got != r[tag]["want_launches"] or att and not (
+                got["flash_attention"] and got["decode_attention"]):
             failed.append(f"{where} {tag}: rank {r['rank']}'s launches "
                           f"{r[tag]['launches']}, the code's "
                           f"{r[tag]['want_launches']}")
-    held = parted if against == "fp32" else [
-        p for p in parted if p["gap"] > TIE_GAP and cfg.moe is None]
+    beyond = {(p["call"], p["row"]) for p in parted if p["gap"] > TIE_GAP}
+    if against == "fp32":
+        held = parted
+    elif cfg.moe is not None:
+        held = []
+    elif witness is not None and "mlstm" in cfg.layer_kinds:
+        limit += (f"; {len(beyond)} choices parted beyond a tie, at most "
+                  f"{WITNESS_FACTOR:g} x the {len(witness['parted'])} of "
+                  f"the one-card run at a data rank's rows")
+        say(f"  {label} {tag}: {len(beyond)} distinct greedy choices "
+            f"parted beyond a tie; the one-card run at a data rank's rows "
+            f"parts {len(witness['parted'])} (limit {WITNESS_FACTOR:g} x)")
+        held = [] if len(beyond) <= WITNESS_FACTOR * len(
+            witness["parted"]) else sorted(beyond)
+        out[where][tag]["parted_beyond_tie"] = len(beyond)
+    else:
+        held = sorted(beyond)
     if not ok or held:
         failed.append(f"{where} {tag}: logits within {err:.3e} / {err32:.3e}"
                       f" ({limit}), parted choices {parted}")
@@ -6735,7 +6846,7 @@ def phase_sharded_serving(torch, np, ops, da_ops, da_ref, smi: str) -> dict:
                                  MESH14["steps"], MESH14["timeout_s"],
                                  "(c)", need_lse=True)}
     out["wall_s"] = time.perf_counter() - t0
-    say(f"[14/15] sharded serving: the 1x1 NCCL mesh's prefill and serve "
+    say(f"[14/16] sharded serving: the 1x1 NCCL mesh's prefill and serve "
         f"steps equal the unsharded ones bit for bit, launches equal, no "
         f"collective, held bytes within {RESIDENT_SERVE_TOL:.0%} of the dry "
         f"run's; the decode kernel's partials over 2 and 4 row ranges "
@@ -6790,32 +6901,36 @@ def moe15_config(name: str):
     return replace(cfg, moe_impl="gather") if "gather" in name else cfg
 
 
-def resident_check(label: str, held: int, dry: int) -> float:
+def resident_check(label: str, held: int, dry: int,
+                   tol: float = RESIDENT_MOE_TOL) -> float:
     rel = held / dry - 1
-    if abs(rel) > RESIDENT_MOE_TOL:
+    if abs(rel) > tol:
         raise PhaseFailed(f"{label}: held {held:,} B vs the dry run's "
-                          f"{dry:,} B ({rel:+.4%}, limit "
-                          f"{RESIDENT_MOE_TOL:.2%})")
+                          f"{dry:,} B ({rel:+.4%}, limit {tol:.2%})")
     return rel
 
 
-def moe15_train_one(torch, np, ops, mesh, name: str, smi: str) -> dict:
-    """(a) one model's 2 sharded train steps on the 1 x 1 mesh against the
-    unsharded step from the same masters (both drawn from seed 0): the
-    metrics and every master after the steps bit for bit, the launches
-    the code's, no collective, held bytes the dry run's."""
+def one_rank_config(cfg) -> str:
+    moe = f" moe_impl={cfg.moe_impl}" if cfg.moe is not None else ""
+    return (f"{cfg.name} n_layers={cfg.n_layers}{moe} bf16 over fp32 "
+            f"masters, 1x1 NCCL mesh")
+
+
+def train_one_rank(torch, ops, mesh, cfg, run: dict, batches, want_n: dict,
+                   smi: str, label: str, tol: float) -> dict:
+    """One model's sharded train steps (``run``) on the 1 x 1 mesh against
+    the unsharded step from the same masters (both drawn from seed 0):
+    the metrics and every master after the steps bit for bit, the
+    launches the code's (``want_n``), no collective, held bytes within
+    ``tol`` of the dry run's."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.models import transformer as T
     from repro_torch.runtime import optim
     from repro_torch.runtime.trainstep import make_train_step
     from repro_torch.sharding.rules import shard_params
-    cfg, run = moe15_config(name), MOE15_TRAIN
     oc = optim.AdamWConfig(lr=run["lr"], warmup_steps=1,
                            total_steps=run["steps"])
-    batches = shard_batches(cfg, np, run["steps"], run["batch"], run["seq"])
-    want_n = {k: v * run["steps"] for k, v in
-              train_launches(cfg, run["microbatches"]).items()}
     free(torch)
     full = T.init_params(cfg, 0, device="cuda", dtype=torch.float32)
     full.requires_grad_(True)
@@ -6854,11 +6969,10 @@ def moe15_train_one(torch, np, ops, mesh, name: str, smi: str) -> dict:
     del model, opt, plain_after
     free(torch)
     dry = dryrun.count_sharded(cfg, InputShape(
-        "moe15", run["seq"], run["batch"], "train"), {"data": 1, "model": 1},
+        "train", run["seq"], run["batch"], "train"), {"data": 1, "model": 1},
         microbatches=run["microbatches"])["resident_bytes_per_device"]
-    rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} moe_impl="
-                     f"{cfg.moe_impl} bf16 over fp32 masters, 1x1 NCCL mesh, "
-                     f"{run['batch']} x {run['seq']}",
+    rec = {"config": f"{one_rank_config(cfg)}, {run['batch']} x "
+                     f"{run['seq']}",
            "hist": hist, "plain_hist": plain_hist, "step_s": secs,
            "plain_step_s": plain_s, "launches": launches,
            "plain_launches": plain_n, "want_launches": want_n, "comm": comm,
@@ -6874,25 +6988,26 @@ def moe15_train_one(torch, np, ops, mesh, name: str, smi: str) -> dict:
         f"collectives {comm['count']} calls; held {held:,} B against the dry "
         f"run's {dry:,} B ({held / dry - 1:+.4%}), peak {peak:,} B [{smi}]")
     if not same:
-        raise PhaseFailed(f"phase 15 (a) {name}: the 1x1 sharded step parts "
-                          f"from the unsharded one: {parts}")
+        raise PhaseFailed(f"{label}: the 1x1 sharded step parts from the "
+                          f"unsharded one: {parts}")
     if launches != plain_n or launches != want_n:
-        raise PhaseFailed(f"phase 15 (a) {name}: launches {launches}, "
-                          f"unsharded {plain_n}, the code's {want_n}")
+        raise PhaseFailed(f"{label}: launches {launches}, unsharded "
+                          f"{plain_n}, the code's {want_n}")
     if comm["count"] or comm["total"]:
-        raise PhaseFailed(f"phase 15 (a): a 1x1 mesh issued collectives: "
-                          f"{comm}")
-    rec["resident_rel"] = resident_check(f"phase 15 (a) train {name}", held,
-                                         dry)
+        raise PhaseFailed(f"{label}: a 1x1 mesh issued collectives: {comm}")
+    rec["resident_rel"] = resident_check(label, held, dry, tol)
     return rec
 
 
-def moe15_serve_one(torch, ops, mesh, name: str, smi: str) -> dict:
-    """(a) one model's sharded prefill and 8 serve steps on the 1 x 1
-    mesh against ``T.prefill`` / ``T.decode_step`` on its compute copy:
-    logits, greedy tokens and cache bit for bit, the launches the
-    code's, no collective, held bytes the dry run's. The fp32 masters
-    are drawn on the card and, where it cannot hold them twice
+def serve_one_rank(torch, ops, mesh, cfg, geom: tuple, smi: str,
+                   label: str, tol: float) -> dict:
+    """One model's sharded prefill and serve steps on the 1 x 1 mesh at
+    ``geom`` (batch, prompt tokens, max_len, steps; a frontend config's
+    ``frontend_embeds`` beside the prompts) against ``T.prefill`` /
+    ``T.decode_step`` on its compute copy: logits, greedy tokens and
+    cache bit for bit, the launches the code's (``serve_launches``), no
+    collective, held bytes within ``tol`` of the dry run's. The fp32
+    masters are drawn on the card and, where it cannot hold them twice
     (qwen3-moe's 44.8 GB), staged through the host before they are
     cut."""
     from repro_torch.configs.shapes import InputShape
@@ -6902,16 +7017,18 @@ def moe15_serve_one(torch, ops, mesh, name: str, smi: str) -> dict:
     from repro_torch.runtime.trainstep import (make_prefill_step,
                                                make_serve_step)
     from repro_torch.sharding.rules import shard_params
-    cfg = moe15_config(name)
-    b, s, max_len, steps = MOE15_SERVE
+    b, s, max_len, steps = geom
     prompts = serve14_prompts(torch, cfg, b, s, "cuda")
+    embeds = frontend_embeds(torch, cfg, b, s, "cuda")
+    front = T.frontend_prefix(cfg)
     kernels = ("flash_attention", "decode_attention")
     free(torch)
     twin = T.init_params(cfg, 0, device="cuda")     # the compute copy
     _build.reset_launches(*(ops[k] for k in kernels))
     plain = serve_drive(
-        torch, lambda t: T.prefill(twin, t, max_len=max_len),
-        lambda tok, c, n: T.decode_step(twin, tok, c, n), prompts, steps)
+        torch, lambda t: T.prefill(twin, t, max_len=max_len, embeds=embeds),
+        lambda tok, c, n: T.decode_step(twin, tok, c, n), prompts, steps,
+        front=front)
     plain_n = {k: ops[k].launches for k in kernels}
     plain_cache = host_cache(plain.pop("cache"))
     del twin
@@ -6930,81 +7047,98 @@ def moe15_serve_one(torch, ops, mesh, name: str, smi: str) -> dict:
     srv = make_serve_step(cfg, mesh)
     mesh.counts.reset()
     _build.reset_launches(*(ops[k] for k in kernels))
-    run = serve_drive(torch, lambda t: pre(local, {"tokens": t}),
-                      lambda tok, c, n: srv(local, c, tok, n), prompts, steps)
+    run = serve_drive(torch, lambda t: pre(local, with_embeds(t, embeds)),
+                      lambda tok, c, n: srv(local, c, tok, n), prompts, steps,
+                      front=front)
     torch.cuda.synchronize()
     launches = {k: ops[k].launches for k in kernels}
     comm = mesh.counts.record()
     held = torch.cuda.memory_allocated() - base
+    want_n = {k: v for k, v in serve_launches(cfg, run["cache"], mesh,
+                                               steps).items() if k in kernels}
     cache = host_cache(run.pop("cache"))
     del local
     free(torch)
     dry = dryrun.count_sharded(cfg, InputShape(
-        "moe15", max_len, b, "decode"), {"data": 1, "model": 1})[
+        "serve", max_len, b, "decode"), {"data": 1, "model": 1})[
             "resident_bytes_per_device"]
-    att = sum(k in ("attn", "attn_local") for k in cfg.layer_kinds)
-    want_n = {"flash_attention": att, "decode_attention": att * steps}
     same = {"logits": all(torch.equal(a, w) for a, w in
                           zip(run["logits"], plain["logits"])),
             "tokens": all(torch.equal(a, w) for a, w in
                           zip(run["tokens"], plain["tokens"])),
             "cache": all(torch.equal(c[k], w[k]) for c, w in
                          zip(cache, plain_cache) for k in w)}
-    rec = {"config": f"{cfg.name} n_layers={cfg.n_layers} moe_impl="
-                     f"{cfg.moe_impl} bf16 over fp32 masters, 1x1 NCCL mesh",
-           "batch": b, "prompt": s, "max_len": max_len, "steps": steps,
-           "same": same, "launches": launches, "plain_launches": plain_n,
-           "want_launches": want_n, "comm": comm, "held_bytes": held,
-           "dry_run_bytes": dry, "prefill_s": run["prefill_s"],
-           "step_s": run["step_s"], "plain_prefill_s": plain["prefill_s"],
+    rec = {"config": one_rank_config(cfg),
+           "batch": b, "prompt": s, "front": front, "max_len": max_len,
+           "steps": steps, "same": same, "launches": launches,
+           "plain_launches": plain_n, "want_launches": want_n, "comm": comm,
+           "held_bytes": held, "dry_run_bytes": dry,
+           "prefill_s": run["prefill_s"], "step_s": run["step_s"],
+           "plain_prefill_s": plain["prefill_s"],
            "plain_step_s": plain["step_s"], "nvidia_smi": smi}
-    say(f"  (a) serve {rec['config']}, {b} x {s} tokens, max_len {max_len}, "
-        f"prefill + {steps} steps: logits, tokens and cache {same} bit for "
-        f"bit against the unsharded steps; prefill {run['prefill_s']:.3f} s "
-        f"(unsharded {plain['prefill_s']:.3f} s), step median "
-        f"{sorted(run['step_s'])[steps // 2] * 1e3:.2f} ms (unsharded "
-        f"{sorted(plain['step_s'])[steps // 2] * 1e3:.2f} ms); launches "
-        f"{launches} (unsharded {plain_n}, the code's {want_n}); collectives "
-        f"{comm['count']} calls; held {held:,} B against the dry run's "
-        f"{dry:,} B ({held / dry - 1:+.4%}) [{smi}]")
+    rows = f"{front} + {s}" if front else f"{s}"
+    source = f" over {embeds.shape[1]} frames" \
+        if cfg.n_encoder_layers else ""
+    say(f"  (a) serve {rec['config']}, {b} x {rows} tokens{source}, max_len "
+        f"{max_len}, prefill + {steps} steps: logits, tokens and cache "
+        f"{same} bit for bit against the unsharded steps; prefill "
+        f"{run['prefill_s']:.3f} s (unsharded {plain['prefill_s']:.3f} s), "
+        f"step median {sorted(run['step_s'])[steps // 2] * 1e3:.2f} ms "
+        f"(unsharded {sorted(plain['step_s'])[steps // 2] * 1e3:.2f} ms); "
+        f"launches {launches} (unsharded {plain_n}, the code's {want_n}); "
+        f"collectives {comm['count']} calls; held {held:,} B against the "
+        f"dry run's {dry:,} B ({held / dry - 1:+.4%}) [{smi}]")
     if not all(same.values()):
-        raise PhaseFailed(f"phase 15 (a) {name}: the 1x1 sharded serving "
-                          f"steps part from the unsharded ones: {same}")
+        raise PhaseFailed(f"{label}: the 1x1 sharded serving steps part "
+                          f"from the unsharded ones: {same}")
     if launches != plain_n or launches != want_n:
-        raise PhaseFailed(f"phase 15 (a) {name}: launches {launches}, "
-                          f"unsharded {plain_n}, the code's {want_n}")
+        raise PhaseFailed(f"{label}: launches {launches}, unsharded "
+                          f"{plain_n}, the code's {want_n}")
     if comm["count"] or comm["total"]:
-        raise PhaseFailed(f"phase 15 (a): a 1x1 mesh issued collectives: "
-                          f"{comm}")
-    rec["resident_rel"] = resident_check(f"phase 15 (a) serve {name}", held,
-                                         dry)
+        raise PhaseFailed(f"{label}: a 1x1 mesh issued collectives: {comm}")
+    rec["resident_rel"] = resident_check(label, held, dry, tol)
     return rec
+
+
+@contextlib.contextmanager
+def one_rank_mesh(torch, prefix: str):
+    """A 1 x 1 NCCL mesh (a world of one rank through a ``FileStore`` in a
+    temporary directory) under ``torch.use_deterministic_algorithms``."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    tmp = tempfile.mkdtemp(prefix=prefix)
+    mesh_lib.init_world(0, 1, str(Path(tmp) / "store"), device="cuda")
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield mesh_lib.make_debug_mesh(1, 1, device="cuda")
+    finally:
+        torch.use_deterministic_algorithms(det)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def one_rank_moe(torch, np, ops, smi: str) -> dict:
     """(a): the MoE models through the sharded steps on a 1 x 1 NCCL
     mesh, each against the unsharded steps."""
-    import torch.distributed as dist
-    from repro_torch.launch import mesh as mesh_lib
-    tmp = tempfile.mkdtemp(prefix="moe15")
-    mesh_lib.init_world(0, 1, str(Path(tmp) / "store"), device="cuda")
-    det = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
     out = {"train": {}, "serve": {}}
-    try:
-        mesh = mesh_lib.make_debug_mesh(1, 1, device="cuda")
+    run = MOE15_TRAIN
+    with one_rank_mesh(torch, "moe15") as mesh:
         for name in MOE15_TRAIN_RUNS:
+            cfg = moe15_config(name)
             with part(f"15 (a) train {name}"):
-                out["train"][name] = moe15_train_one(torch, np, ops, mesh,
-                                                     name, smi)
+                out["train"][name] = train_one_rank(
+                    torch, ops, mesh, cfg, run,
+                    shard_batches(cfg, np, run["steps"], run["batch"],
+                                  run["seq"]),
+                    {k: v * run["steps"] for k, v in train_launches(
+                        cfg, run["microbatches"]).items()},
+                    smi, f"phase 15 (a) train {name}", RESIDENT_MOE_TOL)
         for name in MOE15_SERVE_RUNS:
             with part(f"15 (a) serve {name}"):
-                out["serve"][name] = moe15_serve_one(torch, ops, mesh, name,
-                                                     smi)
-    finally:
-        torch.use_deterministic_algorithms(det)
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
+                out["serve"][name] = serve_one_rank(
+                    torch, ops, mesh, moe15_config(name), MOE15_SERVE, smi,
+                    f"phase 15 (a) serve {name}", RESIDENT_MOE_TOL)
     return out
 
 
@@ -7150,13 +7284,171 @@ def phase_moe_sharded(torch, np, ops, smi: str) -> dict:
             k: v["plain_hist"] for k, v in one["train"].items()})
     out = {"one_rank": one, "mesh4_serve": serve4, "mesh4_train": train4,
            "wall_s": time.perf_counter() - t0}
-    say(f"[15/15] MoE expert parallelism through the sharded steps: "
+    say(f"[15/16] MoE expert parallelism through the sharded steps: "
         f"qwen3-moe (experts by expert) and qwen2-moe under both "
         f"dispatches on the 1x1 NCCL mesh equal the unsharded train, "
         f"prefill and serve steps bit for bit, launches the code's, no "
         f"collective, held bytes within {RESIDENT_MOE_TOL:.2%} of the dry "
         f"run's; 1x4 and 2x2 {'run' if serve4['run'] else 'not run'} "
         f"({out['wall_s']:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+# the xLSTM, encoder-decoder and vision-frontend families through the
+# sharded steps, at full width: name -> (arch, layers to train (None:
+# whole), the training run, the serving geometry (batch, prompt tokens,
+# max_len, steps)). xlstm-350m whole (its sLSTM loop runs a position at a
+# time: prompts of 128, training 2 x 256, as phase 10); seamless-m4t-
+# medium whole (12 + 12 layers; a source of one frame a token);
+# llava-next-mistral-7b served whole (4 prompts of 2,880 patch rows + 256
+# tokens) and trained cut 32 -> 4 layers, as phase 11 (2 x (2,880 +
+# 256) positions)
+FAM16_TRAIN_RUN = dict(steps=2, batch=2, microbatches=1, lr=1e-3)
+FAM16 = {
+    "xlstm-350m": ("xlstm_350m", None, 256, (8, 128, 128 + 16, 8)),
+    "seamless-m4t-medium": ("seamless_m4t_medium", None, 256,
+                            (8, 512, 512 + 16, 8)),
+    "llava-next-mistral-7b": ("llava_next_mistral_7b", 4, 2880 + 256,
+                              (4, 256, 2880 + 256 + 16, 8))}
+RESIDENT16_TOL = 0.01
+# (b) with 4 cards: the three served on a 2 x 2 mesh (seamless's 16 and
+# llava's 8 kv heads by heads over "model", xlstm's 4 heads 2 a card)
+FAM16_MESH = (((2, 2), tuple((name,) + geom[:3]
+                             for name, (_, _, _, geom) in FAM16.items())),)
+FAM16_TIMEOUT_S = 900
+
+
+def rows_witness(torch, name: str, geom: tuple, parts: int) -> dict:
+    """The bf16 rounding's dependence on the row count, with no mesh:
+    ``name``'s one-card bf16 serving run at ``geom`` (``mesh_serving``'s
+    control: the same prompts and weights) and again as ``parts`` runs of
+    its consecutive rows (a data rank's rows on a mesh of ``parts`` data
+    ranks), fed the whole batch's tokens: the greedy choices that part
+    beyond a tie (``TIE_GAP``; (call, row)) and the largest distance
+    over the largest logit."""
+    from repro_torch.models import transformer as T
+    b, s, max_len, steps = geom
+    cfg = serve_config(name)
+    prompts = serve14_prompts(torch, cfg, b, s, "cuda")
+    embeds = frontend_embeds(torch, cfg, b, s, "cuda")
+    free(torch)
+    model = T.init_params(cfg, 0, device="cuda")
+
+    def drive(rows, fed=None):
+        e = None if embeds is None else embeds[rows]
+        return serve_drive(
+            torch, lambda t: T.prefill(model, t, max_len=max_len, embeds=e),
+            lambda tok, c, n: T.decode_step(model, tok, c, n),
+            prompts[rows], steps, fed=fed, front=T.frontend_prefix(cfg))
+    whole = drive(slice(None))
+    k, v = b // parts, cfg.vocab_size
+    parted, err = set(), 0.0
+    for i in range(parts):
+        rows = slice(i * k, (i + 1) * k)
+        run = drive(rows, fed=[t[rows] for t in whole["tokens"]])
+        for c, (got, want) in enumerate(zip(run["logits"],
+                                            whole["logits"])):
+            want, got = want[rows, :v].float(), got[:, :v].float()
+            err = max(err, float((got - want).abs().max()
+                                 / want.abs().max()))
+            top = want.topk(2, dim=-1).values
+            gap = (top[:, 0] - top[:, 1]) / want.abs().amax(-1)
+            for j in torch.nonzero(got.argmax(-1) != want.argmax(-1))[:, 0]:
+                if gap[j] > TIE_GAP:
+                    parted.add((c, i * k + int(j)))
+    del model, whole
+    free(torch)
+    return {"parts": parts, "rows": k, "calls": steps + 1,
+            "parted": sorted(parted), "err": err}
+
+
+def family_batches(cfg, np, n: int, batch: int, seq: int) -> list:
+    """``shard_batches`` on the copy task with a frontend config's inputs
+    as the dry run shapes them, ``embeds`` N(0, 1) from a numpy seed: a
+    vision frontend's rows ahead of ``seq`` less as many tokens (their
+    labels -1), an audio source of one frame a token."""
+    from repro_torch.models import transformer as T
+    rows = T.frontend_prefix(cfg)
+    out = []
+    for i, b in enumerate(shard_batches(cfg, np, n, batch, seq - rows)):
+        if cfg.frontend:
+            b["embeds"] = np.random.RandomState(16 + i).standard_normal(
+                (batch, rows or seq, cfg.frontend_dim)).astype(np.float32)
+        if rows:
+            b["labels"] = np.concatenate(
+                [np.full((batch, rows), -1, np.int32), b["labels"]], 1)
+        out.append(b)
+    return out
+
+
+def fam16_config(name: str, train: bool):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    arch, layers, _, _ = FAM16[name]
+    cfg = get_config(arch)
+    return replace(cfg, n_layers=layers) if train and layers else cfg
+
+
+def one_rank_families(torch, np, ops, smi: str) -> dict:
+    """(a): each family's sharded train, prefill and serve steps on a
+    1 x 1 NCCL mesh against the unsharded steps, bit for bit."""
+    out = {"train": {}, "serve": {}}
+    with one_rank_mesh(torch, "fam16") as mesh:
+        for name, (_, _, seq, geom) in FAM16.items():
+            cfg = fam16_config(name, train=True)
+            run = dict(FAM16_TRAIN_RUN, seq=seq)
+            want = dict.fromkeys(TRAIN_KERNELS, 0)
+            if cfg.arch_type != "ssm":
+                want["flash_attention"] = encdec_train_launches(cfg) \
+                    * run["steps"]
+            with part(f"16 (a) train {name}"):
+                out["train"][name] = train_one_rank(
+                    torch, ops, mesh, cfg, run,
+                    family_batches(cfg, np, run["steps"], run["batch"], seq),
+                    want, smi, f"phase 16 (a) train {name}", RESIDENT16_TOL)
+            with part(f"16 (a) serve {name}"):
+                out["serve"][name] = serve_one_rank(
+                    torch, ops, mesh, fam16_config(name, train=False), geom,
+                    smi, f"phase 16 (a) serve {name}", RESIDENT16_TOL)
+    return out
+
+
+def phase_families_sharded(torch, np, ops, smi: str) -> dict:
+    t0 = time.perf_counter()
+    one = one_rank_families(torch, np, ops, smi)
+    witness = {}
+    with part("16 rows witness"):
+        for (data, _), runs in FAM16_MESH:
+            for name, b, s, max_len in runs:
+                if "mlstm" not in serve_config(name).layer_kinds:
+                    continue
+                geom = FAM16[name][3]
+                w = witness[name] = rows_witness(torch, name, geom, data)
+                say(f"  16 rows witness {name} (bf16, one card, no mesh): "
+                    f"B={b} prompt {s} + {geom[3]} steps run whole and as "
+                    f"{data} runs of {w['rows']} rows: "
+                    f"{len(w['parted'])} of {b * w['calls']} greedy "
+                    f"choices part beyond a tie ({TIE_GAP:g}) "
+                    f"{w['parted'][:6]}, logits within {w['err']:.3e} of "
+                    f"the largest [{smi}]")
+    with part("16 (b) serving"):
+        serve4 = mesh_serving(torch, smi, FAM16_MESH, FAM16["xlstm-350m"][3][3],
+                              FAM16_TIMEOUT_S, "(b)", need_lse=False,
+                              witness=witness)
+    out = {"one_rank": one, "witness": witness, "mesh4_serve": serve4,
+           "wall_s": time.perf_counter() - t0}
+    say(f"[16/16] the xLSTM, encoder-decoder and vision-frontend families "
+        f"through the sharded steps: xlstm-350m, seamless-m4t-medium and "
+        f"llava-next-mistral-7b (trained at 4 layers) on the 1x1 NCCL mesh "
+        f"equal the unsharded train, prefill and serve steps bit for bit, "
+        f"launches the code's, no collective, held bytes within "
+        f"{RESIDENT16_TOL:.0%} of the dry run's; 2x2 "
+        f"{'run' if serve4['run'] else 'not run'} ({out['wall_s']:.1f} s)")
     return out
 
 
@@ -7293,12 +7585,33 @@ KERNEL_LINE = [
     ("decode_attention", DA_SRC, DA_TPU, "qwen3-moe",
      ("moe_sharded", "one_rank", "serve", "qwen3-moe"), "the sharded serve "
      "step (1x1 mesh, qwen3-moe's 4 layers): 4 layers x 8 steps of 8 rows"),
+    # phase 16: the encoder-decoder and the vision frontend through the
+    # sharded prefill and serve steps on the 1 x 1 NCCL mesh (xLSTM runs
+    # no kernel)
+    ("flash_attention", FA_SRC, FA_TPU, "seamless16-encoder",
+     ("families_sharded", "one_rank", "serve", "seamless-m4t-medium"),
+     "the sharded prefill step (1x1 mesh): 1 prefill of 8 x 512 tokens "
+     "over 512 frames x (12 encoder layers and 12 cross-attentions at this "
+     "shape, 12 causal self-attentions timed as seamless16-decoder)"),
+    ("decode_attention", DA_SRC, DA_TPU, "seamless16",
+     ("families_sharded", "one_rank", "serve", "seamless-m4t-medium"),
+     "the sharded serve step (1x1 mesh): 8 steps of 8 rows x (12 "
+     "self-attention layers at this shape, 12 cross-attentions timed as "
+     "seamless16-cross)"),
+    ("flash_attention", FA_SRC, FA_TPU, "llava16",
+     ("families_sharded", "one_rank", "serve", "llava-next-mistral-7b"),
+     "the sharded prefill step (1x1 mesh): 32 layers x 1 prefill of 4 x "
+     "(2,880 patch rows + 256 tokens)"),
+    ("decode_attention", DA_SRC, DA_TPU, "llava16",
+     ("families_sharded", "one_rank", "serve", "llava-next-mistral-7b"),
+     "the sharded serve step (1x1 mesh): 32 layers x 8 steps of 4 rows"),
 ]
 # a KERNEL_LINE shape timed under another phase-2 record than its name's
 TIMED_AS = {"qwen2-moe-train": "flash_attention_train",
             "seamless-encoder": "flash_attention_bidir",
+            "seamless16-encoder": "flash_attention_bidir",
             ("flash_attention", "train"): "flash_attention_train"}
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16}
 
 
 def tiered_launches(rec: dict) -> dict:
@@ -7315,7 +7628,7 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measurement here as JSON")
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run; a subset prints "
                          "no result line (phase 1 always runs)")
     args = ap.parse_args()
@@ -7371,7 +7684,9 @@ def main() -> int:
             (14, "serve_sharded", lambda: phase_sharded_serving(
                 torch, np, ops, da_ops, da_ref, smi)),
             (15, "moe_sharded", lambda: phase_moe_sharded(torch, np, ops,
-                                                          smi))]
+                                                          smi)),
+            (16, "families_sharded", lambda: phase_families_sharded(
+                torch, np, ops, smi))]
         record["phase_s"] = {}
         for k, key, run in steps:
             if k in phases:

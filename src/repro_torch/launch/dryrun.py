@@ -26,8 +26,8 @@ its meta branch, which launches nothing), and records per combination:
   under the sharding rules (``repro_torch.sharding``) on the mesh;
 * ``collective_bytes_per_device``, ``collectives`` (bytes and calls by
   kind, bytes by the axes crossed) and ``t_collective_s``: the
-  counterpart of the reference's ``collective_bytes``. For a family the
-  sharded steps run, rank 0's per-device program of the shape's step
+  counterpart of the reference's ``collective_bytes``. Rank 0's
+  per-device program of the shape's step
   (``make_train_step(cfg, opt, mesh)``, ``make_prefill_step`` or
   ``make_serve_step``, the last over ``shard_cache`` of the shape's
   cache) runs on the meta device over an abstract mesh
@@ -37,8 +37,9 @@ its meta branch, which launches nothing), and records per combination:
   peak (NVLink 4 inside a pod, InfiniBand across pods; ``launch.mesh``),
   a bound. ``resident_bytes_per_device`` is that program's fp32 master
   shards (with their gradients and moments for training) and the cache
-  shards a serving step leaves. A combination the sharded steps do not
-  run records why in ``collective_note``, and ``None`` for the four.
+  shards a serving step leaves. A training shape whose global batch
+  does not split over the data ranks records why in
+  ``collective_note``, and ``None`` for the four.
 
 Meshes: ``h100`` (one card), ``pod`` (16 x 16) and ``multipod`` (2 x 16 x
 16), abstract, or any ``DxM`` / ``PxDxM`` (``2x2`` for the tests and the
@@ -73,8 +74,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import optim
-from repro_torch.runtime.trainstep import (check_shardable,
-                                           make_prefill_step,
+from repro_torch.runtime.trainstep import (make_prefill_step,
                                            make_serve_step, make_train_step)
 from repro_torch.sharding.comm import CommCount
 from repro_torch.sharding import (cache_shardings, device_bytes,
@@ -168,8 +168,8 @@ def count_sharded(cfg: ModelConfig, shape: Union[str, InputShape],
     master shards (with their gradients and moments for training) and,
     for prefill and decode, the cache shards the step leaves, each leaf's
     bytes under its spec (``device_bytes``). The four are None, with
-    "collective_note", where the sharded steps do not run the
-    combination.
+    "collective_note", where a training batch does not split over the
+    data ranks.
 
     The scanned periods run one program each, the same shapes through
     the same collectives, as the reference's scan lowers one body: a
@@ -181,20 +181,14 @@ def count_sharded(cfg: ModelConfig, shape: Union[str, InputShape],
     mesh = mesh_lib.abstract_mesh(axes)
     specs = input_specs(cfg, s, batch_override)
     b = next(iter(specs.values())).shape[0]
-    why = None
     if s.kind == "train" and b % (mesh.size(batch_axes(axes))
                                   * microbatches):
-        why = (f"a global batch of {b} in {microbatches} microbatches does "
-               f"not split over {mesh.size(batch_axes(axes))} data ranks")
-    else:
-        try:
-            check_shardable(cfg, mesh)
-        except ValueError as exc:
-            why = str(exc)
-    if why is not None:
         return {"collectives": None, "collective_bytes_per_device": None,
                 "t_collective_s": None, "resident_bytes_per_device": None,
-                "collective_note": why}
+                "collective_note": (
+                    f"a global batch of {b} in {microbatches} microbatches "
+                    f"does not split over {mesh.size(batch_axes(axes))} "
+                    f"data ranks")}
     args = (s, axes, specs, microbatches, max_len)
     if cfg.n_periods > 2:
         counts, held = _by_periods(*(_run_sharded(_depth(cfg, k), *args)

@@ -18,9 +18,12 @@ rank, started by ``torchrun``::
     torchrun --standalone --nproc-per-node N*M -m repro_torch.launch.train \
         --arch recurrentgemma_9b --data 2 --model 2 ...
 
-The dense, hybrid and MoE families train so; an MoE config's experts go
-by expert over "model" where their count divides it, else by their ff
-columns (``models.moe``). NCCL on the cards (rank r on card
+Every family trains so: an MoE config's experts go by expert over
+"model" where their count divides it, else by their ff columns
+(``models.moe``); an xLSTM block by heads where "model" divides them,
+else whole on each rank (``models.ssm``); an encoder, the cross
+attention and a frontend's projector by heads and columns. NCCL on the
+cards (rank r on card
 ``LOCAL_RANK``), gloo with ``--device cpu``. Every rank builds the same
 masters from the seed and keeps its shards; every rank draws the same
 global batches and trains on its rows; rank 0 alone prints, and writes

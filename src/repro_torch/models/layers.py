@@ -293,24 +293,37 @@ def attn_apply(p, x: torch.Tensor, cfg, *, kind: str,
 
 
 def attn_encoder_apply(p, x: torch.Tensor, cfg, *,
-                       positions: torch.Tensor) -> torch.Tensor:
+                       positions: torch.Tensor, ctx=None) -> torch.Tensor:
     """Bidirectional (encoder) self-attention sublayer with residual:
-    RoPE on q and k, then every key (``causal=False``)."""
+    RoPE on q and k, then every key (``causal=False``). Under a ``ctx``
+    whose "model" axis cuts the query heads, the rank's heads, as
+    ``attn_apply``."""
+    split = ctx is not None and ctx.split(p, "wq")
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if split:
+        p = _local_heads(p, cfg, ctx)
+        h = ctx.tp_in(h)
     q, k, v = _qkv(p, h, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     o = FlashAttention.apply(q, k, v, 0, cfg.attn_chunk,
                              1.0 / math.sqrt(q.shape[-1]), False)
-    return x + _out_proj(o, p.wo)
+    out = _out_proj(o, p.wo)
+    return x + (ctx.tp_out(out) if split else out)
 
 
-def cross_kv(p, enc_out: torch.Tensor, cfg
+def cross_kv(p, enc_out: torch.Tensor, cfg, ctx=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cross-attention K and V (B, S_src, Hk, hd) of the encoder
     output, no RoPE, the bias when ``qkv_bias``: what a decoder layer
     attends to, and caches at prefill so that decode never reads the
-    encoder output again."""
+    encoder output again. Under a ``ctx`` whose "model" axis cuts the
+    query heads, the kv heads of the rank's query heads
+    (``_local_heads``), the encoder output's gradient summed over
+    "model"."""
+    if ctx is not None and ctx.split(p, "wq"):
+        p = _local_heads(p, cfg, ctx)
+        enc_out = ctx.tp_in(enc_out)
     k = _proj_heads(enc_out, p.wk)
     v = _proj_heads(enc_out, p.wv)
     if cfg.qkv_bias:
@@ -318,33 +331,107 @@ def cross_kv(p, enc_out: torch.Tensor, cfg
     return k, v
 
 
-def _cross_q(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    q = _proj_heads(rms_norm(x, p.ln, cfg.norm_eps), p.wq)
+def _cross_q(p, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    if ctx is not None:
+        h = ctx.tp_in(h)
+    q = _proj_heads(h, p.wq)
     return q + p.bq if cfg.qkv_bias else q
 
 
 def cross_attn_apply(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     cfg) -> torch.Tensor:
+                     cfg, ctx=None) -> torch.Tensor:
     """Decoder cross-attention with residual: queries from x (B, S, D)
     over the source's K and V (``cross_kv``), every source row
-    (``causal=False``, Sq != Sk)."""
-    q = _cross_q(p, x, cfg)
+    (``causal=False``, Sq != Sk). Under a ``ctx`` whose "model" axis
+    cuts the query heads, the rank's heads over ``cross_kv``'s, the
+    output summed over "model"."""
+    split = ctx is not None and ctx.split(p, "wq")
+    q = _cross_q(p, x, cfg, ctx if split else None)
     o = FlashAttention.apply(q, k, v, 0, cfg.attn_chunk,
                              1.0 / math.sqrt(q.shape[-1]), False)
-    return x + _out_proj(o, p.wo)
+    out = _out_proj(o, p.wo)
+    return x + (ctx.tp_out(out) if split else out)
+
+
+def cross_cache_held(p, enc_out: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, cfg, max_len: int, ctx
+                     ) -> Dict[str, torch.Tensor]:
+    """A sharded prefill's cross cache: {"cross_k", "cross_v"} of
+    ``max_len`` rows, the source's K and V in the first, placed as
+    ``cache_spec`` says (the rank's kv heads, ``cross_kv``'s where
+    "model" cuts ``wk``, or its rows of every kv head, the flash-decode
+    layout), and ``cross_len`` (B,) the source rows."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import held, seq_rows
+    split = ctx.split(p, "wq")
+    kv_split = split and ctx.split(p, "wk")
+    b, src = enc_out.shape[:2]
+    spec = ctx.cache_spec("cross_k", (b, max_len, cfg.n_kv_heads,
+                                      cfg.resolved_head_dim))
+    if split and not kv_split:
+        k, v = cross_kv(p, enc_out, cfg)        # every kv head
+    elif kv_split and spec[2:3] != ("model",):
+        k = comm.gather_dim(k, ctx.mesh, "model", 2)
+        v = comm.gather_dim(v, ctx.mesh, "model", 2)
+    lo, hi = seq_rows(spec, max_len, ctx.mesh)
+    return {"cross_k": held(_ring_rows(k, max_len, lo, hi), spec),
+            "cross_v": held(_ring_rows(v, max_len, lo, hi), spec),
+            "cross_len": held(torch.full((b,), src, dtype=torch.int32,
+                                         device=k.device),
+                              ctx.cache_spec("cross_len", (b,)))}
+
+
+def _attend_cache(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                  valid: torch.Tensor, ctx, split: bool) -> torch.Tensor:
+    """One query token (B, H_rank, hd) over a slotted cache's ``valid``
+    rows (of the whole sequence) through the decode kernel: the output
+    of the rank's heads (every head without a ``ctx``). Under a ``ctx``
+    the cache holds the rank's kv heads (the heads layout), or every kv
+    head, when q is gathered over "model" first; where it holds a range
+    of the rows, the kernel reads the rank's rows up to ``clamp(valid -
+    lo, 0, rows)`` and returns its fp32 partial and log-sum-exp, which
+    ``ctx.combine`` merges."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import seq_axes, seq_rows
+    spec = kc.shard_spec if ctx is not None else ()
+    heads = split and spec[2:3] == ("model",)
+    hl = q.shape[1]
+    if split and not heads:
+        q = comm.gather_dim(q, ctx.mesh, "model", 1)
+    axes = seq_axes(spec)
+    n = ctx.mesh.size(axes) if ctx is not None else 1
+    rows_l = kc.shape[1]
+    if n == 1:
+        o = decode_attention(q.contiguous(), kc, vc, valid)
+    else:
+        lo, _ = seq_rows(spec, rows_l * n, ctx.mesh)
+        o, lse = decode_attention(
+            q.contiguous(), kc, vc,
+            (valid - lo).clamp(0, rows_l).to(torch.int32), return_lse=True)
+        o = ctx.combine(o, lse, axes).to(q.dtype)
+    if split and not heads:
+        o = o[:, ctx.tp_index * hl:(ctx.tp_index + 1) * hl]
+    return o
 
 
 def cross_attn_decode(p, x: torch.Tensor, cfg,
-                      cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+                      cache: Dict[str, torch.Tensor], ctx=None
+                      ) -> torch.Tensor:
     """One-token cross-attention over a layer's cached source: x (B, 1,
     D); ``cache`` {"cross_k", "cross_v"} (B, S_cross, Hk, hd) with
     ``cross_len`` (B,) int32 source rows per sequence (rows past it, a
     slot's stale or zero rows, are never read), through the slotted
-    decode kernel. Returns the residual output."""
-    q = _cross_q(p, x, cfg)
-    o = decode_attention(q[:, 0].contiguous(), cache["cross_k"],
-                         cache["cross_v"], cache["cross_len"])
-    return x + _out_proj(o, p.wo)[:, None]
+    decode kernel. Returns the residual output. Under a ``ctx`` the
+    rank's heads over the leaves as placed (``_attend_cache``: the
+    log-sum-exp combine where the source rows are cut), the output
+    summed over "model"."""
+    split = ctx is not None and ctx.split(p, "wq")
+    q = _cross_q(p, x, cfg, ctx if split else None)
+    o = _attend_cache(q[:, 0], cache["cross_k"], cache["cross_v"],
+                      cache["cross_len"], ctx, split)
+    out = _out_proj(o, p.wo)[:, None]
+    return x + (ctx.tp_out(out) if split else out)
 
 
 def attn_prefill_cache(p, x: torch.Tensor, cfg, *, kind: str,
@@ -451,13 +538,9 @@ def attn_decode(p, x: torch.Tensor, cfg, *, kind: str,
     k = apply_rope(k, positions, theta, cfg.rope_fraction)
     kc, vc = cache["k"], cache["v"]
     spec = kc.shard_spec if ctx is not None else ()
-    heads = split and spec[2:3] == ("model",)
-    hl = q.shape[2]
-    if split and not heads:
-        q = comm.gather_dim(q, ctx.mesh, "model", 2)
-        if kv_split:
-            k = comm.gather_dim(k, ctx.mesh, "model", 2)
-            v = comm.gather_dim(v, ctx.mesh, "model", 2)
+    if kv_split and spec[2:3] != ("model",):
+        k = comm.gather_dim(k, ctx.mesh, "model", 2)
+        v = comm.gather_dim(v, ctx.mesh, "model", 2)
     axes = seq_axes(spec)
     n = ctx.mesh.size(axes) if ctx is not None else 1
     rows_l = kc.shape[1]
@@ -468,7 +551,6 @@ def attn_decode(p, x: torch.Tensor, cfg, *, kind: str,
     if n == 1:
         kc[rows, idx] = k[:, 0]         # in-place cache write
         vc[rows, idx] = v[:, 0]
-        o = decode_attention(q[:, 0].contiguous(), kc, vc, valid)
     else:
         lo, _ = seq_rows(spec, size, ctx.mesh)
         local = idx - lo
@@ -476,12 +558,7 @@ def attn_decode(p, x: torch.Tensor, cfg, *, kind: str,
         local = local.clamp(0, rows_l - 1)
         kc[rows, local] = torch.where(mine, k[:, 0], kc[rows, local])
         vc[rows, local] = torch.where(mine, v[:, 0], vc[rows, local])
-        o, lse = decode_attention(
-            q[:, 0].contiguous(), kc, vc,
-            (valid - lo).clamp(0, rows_l).to(torch.int32), return_lse=True)
-        o = ctx.combine(o, lse, axes).to(q.dtype)
-    if split and not heads:
-        o = o[:, ctx.tp_index * hl:(ctx.tp_index + 1) * hl]
+    o = _attend_cache(q[:, 0], kc, vc, valid, ctx, split)
     out = _out_proj(o, p.wo)[:, None]
     return x + (ctx.tp_out(out) if split else out)
 

@@ -35,6 +35,7 @@ a prompt). Decode updates the state in place.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -148,14 +149,61 @@ def _gates(p, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return log_i, -_softplus(-f_raw)
 
 
-def _mlstm_qkvg(p, x: torch.Tensor, cfg):
+def _mlstm_prep(p, ctx):
+    """(the block's leaves as this rank computes with them, whether on
+    its heads). On its heads (where "model" cuts the heads' leaves, and
+    ``w_up`` by halves: its x and z channels of those heads) ``conv_b``
+    and ``gn`` are sliced to them (``ctx.tp_slice``), the gates' ``w_if``
+    and ``b_if`` to their i and f columns (whole on every rank, their
+    gradient summed over "model"). Where "model" does not divide the
+    heads, every leaf it cuts is gathered (``ctx.whole``): the block
+    runs whole on each rank."""
+    if ctx is None:
+        return p, False
+    if not (all(ctx.split(p, n) for n in ("wq", "wk", "wv", "w_up",
+                                          "conv_w", "w_down"))
+            and "w_up" in getattr(p, "_halves", ())):
+        return ctx.whole(p), False
+    nh = p.gn.shape[0]
+    lo, hi = ctx.heads(nh)
+    n = p.w_down.shape[0]
+    c0 = ctx.tp_index * n
+    out = SimpleNamespace(**vars(p))
+    out.conv_b = ctx.tp_slice(p.conv_b, 0, c0, c0 + n)
+    out.gn = ctx.tp_slice(p.gn, 0, lo, hi)
+    sel = torch.cat([torch.arange(lo, hi), torch.arange(nh + lo, nh + hi)]
+                    ).to(p.w_if.device)
+    out.w_if = ctx.tp_in(p.w_if).index_select(1, sel)
+    out.b_if = ctx.tp_in(p.b_if).index_select(0, sel)
+    return out, True
+
+
+def _every_channel(ctx, xc: torch.Tensor, xm: torch.Tensor):
+    """The conv's output and input over every channel, from this rank's:
+    one all-gather over "model" (its backward sums the heads' partial
+    gradients)."""
+    from repro_torch.sharding import comm
+    n = xc.shape[-1]
+    g = comm.all_gather(torch.cat([xc, xm], dim=-1), ctx.mesh, "model", -1)
+    g = g.reshape(*g.shape[:-1], ctx.tp, 2, n)
+    return (g[..., 0, :].reshape(*g.shape[:-3], -1),
+            g[..., 1, :].reshape(*g.shape[:-3], -1))
+
+
+def _mlstm_qkvg(p, x: torch.Tensor, cfg, ctx=None, split: bool = False,
+                tail: Optional[torch.Tensor] = None):
     """The block's projections: (q, k, v (B,S,H,dh), z (B,S,dm), log_i,
-    log_f (B,S,H) fp32, xm (B,S,dm) the conv's input)."""
+    log_f (B,S,H) fp32, xm (B,S,dm) the conv's input). On a rank's heads
+    (``split``) xm, xc and z are its channels, and q, k, v and the gates
+    its heads' of every channel of xc and xm (``_every_channel``)."""
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if split:
+        h = ctx.tp_in(h)
     xm, z = (h @ p.w_up).chunk(2, dim=-1)
-    xc = F.silu(_causal_conv(xm, p.conv_w, p.conv_b))
-    log_i, log_f = _gates(p, xc)
-    return (_heads(xc, p.wq), _heads(xc, p.wk), _heads(xm, p.wv), z,
+    xc = F.silu(_causal_conv(xm, p.conv_w, p.conv_b, tail=tail))
+    xg, mg = _every_channel(ctx, xc, xm) if split else (xc, xm)
+    log_i, log_f = _gates(p, xg)
+    return (_heads(xg, p.wq), _heads(xg, p.wk), _heads(mg, p.wv), z,
             log_i, log_f, xm)
 
 
@@ -265,24 +313,29 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, *, chunk: int = 256):
 
 
 def _mlstm_out(p, out: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
-               cfg) -> torch.Tensor:
+               cfg, ctx=None, split: bool = False) -> torch.Tensor:
     """The heads' output normed per head, gated by silu(z), projected
-    down, plus the residual."""
+    down, plus the residual; on a rank's heads, its rows of ``w_down``
+    and the partial outputs summed over "model"."""
     out = rms_norm(out.to(x.dtype), p.gn, cfg.norm_eps)
-    out = out.reshape(*out.shape[:-2], -1) * F.silu(z)
-    return x + out @ p.w_down
+    out = (out.reshape(*out.shape[:-2], -1) * F.silu(z)) @ p.w_down
+    return x + (ctx.tp_out(out) if split else out)
 
 
-def _mlstm_prompt(p, x: torch.Tensor, cfg):
-    q, k, v, z, log_i, log_f, xm = _mlstm_qkvg(p, x, cfg)
+def _mlstm_prompt(p, x: torch.Tensor, cfg, ctx=None):
+    p, split = _mlstm_prep(p, ctx)
+    q, k, v, z, log_i, log_f, xm = _mlstm_qkvg(p, x, cfg, ctx, split)
     out, state = mlstm_chunkwise(q, k, v, log_i, log_f, None,
                                  chunk=min(cfg.attn_chunk, 256))
-    return _mlstm_out(p, out, z, x, cfg), state, xm
+    return _mlstm_out(p, out, z, x, cfg, ctx, split), state, xm, split
 
 
-def mlstm_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence mLSTM block with residual. x: (B, S, D)."""
-    return _mlstm_prompt(p, x, cfg)[0]
+def mlstm_apply(p, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
+    """Full-sequence mLSTM block with residual. x: (B, S, D). Under a
+    ``ctx`` whose "model" axis cuts the heads, the rank's heads only
+    (``_mlstm_prep``): one all-gather of its channels of the conv's
+    input and output, one sum over "model" after ``w_down``."""
+    return _mlstm_prompt(p, x, cfg, ctx)[0]
 
 
 def _tail(xm: torch.Tensor, keep: int) -> torch.Tensor:
@@ -294,29 +347,68 @@ def _tail(xm: torch.Tensor, keep: int) -> torch.Tensor:
     return tail.contiguous()
 
 
-def mlstm_prefill_cache(p, x: torch.Tensor, cfg
+# the heads (or, for the conv tail, channels) dim of each state leaf
+_STATE_DIM = {"C": 1, "n": 1, "m": 1, "conv": -1, "c": 1, "h": 1}
+
+
+def _place(state: Dict[str, torch.Tensor], kind: str, cfg, ctx,
+           split: bool) -> Dict[str, torch.Tensor]:
+    """A prefill's state leaves over the layer's heads (this rank's, or
+    all) as ``cache_spec`` places them, each marked with its spec."""
+    from repro_torch.sharding.rules import held
+    b = next(iter(state.values())).shape[0]
+    out = {}
+    for name, (shape, _, _) in state_shapes(kind, cfg, b).items():
+        spec = ctx.cache_spec(name, shape)
+        out[name] = held(ctx.to_held(state[name], spec, split,
+                                     _STATE_DIM[name]).contiguous(), spec)
+    return out
+
+
+def mlstm_prefill_cache(p, x: torch.Tensor, cfg, ctx=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``mlstm_apply`` that also returns the decode state {"C", "n", "m"
-    (fp32), "conv" (B, 3, dm) in x's dtype}."""
-    out, (C, n, m), xm = _mlstm_prompt(p, x, cfg)
-    return out, {"C": C, "n": n, "m": m,
-                 "conv": _tail(xm, CONV_WIDTH - 1).to(x.dtype)}
+    (fp32), "conv" (B, 3, dm) in x's dtype}; under a ``ctx`` each leaf
+    placed as ``cache_spec`` says (``C`` by heads over "model", ``conv``
+    by channel, where they divide)."""
+    out, (C, n, m), xm, split = _mlstm_prompt(p, x, cfg, ctx)
+    state = {"C": C, "n": n, "m": m,
+             "conv": _tail(xm, CONV_WIDTH - 1).to(x.dtype)}
+    if ctx is not None:
+        state = _place(state, "mlstm", cfg, ctx, split)
+    return out, state
+
+
+def _read(cache, names, ctx, split):
+    """The state leaves ``names`` over the layer's heads."""
+    if ctx is None:
+        return [cache[k] for k in names]
+    return [ctx.channels(cache[k], split, _STATE_DIM[k]) for k in names]
+
+
+def _write(cache, new, ctx, split) -> None:
+    """Advance the state leaves IN PLACE from ``new`` {name: value over
+    the layer's heads}, each in its placement."""
+    for k, v in new.items():
+        if ctx is not None:
+            v = ctx.to_held(v, cache[k].shard_spec, split, _STATE_DIM[k])
+        cache[k].copy_(v)
 
 
 def mlstm_decode(p, x: torch.Tensor, cfg, *,
-                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 cache: Dict[str, torch.Tensor], ctx=None) -> torch.Tensor:
     """One-token decode, the O(1) matrix-memory update. x: (B, 1, D);
     ``cache`` {"C", "n", "m", "conv"} is advanced IN PLACE. Returns the
-    residual output."""
-    h = rms_norm(x, p.ln, cfg.norm_eps)
-    xm, z = (h @ p.w_up).chunk(2, dim=-1)
-    xc = F.silu(_causal_conv(xm, p.conv_w, p.conv_b, tail=cache["conv"]))
-    dh = p.wq.shape[2]
-    q = _heads(xc[:, 0], p.wq).float() / math.sqrt(dh)
-    k = _heads(xc[:, 0], p.wk).float()
-    v = _heads(xm[:, 0], p.wv).float()
-    log_i, log_f = _gates(p, xc[:, 0])
-    C, n, m = cache["C"], cache["n"], cache["m"]
+    residual output. Under a ``ctx`` the step runs as ``mlstm_apply``
+    does, reading and writing each state leaf in its placement."""
+    p, split = _mlstm_prep(p, ctx)
+    C, n, m, conv = _read(cache, ("C", "n", "m", "conv"), ctx, split)
+    q, k, v, z, log_i, log_f, xm = _mlstm_qkvg(p, x, cfg, ctx, split,
+                                                tail=conv)
+    dh = q.shape[-1]
+    q = q[:, 0].float() / math.sqrt(dh)
+    k, v = k[:, 0].float(), v[:, 0].float()
+    log_i, log_f = log_i[:, 0], log_f[:, 0]
     m_new = torch.maximum(log_f + m, log_i)
     decay = torch.exp(log_f + m - m_new)
     inw = torch.exp(log_i - m_new)
@@ -326,12 +418,11 @@ def mlstm_decode(p, x: torch.Tensor, cfg, *,
     num = torch.einsum("bhd,bhde->bhe", q, C_new)
     den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n_new).abs(),
                         torch.exp(-m_new))
-    out = _mlstm_out(p, (num / den[..., None])[:, None], z, x, cfg)
-    tail = torch.cat([cache["conv"], xm.to(cache["conv"].dtype)], dim=1)
-    cache["conv"].copy_(tail[:, 1:])
-    C.copy_(C_new)
-    n.copy_(n_new)
-    m.copy_(m_new)
+    out = _mlstm_out(p, (num / den[..., None])[:, None], z, x, cfg, ctx,
+                     split)
+    tail = torch.cat([conv, xm.to(conv.dtype)], dim=1)[:, 1:]
+    _write(cache, {"conv": tail, "C": C_new, "n": n_new, "m": m_new}, ctx,
+           split)
     return out
 
 
@@ -389,51 +480,100 @@ def _slstm_zero_state(b: int, nh: int, dh: int, device):
     return z, torch.ones_like(z), torch.full_like(z, _NEG), z
 
 
-def _slstm_wx(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """einsum("bsd,dghe->bsghe") of the normed input: (B, S, 4, H, dh)."""
+def _slstm_prep(p, ctx):
+    """(the block's leaves as this rank computes with them, whether on
+    its heads, whether its GeGLU on its ff columns). On its heads (the
+    block-diagonal ``r`` and ``w`` cut by heads over "model") ``b`` and
+    ``gn`` are sliced to them (``ctx.tp_slice``), so the time loop runs
+    on the rank's heads with no collective inside. On its ff columns
+    ``w_up`` is cut by halves and ``w_down`` by rows. Any other leaf
+    "model" cuts is gathered (``ctx.whole``)."""
+    if ctx is None:
+        return p, False, False
+    heads = ctx.split(p, "w") and ctx.split(p, "r")
+    ff = ctx.split(p, "w_up") and ctx.split(p, "w_down") \
+        and "w_up" in getattr(p, "_halves", ())
+    p = ctx.whole(p, ([] if heads else ["w", "r"])
+                  + ([] if ff else ["w_up", "w_down"]))
+    if heads:
+        lo, hi = ctx.heads(p.gn.shape[0])
+        p = SimpleNamespace(**vars(p))
+        p.b = ctx.tp_slice(p.b, 1, lo, hi)
+        p.gn = ctx.tp_slice(p.gn, 0, lo, hi)
+    return p, heads, ff
+
+
+def _slstm_wx(p, x: torch.Tensor, cfg, ctx=None, heads: bool = False
+              ) -> torch.Tensor:
+    """einsum("bsd,dghe->bsghe") of the normed input: (B, S, 4, H, dh),
+    the rank's heads where ``heads``."""
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if heads:
+        h = ctx.tp_in(h)
     d = p.w.shape[0]
     return (h @ p.w.reshape(d, -1)).reshape(*h.shape[:-1], *p.w.shape[1:])
 
 
-def _slstm_out(p, hs: torch.Tensor, x: torch.Tensor, cfg) -> torch.Tensor:
+def _slstm_out(p, hs: torch.Tensor, x: torch.Tensor, cfg, ctx=None,
+               heads: bool = False, ff: bool = False) -> torch.Tensor:
     """hs normed per head, the GeGLU up/down projection (the tanh GELU
-    of ``jax.nn.gelu``), plus the residual."""
+    of ``jax.nn.gelu``), plus the residual. From a rank's heads, hs is
+    gathered over "model" once; on its ff columns, its halves of
+    ``w_up`` and rows of ``w_down``, the partial outputs summed."""
+    from repro_torch.sharding import comm
     hs = rms_norm(hs.to(x.dtype), p.gn, cfg.norm_eps)
-    a, g = (hs.reshape(*hs.shape[:-2], -1) @ p.w_up).chunk(2, dim=-1)
-    return x + (F.gelu(a, approximate="tanh") * g) @ p.w_down
+    hs = hs.reshape(*hs.shape[:-2], -1)
+    if heads:
+        # the ff product's gradient of hs is partial on its columns,
+        # and whole where every rank runs the product whole
+        gather = comm.all_gather if ff else comm.all_gather_replicated
+        hs = gather(hs, ctx.mesh, "model", -1)
+    elif ff:
+        hs = ctx.tp_in(hs)
+    a, g = (hs @ p.w_up).chunk(2, dim=-1)
+    out = (F.gelu(a, approximate="tanh") * g) @ p.w_down
+    return x + (ctx.tp_out(out) if ff else out)
 
 
-def _slstm_prompt(p, x: torch.Tensor, cfg):
+def _slstm_prompt(p, x: torch.Tensor, cfg, ctx=None):
+    p, heads, ff = _slstm_prep(p, ctx)
     nh, dh = p.gn.shape
-    hs, state = slstm_scan(p, _slstm_wx(p, x, cfg),
+    hs, state = slstm_scan(p, _slstm_wx(p, x, cfg, ctx, heads),
                            _slstm_zero_state(x.shape[0], nh, dh, x.device))
-    return _slstm_out(p, hs, x, cfg), state
+    return _slstm_out(p, hs, x, cfg, ctx, heads, ff), state, heads
 
 
-def slstm_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence sLSTM block with residual. x: (B, S, D)."""
-    return _slstm_prompt(p, x, cfg)[0]
+def slstm_apply(p, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
+    """Full-sequence sLSTM block with residual. x: (B, S, D). Under a
+    ``ctx`` the rank's heads and ff columns where "model" cuts them
+    (``_slstm_prep``)."""
+    return _slstm_prompt(p, x, cfg, ctx)[0]
 
 
-def slstm_prefill_cache(p, x: torch.Tensor, cfg
+def slstm_prefill_cache(p, x: torch.Tensor, cfg, ctx=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``slstm_apply`` that also returns the decode state {"c", "n",
-    "m", "h"} (B, H, dh) fp32."""
-    out, (c, n, m, h) = _slstm_prompt(p, x, cfg)
-    return out, {"c": c, "n": n, "m": m, "h": h}
+    "m", "h"} (B, H, dh) fp32; under a ``ctx`` each placed as
+    ``cache_spec`` says."""
+    out, (c, n, m, h), heads = _slstm_prompt(p, x, cfg, ctx)
+    state = {"c": c, "n": n, "m": m, "h": h}
+    if ctx is not None:
+        state = _place(state, "slstm", cfg, ctx, heads)
+    return out, state
 
 
 def slstm_decode(p, x: torch.Tensor, cfg, *,
-                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 cache: Dict[str, torch.Tensor], ctx=None) -> torch.Tensor:
     """One-token decode. x: (B, 1, D); ``cache`` {"c", "n", "m", "h"} is
-    advanced IN PLACE. Returns the residual output."""
+    advanced IN PLACE. Returns the residual output. Under a ``ctx`` as
+    ``slstm_apply``, each state leaf read and written in its
+    placement."""
     keys = ("c", "n", "m", "h")
-    state = _slstm_cell(p, _slstm_wx(p, x, cfg)[:, 0],
-                        tuple(cache[k] for k in keys))
-    for k, v in zip(keys, state):
-        cache[k].copy_(v)
-    return _slstm_out(p, state[3][:, None], x, cfg)
+    p, heads, ff = _slstm_prep(p, ctx)
+    state = _slstm_cell(p, _slstm_wx(p, x, cfg, ctx, heads)[:, 0],
+                        tuple(_read(cache, keys, ctx, heads)))
+    _write(cache, dict(zip(keys, state)), ctx, heads)
+    return _slstm_out(p, state[3][:, None], x, cfg, ctx, heads, ff)
 
 
 def state_shapes(kind: str, cfg, batch: int) -> Optional[dict]:

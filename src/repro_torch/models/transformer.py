@@ -281,7 +281,8 @@ def cast_params_for_compute(model: Transformer, cfg: ModelConfig):
     differentiable, so gradients reach the masters, as through the
     reference's ``astype``. The leaves of a sharded model
     (``sharding.shard_params``) are its shards, and each namespace lists
-    their specs in ``_specs`` for ``ShardCtx``."""
+    their specs in ``_specs`` for ``ShardCtx`` (and in ``_halves`` the
+    leaves cut by halves)."""
     ct = _dtype(cfg.dtype)
 
     def view(mod):
@@ -289,14 +290,19 @@ def cast_params_for_compute(model: Transformer, cfg: ModelConfig):
             return [view(m) for m in mod]
         out = SimpleNamespace()
         specs = {}
+        halves = set()
         for name, p in mod._parameters.items():
             if p is not None and hasattr(p, "shard_spec"):
                 specs[name] = p.shard_spec
+                if p.shard_halves:
+                    halves.add(name)
             if p is not None and not _keeps_f32(name, p):
                 p = p.to(ct)
             setattr(out, name, p)
         if specs:
             out._specs = specs
+        if halves:
+            out._halves = halves
         for name, child in mod._modules.items():
             setattr(out, name, None if child is None else view(child))
         for name in ("kind", "cfg"):
@@ -388,7 +394,7 @@ def _embed_inputs(model: Transformer, tokens: Optional[torch.Tensor],
     cfg = model.cfg
     parts = []
     if embeds is not None and cfg.frontend and cfg.n_encoder_layers == 0:
-        parts.append(_project(model, embeds))
+        parts.append(_project(model, embeds, ctx))
     if tokens is not None:
         if ctx is not None and ctx.split(model, "embed"):
             parts.append(_embed_split(model.embed, tokens, ctx)
@@ -410,12 +416,28 @@ def _embed_split(table: torch.Tensor, tokens: torch.Tensor, ctx
     return ctx.tp_out(x)
 
 
-def _project(model: Transformer, embeds: torch.Tensor) -> torch.Tensor:
+def _project(model: Transformer, embeds: torch.Tensor, ctx=None
+             ) -> torch.Tensor:
     """The frontend projector: gelu(embeds @ w1) @ w2 in the compute
-    dtype (gelu's tanh form, the reference's ``jax.nn.gelu``)."""
+    dtype (gelu's tanh form, the reference's ``jax.nn.gelu``). Under a
+    ``ctx`` whose "model" axis cuts w1's columns and w2's rows, the
+    rank's columns, the partial outputs summed over "model"; any other
+    cut gathered whole (``ShardCtx.whole``)."""
     fp = model.frontend_proj
+    split = ctx is not None and ctx.split(fp, "w1") and ctx.split(fp, "w2")
+    if ctx is not None and not split:
+        fp = ctx.whole(fp)
     e = embeds.to(device=fp.w1.device, dtype=_dtype(model.cfg.dtype))
-    return L.act_fn("gelu")(e @ fp.w1) @ fp.w2
+    out = L.act_fn("gelu")(e @ fp.w1) @ fp.w2
+    return ctx.tp_out(out) if split else out
+
+
+def frontend_prefix(cfg: ModelConfig) -> int:
+    """Rows a decoder-only frontend config puts ahead of every prompt
+    (``frontend_tokens``): ``frontend_rows`` of its ``embeds``, known from
+    the config alone."""
+    return cfg.frontend_tokens if cfg.frontend and not cfg.n_encoder_layers \
+        else 0
 
 
 def frontend_rows(cfg: ModelConfig, embeds) -> int:
@@ -484,15 +506,16 @@ def _layer_apply(layer, x: torch.Tensor, cfg: ModelConfig, *,
     if layer.kind == "rglru":
         x = R.rglru_apply(layer.block, x, cfg, ctx=ctx)
     elif layer.kind == "mlstm":
-        x = S.mlstm_apply(layer.block, x, cfg)
+        x = S.mlstm_apply(layer.block, x, cfg, ctx=ctx)
     elif layer.kind == "slstm":
-        x = S.slstm_apply(layer.block, x, cfg)
+        x = S.slstm_apply(layer.block, x, cfg, ctx=ctx)
     else:
         x = L.attn_apply(layer.block, x, cfg, kind=layer.kind,
                          positions=positions, ctx=ctx)
     if layer.cross is not None and enc_out is not None:
-        x = L.cross_attn_apply(layer.cross, x,
-                               *L.cross_kv(layer.cross, enc_out, cfg), cfg)
+        x = L.cross_attn_apply(
+            layer.cross, x, *L.cross_kv(layer.cross, enc_out, cfg, ctx), cfg,
+            ctx=ctx)
     return _ffn(layer, x, cfg, ctx)
 
 
@@ -545,14 +568,15 @@ def encode(params, cfg: ModelConfig, embeds: torch.Tensor, *,
     layers in ``jax.checkpoint``."""
     if embeds is None:
         raise ValueError(f"{cfg.name}: the encoder needs embeds")
-    x = _project(params, embeds)
+    x = _project(params, embeds, ctx)
     positions = _positions(x)
 
     def enc_layer(x, lp):
         if ctx is not None:
             lp = ctx.layer(lp)
-        x = L.attn_encoder_apply(lp.block, x, cfg, positions=positions)
-        return L.mlp_apply(lp.mlp, x, cfg)
+        x = L.attn_encoder_apply(lp.block, x, cfg, positions=positions,
+                                 ctx=ctx)
+        return L.mlp_apply(lp.mlp, x, cfg, ctx=ctx)
     for lp in params.encoder:
         if cfg.remat and train:
             x = checkpoint(enc_layer, x, lp, use_reentrant=False)
@@ -782,34 +806,26 @@ def _prefill_layer(layer, x: torch.Tensor, cfg: ModelConfig, *,
     if layer.kind == "rglru":
         x, c = R.rglru_prefill_cache(layer.block, x, cfg, ctx=ctx)
     elif layer.kind == "mlstm":
-        x, c = S.mlstm_prefill_cache(layer.block, x, cfg)
+        x, c = S.mlstm_prefill_cache(layer.block, x, cfg, ctx=ctx)
     elif layer.kind == "slstm":
-        x, c = S.slstm_prefill_cache(layer.block, x, cfg)
+        x, c = S.slstm_prefill_cache(layer.block, x, cfg, ctx=ctx)
     else:
         x, c = L.attn_prefill_cache(
             layer.block, x, cfg, kind=layer.kind, positions=positions,
             cache_size=_cache_size_for(layer.kind, cfg, max_len), ctx=ctx)
     if layer.cross is not None and enc_out is not None:
-        ck, cv = L.cross_kv(layer.cross, enc_out, cfg)
-        x = L.cross_attn_apply(layer.cross, x, ck, cv, cfg)
-        b, src = enc_out.shape[:2]
-        c.update(_cross_cache(cfg, b, max_len, x.device))
-        c["cross_k"][:, :src] = ck
-        c["cross_v"][:, :src] = cv
-        c["cross_len"].fill_(src)
+        ck, cv = L.cross_kv(layer.cross, enc_out, cfg, ctx)
+        x = L.cross_attn_apply(layer.cross, x, ck, cv, cfg, ctx=ctx)
+        if ctx is not None:
+            c.update(L.cross_cache_held(layer.cross, enc_out, ck, cv, cfg,
+                                        max_len, ctx))
+        else:
+            b, src = enc_out.shape[:2]
+            c.update(_cross_cache(cfg, b, max_len, x.device))
+            c["cross_k"][:, :src] = ck
+            c["cross_v"][:, :src] = cv
+            c["cross_len"].fill_(src)
     return _ffn(layer, x, cfg, ctx)[0], c
-
-
-def _held_cache(cache: Cache, ctx) -> Cache:
-    """Every leaf of a sharded prefill's cache marked with its placement:
-    the attention and RG-LRU leaves place themselves; the other kinds
-    run only on a mesh of one rank, where every leaf is whole."""
-    from repro_torch.sharding.rules import held
-    for c in cache:
-        for name, t in c.items():
-            if not hasattr(t, "shard_spec"):
-                held(t, ctx.cache_spec(name, tuple(t.shape)))
-    return cache
 
 
 def _serving_head(params, x: torch.Tensor, cfg: ModelConfig, ctx
@@ -858,8 +874,6 @@ def prefill(model: Transformer, tokens: torch.Tensor, *, max_len: int,
                               max_len=max_len, enc_out=enc_out, ctx=ctx)
         cache.append(c)
     logits = _serving_head(params, x, cfg, ctx)
-    if ctx is not None:
-        cache = _held_cache(cache, ctx)
     b, s = x.shape[:2]
     return logits, cache, torch.full((b,), s, dtype=torch.int32,
                                      device=x.device)
@@ -883,9 +897,9 @@ def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
         if layer.kind == "rglru":
             x = R.rglru_decode(layer.block, x, cfg, cache=c, ctx=ctx)
         elif layer.kind == "mlstm":
-            x = S.mlstm_decode(layer.block, x, cfg, cache=c)
+            x = S.mlstm_decode(layer.block, x, cfg, cache=c, ctx=ctx)
         elif layer.kind == "slstm":
-            x = S.slstm_decode(layer.block, x, cfg, cache=c)
+            x = S.slstm_decode(layer.block, x, cfg, cache=c, ctx=ctx)
         elif layer.kind == "attn" and block_tables is not None:
             x = L.attn_decode_paged(layer.block, x, cfg, k_pool=c["k"],
                                     v_pool=c["v"], tables=block_tables,
@@ -894,7 +908,7 @@ def _decode_layers(model: Transformer, x: torch.Tensor, cache: Cache,
             x = L.attn_decode(layer.block, x, cfg, kind=layer.kind, cache=c,
                               cache_len=cache_len, ctx=ctx)
         if layer.cross is not None:
-            x = L.cross_attn_decode(layer.cross, x, cfg, c)
+            x = L.cross_attn_decode(layer.cross, x, cfg, c, ctx=ctx)
         x = _ffn(layer, x, cfg, ctx)[0]
     return x
 
@@ -1207,8 +1221,8 @@ def to_actor_graph(cfg: ModelConfig, model: Optional[Transformer] = None,
 
 __all__ = ["Transformer", "init_params", "cast_params_for_compute",
            "to_compute_dtype_", "check_trainable", "check_servable",
-           "forward", "loss_fn", "encode", "frontend_rows", "init_cache",
-           "init_paged_cache", "kv_row_bytes", "prefill",
+           "forward", "loss_fn", "encode", "frontend_prefix", "frontend_rows",
+           "init_cache", "init_paged_cache", "kv_row_bytes", "prefill",
            "decode_step", "decode_step_staged", "decode_stage_bounds",
            "prefill_extend", "supports_chunked_prefill",
            "paged_insert", "paged_seed", "paged_copy_block",

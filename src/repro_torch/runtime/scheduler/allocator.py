@@ -57,6 +57,10 @@ class BlockAllocator:
         """Current reference count of ``block`` (0 = not held)."""
         return self._refs.get(block, 0)
 
+    def state(self) -> tuple:
+        """The free list in its order and every held block's count."""
+        return tuple(self._free), tuple(sorted(self._refs.items()))
+
     def alloc(self, n: int, watermark: int = 0,
               reclaim: Optional[Callable[[int], None]] = None,
               ) -> Optional[List[int]]:

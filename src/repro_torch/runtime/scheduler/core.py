@@ -161,6 +161,15 @@ class ContinuousScheduler:
         # lazily at the top
         self._deadline_heap: List[tuple] = []
         self.tokens_generated = 0
+        # growth-preemption livelock (``_grow_blocks``): the states seen at
+        # growth preemptions since the last completion, and, from the one
+        # that repeated until the next completion, the preemption edges
+        # (victim -> its growers)
+        self._completed = 0
+        self._growth_epoch = 0
+        self._growth_seen: set = set()
+        self._growth_edges: Optional[Dict[_Ticket, set]] = None
+        self.cycles_broken = 0
         # observability (None = off: the hot path pays one `is None` test
         # per hook). Trace timestamps run on a construction-epoch clock
         # (`_obs_now`), since `_t0` resets between drains and a track's
@@ -463,6 +472,7 @@ class ContinuousScheduler:
             arrival_s=ticket.arrival_s, first_token_s=ticket.first_token_s,
             finish_s=now, finish_reason=reason, restarts=ticket.restarts)
         ticket.where = "done"
+        self._completed += 1
         if ticket.handle is not None:
             ticket.handle._complete(c)
         return c
@@ -694,7 +704,7 @@ class ContinuousScheduler:
     def _finished(self, ticket: _Ticket) -> bool:
         return len(ticket.emitted) >= ticket.req.max_new_tokens
 
-    def _pick_preempt_victim(self, exclude: int) -> Optional[int]:
+    def _pick_preempt_victim(self, exclude: int) -> Optional[_Ticket]:
         """Ask the preemption policy for a victim among the block
         holders other than ``exclude``; an in-flight chunked prefill
         counts (it holds its prompt blocks)."""
@@ -703,7 +713,66 @@ class ContinuousScheduler:
             cands.append(self._chunking.ticket)
         if not cands:
             return None
-        return self.preemption.pick(cands).slot
+        return self.preemption.pick(cands)
+
+    def _growth_state(self, grower: _Ticket) -> Optional[tuple]:
+        """What the later choices read, at a growth preemption by
+        ``grower``: each live request's place and progress, the holders'
+        admission order, the queue's and the free slots' order, the pool
+        (``growth_state``). None while input can still change them (an
+        arrival, a failure, a cancellation, a deadline, a sampled end of
+        sequence) or where the pool's state never repeats."""
+        pool = self.layout.growth_state()
+        holders = list(self.active.values())
+        if self._chunking is not None:
+            holders.append(self._chunking.ticket)
+        queued = [t for _, _, t in sorted(self.queue, key=lambda e: e[:2])
+                  if not t.retired]
+        if (pool is None or self._backlog_pos < len(self.backlog)
+                or self._failure_pos < len(self.failures)
+                or self._cancel_requests or self._deadline_heap
+                or (not self.sampler.greedy and any(
+                    t.req.eos is not None for t in holders + queued))):
+            return None
+
+        def place(t: _Ticket) -> tuple:
+            return (t.req.id, t.where, len(t.emitted),
+                    t.restarts if t.req.max_restarts is not None else None)
+        chunk = self._chunking
+        return (grower.req.id, pool, tuple(self.free),
+                tuple(self.cache_len.tolist()),
+                None if chunk is None else (chunk.slot, chunk.pos),
+                tuple((t.slot,) + place(t)
+                      for t in sorted(holders, key=lambda t: t.admit_seq)),
+                tuple(map(place, queued)))
+
+    def _breaking_cycle(self, grower: _Ticket) -> bool:
+        """True from the growth preemption whose state (``_growth_state``)
+        was seen before since the last completion, until the next one."""
+        if self._growth_epoch != self._completed:
+            self._growth_epoch = self._completed
+            self._growth_seen.clear()
+            self._growth_edges = None
+        if self._growth_edges is None:
+            state = self._growth_state(grower)
+            if state in self._growth_seen:
+                self._growth_edges = {}
+                self.cycles_broken += 1
+            elif state is not None:
+                self._growth_seen.add(state)
+        return self._growth_edges is not None
+
+    def _preempted_through(self, ticket: _Ticket) -> set:
+        """The requests from which a chain of the recorded growth
+        preemptions leads to ``ticket``."""
+        seen: set = set()
+        todo = [ticket]
+        while todo:
+            for t in self._growth_edges.get(todo.pop(), ()):
+                if t not in seen:
+                    seen.add(t)
+                    todo.append(t)
+        return seen
 
     def _preempt(self, slot: int, t0: float) -> Optional[Completion]:
         """Evict and re-queue to reclaim blocks for another request's
@@ -724,8 +793,24 @@ class ContinuousScheduler:
         """Paged decode growth: before a decode step, every active slot
         whose next K/V write falls in an unallocated (or shared) page
         gets a block; when the pool runs dry the preemption policy picks
-        a victim to evict and re-queue. Terminates because ``submit``
-        checks that any one request's worst case fits the pool."""
+        a victim among the other holders to evict and re-queue.
+
+        The reference's choice can cycle: two requests re-admitted in
+        turn evict each other without end, and the reference keeps that
+        livelock (``src/repro/runtime/scheduler/core.py:795-802``). The
+        port makes the reference's choices until a growth preemption
+        meets a state seen since the last completion (``_growth_state``):
+        with no input to come the run is deterministic, so from there it
+        would repeat forever. From that preemption until the next
+        completion a grower preempts itself where a chain of the growth
+        preemptions made since leads from its victim to it. Why a
+        completion then comes: the chains stay acyclic and only grow, so
+        they settle; take a request restarted without end with no such
+        request above it: its preemptor, or the victim that made it
+        preempt itself, is restarted a finite number of times, so it is
+        then held without a break and finishes. ``validate`` lets a lone
+        request grow to its worst case.
+        """
         out: List[Completion] = []
         if not self.layout.paged:
             return out
@@ -736,15 +821,24 @@ class ContinuousScheduler:
             pos = int(self.cache_len[slot])
             if not self.layout.needs_block(slot, pos):
                 continue
+            grower = self.active[slot]
             while not self.layout.grow_one(slot, pos):
                 victim = self._pick_preempt_victim(exclude=slot)
                 if victim is None:
                     raise RuntimeError(
                         f"paged KV pool exhausted growing slot {slot} with "
                         f"no other active request to preempt")
-                c = self._preempt(victim, t0)
+                if self._breaking_cycle(grower):
+                    if victim in self._preempted_through(grower):
+                        victim = grower
+                    else:
+                        self._growth_edges.setdefault(victim, set()).add(
+                            grower)
+                c = self._preempt(victim.slot, t0)
                 if c is not None:
                     out.append(c)
+                if victim is grower:
+                    break
         return out
 
     def _decode_step(self, t0: float) -> List[Completion]:

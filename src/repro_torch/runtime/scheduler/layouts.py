@@ -34,6 +34,17 @@ from repro_torch.runtime.scheduler.types import (Request, SchedulerConfig,
 __all__ = ["SlottedLayout", "PagedLayout", "_PagedReservation"]
 
 
+def _frozen(x):
+    """A hashable copy of nested dicts, lists, tuples and arrays."""
+    if isinstance(x, dict):
+        return tuple(sorted((k, _frozen(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(map(_frozen, x))
+    if isinstance(x, np.ndarray):
+        return x.dtype.str, x.shape, x.tobytes()
+    return x
+
+
 def _decode(model: T.Transformer, s: SchedulerConfig, tokens: torch.Tensor,
             cache: T.Cache, cache_len: torch.Tensor,
             block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -332,7 +343,7 @@ class PagedLayout:
     def validate(self, req: Request) -> None:
         """Reject requests the pool can never serve: the worst case must
         fit the whole pool (decode growth bypasses the watermark, and
-        growth preemption terminates only because of this), and the
+        a request left alone must be able to grow), and the
         prompt's rows (``cache_rows``: a vision frontend's among them)
         plus the watermark must fit at admission time."""
         rows = max(1, cache_rows(self.cfg, req)
@@ -497,6 +508,24 @@ class PagedLayout:
         self.block_tables[slot, page] = blocks[0]
         self._tables_dev = None
         return True
+
+    def growth_state(self) -> Optional[tuple]:
+        """The pool as the scheduler's livelock check reads it
+        (``ContinuousScheduler._growth_state``): the free count and each
+        slot's blocks; with a prefix cache, which blocks, their
+        references, the free order and the prefix index too. None with a
+        victim cache, whose LRU clock never repeats."""
+        if self.victim is not None:
+            return None
+        held = tuple(len(self._slot_blocks.get(s, ()))
+                     for s in range(self.sched.max_slots))
+        if not self.prefix_cache:
+            return self.alloc.available, held
+        return _frozen((self.block_tables, self.alloc.state(),
+                        self._slot_blocks, self._prefix_full,
+                        self._prefix_partial, self._block_keys,
+                        self._block_tenant, self._slot_tenant,
+                        self._shared_pages, self._table_pending))
 
     def _free_blocks(self, blocks: List[int]) -> None:
         """Drop a reference per block; blocks that leave the pool take

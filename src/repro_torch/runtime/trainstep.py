@@ -15,12 +15,13 @@ layer (``ShardCtx.layer``; the leaves outside the layers first, in
 ``transformer._prepare``), the backward reduce-scatters the gradients
 back onto the shards, and the layers run tensor parallel over "model".
 Every rank passes the same global batch; each takes its rows. The
-sharded step trains the dense, hybrid and MoE families (``attn``,
-``attn_local``, ``rglru`` layers, with an MLP or a mixture of experts);
-an MoE layer's experts go by expert over "model" where their count
-divides it, else every expert by its ff columns (``models.moe``). Under
-a mesh of more than one rank it refuses the xLSTM, encoder-decoder and
-frontend families, which a later slice shards.
+sharded step trains every family: an MoE layer's experts go by expert
+over "model" where their count divides it, else every expert by its ff
+columns (``models.moe``); an xLSTM block runs on the rank's heads where
+"model" divides them, the sLSTM's time loop with no collective inside,
+else whole on every rank (``models.ssm``); an encoder's layers, the
+decoder's cross attention and a frontend's projector run tensor
+parallel like the decoder's (``models.layers``, ``transformer._project``).
 
 The serving steps run the same program forward only: the model holds
 this rank's fp32 master shards, each call casts the compute copy and
@@ -32,8 +33,10 @@ flash-decode layout: each rank attends over its rows of every
 sequence, and the partial outputs are combined across ranks through
 their log-sum-exp), and, where the batch does not divide the batch
 axes (``long_500k``'s single sequence), by sequence over ("data",
-"model"); RG-LRU states by batch, their conv tail and, for a batch that
-does not divide, ``h`` cut over "model" as the channels are. The global
+"model"); an encoder-decoder's cross K/V like the K/V; RG-LRU states by
+batch, their conv tail and, for a batch that does not divide, ``h`` cut
+over "model" as the channels are; the mLSTM's ``C`` by heads over
+"model" and its conv tail by channel where they divide. The global
 batch's rows are cut over the batch axes where they divide, else every
 rank runs all of them. ``make_prefill_step`` returns each rank's rows'
 logits over the whole vocabulary, its cache shards (``shard_spec`` on
@@ -52,32 +55,6 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import optim
 from repro_torch.sharding.rules import ShardCtx, shard_batch
-
-LATER = ("the xLSTM, encoder-decoder and frontend families under a mesh, "
-         "in the train, prefill and serve steps,")
-
-
-def check_shardable(cfg: ModelConfig, mesh) -> None:
-    """Raise unless the sharded train, prefill and serve steps run
-    ``cfg`` on ``mesh``: a mesh of one rank runs every config; more ranks
-    run the decoders of ``attn``, ``attn_local`` and ``rglru`` layers,
-    MoE among them, without encoder or frontend."""
-    if mesh is None or mesh.n_ranks == 1:
-        return
-    why = []
-    kinds = sorted(set(cfg.layer_kinds) - {"attn", "attn_local", "rglru"})
-    if kinds:
-        why.append(f"{'/'.join(kinds)} layers")
-    if cfg.n_encoder_layers:
-        why.append("an encoder")
-    if cfg.frontend:
-        why.append("a frontend")
-    if why:
-        raise ValueError(f"{cfg.name}: the sharded steps do not yet "
-                         f"shard {', '.join(why)} over a "
-                         f"{'x'.join(map(str, mesh.shape.values()))} mesh; "
-                         f"{LATER} come in a later slice (ROADMAP Queue 4)")
-
 
 def _as_tensors(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -108,7 +85,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
     for that mesh; ``batch`` is the global batch, every rank the same,
     split into microbatches first and each cut over the batch axes; the
     metrics are the global batch's, equal on every rank."""
-    check_shardable(cfg, mesh)
     ctx = ShardCtx(mesh) if mesh is not None else None
 
     def train_step(model: T.Transformer, opt_state: Dict[str, Any],
@@ -170,7 +146,6 @@ def make_prefill_step(cfg: ModelConfig, *, max_len: int, mesh=None):
     rank passes the same global batch: the logits (B_rank, Vp) are this
     rank's rows over the whole vocabulary, the cache its shards and
     ``cache_len`` its rows'."""
-    check_shardable(cfg, mesh)
 
     def prefill_step(model: T.Transformer, batch: Dict[str, Any]):
         _check_model(model, mesh, "prefill_step")
@@ -195,7 +170,6 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
     (``make_prefill_step``'s, or ``sharding.shard_cache`` of a whole
     cache): the logits (B_rank, Vp) are its rows over the whole
     vocabulary and ``cache_len`` its rows' plus one."""
-    check_shardable(cfg, mesh)
 
     def serve_step(model: T.Transformer, cache, token, cache_len):
         _check_model(model, mesh, "serve_step")

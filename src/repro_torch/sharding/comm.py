@@ -26,6 +26,9 @@ The differentiable ones pair as Megatron-LM pairs them:
 * ``reduce_grad`` is the identity forward; its backward sums the
   gradient across the ranks (the input of a column-parallel product,
   whose ranks each see part of the gradient).
+* ``all_gather_replicated`` gathers a dim for a computation that every
+  rank then repeats whole; its backward keeps this rank's piece of the
+  gradient, which every rank holds whole and alike.
 
 ``all_reduce_`` sums a tensor in place with no gradient (a norm, a
 count).
@@ -155,6 +158,19 @@ class _AllGather(torch.autograd.Function):
         return _scatter(mesh, axes, g, dim), None, None, None
 
 
+class _AllGatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _gather(mesh, axes, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        n = g.shape[dim] // mesh.size(axes)
+        return g.narrow(dim, mesh.index(axes) * n, n), None, None, None
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -185,6 +201,18 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
         return x
     _check(mesh, x)
     return _AllGather.apply(x, mesh, axes, dim % x.dim())
+
+
+def all_gather_replicated(x: torch.Tensor, mesh, axes, dim: int
+                          ) -> torch.Tensor:
+    """Concatenate the ranks' ``x`` along ``dim`` in rank order, for a
+    computation each rank repeats on the whole; backward: this rank's
+    piece of the gradient, no collective."""
+    axes = _axes(mesh, axes)
+    if not axes:
+        return x
+    _check(mesh, x)
+    return _AllGatherReplicated.apply(x, mesh, axes, dim % x.dim())
 
 
 def all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:

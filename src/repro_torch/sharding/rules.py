@@ -290,10 +290,13 @@ def device_bytes(shape: Tuple[int, ...], itemsize: int, spec: Spec,
 # ---------------------------------------------------------------------------
 
 # leaves laid out as two halves on their last dim ([gate | rec] of the
-# RG-LRU's w_in, [r | i] of its w_gates): a rank's shard of that dim holds
-# its slice of each half, so that its gate, rec, r and i are of its own
-# channels
-_HALVES = re.compile(r"block/w_(in|gates)$")
+# RG-LRU's w_in, [r | i] of its w_gates, [x | z] of the mLSTM's w_up,
+# [a | g] of the sLSTM's): a rank's shard of that dim holds its slice of
+# each half, so that its gate, rec, r and i (x and z, a and g) are of its
+# own channels
+_HALVES = {"rglru": re.compile(r"block/w_(in|gates)$"),
+           "mlstm": re.compile(r"block/w_up$"),
+           "slstm": re.compile(r"block/w_up$")}
 
 
 def _chunk(t: torch.Tensor, dim: int, n: int, i: int,
@@ -347,9 +350,12 @@ def _param_specs(model, axes) -> Dict[str, Tuple[Spec, bool]]:
         spec = specs[key]
         if spec and _stacked(key):
             spec = spec[1:]
-        halves = bool(_HALVES.search(key)) and any(
-            model.layers[int(names[id(p)].split(".")[1])].kind == "rglru"
-            for p in params if names[id(p)].startswith("layers."))
+        kinds = {model.layers[int(names[id(p)].split(".")[1])].kind
+                 for p in params if names[id(p)].startswith("layers.")}
+        # each half cut alike, where the last dim's cut divides a half
+        cut = _axis_size(axes, spec[-1]) if spec else 1
+        halves = (params[0].shape[-1] // 2) % cut == 0 and any(
+            k in _HALVES and _HALVES[k].search(key) for k in kinds)
         for p in params:
             out[names[id(p)]] = (tuple(spec), halves)
     return out
@@ -606,7 +612,8 @@ class ShardCtx:
         specs = getattr(ns, "_specs", {})
         out = SimpleNamespace()
         for name, v in vars(ns).items():
-            if name == "_specs":
+            if name in ("_specs", "_halves"):
+                setattr(out, name, v)
                 continue
             if isinstance(v, torch.Tensor) and name in specs:
                 v = self._leaf(v, specs[name])
@@ -650,6 +657,39 @@ class ShardCtx:
     def split(self, p, name: str) -> bool:
         spec = getattr(p, "_specs", {}).get(name)
         return self.tp > 1 and spec is not None and "model" in spec
+
+    def whole(self, p, names: Optional[Sequence[str]] = None):
+        """The compute namespace ``p`` (a layer's block, or the
+        projector) with every leaf "model" cuts (of ``names``, if given)
+        gathered over it, for a layer whose heads the axis does not
+        divide, run whole on every "model" rank
+        (``comm.all_gather_replicated``: each rank's gradient of the
+        gathered leaf is the whole one, and its shard keeps its piece).
+        A leaf cut by halves is put back in order."""
+        from repro_torch.sharding import comm
+        specs = getattr(p, "_specs", {})
+        cut = [k for k in specs if self.split(p, k)
+               and (names is None or k in names)]
+        if not cut:
+            return p
+        out = SimpleNamespace(**vars(p))
+        for name in cut:
+            t = getattr(p, name)
+            dim = list(specs[name]).index("model")
+            g = comm.all_gather_replicated(t, self.mesh, "model", dim)
+            if name in getattr(p, "_halves", ()) and dim == t.dim() - 1:
+                shp = g.shape[:-1]
+                g = g.reshape(*shp, self.tp, 2, -1).transpose(-3, -2) \
+                    .reshape(*shp, -1)
+            setattr(out, name, g)
+        out._specs = {k: (() if k in cut else v) for k, v in specs.items()}
+        return out
+
+    def heads(self, n: int) -> Tuple[int, int]:
+        """The heads ``[lo, hi)`` of ``n`` this rank computes where
+        "model" cuts them."""
+        local = n // self.tp
+        return self.tp_index * local, (self.tp_index + 1) * local
 
     def tp_in(self, x: torch.Tensor) -> torch.Tensor:
         from repro_torch.sharding import comm
@@ -696,27 +736,39 @@ class ShardCtx:
             o, lse, lambda t: comm.all_reduce_(t, self.mesh, axes, op="max"),
             lambda t: comm.all_reduce_(t, self.mesh, axes))
 
-    def _cut(self, spec: Spec) -> bool:
-        return self.tp > 1 and "model" in spec_axes(tuple(spec[-1:]))
+    def _cut(self, spec: Spec, dim: int) -> bool:
+        return self.tp > 1 and len(spec) > 0 and "model" in spec_axes(
+            (tuple(spec)[dim],))
 
-    def channels(self, state: torch.Tensor, split: bool) -> torch.Tensor:
-        """A recurrent state leaf's channels (last dim) as a layer whose
-        channels are ``split`` over "model" computes on them: this rank's
-        where the leaf is held whole."""
-        if split and not self._cut(state.shard_spec):
-            n = state.shape[-1] // self.tp
-            return state.narrow(-1, self.tp_index * n, n)
+    def channels(self, state: torch.Tensor, split: bool, dim: int = -1
+                 ) -> torch.Tensor:
+        """A recurrent state leaf's channels (or heads: dim ``dim``) as a
+        layer whose channels are ``split`` over "model" computes on them:
+        this rank's where the leaf is held whole; every rank's, gathered
+        over "model", where the leaf is cut and the layer runs whole."""
+        from repro_torch.sharding import comm
+        cut = self._cut(state.shard_spec, dim)
+        if split and not cut:
+            n = state.shape[dim] // self.tp
+            return state.narrow(dim, self.tp_index * n, n)
+        if cut and not split:
+            return comm.gather_dim(state, self.mesh, "model", dim)
         return state
 
-    def to_held(self, x: torch.Tensor, spec: Spec, split: bool
-                ) -> torch.Tensor:
-        """``x``, a recurrent state over the layer's channels (``split``
-        over "model" or whole), in the placement ``spec``: gathered over
-        "model" where the leaf is held whole and the channels are
-        split."""
+    def to_held(self, x: torch.Tensor, spec: Spec, split: bool,
+                dim: int = -1) -> torch.Tensor:
+        """``x``, a recurrent state over the layer's channels (or heads:
+        dim ``dim``; ``split`` over "model" or whole), in the placement
+        ``spec``: gathered over "model" where the leaf is held whole and
+        the channels are split, this rank's where the leaf is cut and
+        the layer ran whole."""
         from repro_torch.sharding import comm
-        if split and not self._cut(spec):
-            return comm.gather_dim(x, self.mesh, "model", -1)
+        cut = self._cut(spec, dim)
+        if split and not cut:
+            return comm.gather_dim(x, self.mesh, "model", dim)
+        if cut and not split:
+            n = x.shape[dim] // self.tp
+            return x.narrow(dim, self.tp_index * n, n)
         return x
 
     def full_vocab(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -8,7 +8,14 @@ of ``make_train_step(cfg, opt, mesh)`` on ``recurrentgemma_9b.smoke()``
 ``qwen2_1_5b.smoke()`` (attn x 2, 4 over 2 kv heads, qkv biases) and on
 the MoE smoke configs of qwen2-moe and qwen3-moe (4 routed experts
 top-2, qwen2-moe's with a shared expert; the experts go by expert over
-"model" on every mesh), batch 4 x 32 from ``lm_batches``. The weights
+"model" on every mesh), batch 4 x 32 from ``lm_batches``; and on one
+mesh each (``ONE_MESH``), xlstm-350m's (an mLSTM and an sLSTM block of
+4 heads, by heads over "model" on 2x2; and a 2-head variant, ``smoke``'s
+``xlstm_350m:h2``, whose blocks run whole on 1x4), seamless-m4t-medium's
+(2 encoder + 2 decoder layers, a source of one frame a token, on 2x2)
+and llava-next-mistral-7b's (8 patch rows ahead of 24 tokens, on 2x2),
+the frontends' ``embeds`` N(0, 1) from a numpy seed
+(``frontend_embeds``). The weights
 are the reference's flat parameter dict drawn from a numpy seed
 (``weights.seeded_flat``: every leaf N(0, 0.05^2), norms and Lambda
 among them), carried in by ``from_jax_params`` and cut by
@@ -35,8 +42,9 @@ against
 * the port's unsharded ``make_train_step`` on the same masters and
   batches;
 * the reference's ``make_train_step`` with ``mesh=None`` (the dense
-  and hybrid configs) and, for recurrentgemma and qwen2-moe, on a 1x1
-  mesh of ``AxisType.Auto`` axes built here (the reference's own
+  and hybrid configs) and, for recurrentgemma, qwen2-moe and the
+  xLSTM, encoder-decoder and vision configs, on a 1x1 mesh of
+  ``AxisType.Auto`` axes built here (the reference's own
   ``make_debug_mesh`` makes Explicit axes, which its step refuses),
   each compiled once at XLA's lowest optimisation level
   (``fast_jit``);
@@ -47,11 +55,11 @@ bytes that the comm counters recorded equal, kind by kind, the dry run's
 abstract count of the same step (rank 0's program on the meta device).
 A world of one rank gives the unsharded step bit for bit (with
 ``torch.use_deterministic_algorithms``: the CPU's threaded embedding
-backward adds in a varying order). The refused families raise, and a
-mesh larger than the cards present raises; the MoE configs build over
-a mesh. ``launch/train.py --data 2 --model 1 --device cpu`` runs under
-``torch.distributed.run``, and an MoE config with ``--data 2 --model
-2``. ``tests/test_torch_sharded_moe.py`` holds both dispatches, the
+backward adds in a varying order). Every family builds over a mesh,
+and a mesh larger than the cards present raises. ``launch/train.py
+--data 2 --model 1 --device cpu`` runs under ``torch.distributed.run``,
+and an MoE config and the encoder-decoder with ``--data 2 --model 2``.
+``tests/test_torch_sharded_moe.py`` holds both dispatches, the
 per-expert tensor-parallel fallback and capacity drops.
 """
 from __future__ import annotations
@@ -69,6 +77,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.shapes import InputShape, input_specs
 from repro_torch.launch import dryrun, mesh as mesh_lib, train
 from repro_torch.models import transformer as PT
 from repro_torch.runtime import checkpoint as pckpt
@@ -80,8 +89,14 @@ from repro_torch.weights import from_jax_params, seeded_flat, to_flat
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("recurrentgemma_9b", "qwen2_1_5b", "qwen2_moe_a2_7b",
-         "qwen3_moe_235b_a22b")
+         "qwen3_moe_235b_a22b", "xlstm_350m", "xlstm_350m:h2",
+         "seamless_m4t_medium", "llava_next_mistral_7b")
 MESHES = ((2, 2), (1, 4), (4, 1))
+# the later families on one mesh each: the xLSTM's 4 heads by heads on
+# 2x2, its 2-head variant whole on 1x4, the encoder-decoder and the
+# vision frontend on 2x2; the others on every mesh
+ONE_MESH = {"xlstm_350m": (2, 2), "xlstm_350m:h2": (1, 4),
+            "seamless_m4t_medium": (2, 2), "llava_next_mistral_7b": (2, 2)}
 WORLD = 4
 BATCH, SEQ, STEPS = 4, 32, 2
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=STEPS)
@@ -89,19 +104,45 @@ TOL = 1e-5
 TOL_MASTERS = OPT["lr"] / 4
 METRICS = ("loss", "ce", "aux", "grad_norm")
 JAX_RUNS = (("recurrentgemma_9b", "none"), ("recurrentgemma_9b", "1x1"),
-            ("qwen2_1_5b", "none"), ("qwen2_moe_a2_7b", "1x1"))
+            ("qwen2_1_5b", "none"), ("qwen2_moe_a2_7b", "1x1"),
+            ("xlstm_350m", "1x1"), ("seamless_m4t_medium", "1x1"),
+            ("llava_next_mistral_7b", "1x1"))
+
+def smoke(arch):
+    """``arch``'s smoke config; ``<arch>:h<N>`` gives it N heads (an
+    xLSTM whose heads "model" does not divide runs each block whole)."""
+    name, _, heads = arch.partition(":h")
+    cfg = get_config(name).smoke()
+    if not heads:
+        return cfg
+    h = int(heads)
+    return replace(cfg, n_heads=h, n_kv_heads=h, head_dim=cfg.d_model // h)
+
+
+def archs_on(mesh, archs=ARCHS):
+    """The configs of ``archs`` that run on ``mesh`` (``ONE_MESH``)."""
+    return [a for a in archs if ONE_MESH.get(a, tuple(mesh)) == tuple(mesh)]
+
+
+def mesh_id(mesh):
+    return f"{mesh[0]}x{mesh[1]}"
+
+
+CELLS = [pytest.param(m, a, id=f"{mesh_id(m)}-{a}")
+         for m in MESHES for a in archs_on(m)]
+
 
 # one rank of the world: every mesh, every config, the step and its
 # counters, the round trip and the checkpoint; rank 0 writes the results
 RANK = textwrap.dedent('''
     import json, sys
     import numpy as np, torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.runtime import checkpoint, optim
     from repro_torch.runtime.trainstep import make_train_step
     from repro_torch.sharding.rules import gather_params, shard_params
     from repro_torch.weights import from_jax_params, seeded_flat, to_flat
+    from test_torch_sharded import smoke
 
     rank, world, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     spec = json.load(open(f"{tmp}/spec.json"))
@@ -109,10 +150,10 @@ RANK = textwrap.dedent('''
     mesh_lib.init_world(rank, world, f"{tmp}/store", device="cpu")
     oc = optim.AdamWConfig(**spec["opt"])
     out = {}
-    for data, model in spec["meshes"]:
+    for data, model, archs in spec["cells"]:
         mesh = mesh_lib.make_debug_mesh(data, model, device="cpu")
-        for arch in spec["archs"]:
-            cfg = get_config(arch).smoke()
+        for arch in archs:
+            cfg = smoke(arch)
             inp = np.load(f"{tmp}/{arch}.npz")
             flat = {k[2:]: inp[k] for k in inp.files if k.startswith("p|")}
             full = from_jax_params(flat, cfg, device="cpu",
@@ -125,7 +166,8 @@ RANK = textwrap.dedent('''
             step = make_train_step(cfg, oc, mesh)
             tag = f"{data}x{model}/{arch}"
             for i in range(spec["steps"]):
-                batch = {k: inp[f"b{i}|{k}"] for k in ("tokens", "labels")}
+                batch = {k.split("|")[1]: inp[k] for k in inp.files
+                         if k.startswith(f"b{i}|")}
                 mesh.counts.reset()
                 local, opt, m = step(local, opt, batch)
                 for k, v in m.items():
@@ -151,19 +193,44 @@ RANK = textwrap.dedent('''
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+        [str(ROOT / "src"), str(ROOT / "tests")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
     env["OMP_NUM_THREADS"] = "1"
     return env
 
 
+def frontend_embeds(cfg, b, s, seed):
+    """A frontend config's ``embeds`` for ``b`` prompts of ``s``
+    positions as the dry run's ``input_specs`` shapes them (a vision
+    frontend's rows among the ``s``, an audio source of one frame a
+    token), N(0, 1) from a numpy seed; None without a frontend."""
+    spec = input_specs(cfg, InputShape("embeds", s, b, "prefill")).get(
+        "embeds")
+    return None if spec is None else np.random.RandomState(
+        seed).standard_normal(tuple(spec.shape)).astype(np.float32)
+
+
+def with_embeds(cfg, batch, seed):
+    """A token batch with ``frontend_embeds``: a vision frontend's rows
+    take the place of as many tokens (their labels -1)."""
+    b, s = batch["tokens"].shape
+    embeds = frontend_embeds(cfg, b, s, seed)
+    if embeds is None:
+        return batch
+    f = PT.frontend_rows(cfg, embeds)
+    return {"tokens": batch["tokens"][:, :s - f],
+            "labels": np.concatenate([np.full((b, f), -1, np.int32),
+                                      batch["labels"][:, :s - f]], 1),
+            "embeds": embeds}
+
+
 def ref_params(arch):
     """The reference's flat parameter dict of ``arch``'s smoke config,
     drawn from seed 0, and the two batches."""
-    cfg = get_config(arch).smoke()
+    cfg = smoke(arch)
     flat = seeded_flat(cfg, 0)
     gen = pdata.lm_batches(BATCH, SEQ, cfg.vocab_size, seed=0)
-    return flat, [next(gen) for _ in range(STEPS)]
+    return flat, [with_embeds(cfg, next(gen), i) for i in range(STEPS)]
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +250,8 @@ def world(inputs, tmp_path_factory):
             arrays.update({f"b{i}|{k}": v for k, v in b.items()})
         np.savez(tmp / f"{arch}.npz", **arrays)
     (tmp / "spec.json").write_text(json.dumps(
-        {"meshes": MESHES, "archs": ARCHS, "opt": OPT, "steps": STEPS}))
+        {"cells": [m + (archs_on(m),) for m in MESHES], "opt": OPT,
+         "steps": STEPS}))
     procs = [subprocess.Popen([sys.executable, "-c", RANK, str(r),
                                str(WORLD), str(tmp)], env=_env(),
                               stdout=subprocess.PIPE,
@@ -227,7 +295,7 @@ def _unsharded_all(inputs):
     det = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        return {arch: _unsharded(get_config(arch).smoke(), *inputs[arch])
+        return {arch: _unsharded(smoke(arch), *inputs[arch])
                 for arch in ARCHS}
     finally:
         torch.use_deterministic_algorithms(det)
@@ -248,8 +316,7 @@ def _abs_err(got, want):
     return max(float(np.max(np.abs(got[k] - w))) for k, w in want.items())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("mesh,arch", CELLS)
 def test_sharded_step_matches_unsharded(world, unsharded, mesh, arch):
     out, tmp = world["out"], world["tmp"]
     tag = f"{mesh[0]}x{mesh[1]}/{arch}"
@@ -313,7 +380,7 @@ def _jax_results(inputs):
 @pytest.mark.parametrize("arch,ref_mesh", JAX_RUNS)
 def test_sharded_step_matches_jax(world, jax_results, ref_mesh, arch):
     hist, after = jax_results[(arch, ref_mesh)]
-    for mesh in MESHES:
+    for mesh in (m for m in MESHES if arch in archs_on(m)):
         tag = f"{mesh[0]}x{mesh[1]}/{arch}"
         for i, m in enumerate(hist):
             for k in METRICS:
@@ -331,7 +398,7 @@ def test_one_rank_world_is_bit_for_bit(inputs, unsharded, tmp_path):
     try:
         mesh = mesh_lib.make_debug_mesh(1, 1, device="cpu")
         for arch in ARCHS:
-            cfg = get_config(arch).smoke()
+            cfg = smoke(arch)
             want = _unsharded(cfg, *inputs[arch])
             got = _unsharded(cfg, *inputs[arch], mesh=mesh)
             for a, b in zip(got[0], want[0]):
@@ -348,7 +415,7 @@ def test_one_rank_world_is_bit_for_bit(inputs, unsharded, tmp_path):
 def test_round_trip_and_checkpoint(world, unsharded, inputs, mesh,
                                    tmp_path):
     tag = f"{mesh[0]}x{mesh[1]}"
-    for arch in ARCHS:
+    for arch in archs_on(mesh):
         assert world["out"][f"{tag}/{arch}/exact"]
         got = pckpt.load_flat(str(world["tmp"] / f"ckpt_{tag}_{arch}"))
         want = dict(np.load(world["tmp"] / f"after_{tag}_{arch}.npz"))
@@ -356,7 +423,7 @@ def test_round_trip_and_checkpoint(world, unsharded, inputs, mesh,
         assert all(np.array_equal(got[k], v) for k, v in want.items())
         # the unsharded model saves the same keys and shapes
         path = str(tmp_path / arch)
-        full = from_jax_params(inputs[arch][0], get_config(arch).smoke(),
+        full = from_jax_params(inputs[arch][0], smoke(arch),
                                device="cpu", dtype=torch.float32)
         pckpt.save(path, full)
         plain = pckpt.load_flat(path)
@@ -366,8 +433,8 @@ def test_round_trip_and_checkpoint(world, unsharded, inputs, mesh,
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def test_dry_run_counts_equal_the_gloo_run(world, mesh):
-    for arch in ARCHS:
-        cfg = get_config(arch).smoke()
+    for arch in archs_on(mesh):
+        cfg = smoke(arch)
         rec = dryrun.count_sharded(cfg, dryrun.InputShape(
             "t", SEQ, BATCH, "train"), {"data": mesh[0], "model": mesh[1]})
         gloo = world["out"][f"{mesh[0]}x{mesh[1]}/{arch}/counts0"]
@@ -376,14 +443,11 @@ def test_dry_run_counts_equal_the_gloo_run(world, mesh):
 
 def test_refusals():
     mesh = mesh_lib.abstract_mesh({"data": 2, "model": 2})
-    for arch in ("xlstm_350m", "seamless_m4t_medium",
-                 "llava_next_mistral_7b"):
-        with pytest.raises(ValueError, match="later slice"):
-            make_train_step(get_config(arch).smoke(),
-                            poptim.AdamWConfig(), mesh)
-    # the MoE family builds over the mesh
-    for arch in ("qwen2_moe_a2_7b", "qwen3_moe_235b_a22b"):
-        make_train_step(get_config(arch).smoke(), poptim.AdamWConfig(), mesh)
+    # every family builds over the mesh: MoE, xLSTM, the encoder-decoder
+    # and the vision frontend
+    for arch in ("qwen2_moe_a2_7b", "qwen3_moe_235b_a22b", "xlstm_350m",
+                 "seamless_m4t_medium", "llava_next_mistral_7b"):
+        make_train_step(smoke(arch), poptim.AdamWConfig(), mesh)
     # one rank runs every family
     make_train_step(get_config("xlstm_350m").smoke(), poptim.AdamWConfig(),
                     mesh_lib.abstract_mesh({"data": 1, "model": 1}))
@@ -408,6 +472,11 @@ def test_train_cli_under_torchrun(tmp_path):
 def test_moe_train_cli_under_torchrun(tmp_path):
     """An MoE config over a 2x2 mesh: its 4 experts by expert."""
     _cli_under_torchrun(tmp_path, "qwen3_moe_235b_a22b", 2, 2)
+
+
+def test_encdec_train_cli_under_torchrun(tmp_path):
+    """The encoder-decoder over a 2x2 mesh, with the CLI's stub source."""
+    _cli_under_torchrun(tmp_path, "seamless_m4t_medium", 2, 2)
 
 
 def _cli_under_torchrun(tmp_path, arch, data, model):
